@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's terrain step on one NVIDIA GPU and check it.
+"""Drive the PyTorch port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,39 @@ Phases, each reported on its own lines:
 
 1. device: fail unless CUDA is available; print the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. build: compile the UCA block kernel from ``pydem_tpu_torch/ops/csrc``;
-3. kernel vs plain version on the card: two relaxation rounds at every
-   block size the kernel is built for, and the full blocked solve, on a 512²
+2. build: compile the UCA block kernels K1 and K2 (``nvcc``) and the native
+   pit carve (``g++``) from the checkout, at the same time; print the
+   kernels' register and shared-memory lines;
+3. kernels vs plain versions on the card: two K1 and two K2 rounds at every
+   block size the kernels are built for, and the full K1 solve, on a 512²
    and on the main path's 2048² cone and hard terrain (float32), from the
    terrain step's own receiver planes; they must agree bit for bit, with
    equal round counts;
-4. main path: ``terrain_step(uca_solver="blocked")`` on the 2048² cone and
-   the 2048² hard terrain; the kernel's launch counter must rise; the result
-   must match ``uca_solver="jacobi"`` (NaN pattern, and the JAX package's own
-   bench gate tolerances), repeat bit for bit, and agree with the float64
-   CPU run on a small cone;
-5. times with CUDA events: the full terrain step at 2048², blocked and
-   jacobi, and one kernel round beside one plain round at 2048², whose
-   outputs must agree bit for bit too.
+4. main path, the terrain step: ``terrain_step(uca_solver="blocked")`` on
+   the 2048² cone and hard terrain; the K1 launch counter must rise; the
+   result must match ``uca_solver="jacobi"`` (NaN pattern, and the JAX
+   package's own bench gate tolerances), repeat bit for bit, and agree with
+   the float64 CPU run on a small cone;
+5. main path, the hard-terrain chain: ``DEMProcessor(...,
+   conditioning_backend="device", pit_backend="device",
+   uca_solver="blocked", device="cuda").calc_twi()`` on the 2048² hard
+   terrain; the K1 launch counter must rise; uca must match
+   ``uca_solver="jacobi"`` within the bench gate with an equal NaN pattern,
+   and a second run must repeat it bit for bit;
+6. K2's path: on the chain's own receiver planes, base and pit links, two
+   K2 rounds at every block size, then ``accumulate_blocked`` and
+   ``accumulate_blocked_pits`` with the K2 launch counter read around them;
+   each, and K1's ``accumulate_blocked_pits_gs``, equal to its plain
+   version bit for bit with equal round counts; K2's and K1's pit solves
+   reach the same fixed point within the gate;
+7. float64 on the card: the chain's functions (``fill_flats_device``,
+   ``drain_pit_paths``, ``pit_links_device_packed``, ``_uca_chain_program``
+   with jacobi) at 256² on CUDA against the same calls on the CPU: equal
+   flats, NaN pattern and link sets, values equal to relative 1e-9;
+8. times with CUDA events, median of 3 after a warm-up, per-rep times too:
+   the terrain step at 2048², the hard chain at 2048² with its stage
+   table, one K1 and one K2 round beside their plain rounds at 2048², and
+   the full pit solves (K1 with the fold, K2, jacobi).
 
 Then a JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
@@ -31,13 +50,25 @@ import os
 import statistics
 import subprocess
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from pydem_tpu_torch import default_dtype
+from pydem_tpu_torch import api, default_dtype, native
+from pydem_tpu_torch.api import DEMProcessor, _pre_program, _uca_chain_program
+from pydem_tpu_torch.core.conditioning import drain_pit_paths
+from pydem_tpu_torch.core.flats_device import fill_flats_device
+from pydem_tpu_torch.core.receivers import receiver_weights
+from pydem_tpu_torch.core.uca import accumulate, base_area
 from pydem_tpu_torch.ops import _build
-from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked_gs,
+from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed
+from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
+                                           accumulate_blocked_gs,
+                                           accumulate_blocked_pits,
+                                           accumulate_blocked_pits_gs,
+                                           block_round, block_round_plain,
                                            compact_from_dense, gs_round,
                                            gs_round_plain)
 from pydem_tpu_torch.parallel.sharded import (_block_size, terrain_pre,
@@ -54,6 +85,10 @@ KERNEL_TOL = 0.0
 # association; these are the JAX package's bench gate tolerances.
 GATE_TOL = {"cone": dict(rtol=1e-5, atol=1e-3),
             "hard": dict(rtol=1e-4, atol=1e-2)}
+# float64 on the card against float64 on the CPU: the same operations, but
+# sums over windows reduce in another order on the card
+F64_RTOL = 1e-9
+CHAIN = dict(conditioning_backend="device", pit_backend="device")
 
 
 def make_cone(n, dtype="float32"):
@@ -135,17 +170,56 @@ def phase_device():
 
 
 def phase_build():
-    path, seconds, build_log = _build.build("uca_block")
+    """nvcc for the kernels' source and g++ for the carve, started
+    together."""
+    with ThreadPoolExecutor(2) as pool:
+        cuda = pool.submit(_build.build, "uca_block")
+        carve = pool.submit(native.build)
+        (path, seconds, build_log), (so, so_seconds) = (cuda.result(),
+                                                        carve.result())
     log("build", "%s built in %.2f s" % (os.path.relpath(path, ROOT), seconds))
     for line in build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("build", line.strip())
+    # both kernels use only dynamic shared memory, which ptxas does not
+    # report: two (B+2)² x windows and 8 B² weight planes, float32
+    for B in KERNEL_BLOCKS:
+        log("build", "K1 and K2 at B=%d: %d bytes of dynamic shared memory "
+            "per block" % (B, (2 * (B + 2) ** 2 + 8 * B * B) * 4))
+    log("build", "%s built in %.2f s (g++)" % (os.path.relpath(so, ROOT),
+                                                 so_seconds))
+
+
+def k2_rounds_vs_plain(name, W, base):
+    """Two K2 rounds at every built block size, kernel beside plain, bit for
+    bit.  Returns the largest difference (0.0)."""
+    n = base.shape[0]
+    W = W.contiguous()
+    worst = 0.0
+    for B in KERNEL_BLOCKS:
+        kw = dict(B=B, inner_max=2 * B + 4)
+        x = base
+        for r in range(2):
+            xk, ck = block_round(x, W, base, **kw)
+            xp, cp = block_round_plain(x, W, base, **kw)
+            torch.cuda.synchronize()
+            err = nan_equal_max_err(xk, xp)
+            worst = max(worst, err)
+            check(err <= KERNEL_TOL and torch.equal(ck, cp),
+                  "K2 %s %d² B=%d round %d: kernel != plain (max err %g, "
+                  "flags equal %s)" % (name, n, B, r, err,
+                                       torch.equal(ck, cp)))
+            x = xk
+        log("kernel", "K2 %s %d² B=%d: 2 rounds kernel == plain, %d of %d "
+            "blocks changed in round 2" % (name, n, B, int(ck.sum()),
+                                           ck.numel()))
+    return worst
 
 
 def phase_kernel_vs_plain(device, n):
-    """Two rounds and the full solve on n² terrains, kernel beside plain,
-    bit for bit."""
-    worst = 0.0
+    """Two K1 and two K2 rounds and the full K1 solve on n² terrains, kernel
+    beside plain, bit for bit.  Returns the largest differences (K1, K2)."""
+    worst = worst_k2 = 0.0
     for name, elev in (("cone", make_cone(n)),
                        ("hard", make_hard_terrain(n, "float32"))):
         elev = torch.from_numpy(elev).to(device)
@@ -170,6 +244,7 @@ def phase_kernel_vs_plain(device, n):
             log("kernel", "%s %d² B=%d: 2 rounds kernel == plain, %d of %d "
                 "blocks changed in round 2" % (name, n, B,
                                                int(prev.sum()), prev.numel()))
+        worst_k2 = max(worst_k2, k2_rounds_vs_plain(name, W, base))
         B = _block_size(n, n)  # the main path's block size
         ak, rk = accumulate_blocked_gs(base, W, B=B)
         ap, rp = accumulate_blocked_gs(base, W, B=B, round_fn=gs_round_plain)
@@ -180,7 +255,7 @@ def phase_kernel_vs_plain(device, n):
               "%d)" % (name, n, err, rk, rp))
         log("kernel", "%s %d² B=%d full solve: kernel == plain, %d rounds"
             % (name, n, B, rk))
-    return worst
+    return worst, worst_k2
 
 
 def phase_main_path(device):
@@ -253,8 +328,239 @@ def phase_main_path(device):
     return launches
 
 
-def phase_times(device, card):
-    """Full step and one round, CUDA events, median of 3 after a warm-up."""
+def run_chain(elev, solver, device):
+    """The hard chain through the user's entry point; returns the processor
+    and calc_twi's result."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "pits had no place to drain"
+        dp = DEMProcessor(elev=elev.copy(), uca_solver=solver, device=device,
+                          **CHAIN)
+        twi = dp.calc_twi()
+    return dp, twi
+
+
+def chain_state(elev, device):
+    """The hard chain's receiver planes, base and pit links at its solve, as
+    ``DEMProcessor._calc_uca_device`` builds them."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dp = DEMProcessor(elev=elev.copy(), device=device, **CHAIN)
+        dp._slopes_device()
+        elev_d = dp._dev("elev")
+        W = receiver_weights(dp._dev("section"), dp._dev("proportion"),
+                             elev_d).contiguous()
+        base = base_area(dp._to_dev(dp.dX2), dp._to_dev(dp.dY2),
+                         elev_d.shape, elev_d.dtype).contiguous()
+        packed = pit_links_device_packed(dp._dev("flats"), elev_d, dp.dX,
+                                         dp.dY)
+    check(packed is not None and packed["n_links"] > 0,
+          "the conditioned hard terrain has no pit links")
+    return W, base, (packed["src"], packed["dst"], packed["wgt"])
+
+
+def phase_hard_chain(device):
+    """DEMProcessor's device chain (blocked, K1 with the pit fold) on the
+    2048² hard terrain, gated against jacobi and repeated."""
+    elev = make_hard_terrain(N_MAIN)
+    gs_round.launches = 0
+    dp, twi = run_chain(elev, "blocked", device)
+    torch.cuda.synchronize()
+    launches = gs_round.launches
+    check(launches > 0, "the hard chain launched K1 no time")
+    uca = dp._dev("uca")
+    check(tuple(uca.shape) == (N_MAIN, N_MAIN) and twi.shape == uca.shape,
+          "hard chain: uca %s, twi %s" % (tuple(uca.shape), twi.shape))
+    finite = torch.isfinite(uca)
+    check(bool((finite | dp._dev("flats")).all()),
+          "hard chain: non-finite uca outside flats")
+    check(bool((uca[finite] > 0).all()), "hard chain: uca <= 0")
+    log("main", "DEMProcessor(blocked, cuda) hard %d²: %d K1 launches, %d "
+        "rounds, %d flat px" % (N_MAIN, launches, dp.uca_sweeps,
+                                int(dp._dev("flats").sum())))
+
+    dj, _twi = run_chain(elev, "jacobi", device)
+    err = nan_equal_max_err(uca, dj._dev("uca"))
+    check(torch.allclose(torch.nan_to_num(uca),
+                         torch.nan_to_num(dj._dev("uca")), **GATE_TOL["hard"]),
+          "hard chain: blocked vs jacobi uca differ (max %g)" % err)
+    again, twi2 = run_chain(elev, "blocked", device)
+    for key in ("uca", "mag", "flats", "twi"):
+        check(torch.equal(torch.nan_to_num(again._dev(key)),
+                          torch.nan_to_num(dp._dev(key))),
+              "hard chain: blocked %s not deterministic" % key)
+    check(np.array_equal(np.nan_to_num(twi2), np.nan_to_num(twi)),
+          "hard chain: calc_twi not deterministic")
+    log("main", "hard chain %d²: blocked == jacobi within %s (max abs %g, %d "
+        "rounds vs %d sweeps), NaN pattern equal, repeat bitwise equal"
+        % (N_MAIN, GATE_TOL["hard"], err, dp.uca_sweeps, dj.uca_sweeps))
+    return launches
+
+
+def phase_k2_path(device):
+    """K2 on the hard chain's own state: rounds and both solves, kernel
+    beside plain; K1's pit solve beside its plain version; K2 and K1 pit
+    solves against each other.  Returns (K2 launches, K2 worst error, K1
+    worst error, state)."""
+    state = chain_state(make_hard_terrain(N_MAIN), device)
+    W, base, links = state
+    worst_k2 = k2_rounds_vs_plain("conditioned hard", W, base)
+
+    block_round.launches = 0
+    ak, rk = accumulate_blocked(base, W)
+    pk, prk = accumulate_blocked_pits(base, W, *links)
+    torch.cuda.synchronize()
+    launches = block_round.launches
+    check(launches == rk + prk > 0,
+          "K2's path launched K2 %d times for %d + %d rounds"
+          % (launches, rk, prk))
+    log("k2", "K2 path on the chain's planes and %d pit links: %d launches "
+        "(accumulate_blocked %d rounds, accumulate_blocked_pits %d rounds)"
+        % (len(links[0]), launches, rk, prk))
+    ap, rp = accumulate_blocked(base, W, round_fn=block_round_plain)
+    pp, prp = accumulate_blocked_pits(base, W, *links,
+                                      round_fn=block_round_plain)
+    for what, k, pl, r1, r2 in (("accumulate_blocked", ak, ap, rk, rp),
+                                ("accumulate_blocked_pits", pk, pp, prk, prp)):
+        err = nan_equal_max_err(k, pl)
+        worst_k2 = max(worst_k2, err)
+        check(err <= KERNEL_TOL and r1 == r2, "%s: kernel != plain (max err "
+              "%g, rounds %d vs %d)" % (what, err, r1, r2))
+        log("k2", "%s: kernel == plain, %d rounds" % (what, r1))
+
+    gk, grk = accumulate_blocked_pits_gs(base, W, *links)
+    gp, grp = accumulate_blocked_pits_gs(base, W, *links,
+                                         round_fn=gs_round_plain)
+    worst_k1 = nan_equal_max_err(gk, gp)
+    check(worst_k1 <= KERNEL_TOL and grk == grp,
+          "accumulate_blocked_pits_gs: kernel != plain (max err %g, rounds "
+          "%d vs %d)" % (worst_k1, grk, grp))
+    log("k2", "accumulate_blocked_pits_gs (K1 + fold): kernel == plain, %d "
+        "rounds" % grk)
+    err = nan_equal_max_err(pk, gk)
+    check(torch.allclose(pk, gk, **GATE_TOL["hard"]),
+          "K2 and K1 pit solves differ (max %g)" % err)
+    log("k2", "K2 and K1 pit solves agree within %s (max abs %g)"
+        % (GATE_TOL["hard"], err))
+    return launches, worst_k2, worst_k1, state
+
+
+def phase_f64_chain(device, n=256):
+    """The chain's functions in float64 on the card against the CPU."""
+    elev = make_hard_terrain(n)
+    one = np.ones(n - 1)
+    runs = {}
+    for where, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        def t(a, dev=dev):
+            return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            filled = fill_flats_device(t(elev))
+            carved = drain_pit_paths(filled.cpu().numpy(), one, one)
+            e = t(carved)
+            mag, _direction, flats, section, proportion = _pre_program(
+                e, t(one), t(one))
+            packed = pit_links_device_packed(flats, e, one, one)
+            area, sweeps, _min, _todo, flats2, _mag2 = _uca_chain_program(
+                e, section, proportion, flats, mag, t(np.ones(n)),
+                t(np.ones(n)), packed["src"], packed["dst"], packed["wgt"],
+                packed["drained_idx"], packed["drained_mag"], True, True,
+                10 ** 6, 4, solver="jacobi")
+        order = np.lexsort((packed["dst"].cpu().numpy(),
+                            packed["src"].cpu().numpy()))
+        runs[where] = dict(
+            filled=filled.cpu(), carved=torch.from_numpy(carved),
+            area=area.cpu(), flats=flats.cpu(), flats2=flats2.cpu(),
+            links=torch.stack([packed[k].cpu()[order]
+                               for k in ("src", "dst")]),
+            wgt=packed["wgt"].cpu()[order], sweeps=sweeps)
+    a, b = runs["cpu"], runs["card"]
+    for key in ("flats", "flats2", "links"):
+        check(torch.equal(a[key], b[key]), "float64 card vs CPU: %s differ"
+              % key)
+    check(a["sweeps"] == b["sweeps"], "float64 card vs CPU: %d vs %d sweeps"
+          % (a["sweeps"], b["sweeps"]))
+    worst = {}
+    for key in ("filled", "carved", "wgt", "area"):
+        nan_equal_max_err(a[key], b[key])
+        ok = ~torch.isnan(a[key])
+        rel = ((a[key][ok] - b[key][ok]).abs()
+               / a[key][ok].abs().clamp_min(1e-300))
+        worst[key] = float(rel.max())
+        check(worst[key] <= F64_RTOL, "float64 card vs CPU: %s rel %g"
+              % (key, worst[key]))
+    log("f64", "%d² chain in float64, card vs CPU: flats, NaN pattern, %d "
+        "links and %d sweeps equal; max relative differences %s"
+        % (n, a["links"].shape[1], a["sweeps"], worst))
+
+
+def time_chain_stages(device, card):
+    """The 2048² hard chain, CUDA events at each stage boundary (the API's
+    stage probe), median of 3 after a warm-up."""
+    stages = (("fill_flats", "fill_flats_device"),
+              ("pit gate + carve", "carve_delta_upload"),
+              ("pre-program", "pre_program"), ("pit links", "pit_links"),
+              ("solve", "uca_solve"), ("twi", "twi_download"))
+    elev = make_hard_terrain(N_MAIN)
+    reps = []
+    for rep in range(4):
+        events = {}
+
+        def probe(name, _val):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[name] = ev
+
+        api._stage_probe = probe
+        try:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dp, _twi = run_chain(elev, "blocked", device)
+        finally:
+            api._stage_probe = None
+        torch.cuda.synchronize()
+        check("carve_delta_upload" in events, "the hard chain carved nothing")
+        times, prev = {}, start
+        for label, name in stages:
+            times[label] = prev.elapsed_time(events[name])
+            prev = events[name]
+        times["total"] = start.elapsed_time(prev)
+        if rep:  # rep 0 warms up
+            reps.append(times)
+    table = {k: statistics.median(r[k] for r in reps) for k in reps[0]}
+    for k in reps[0]:
+        log("time", "hard chain %d² stage %-16s median %.3f ms, reps %s ms "
+            "[%s]"
+            % (N_MAIN, k, table[k], ["%.3f" % r[k] for r in reps], card))
+    log("time", "hard chain %d²: %.4g px/s, %d blocked rounds [%s]"
+        % (N_MAIN, N_MAIN * N_MAIN / (table["total"] / 1e3), dp.uca_sweeps,
+           card))
+    return table
+
+
+def time_round(name, fns, args, card):
+    """One round of each of ``fns``, median of 5 after a warm-up; the
+    outputs must agree bit for bit.  Returns (ms per fn, max error)."""
+    times, outs = {}, {}
+    for label, fn in fns:
+        def one_round():
+            outs[label] = fn(*args[0], **args[1])
+
+        ms, reps = cuda_median_ms(one_round, reps=5)
+        times[label] = ms
+        log("time", "%s, %s: median %.3f ms, reps %s ms [%s]"
+            % (name, label, ms, ["%.3f" % t for t in reps], card))
+    (xk, ck), (xp, cp) = outs["kernel"], outs["plain"]
+    err = nan_equal_max_err(xk, xp)
+    check(err <= KERNEL_TOL and torch.equal(ck, cp),
+          "timed %s: kernel != plain (max err %g, flags equal %s)"
+          % (name, err, torch.equal(ck, cp)))
+    return times, err
+
+
+def phase_times(device, card, state):
+    """Terrain step, hard chain stages, one K1 and one K2 round, and the
+    full pit solves; CUDA events."""
     elev = torch.from_numpy(make_cone(N_MAIN)).to(device)
     args = spacing(N_MAIN, torch.float32, device)
     px = N_MAIN * N_MAIN
@@ -271,27 +577,37 @@ def phase_times(device, card):
                 px / (ms / 1e3), out["uca_sweeps"],
                 "rounds" if solver == "blocked" else "sweeps", card))
 
+    time_chain_stages(device, card)
+
     W, base = weights_and_base(elev)
     K, W1 = compact_from_dense(W)
     B = 64
     prev = torch.ones((N_MAIN // B,) * 2, dtype=torch.int32, device=device)
     kw = dict(B=B, inner_max=2 * B + 4)
-    times, outs = {}, {}
-    for name, fn in (("kernel", gs_round), ("plain", gs_round_plain)):
-        def one_round():
-            outs[name] = fn(base, K, W1, base, prev, **kw)
+    k1, k1_err = time_round(
+        "first K1 round %d² B=%d (all blocks visited)" % (N_MAIN, B),
+        (("kernel", gs_round), ("plain", gs_round_plain)),
+        ((base, K, W1, base, prev), kw), card)
+    W = W.contiguous()
+    k2, k2_err = time_round(
+        "first K2 round %d² B=%d (all blocks visited)" % (N_MAIN, B),
+        (("kernel", block_round), ("plain", block_round_plain)),
+        ((base, W, base), kw), card)
 
-        ms, reps = cuda_median_ms(one_round, reps=5)
-        times[name] = ms
-        log("time", "first round %d² B=%d (all blocks visited), %s: median "
-            "%.3f ms, reps %s ms [%s]" % (N_MAIN, B, name, ms,
-                                           ["%.3f" % t for t in reps], card))
-    (xk, ck), (xp, cp) = outs["kernel"], outs["plain"]
-    err = nan_equal_max_err(xk, xp)
-    check(err <= KERNEL_TOL and torch.equal(ck, cp),
-          "timed round: kernel != plain (max err %g, flags equal %s)"
-          % (err, torch.equal(ck, cp)))
-    return times, err
+    W, base, links = state
+    for name, fn in (
+            ("K1 + fold (accumulate_blocked_pits_gs)",
+             lambda: accumulate_blocked_pits_gs(base, W, *links)),
+            ("K2 (accumulate_blocked_pits)",
+             lambda: accumulate_blocked_pits(base, W, *links)),
+            ("jacobi (accumulate)", lambda: accumulate(base, W, *links))):
+        out = []
+        ms, reps = cuda_median_ms(lambda: out.append(fn()))
+        log("time", "pit solve, hard chain %d², %s: median %.3f ms, reps %s "
+            "ms, %d rounds or sweeps [%s]" % (N_MAIN, name, ms,
+                                              ["%.3f" % t for t in reps],
+                                              out[-1][1], card))
+    return k1, k2, k1_err, k2_err
 
 
 def main():
@@ -299,21 +615,36 @@ def main():
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_build()
-    err = max(phase_kernel_vs_plain(device, N_CHECK),
-              phase_kernel_vs_plain(device, N_MAIN))
-    launches = phase_main_path(device)
-    times, round_err = phase_times(device, card)
-    err = max(err, round_err)
+    k1_err, k2_err = 0.0, 0.0
+    for n in (N_CHECK, N_MAIN):
+        e1, e2 = phase_kernel_vs_plain(device, n)
+        k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    k1_launches = phase_main_path(device)
+    k1_launches += phase_hard_chain(device)
+    k2_launches, e2, e1, state = phase_k2_path(device)
+    k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    phase_f64_chain(device)
+    k1_ms, k2_ms, e1, e2 = phase_times(device, card, state)
+    k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [{
         "name": "uca_gs_round",
         "route": "cuda",
         "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
         "replaces": "pydem_tpu/ops/uca_block.py:256",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": times["kernel"],
-        "plain_ms": times["plain"],
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        "ms": k1_ms["kernel"],
+        "plain_ms": k1_ms["plain"],
+    }, {
+        "name": "uca_block_round",
+        "route": "cuda",
+        "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
+        "replaces": "pydem_tpu/ops/uca_block.py:42",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms["kernel"],
+        "plain_ms": k2_ms["plain"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

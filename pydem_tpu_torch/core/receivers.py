@@ -33,7 +33,11 @@ def section_proportion(direction, flats, dX, dY):
     theta = section_theta(dX, dY, n).expand(n, m)
     pi = np.pi
 
-    quad_idx = torch.floor(direction / pi * 2.0).to(torch.int32)
+    # divide by a tensor on the device: CUDA divides by a Python number as a
+    # multiplication by its reciprocal, which moves exact quadrant
+    # boundaries (direction = k·π/2) by an ulp
+    quad_idx = torch.floor(direction / direction.new_tensor(pi) * 2.0).to(
+        torch.int32)
     quadrant = direction - quad_idx.to(direction.dtype) * (pi / 2.0)
 
     # floor-mod, as in numpy: the flats' direction -1 gives quad_idx -1, odd

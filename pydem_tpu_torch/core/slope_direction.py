@@ -9,14 +9,17 @@ interior value" steps in the same left → right → top → bottom order.
 Eager PyTorch runs one kernel per operation, so ``a*a + b*b`` is never
 contracted into an FMA: the JAX version's ``optimization_barrier`` calls have
 no counterpart here.  Write the arithmetic as plain operations (no
-``addcmul``, no ``torch.compile``) to keep it that way.
+``addcmul``, no ``torch.compile``) to keep it that way.  Square roots go
+through :func:`~pydem_tpu_torch.core.stencil.sqrt_rn`, correctly rounded on
+every device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .stencil import ANG_ADJ, FACET_E1, FACET_E2, NEIGHBOR_OFFSETS, shift
+from .stencil import (ANG_ADJ, FACET_E1, FACET_E2, NEIGHBOR_OFFSETS, shift,
+                      sqrt_rn)
 
 FLAT_ID_INT = -1
 
@@ -74,7 +77,7 @@ def _facet_candidates(elev, d1, d2, ind):
     s1_2 = s1 * s1
     s2_2 = s2 * s2
     d1_2 = d1 * d1
-    hyp = torch.sqrt(d1_2 + d2 * d2)
+    hyp = sqrt_rn(d1_2 + d2 * d2)
     sd = (elev - e2) / hyp
     r = torch.atan2(s2, s1)
     rad2 = s1_2 + s2_2
@@ -160,7 +163,7 @@ def slopes_directions(elev, dX, dY):
     border = [allowed[ind] & ~interior for ind in range(8)]
     mag, direction = _apply_facets(elev, mag, direction, dists, border)
 
-    mag = torch.where(mag > 0, torch.sqrt(mag), mag)
+    mag = torch.where(mag > 0, sqrt_rn(mag), mag)
     return mag, direction
 
 

@@ -6,6 +6,7 @@ of the 8 single-pixel shifts defined here, written as ``F.pad`` plus a slice.
 from __future__ import annotations
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 
 # Neighbor offsets in (di, dj), indexed 0..7 counter-clockwise starting East
@@ -33,16 +34,40 @@ ANG_ADJ = np.array(
 
 
 def shift(arr, di, dj, fill=float("nan")):
-    """Value of the neighbor at offset (di, dj): out[i, j] = arr[i+di, j+dj].
+    """Value of the neighbor at offset (di, dj): out[i, j] = arr[i+di, j+dj]
+    over the last two dimensions (leading dimensions are a batch).
 
     Out-of-bounds positions get ``fill`` (any dtype: float, integer, bool).
     """
-    n, m = arr.shape
+    n, m = arr.shape[-2:]
     top, left = max(0, -di), max(0, -dj)
     p = F.pad(arr, (left, max(0, dj), top, max(0, di)), value=fill)
-    return p[max(0, di): max(0, di) + n, max(0, dj): max(0, dj) + m]
+    return p[..., max(0, di): max(0, di) + n, max(0, dj): max(0, dj) + m]
 
 
 def scatter_shift(arr, di, dj, fill=0.0):
     """Place arr[i, j] at [i+di, j+dj] (inverse of :func:`shift`)."""
     return shift(arr, -di, -dj, fill=fill)
+
+
+def dilate(mask):
+    """8-neighbour dilation of a boolean mask over its last two dimensions
+    (``_dilate`` of ``pydem_tpu/ops/pit_growth.py``)."""
+    out = mask
+    for di, dj in NEIGHBOR_OFFSETS:
+        out = out | shift(mask, di, dj, False)
+    return out
+
+
+def sqrt_rn(x):
+    """Correctly rounded square root, as IEEE 754, numpy and the JAX package
+    give it.
+
+    PyTorch's CPU float64 ``sqrt`` is one ulp off for about 1% of inputs
+    (``sqrt(2.0)`` among them); its CUDA ``sqrt`` is correctly rounded.  The
+    facet tie-breaks compare squared slopes built on the diagonal length,
+    where one ulp picks another facet, so the CPU takes numpy's.
+    """
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)

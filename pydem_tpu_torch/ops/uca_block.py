@@ -1,38 +1,46 @@
-"""Block-resident UCA relaxation: the CUDA kernel's wrapper, its plain
-PyTorch version, and the round driver.
+"""Block-resident UCA relaxation: the CUDA kernels' wrappers, their plain
+PyTorch versions, and the round drivers.
 
-Port of ``pydem_tpu/ops/uca_block.py`` (``compact_from_dense``,
-``accumulate_blocked_gs``; the TPU kernel ``_gs_kernel``).  The canvas is
-tiled into B×B blocks; one *round* relaxes every block whose 3×3 block
-neighbourhood changed last round, each to its local fixed point with its
-1-px halo frozen, and reports a changed flag per block.  Rounds repeat until
-no block changes.
+Port of ``pydem_tpu/ops/uca_block.py``, both of its TPU kernels:
+
+- K1, ``_gs_kernel``: compact receivers (``compact_from_dense``), a frontier
+  skip, driven by ``accumulate_blocked_gs`` and, with pit links folded into
+  the base every round, ``accumulate_blocked_pits_gs``;
+- K2, ``_block_kernel``: the 8 dense weight planes, every block visited,
+  driven by ``accumulate_blocked`` and ``accumulate_blocked_pits``.
+
+The canvas is tiled into B×B blocks; one *round* relaxes blocks, each to its
+local fixed point with its 1-px halo frozen, and reports a changed flag per
+block.  Rounds repeat until no block changes.
 
 On the GPU the blocks of a round run in no order, so unlike the TPU's
-Gauss-Seidel grid every block reads the round-start canvas and writes a new
-one (block-Jacobi).  That reaches the same fixed point as the TPU kernel and
-as :func:`pydem_tpu_torch.core.uca.accumulate`, in a different number of
-rounds, and makes each round deterministic: :func:`gs_round_plain` computes
-it bit for bit as the kernel does.
+Gauss-Seidel grid every K1 block reads the round-start canvas and writes a
+new one (block-Jacobi), as K2 does on the TPU too.  That reaches the same
+fixed point as :func:`pydem_tpu_torch.core.uca.accumulate`, in a different
+number of rounds from the TPU's K1, and makes each round deterministic: the
+plain rounds compute it bit for bit as the kernels do.
 
-:func:`gs_round` launches the kernel (``csrc/uca_block.cu``) for CUDA
-tensors and runs :func:`gs_round_plain` for CPU tensors.
+:func:`gs_round` and :func:`block_round` launch their kernel
+(``csrc/uca_block.cu``) for CUDA tensors and run their plain version
+(:func:`gs_round_plain`, :func:`block_round_plain`) for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-from ..core.stencil import NEIGHBOR_OFFSETS, shift
+from ..core.stencil import NEIGHBOR_OFFSETS, dilate
+from ..core.uca import PitLinks
 
 # Compact receiver encoding: every pixel has at most two nonzero outgoing
 # weights (its D∞ facet pair), so the 8 dense planes compress to a packed
 # index plane K = k1*16 + k2 (15 = "no edge"; stored as uint8, all-none is
 # 255) plus one weight plane W1; the slot-2 weight is 1 - W1.
 _NO_EDGE = 15
-# block sizes the CUDA kernel is built for: those terrain_step uses
+# block sizes the CUDA kernels are built for: those the solvers use
 KERNEL_BLOCKS = (16, 64)
 
 
@@ -76,46 +84,61 @@ def expand_compact(K, W1):
                         + torch.where(k2 == k, w2, 0.0) for k in range(8)])
 
 
-def _check_round_args(x, K, W1, base, prev, B):
+def _check_canvas(x, B):
     n, m = x.shape
     if n % B or m % B:
         raise ValueError("canvas %dx%d is not a multiple of the block size %d"
                          % (n, m, B))
-    if K.dtype != torch.uint8:
-        raise TypeError("K must be uint8, got %s" % K.dtype)
-    if prev.dtype != torch.int32:
-        raise TypeError("prev must be int32, got %s" % prev.dtype)
-    for name, t in (("K", K), ("W1", W1), ("base", base)):
-        if tuple(t.shape) != (n, m):
+
+
+def _check_planes(x, named):
+    """Every ``(name, tensor)`` in ``named`` has x's shape and float dtype."""
+    for name, t in named:
+        if tuple(t.shape[-2:]) != tuple(x.shape):
             raise ValueError("%s has shape %s, expected %s"
-                             % (name, tuple(t.shape), (n, m)))
-    if tuple(prev.shape) != (n // B, m // B):
-        raise ValueError("prev has shape %s, expected %s"
-                         % (tuple(prev.shape), (n // B, m // B)))
-    for name, t in (("W1", W1), ("base", base)):
+                             % (name, tuple(t.shape), tuple(x.shape)))
         if t.dtype != x.dtype:
             raise TypeError("%s is %s but x is %s" % (name, t.dtype, x.dtype))
 
 
-def gs_round_plain(x, K, W1, base, prev, *, B, inner_max):
-    """One relaxation round in plain PyTorch (the kernel's twin).
+def _check_round_args(x, K, W1, base, prev, B):
+    _check_canvas(x, B)
+    n, m = x.shape
+    if K.dtype != torch.uint8:
+        raise TypeError("K must be uint8, got %s" % K.dtype)
+    if prev.dtype != torch.int32:
+        raise TypeError("prev must be int32, got %s" % prev.dtype)
+    if tuple(K.shape) != (n, m):
+        raise ValueError("K has shape %s, expected %s"
+                         % (tuple(K.shape), (n, m)))
+    if tuple(prev.shape) != (n // B, m // B):
+        raise ValueError("prev has shape %s, expected %s"
+                         % (tuple(prev.shape), (n // B, m // B)))
+    _check_planes(x, (("W1", W1), ("base", base)))
 
-    Blocks whose 3×3 block neighbourhood has a nonzero ``prev`` flag are cut
-    out of the zero-padded canvas with their 1-px halo and relaxed together
-    by Jacobi sweeps, 4 per convergence test, capped at ``inner_max``; the
-    other blocks keep their values.  A block whose 4th sweep changed nothing
-    is at its fixed point, so sweeping it on with the others is a bitwise
-    no-op: the lockstep loop gives each block exactly the kernel's result.
 
+def _check_block_args(x, W, base, B):
+    _check_canvas(x, B)
+    if W.dim() != 3 or W.shape[0] != 8:
+        raise ValueError("W must hold 8 weight planes, got shape %s"
+                         % (tuple(W.shape),))
+    _check_planes(x, (("W", W), ("base", base)))
+
+
+def _relax_blocks(x, W, base, dirty, *, B, inner_max):
+    """The sweep loop of both plain rounds.
+
+    The ``dirty`` blocks ((n/B, m/B) bool) are cut out of the zero-padded
+    canvas with their 1-px halo and relaxed together by Jacobi sweeps, 4 per
+    convergence test, capped at ``inner_max``; the other blocks keep their
+    values.  A block whose 4th sweep changed nothing is at its fixed point,
+    so sweeping it on with the others is a bitwise no-op: the lockstep loop
+    gives each block exactly the kernel's result.  ``W`` are the dense
+    (8, n, m) weight planes (``W[k]`` sends along ``NEIGHBOR_OFFSETS[k]``).
     Returns ``(x_new, chg)`` with ``chg`` the (n/B, m/B) int32 changed flags.
     """
-    _check_round_args(x, K, W1, base, prev, B)
     n, m = x.shape
     nb_i, nb_j = n // B, m // B
-    live = prev != 0
-    dirty = live.clone()
-    for di, dj in NEIGHBOR_OFFSETS:
-        dirty |= shift(live, di, dj, False)
     out = x.clone()
     chg = torch.zeros((nb_i, nb_j), dtype=torch.int32, device=x.device)
     if not bool(dirty.any()):
@@ -128,7 +151,7 @@ def gs_round_plain(x, K, W1, base, prev, *, B, inner_max):
         return w[..., dirty, :, :]
 
     win = windows(x, B + 2, True)  # a copy: updated in place below
-    w_in = windows(expand_compact(K, W1), B + 2, True)
+    w_in = windows(W, B + 2, True)
     bse = windows(base, B, False)
     # incoming weight of receiver p along k: source q = p - o_k
     w_k = [w_in[k, :, 1 - di: 1 - di + B, 1 - dj: 1 - dj + B]
@@ -155,9 +178,61 @@ def gs_round_plain(x, K, W1, base, prev, *, B, inner_max):
     return out, chg
 
 
+def gs_round_plain(x, K, W1, base, prev, *, B, inner_max):
+    """One K1 round in plain PyTorch (the kernel's twin): the blocks whose
+    3×3 block neighbourhood has a nonzero ``prev`` flag relax (see
+    :func:`_relax_blocks`) on the weights of the compact ``(K, W1)``.
+
+    Returns ``(x_new, chg)`` with ``chg`` the (n/B, m/B) int32 changed flags.
+    """
+    _check_round_args(x, K, W1, base, prev, B)
+    return _relax_blocks(x, expand_compact(K, W1), base, dilate(prev != 0),
+                         B=B, inner_max=inner_max)
+
+
+def block_round_plain(x, W, base, *, B, inner_max):
+    """One K2 round in plain PyTorch (the kernel's twin): every block
+    relaxes (see :func:`_relax_blocks`) on the dense (8, n, m) planes ``W``,
+    which may hold any nonnegative weights.
+
+    Returns ``(x_new, chg)`` with ``chg`` the (n/B, m/B) int32 changed flags.
+    """
+    _check_block_args(x, W, base, B)
+    n, m = x.shape
+    dirty = torch.ones((n // B, m // B), dtype=torch.bool, device=x.device)
+    return _relax_blocks(x, W, base, dirty, B=B, inner_max=inner_max)
+
+
+def _check_kernel_args(x, B, named):
+    if x.dtype != torch.float32:
+        raise TypeError("the CUDA kernel takes float32, got %s" % x.dtype)
+    if B not in KERNEL_BLOCKS:
+        raise ValueError("the CUDA kernel is built for B in %s, got %d"
+                         % (KERNEL_BLOCKS, B))
+    for name, t in (("x", x),) + named:
+        if t.device != x.device:
+            raise ValueError("%s is on %s, x on %s"
+                             % (name, t.device, x.device))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+
+
+def _launch(entry, *args):
+    """Call a C entry of ``csrc/uca_block.cu`` on the current stream of the
+    first tensor's device: tensors become pointers, ints stay ints."""
+    fn = _kernel(entry)
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], stream)
+    if err != 0:
+        raise RuntimeError("%s launch failed: cudaError %d" % (entry, err))
+
+
 def gs_round(x, K, W1, base, prev, *, B, inner_max):
-    """One relaxation round: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  See :func:`gs_round_plain` for the contract.
+    """One K1 round: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.  See :func:`gs_round_plain` for the contract.
 
     ``gs_round.launches`` counts kernel launches (never plain runs).
     """
@@ -166,28 +241,13 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
     if x.device.type != "cuda":
         raise ValueError("gs_round: unsupported device %s" % x.device)
     _check_round_args(x, K, W1, base, prev, B)
-    if x.dtype != torch.float32:
-        raise TypeError("the CUDA kernel takes float32, got %s" % x.dtype)
-    if B not in KERNEL_BLOCKS:
-        raise ValueError("the CUDA kernel is built for B in %s, got %d"
-                         % (KERNEL_BLOCKS, B))
-    for name, t in (("x", x), ("K", K), ("W1", W1), ("base", base),
-                    ("prev", prev)):
-        if t.device != x.device:
-            raise ValueError("%s is on %s, x on %s" % (name, t.device, x.device))
-        if not t.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
+    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
+                              ("prev", prev)))
     n, m = x.shape
     out = torch.empty_like(x)
     chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), K.data_ptr(), W1.data_ptr(), base.data_ptr(),
-                 prev.data_ptr(), out.data_ptr(), chg.data_ptr(), n, m, B,
-                 inner_max, stream)
-    if err != 0:
-        raise RuntimeError("uca_gs_round_f32 launch failed: cudaError %d" % err)
+    _launch("uca_gs_round_f32", x, K, W1, base, prev, out, chg, n, m, B,
+            inner_max)
     gs_round.launches += 1
     return out, chg
 
@@ -195,39 +255,154 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
 gs_round.launches = 0
 
 
-def _kernel():
+def block_round(x, W, base, *, B, inner_max):
+    """One K2 round: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.  See :func:`block_round_plain` for the contract.
+
+    ``block_round.launches`` counts kernel launches (never plain runs).
+    """
+    if x.device.type == "cpu":
+        return block_round_plain(x, W, base, B=B, inner_max=inner_max)
+    if x.device.type != "cuda":
+        raise ValueError("block_round: unsupported device %s" % x.device)
+    _check_block_args(x, W, base, B)
+    _check_kernel_args(x, B, (("W", W), ("base", base)))
+    n, m = x.shape
+    out = torch.empty_like(x)
+    chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
+    _launch("uca_block_round_f32", x, W, base, out, chg, n, m, B, inner_max)
+    block_round.launches += 1
+    return out, chg
+
+
+block_round.launches = 0
+
+# C entries of csrc/uca_block.cu: (pointer arguments, int arguments)
+_ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_block_round_f32": (5, 4)}
+
+
+@functools.cache
+def _kernel(entry):
     from ._build import load
 
-    fn = load("uca_block").uca_gs_round_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = getattr(load("uca_block"), entry)
+    n_ptr, n_int = _ENTRIES[entry]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def accumulate_blocked_gs(base, W, B=64, inner_max=None, max_rounds=100_000,
-                          round_fn=gs_round):
-    """Solve area = base + A·area by block relaxation rounds.
-
-    ``base``: (n, m); ``W``: (8, n, m); n, m multiples of B (the caller pads
-    the canvas with zeros, which is exact).  ``inner_max`` caps the sweeps
-    per block visit (default 2B+4).  The per-block flags stay on the device;
-    one host sync per round reads their sum.  ``round_fn`` is the round to
-    iterate: :func:`gs_round`, or :func:`gs_round_plain` to hold the kernel
-    against its plain version on the same device.  Returns
-    ``(area, rounds)``.
-    """
+def _padded_check(base, B, inner_max):
     n, m = base.shape
     if n % B or m % B:
         raise ValueError("canvas %dx%d must be padded to the block size %d"
                          % (n, m, B))
-    if inner_max is None:
-        inner_max = 2 * B + 4
+    return 2 * B + 4 if inner_max is None else inner_max
+
+
+def _block_any(mask, B):
+    """(n, m) bool -> (n/B, m/B) int32: any within each B×B block."""
+    n, m = mask.shape
+    return mask.view(n // B, B, m // B, B).any(3).any(1).to(torch.int32)
+
+
+def _gs_driver(base, W, B, inner_max, max_rounds, round_fn, links=None):
+    """K1 round driver, with pit links folded into the base before each
+    round when ``links`` is given.
+
+    The fold, ``base + links(x)``, is evaluated from the canvas at the start
+    of every round; blocks whose folded base changed are marked dirty beside
+    those whose 3×3 neighbourhood changed last round.  The loop stops after
+    a round that changed no block: the canvas, and with it the fold, then
+    stay as they are.  One host sync per round reads the flags' sum.
+    """
+    inner_max = _padded_check(base, B, inner_max)
+    n, m = base.shape
     K, W1 = compact_from_dense(W)
     base = base.contiguous()
+    b_prev = base if links is None else links.add_to(base, base)
     prev = torch.ones((n // B, m // B), dtype=torch.int32, device=base.device)
-    x, chg = round_fn(base, K, W1, base, prev, B=B, inner_max=inner_max)
+    x, chg = round_fn(base, K, W1, b_prev, prev, B=B, inner_max=inner_max)
     rounds = 1
     while rounds < max_rounds and int(chg.sum()) > 0:
-        x, chg = round_fn(x, K, W1, base, chg, B=B, inner_max=inner_max)
+        if links is None:
+            b, prev = base, chg
+        else:
+            b = links.add_to(base, x)
+            prev = chg | _block_any(b != b_prev, B)
+        x, chg = round_fn(x, K, W1, b, prev, B=B, inner_max=inner_max)
+        b_prev = b
+        rounds += 1
+    return x, rounds
+
+
+def accumulate_blocked_gs(base, W, B=64, inner_max=None, max_rounds=100_000,
+                          round_fn=gs_round):
+    """Solve area = base + A·area by K1 rounds.
+
+    ``base``: (n, m); ``W``: (8, n, m); n, m multiples of B (the caller pads
+    the canvas with zeros, which is exact).  ``inner_max`` caps the sweeps
+    per block visit (default 2B+4).  ``round_fn`` is the round to iterate:
+    :func:`gs_round`, or :func:`gs_round_plain` to hold the kernel against
+    its plain version on the same device.  Returns ``(area, rounds)``.
+    """
+    return _gs_driver(base, W, B, inner_max, max_rounds, round_fn)
+
+
+def accumulate_blocked_pits_gs(base, W, pit_src, pit_dst, pit_w, B=64,
+                               inner_max=None, max_rounds=100_000,
+                               round_fn=gs_round):
+    """:func:`accumulate_blocked_gs` with non-adjacent pit links
+    (``pit_src → pit_dst`` with weight ``pit_w``, flat indices into the
+    canvas), folded into the base at the start of every round with the
+    deterministic fold of :class:`PitLinks`."""
+    return _gs_driver(base, W, B, inner_max, max_rounds, round_fn,
+                      PitLinks(pit_src, pit_dst, pit_w))
+
+
+def accumulate_blocked(base, W, B=64, inner_max=None, max_rounds=100_000,
+                       round_fn=block_round):
+    """Solve area = base + A·area by K2 rounds (every block every round, on
+    the dense planes ``W``, which may hold any nonnegative weights).
+
+    Same arguments as :func:`accumulate_blocked_gs`; ``round_fn`` is
+    :func:`block_round` or :func:`block_round_plain`.  Returns
+    ``(area, rounds)``; the rounds are those of the JAX version.
+    """
+    inner_max = _padded_check(base, B, inner_max)
+    base, W = base.contiguous(), W.contiguous()
+    x, chg = round_fn(base, W, base, B=B, inner_max=inner_max)
+    rounds = 1
+    while rounds < max_rounds and int(chg.sum()) > 0:
+        x, chg = round_fn(x, W, base, B=B, inner_max=inner_max)
+        rounds += 1
+    return x, rounds
+
+
+def accumulate_blocked_pits(base, W, pit_src, pit_dst, pit_w, B=64,
+                            inner_max=None, max_rounds=100_000,
+                            round_fn=block_round):
+    """:func:`accumulate_blocked` with non-adjacent pit links folded into
+    the base between rounds: solve x = base + P·x_prev + A·x, update the pit
+    inflow, repeat, a nested fixed point that converges to
+    x = base + (A+P)·x on the pruned (acyclic) drainage graph.
+
+    The JAX version's rule, exactly: the first round runs on the bare base,
+    every later round on ``base + links(x)`` with x the round-start canvas,
+    and the loop stops after a round that left x unchanged (at least two
+    rounds).  One host sync per round.
+    """
+    inner_max = _padded_check(base, B, inner_max)
+    base, W = base.contiguous(), W.contiguous()
+    links = PitLinks(pit_src, pit_dst, pit_w)
+    x, _chg = round_fn(base, W, base, B=B, inner_max=inner_max)
+    rounds = 1
+    moved = True
+    while moved and rounds < max_rounds:
+        x1, _chg = round_fn(x, W, links.add_to(base, x), B=B,
+                            inner_max=inner_max)
+        moved = bool((x1 != x).any())
+        x = x1
         rounds += 1
     return x, rounds

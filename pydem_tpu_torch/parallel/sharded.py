@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.flats_device import fill_flats_device
 from ..core.receivers import receiver_weights, section_proportion
 from ..core.slope_direction import find_flats_edges, slopes_directions
 from ..core.twi import twi as twi_fn
@@ -23,12 +24,16 @@ def _block_size(n, m):
     return 64 if min(n, m) >= 64 else 16
 
 
-def terrain_pre(elev, dX, dY, dX2, dY2):
+def terrain_pre(elev, dX, dY, dX2, dY2, fill_flats=False):
     """The stencil first half of the terrain step: slope/direction, flat
     extension, flow splitting, receiver weights, base area, on the device of
-    ``elev``.  Returns ``(mag, direction, flats, W, base)``."""
+    ``elev``; with ``fill_flats``, the elevation is first conditioned by
+    :func:`~pydem_tpu_torch.core.flats_device.fill_flats_device`.  Returns
+    ``(mag, direction, flats, W, base)``."""
     dX, dY, dX2, dY2 = (torch.as_tensor(a, dtype=elev.dtype, device=elev.device)
                         for a in (dX, dY, dX2, dY2))
+    if fill_flats:
+        elev = fill_flats_device(elev)
     mag, direction = slopes_directions(elev, dX, dY)
     flats = find_flats_edges(elev, mag)
     direction = torch.where(flats, FLAT_ID_INT, direction)
@@ -39,9 +44,10 @@ def terrain_pre(elev, dX, dY, dX2, dY2):
     return mag, direction, flats, W, base
 
 
-def terrain_step(elev, dX, dY, dX2, dY2, n_sweeps=None, uca_solver="jacobi"):
-    """Slope/direction → flats → section/proportion → receiver weights →
-    UCA fixed point → TWI, on the device of ``elev``.
+def terrain_step(elev, dX, dY, dX2, dY2, n_sweeps=None, uca_solver="jacobi",
+                 fill_flats=False):
+    """(Flat filling →) slope/direction → flats → section/proportion →
+    receiver weights → UCA fixed point → TWI, on the device of ``elev``.
 
     With ``n_sweeps`` set, runs that many UCA sweeps; otherwise iterates to
     the fixed point with ``uca_solver``: ``"jacobi"`` (global sweeps) or
@@ -54,7 +60,8 @@ def terrain_step(elev, dX, dY, dX2, dY2, n_sweeps=None, uca_solver="jacobi"):
     if uca_solver not in ("jacobi", "blocked"):
         raise ValueError("uca_solver must be 'jacobi' or 'blocked', got %r"
                          % (uca_solver,))
-    mag, direction, flats, W, base = terrain_pre(elev, dX, dY, dX2, dY2)
+    mag, direction, flats, W, base = terrain_pre(elev, dX, dY, dX2, dY2,
+                                                 fill_flats=fill_flats)
 
     if n_sweeps is not None:
         area = base

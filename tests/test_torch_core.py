@@ -213,3 +213,33 @@ def test_accumulate_twi_match(chain, case):
         got = t_twi.twi(tu, _t(c["mag"]), min_area, **kw)
         np.testing.assert_array_almost_equal(got.numpy(), np.asarray(want),
                                              decimal=10)
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """sqrt_rn == numpy's (IEEE) square root bitwise, where PyTorch's CPU
+    float64 sqrt is an ulp off for some inputs (sqrt(2.0) among them)."""
+    x = np.concatenate([[2.0, 8.0, 0.0, 1e-300],
+                        np.random.RandomState(0).uniform(0, 100, 10000)])
+    got = t_st.sqrt_rn(_t(x)[:, None]).numpy()[:, 0]
+    np.testing.assert_array_equal(got, np.sqrt(x))
+
+
+def test_dilate_matches_jax_per_window():
+    """The batched dilation == the JAX pit search's ``_dilate`` on each
+    window."""
+    from pydem_tpu.ops.pit_growth import _dilate
+
+    masks = np.random.RandomState(2).uniform(size=(3, 9, 11)) < 0.15
+    got = t_st.dilate(torch.from_numpy(masks)).numpy()
+    for k in range(3):
+        want = np.asarray(_dilate(jnp.asarray(masks[k])))
+        np.testing.assert_array_equal(got[k], want)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_seeds_and_edge_todo_matches(chain, case):
+    c = chain(case, False)
+    want = j_uca.seeds_and_edge_todo(c["W"], c["section"], c["elev"])
+    got = t_uca.seeds_and_edge_todo(_t(c["W"]), _t(c["section"]),
+                                    _t(c["elev"]))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

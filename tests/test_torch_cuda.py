@@ -1,4 +1,5 @@
-"""Checks of the CUDA UCA block kernel that need an NVIDIA GPU.
+"""Checks of the CUDA UCA block kernels (K1 ``gs_round``, K2
+``block_round``) and the device chain that need an NVIDIA GPU.
 
 They skip without one.  The GPU machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
@@ -6,10 +7,14 @@ without the suite's conftest (which configures JAX):
     PYTHONPATH=. python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_cuda.py
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import make_hard_terrain
+from pydem_tpu_torch.api import DEMProcessor
 from pydem_tpu_torch.ops import uca_block as ub
 from pydem_tpu_torch.parallel.sharded import terrain_pre
 
@@ -82,3 +87,83 @@ def test_kernel_wrapper_rejects_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="built for"):
         ub.gs_round(x, K, x, x, prev.expand(16, 16).contiguous(), B=4,
                     inner_max=8)
+
+
+@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+@pytest.mark.parametrize("planes", ["terrain", "dense random"])
+def test_k2_round_equals_plain(cuda, B, planes):
+    """K2 == its plain round bitwise, also on dense planes with 3+ outgoing
+    weights per pixel (which the compact encoding cannot hold)."""
+    W, base = _state(cuda)
+    if planes == "dense random":
+        rng = np.random.RandomState(B)
+        W = torch.from_numpy(rng.uniform(0, 0.12, (8, N, M))
+                             .astype(np.float32)).to(cuda)
+    x = base
+    for _ in range(3):
+        xk, ck = ub.block_round(x, W, base, B=B, inner_max=2 * B + 4)
+        xp, cp = ub.block_round_plain(x, W, base, B=B, inner_max=2 * B + 4)
+        assert torch.equal(xk, xp)
+        assert torch.equal(ck, cp)
+        x = xk
+
+
+def _pit_links(device, n=N, m=M, count=300, seed=5):
+    """Random pit links, ten into each destination (the fold must still be
+    deterministic).  Each link drops 5-14 rows down the slope of
+    :func:`_state`, so the drainage graph stays acyclic."""
+    rng = np.random.RandomState(seed)
+    dst_i = rng.randint(20, n, count // 10).repeat(10)
+    dst = dst_i * m + rng.randint(0, m, count // 10).repeat(10)
+    src = (dst_i - rng.randint(5, 15, count)) * m + rng.randint(0, m, count)
+    w = rng.uniform(0, 0.5, count).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (src, dst, w))
+
+
+def test_k1_with_fold_solve_equals_plain(cuda):
+    W, base = _state(cuda)
+    links = _pit_links(cuda)
+    before = ub.gs_round.launches
+    ak, rk = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
+    assert ub.gs_round.launches - before == rk
+    ap, rp = ub.accumulate_blocked_pits_gs(base, W, *links, B=64,
+                                           round_fn=ub.gs_round_plain)
+    assert rp == rk
+    assert torch.equal(ak, ap)
+    again, _ = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
+    assert torch.equal(again, ak)
+
+
+def test_k2_with_pits_solve_equals_plain(cuda):
+    W, base = _state(cuda)
+    links = _pit_links(cuda)
+    before = ub.block_round.launches
+    ak, rk = ub.accumulate_blocked_pits(base, W, *links, B=16)
+    assert ub.block_round.launches - before == rk
+    ap, rp = ub.accumulate_blocked_pits(base, W, *links, B=16,
+                                        round_fn=ub.block_round_plain)
+    assert rp == rk
+    assert torch.equal(ak, ap)
+
+
+def test_demprocessor_blocked_matches_jacobi(cuda):
+    """The device chain on a 256² hard terrain: blocked (K1 with the pit
+    fold) within the JAX bench gate of jacobi, and bit for bit repeatable."""
+    elev = make_hard_terrain(256)
+    kw = dict(conditioning_backend="device", pit_backend="device",
+              device="cuda")
+    runs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for solver in ("blocked", "jacobi", "blocked"):
+            before = ub.gs_round.launches
+            dp = DEMProcessor(elev=elev.copy(), uca_solver=solver, **kw)
+            dp.calc_twi()
+            if solver == "blocked":
+                assert ub.gs_round.launches > before
+            runs.setdefault(solver, []).append(dp.uca)
+    b, j = runs["blocked"][0], runs["jacobi"][0]
+    np.testing.assert_array_equal(np.isnan(b), np.isnan(j))
+    np.testing.assert_allclose(np.nan_to_num(b), np.nan_to_num(j), rtol=1e-4,
+                               atol=1e-2)
+    np.testing.assert_array_equal(runs["blocked"][1], b)

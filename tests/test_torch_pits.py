@@ -1,0 +1,166 @@
+"""pydem_tpu_torch's pit links == pydem_tpu's (CPU, float64): the device pit
+search (``pit_links_device_packed``, both window tiers), and the Jacobi
+solve with pit links, whose deterministic fold (``PitLinks``) sums in the
+JAX package's order.
+"""
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import make_hard_terrain
+from pydem_tpu import DEMProcessor, fixtures
+from pydem_tpu.core import conditioning as j_cond
+from pydem_tpu.core.receivers import receiver_weights, section_proportion
+from pydem_tpu.core.uca import accumulate as j_accumulate
+from pydem_tpu.core.uca import base_area
+from pydem_tpu.ops.pit_growth import pit_links_device_packed as j_links
+from pydem_tpu_torch.core.uca import PitLinks
+from pydem_tpu_torch.core.uca import accumulate as t_accumulate
+from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed as t_links
+
+torch.set_num_threads(1)
+
+
+def _pit_state(elev):
+    """flats/elev/dX/dY with the pits left in (no conditioning), from the JAX
+    package's host path; both packages get the same arrays."""
+    dp = DEMProcessor(elev=elev, fill_flats=False, drain_pits_path=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dp.calc_slopes_directions()
+    assert (dp.flats & (dp.elev > 0)).any()  # the input has pits
+    return dp.flats, dp.elev, dp.dX, dp.dY
+
+
+def _long_channel(n=128, drain_col=44):
+    """tests/test_pit_growth.py's channel: the pit's growth frontier wanders
+    ``drain_col - 4`` px before it finds a lower drain."""
+    elev = np.full((n, n), 10.0)
+    row, c0 = n // 2, 4
+    elev[row, c0] = 1.0
+    ks = np.arange(1, drain_col - c0)
+    elev[row, c0 + ks] = 1.0 + 0.001 * ks
+    elev[row, drain_col] = 0.5
+    flats = np.zeros((n, n), bool)
+    flats[row, c0] = True
+    return flats, elev, np.ones(n - 1), np.ones(n - 1)
+
+
+def _case(name):
+    """(flats, elev, dX, dY), kwargs for a case of the link tests."""
+    if name.startswith("fixture"):
+        return _pit_state(fixtures.get_test_case(int(name.split()[1]),
+                                                 32)[0]), {}
+    if name == "hard 128":
+        return _pit_state(make_hard_terrain(128)), {}
+    if name == "channel retry":
+        # the two-tier retry of tests/test_pit_growth.py:73: tier 1 clips
+        return _long_channel(), dict(max_iter=300, max_dist=300,
+                                     first_window=16, window=96)
+    assert name == "options"
+    return _pit_state(fixtures.get_test_case(13, 32)[0]), dict(
+        min_border=True, max_dist_XY=3.0)
+
+
+@pytest.mark.parametrize("name", ["fixture 13", "fixture 16", "hard 128",
+                                  "channel retry", "options"])
+def test_pit_links_match_jax(name):
+    (flats, elev, dX, dY), kw = _case(name)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = j_links(jnp.asarray(flats), jnp.asarray(elev), dX, dY, **kw)
+    got = t_links(torch.tensor(flats), torch.tensor(elev), dX, dY, **kw)
+    # the JAX link arrays are padded to a bucket with zero-weight entries
+    w = np.asarray(want["wgt"])
+    j_src, j_dst, j_w = (np.asarray(want["src"])[w > 0],
+                         np.asarray(want["dst"])[w > 0], w[w > 0])
+    t_src, t_dst, t_w = (got[k].numpy() for k in ("src", "dst", "wgt"))
+    assert got["n_links"] == t_src.size == j_src.size > 0
+    jo, to = np.lexsort((j_dst, j_src)), np.lexsort((t_dst, t_src))
+    np.testing.assert_array_equal(t_src[to], j_src[jo])
+    np.testing.assert_array_equal(t_dst[to], j_dst[jo])
+    np.testing.assert_array_almost_equal(t_w[to], j_w[jo], decimal=10)
+
+    N = elev.size
+    j_idx = np.asarray(want["drained_idx"])
+    t_idx = got["drained_idx"].numpy()
+    # drained pits and their magnitudes, keyed by pit (the sentinel N marks
+    # a pit that did not drain)
+    j_mag = dict(zip(j_idx[j_idx < N],
+                     np.asarray(want["drained_mag"])[j_idx < N]))
+    t_mag = dict(zip(t_idx[t_idx < N],
+                     got["drained_mag"].numpy()[t_idx < N]))
+    assert sorted(t_mag) == sorted(j_mag)
+    np.testing.assert_array_almost_equal(
+        [t_mag[k] for k in sorted(t_mag)], [j_mag[k] for k in sorted(j_mag)],
+        decimal=10)
+    assert got["n_warn"] == want["n_warn"]
+
+
+def test_pit_links_none_without_pits():
+    elev = np.add.outer(np.arange(16.0), np.arange(16.0)) + 1
+    flats = np.zeros((16, 16), bool)
+    d = np.ones(15)
+    assert t_links(torch.from_numpy(flats), torch.from_numpy(elev), d, d) \
+        is None
+
+
+def _uca_inputs(case):
+    """W, base and the host pit links of a fixture with its pits left in
+    (tests/test_uca_block.py's setup)."""
+    elev, _a, _u = fixtures.get_test_case(case, 32)
+    dp = DEMProcessor(elev=elev, fill_flats=False, drain_pits_path=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dp.calc_slopes_directions()
+        ps, pd, pw, _flats, _mag = j_cond.connectivity_pits(
+            dp.flats, dp.elev, dp.mag, dp.dX, dp.dY)
+    keep = pw > 1e-8
+    section, proportion = section_proportion(
+        jnp.asarray(dp.direction), jnp.asarray(dp.flats),
+        jnp.asarray(dp.dX), jnp.asarray(dp.dY))
+    W = receiver_weights(section, proportion, jnp.asarray(dp.elev))
+    base = base_area(jnp.asarray(dp.dX2), jnp.asarray(dp.dY2), elev.shape,
+                     jnp.float64)
+    return W, base, ps[keep], pd[keep], pw[keep]
+
+
+@pytest.mark.parametrize("case", [13, 16])
+def test_jacobi_with_pit_links_matches_jax(case):
+    W, base, ps, pd, pw = _uca_inputs(case)
+    want, want_sweeps = j_accumulate(base, W, jnp.asarray(ps),
+                                     jnp.asarray(pd), jnp.asarray(pw))
+    got, sweeps = t_accumulate(
+        torch.tensor(np.asarray(base)), torch.tensor(np.asarray(W)),
+        torch.from_numpy(ps), torch.from_numpy(pd), torch.from_numpy(pw))
+    assert sweeps == int(want_sweeps)
+    np.testing.assert_array_almost_equal(got.numpy(), np.asarray(want),
+                                         decimal=10)
+
+
+def test_pit_fold_is_a_sequential_sum_in_link_order():
+    """PitLinks.add_to adds each destination's contributions one by one in
+    link order, bitwise like np.add.at, however the links are ordered."""
+    rng = np.random.RandomState(4)
+    n_px, n_links = 50, 400
+    src = rng.randint(0, n_px, n_links)
+    dst = rng.randint(0, 12, n_links)  # many links per destination
+    w = rng.uniform(0, 1, n_links)
+    x = rng.uniform(1, 1e3, n_px)
+    out = rng.uniform(0, 1, n_px)
+    want = out.copy()
+    np.add.at(want, dst, x[src] * w)
+    links = PitLinks(torch.from_numpy(src), torch.from_numpy(dst),
+                     torch.from_numpy(w))
+    assert links.width == np.bincount(dst).max()
+    got = links.add_to(torch.from_numpy(out), torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+    empty = PitLinks(*(torch.zeros(0, dtype=t) for t in (torch.int64,
+                                                         torch.int64,
+                                                         torch.float64)))
+    assert torch.equal(empty.add_to(torch.from_numpy(out),
+                                    torch.from_numpy(x)),
+                       torch.from_numpy(out))

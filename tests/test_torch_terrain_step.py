@@ -128,8 +128,11 @@ def test_port_imports_neither_jax_nor_pydem_tpu():
         "import sys, numpy as np, torch\n"
         "import pydem_tpu_torch\n"
         "from pydem_tpu_torch.convert import state_from_numpy\n"
-        "from pydem_tpu_torch.ops import _build, uca_block\n"
+        "from pydem_tpu_torch.ops import _build, pit_growth, uca_block\n"
         "from pydem_tpu_torch.parallel.sharded import terrain_step\n"
+        "from pydem_tpu_torch import native\n"
+        "from pydem_tpu_torch.api import DEMProcessor\n"
+        "from pydem_tpu_torch.core import conditioning, flats_device\n"
         "n = 24\n"
         "x, y = np.mgrid[-1:1:24j, -1:1:24j]\n"
         "e = torch.from_numpy(1 - np.sqrt(x**2 + y**2))\n"
@@ -137,6 +140,9 @@ def test_port_imports_neither_jax_nor_pydem_tpu():
         "for solver in ('jacobi', 'blocked'):\n"
         "    out = terrain_step(e, o, o, o2, o2, uca_solver=solver)\n"
         "    assert torch.isfinite(out['uca']).any()\n"
+        "dp = DEMProcessor(elev=np.round(e.numpy() * 40) / 40,"
+        " conditioning_backend='device', pit_backend='device')\n"
+        "assert np.isfinite(dp.calc_twi()).any()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'pydem_tpu')]\n"
         "assert not bad, bad\n"

@@ -1,18 +1,21 @@
 """pydem_tpu_torch.ops.uca_block on the CPU: the compact encoding, the plain
-round (the CUDA kernel's twin) and the blocked solver, against the JAX
-package (its Pallas kernel in interpret mode) and against a per-block
-reference loop written the way the kernel runs.
+rounds (the CUDA kernels' twins: K1's ``gs_round_plain``, K2's
+``block_round_plain``) and the four blocked solvers, against the JAX package
+(its Pallas kernels in interpret mode) and against a per-block reference
+loop written the way the kernels run.
 """
 import os
 import subprocess
 import sys
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from pydem_tpu import fixtures
+from pydem_tpu import DEMProcessor, fixtures
+from pydem_tpu.core import conditioning as j_cond
 from pydem_tpu.core.receivers import receiver_weights, section_proportion
 from pydem_tpu.core.slope_direction import find_flats_edges, slopes_directions
 from pydem_tpu.core.uca import accumulate, base_area
@@ -72,21 +75,26 @@ def test_blocked_matches_jax_blocked_and_jacobi(case):
                                          decimal=10)
 
 
-def _round_reference(x, K, W1, base, prev, B, inner_max):
-    """One round as the CUDA kernel runs it: block by block, each with its
-    own convergence loop (numpy)."""
-    n, m = x.shape
-    nb_i, nb_j = n // B, m // B
+def _dense(K, W1):
     k1, k2 = K >> 4, K & 15
     w2 = np.where(k2 != 15, 1 - W1, 0)
-    dense = np.stack([np.where(k1 == k, W1, 0) + np.where(k2 == k, w2, 0)
-                      for k in range(8)])
+    return np.stack([np.where(k1 == k, W1, 0) + np.where(k2 == k, w2, 0)
+                     for k in range(8)])
+
+
+def _round_reference(x, dense, base, prev, B, inner_max):
+    """One round as the CUDA kernels run it: block by block, each with its
+    own convergence loop (numpy), on dense weight planes; ``prev`` None
+    visits every block (K2), else the frontier of K1."""
+    n, m = x.shape
+    nb_i, nb_j = n // B, m // B
     xp = np.pad(x, 1)
     wp = np.pad(dense, ((0, 0), (1, 1), (1, 1)))
     out, chg = x.copy(), np.zeros((nb_i, nb_j), np.int32)
     for bi in range(nb_i):
         for bj in range(nb_j):
-            if not prev[max(bi - 1, 0): bi + 2, max(bj - 1, 0): bj + 2].any():
+            if prev is not None and not prev[max(bi - 1, 0): bi + 2,
+                                             max(bj - 1, 0): bj + 2].any():
                 continue
             win = xp[bi * B: bi * B + B + 2, bj * B: bj * B + B + 2].copy()
             w = wp[:, bi * B: bi * B + B + 2, bj * B: bj * B + B + 2]
@@ -132,8 +140,8 @@ def test_plain_round_matches_per_block_reference(dtype, inner_max, prev_kind):
             .astype(np.int32),
             "zeros": np.zeros((n // B, m // B), np.int32)}[prev_kind]
     K, W1 = t_ub.compact_from_dense(W)
-    want, want_chg = _round_reference(x, K.numpy(), W1.numpy(), base, prev, B,
-                                      inner_max)
+    want, want_chg = _round_reference(x, _dense(K.numpy(), W1.numpy()), base,
+                                      prev, B, inner_max)
     got, chg = t_ub.gs_round(torch.from_numpy(x), K, W1,
                              torch.from_numpy(base), torch.from_numpy(prev),
                              B=B, inner_max=inner_max)
@@ -186,3 +194,117 @@ def test_imports_and_runs_without_nvcc():
     p = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr[-2000:]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("inner_max", [6, 20])
+def test_block_round_plain_matches_per_block_reference(dtype, inner_max):
+    """K2's plain round is bitwise the per-block loop on dense planes with
+    more than two outgoing weights per pixel, which the compact encoding
+    cannot hold."""
+    B, n, m = 8, 32, 48
+    rng = np.random.RandomState(9)
+    W = rng.uniform(0, 0.15, (8, n, m)).astype(dtype)
+    W[:, rng.uniform(size=(n, m)) < 0.1] = 0  # some pixels send nothing
+    assert ((W > 0).sum(0) >= 3).mean() > 0.8
+    base = rng.uniform(0.5, 1.5, (n, m)).astype(dtype)
+    x = (base + rng.uniform(0, 5, (n, m))).astype(dtype)
+    want, want_chg = _round_reference(x, W, base, None, B, inner_max)
+    for fn in (t_ub.block_round_plain, t_ub.block_round):
+        got, chg = fn(torch.from_numpy(x), torch.from_numpy(W),
+                      torch.from_numpy(base), B=B, inner_max=inner_max)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(chg.numpy(), want_chg)
+    assert t_ub.block_round.launches == 0  # the CPU runs the plain round
+
+
+def _pit_inputs(case, n=32):
+    """W, base and the host pit links of a fixture with its pits left in
+    (tests/test_uca_block.py's setup)."""
+    elev, _a, _u = fixtures.get_test_case(case, n)
+    dp = DEMProcessor(elev=elev, fill_flats=False, drain_pits_path=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dp.calc_slopes_directions()
+        ps, pd, pw, _flats, _mag = j_cond.connectivity_pits(
+            dp.flats, dp.elev, dp.mag, dp.dX, dp.dY)
+    keep = pw > 1e-8
+    section, proportion = section_proportion(
+        jnp.asarray(dp.direction), jnp.asarray(dp.flats),
+        jnp.asarray(dp.dX), jnp.asarray(dp.dY))
+    W = receiver_weights(section, proportion, jnp.asarray(dp.elev))
+    base = base_area(jnp.asarray(dp.dX2), jnp.asarray(dp.dY2), elev.shape,
+                     jnp.float64)
+    return W, base, ps[keep], pd[keep], pw[keep]
+
+
+def _torch(*arrays):
+    return [torch.tensor(np.asarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("case", [13, 16])
+def test_blocked_pits_gs_matches_jax(case):
+    """K1 with the pit fold == the JAX Gauss-Seidel solver (interpret mode)
+    and the JAX jacobi solve with the same links."""
+    W, base, ps, pd, pw = _pit_inputs(case)
+    assert ps.size
+    links = [jnp.asarray(a) for a in (ps, pd, pw)]
+    want, _rounds = j_ub.accumulate_blocked_pits_gs(
+        base, W, *links, B=8, inner_max=8, interpret=True)
+    ref, _sweeps = accumulate(base, W, *links)
+    got, rounds = t_ub.accumulate_blocked_pits_gs(*_torch(base, W, ps, pd,
+                                                          pw), B=8,
+                                                  inner_max=8)
+    assert rounds >= 2
+    np.testing.assert_array_almost_equal(got.numpy(), np.asarray(want),
+                                         decimal=8)
+    np.testing.assert_array_almost_equal(got.numpy(), np.asarray(ref),
+                                         decimal=8)
+
+
+@pytest.mark.parametrize("case", [33, 5, 30, 13])
+@pytest.mark.parametrize("inner_max", [8, None])
+def test_k2_blocked_matches_jax(case, inner_max):
+    """K2's solver == JAX accumulate_blocked (interpret mode): values and
+    the number of rounds (both are block-Jacobi)."""
+    W, base = _jax_state(case)
+    want, want_rounds = j_ub.accumulate_blocked(base, W, B=8,
+                                                inner_max=inner_max,
+                                                interpret=True)
+    got, rounds = t_ub.accumulate_blocked(*_torch(base, W), B=8,
+                                          inner_max=inner_max)
+    assert rounds == int(want_rounds)
+    np.testing.assert_array_almost_equal(got.numpy(), np.asarray(want),
+                                         decimal=10)
+
+
+@pytest.mark.parametrize("case", [13, 16])
+def test_k2_blocked_pits_matches_jax(case):
+    """K2 with pit links == JAX accumulate_blocked_pits (interpret mode):
+    values and rounds, by its rule (a fold every round, stop when a round
+    leaves the canvas unchanged)."""
+    W, base, ps, pd, pw = _pit_inputs(case)
+    links = [jnp.asarray(a) for a in (ps, pd, pw)]
+    want, want_rounds = j_ub.accumulate_blocked_pits(
+        base, W, *links, B=8, inner_max=8, interpret=True)
+    got, rounds = t_ub.accumulate_blocked_pits(*_torch(base, W, ps, pd, pw),
+                                               B=8, inner_max=8)
+    assert rounds == int(want_rounds) >= 2
+    np.testing.assert_array_almost_equal(got.numpy(), np.asarray(want),
+                                         decimal=10)
+
+
+def test_block_round_rejects_bad_arguments():
+    x = torch.zeros((16, 16), dtype=torch.float64)
+    W = torch.zeros((8, 16, 16), dtype=torch.float64)
+    kw = dict(B=8, inner_max=8)
+    with pytest.raises(ValueError, match="multiple"):
+        t_ub.block_round(x[:12], W[:, :12], x[:12], **kw)
+    with pytest.raises(ValueError, match="8 weight planes"):
+        t_ub.block_round(x, W[:4], x, **kw)
+    with pytest.raises(TypeError, match="W is torch.float32"):
+        t_ub.block_round(x, W.float(), x, **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_ub.block_round(x.to("meta"), W, x, **kw)
+    with pytest.raises(ValueError, match="padded"):
+        t_ub.accumulate_blocked(x[:12], W[:, :12], B=8)
