@@ -9,12 +9,14 @@ Phases, each reported on its own lines:
    limit as ``nvidia-smi`` reports them;
 2. build: compile the UCA block kernels K1 and K2 (``nvcc``) and the native
    pit carve (``g++``) from the checkout, at the same time; print the
-   kernels' register and shared-memory lines;
+   kernels' register, spill and shared-memory lines; no kernel may spill
+   or keep a stack frame, and a block stays under 48 KB of shared memory;
 3. kernels vs plain versions on the card: two K1 and two K2 rounds at every
    block size the kernels are built for, and the full K1 solve, on a 512²
    and on the main path's 2048² cone and hard terrain (float32), from the
    terrain step's own receiver planes; they must agree bit for bit, with
-   equal round counts;
+   equal round counts (the solve launches at most 3 rounds more than it
+   counts: its flags are read once per 4 rounds);
 4. main path, the terrain step: ``terrain_step(uca_solver="blocked")`` on
    the 2048² cone and hard terrain; the K1 launch counter must rise; the
    result must match ``uca_solver="jacobi"`` (NaN pattern, and the JAX
@@ -38,8 +40,13 @@ Phases, each reported on its own lines:
    flats, NaN pattern and link sets, values equal to relative 1e-9;
 8. times with CUDA events, median of 3 after a warm-up, per-rep times too:
    the terrain step at 2048², the hard chain at 2048² with its stage
-   table, one K1 and one K2 round beside their plain rounds at 2048², and
-   the full pit solves (K1 with the fold, K2, jacobi).
+   table, one K1 and one K2 round beside their plain rounds at 2048², one
+   K1 cone solve (its time, its rounds, launches and host reads, and the
+   kernel time summed over its launches), and the full pit solves (K1 with
+   the fold, K2, jacobi).  Each kernel's bound is computed beside its time:
+   the bytes of the timed round (every input once, every output once) over
+   the card's memory rate, or, if larger, one multiply-add per nonzero
+   weight over its float32 rate.
 
 Then a JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
@@ -47,6 +54,7 @@ exit and no result line.  The port imports neither JAX nor the JAX package.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import time
@@ -70,7 +78,8 @@ from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
                                            accumulate_blocked_pits_gs,
                                            block_round, block_round_plain,
                                            compact_from_dense, gs_round,
-                                           gs_round_plain)
+                                           gs_round_plain, kernel_smem_bytes)
+from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
 from pydem_tpu_torch.parallel.sharded import (_block_size, terrain_pre,
                                               terrain_step)
 
@@ -89,6 +98,10 @@ GATE_TOL = {"cone": dict(rtol=1e-5, atol=1e-3),
 # sums over windows reduce in another order on the card
 F64_RTOL = 1e-9
 CHAIN = dict(conditioning_backend="device", pit_backend="device")
+# an H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s, and
+# float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def make_cone(n, dtype="float32"):
@@ -178,14 +191,29 @@ def phase_build():
         (path, seconds, build_log), (so, so_seconds) = (cuda.result(),
                                                         carve.result())
     log("build", "%s built in %.2f s" % (os.path.relpath(path, ROOT), seconds))
+    entries = 0
     for line in build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("build", line.strip())
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            log("build", line.strip())
+            entries += 1
+            check(not any(int(g) for g in frame.groups()),
+                  "a kernel spills or keeps its arrays in local memory: %s"
+                  % line.strip())
+    check(entries >= 2 * len(KERNEL_BLOCKS),
+          "expected ptxas lines for K1 and K2 at every block size, got %d"
+          % entries)
     # both kernels use only dynamic shared memory, which ptxas does not
-    # report: two (B+2)² x windows and 8 B² weight planes, float32
+    # report: the library says what it launches with
     for B in KERNEL_BLOCKS:
+        smem = kernel_smem_bytes(B)
         log("build", "K1 and K2 at B=%d: %d bytes of dynamic shared memory "
-            "per block" % (B, (2 * (B + 2) ** 2 + 8 * B * B) * 4))
+            "per block" % (B, smem))
+        check(0 < smem < 48 * 1024, "a block at B=%d takes %d bytes of "
+              "shared memory" % (B, smem))
     log("build", "%s built in %.2f s (g++)" % (os.path.relpath(so, ROOT),
                                                  so_seconds))
 
@@ -265,14 +293,18 @@ def phase_main_path(device):
     elevs = {k: torch.from_numpy(v).to(device) for k, v in terrains.items()}
     args = spacing(N_MAIN, torch.float32, device)
 
-    gs_round.launches = 0
+    gs_round.launches = gs_solve.host_reads = 0
     blocked = {k: terrain_step(e, *args, uca_solver="blocked")
                for k, e in elevs.items()}
     torch.cuda.synchronize()
     launches = gs_round.launches
     check(launches > 0, "the main path launched the UCA kernel no time")
+    rounds = sum(b["uca_sweeps"] for b in blocked.values())
+    check(rounds <= launches <= rounds + 3 * len(blocked),
+          "terrain_step: %d launches for %d rounds" % (launches, rounds))
     log("main", "terrain_step(blocked) on the %d² cone and hard terrain: %d "
-        "kernel launches" % (N_MAIN, launches))
+        "kernel launches for %d rounds, %d host reads of the flags"
+        % (N_MAIN, launches, rounds, gs_solve.host_reads))
 
     for k, e in elevs.items():
         b = blocked[k]
@@ -366,7 +398,9 @@ def phase_hard_chain(device):
     dp, twi = run_chain(elev, "blocked", device)
     torch.cuda.synchronize()
     launches = gs_round.launches
-    check(launches > 0, "the hard chain launched K1 no time")
+    check(dp.uca_sweeps <= launches <= dp.uca_sweeps + 3,
+          "the hard chain launched K1 %d times for %d rounds"
+          % (launches, dp.uca_sweeps))
     uca = dp._dev("uca")
     check(tuple(uca.shape) == (N_MAIN, N_MAIN) and twi.shape == uca.shape,
           "hard chain: uca %s, twi %s" % (tuple(uca.shape), twi.shape))
@@ -558,6 +592,63 @@ def time_round(name, fns, args, card):
     return times, err
 
 
+def round_bound(inputs, outputs, W):
+    """The least time one round could take on the card, in ms, and what
+    bounds it: every input read once and every output written once at the
+    HBM rate, or one multiply-add per nonzero weight of ``W`` at the float32
+    rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs)
+    flops = 2 * int(torch.count_nonzero(W))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def time_k1_solve(base, W, B, card):
+    """One K1 solve of the cone: its time, and with events around every
+    launch the kernel time summed over the solve, median of 3 after a
+    warm-up; rounds, launches and host reads of one solve."""
+    out = []
+    ms, reps = cuda_median_ms(
+        lambda: out.append(accumulate_blocked_gs(base, W, B=B)))
+    rounds = out[-1][1]
+    log("time", "K1 cone solve %d² B=%d (accumulate_blocked_gs): median %.3f "
+        "ms, reps %s ms, %d rounds [%s]"
+        % (N_MAIN, B, ms, ["%.3f" % t for t in reps], rounds, card))
+
+    spans = []
+
+    def timed_round(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = gs_round(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return res
+
+    sums = []
+    for rep in range(4):  # rep 0 warms up
+        del spans[:]
+        launches, reads = gs_round.launches, gs_solve.host_reads
+        _x, r = accumulate_blocked_gs(base, W, B=B, round_fn=timed_round)
+        torch.cuda.synchronize()
+        launches = gs_round.launches - launches
+        reads = gs_solve.host_reads - reads
+        check(r == rounds and launches == len(spans),
+              "timed K1 solve: %d rounds, %d launches" % (r, launches))
+        if rep:
+            sums.append(sum(a.elapsed_time(b) for a, b in spans))
+    per_round = ["%.3f" % a.elapsed_time(b) for a, b in spans]
+    log("time", "K1 cone solve %d² B=%d: %d rounds, %d launches, %d host "
+        "reads; kernel time summed over the launches median %.3f ms, reps %s "
+        "ms [%s]" % (N_MAIN, B, rounds, launches, reads,
+                     statistics.median(sums), ["%.3f" % t for t in sums],
+                     card))
+    log("time", "K1 cone solve, ms per launch (last rep): %s"
+        % " ".join(per_round))
+
+
 def phase_times(device, card, state):
     """Terrain step, hard chain stages, one K1 and one K2 round, and the
     full pit solves; CUDA events."""
@@ -593,6 +684,15 @@ def phase_times(device, card, state):
         "first K2 round %d² B=%d (all blocks visited)" % (N_MAIN, B),
         (("kernel", block_round), ("plain", block_round_plain)),
         ((base, W, base), kw), card)
+    out, chg = gs_round(base, K, W1, base, prev, **kw)
+    for name, times, inputs in (("K1", k1, (base, K, W1, base, prev)),
+                                ("K2", k2, (base, W, base))):
+        times["bound"], times["bound_by"] = round_bound(inputs, (out, chg), W)
+        log("time", "%s round bound: %.4f ms by %s, %.1f%% of the kernel's "
+            "%.3f ms" % (name, times["bound"], times["bound_by"],
+                         100 * times["bound"] / times["kernel"],
+                         times["kernel"]))
+    time_k1_solve(base, W, B, card)
 
     W, base, links = state
     for name, fn in (
@@ -636,6 +736,9 @@ def main():
         "max_abs_err": k1_err,
         "ms": k1_ms["kernel"],
         "plain_ms": k1_ms["plain"],
+        "bound_ms": k1_ms["bound"],
+        "bound_by": k1_ms["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a relaxation round
     }, {
         "name": "uca_block_round",
         "route": "cuda",
@@ -645,6 +748,9 @@ def main():
         "max_abs_err": k2_err,
         "ms": k2_ms["kernel"],
         "plain_ms": k2_ms["plain"],
+        "bound_ms": k2_ms["bound"],
+        "bound_by": k2_ms["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

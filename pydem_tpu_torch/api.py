@@ -9,8 +9,9 @@ and only the carved pixels travel back.  State arrays stay on the device and
 their numpy views are fetched on first read (:class:`_Field`).
 
 Same constructor conventions, tunables, defaults and ``CONFIG_KEYS`` as the
-JAX package, plus ``device`` (default ``"cpu"``; never chosen by what is
-available).  Floats are :func:`pydem_tpu_torch.default_dtype` of the device.
+JAX package, plus ``device`` (default ``"cuda"``; never chosen by what is
+available: without a GPU the constructor raises, and the CPU is used only
+when asked for with ``device="cpu"``).  Floats are :func:`pydem_tpu_torch.default_dtype` of the device.
 
 Not ported yet (ROADMAP queue 1 item 4), each raising
 ``NotImplementedError``: the host conditioning and host pit backends, the
@@ -254,7 +255,7 @@ class DEMProcessor:
         "uca_block_size",
     ]
 
-    def __init__(self, elev_fn=None, device="cpu", **kwargs):
+    def __init__(self, elev_fn=None, device="cuda", **kwargs):
         if elev_fn:
             raise _not_ported("reading a raster (elev_fn)")
         self.device = torch.device(device)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/lib<name>-<digest>.so`` beside this file, on first use.  The
 digest covers the source and the flags, so an edited source is rebuilt and a
-built library is reused only for the text it was built from.  Nothing here
+built library is reused only for the text it was built from; the compiler's
+report (registers, spills) is kept beside the library.  Nothing here
 runs at import time: the CPU path never needs ``nvcc``.
 """
 from __future__ import annotations
@@ -39,15 +40,17 @@ def _nvcc():
 def build(name):
     """Compile ``csrc/<name>.cu`` unless already built.
 
-    Returns ``(library path, build seconds, nvcc log)``; seconds is 0.0 and
-    the log empty when an existing build was reused.
+    Returns ``(library path, build seconds, nvcc log)``; seconds is 0.0
+    when an existing build was reused, and the log is then the one kept from
+    its build.
     """
     src = CSRC / ("%s.cu" % name)
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    log = out.with_suffix(".log")
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name("%s.%d.tmp" % (out.name, os.getpid()))
     t0 = time.perf_counter()
@@ -56,6 +59,7 @@ def build(name):
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s%s"
                            % (src, proc.stdout, proc.stderr))
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out, time.perf_counter() - t0, proc.stdout + proc.stderr
 

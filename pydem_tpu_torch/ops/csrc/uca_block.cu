@@ -27,18 +27,43 @@
 //    or K2's pre-exploded (B+16, B+256) tiles.  Out of the canvas, x and
 //    the weights read 0.
 //
-// What bounds it on the card: per visited block a round reads the halo
-// window of x, the weights for the block's sources (K1: K at 1 B and W1;
+// What bounds it on the card.  Per visited block a round reads the halo
+// window of x, the weights of the block's sources (K1: K at 1 B and W1;
 // K2: 8 planes at 4 B each) and base, and writes the block: about 17 bytes
 // of HBM traffic per visited pixel per round for K1 (71 MB for a full round
-// at 2048^2), about 44 for K2 (185 MB).  Inside a visit, each of up to
-// inner_max = 2B+4 sweeps reads 8 weights and 8 neighbours per pixel from
-// shared memory, so a visit that relaxes for many sweeps is bound by
-// shared-memory bandwidth and latency, not HBM.  The design loads the
-// weights once per visit into 8 incoming-weight planes in shared memory
-// (no decode or reload per sweep), double-buffers the x window so each
-// sweep needs one barrier, tests convergence with __syncthreads_or every
-// 4th sweep, and (K1) skips converged neighbourhoods entirely.
+// at 2048^2), about 44 for K2 (185 MB), a few percent of the round's time.
+// The time goes into the sweeps of a visit, up to inner_max = 2B+4 of them:
+// 16 float operations per pixel per sweep, and the shared-memory
+// instructions that feed them.  The design keeps those instructions few and
+// does not repeat sweeps that cannot change anything:
+//  * Weights and base live in registers.  A thread owns R vertically
+//    adjacent pixels of one column (lanes across columns); it decodes (K1,
+//    from a K/W1 source window staged once in the shared memory that the x
+//    windows use afterwards) or loads (K2, coalesced from the 8 planes) the
+//    8 incoming weights of each of its pixels once per visit and keeps them
+//    for all sweeps.  Shared memory holds only the two x windows and the
+//    strip flags: 34,976 bytes at B = 64.
+//  * A register-tiled window.  Per sweep a thread reads the (R+2) x 3 window
+//    around its strip once and forms its R sums from registers: 30 loads and
+//    8 stores per 8 pixels at R = 8, where one pixel a time needs 17 and 1.
+//    The x window is double-buffered, so a sweep needs one barrier.
+//  * In-block activity skip.  The pixels of one warp form a strip; each
+//    strip has a "changed in the last sweep" flag (two sets, like the
+//    window).  A warp recomputes its strip only if a strip of its 3 x 3 strip
+//    neighbourhood changed in the sweep before; else it writes nothing and
+//    reports "unchanged".  That is exact: unchanged inputs give the value
+//    the strip already has, and the buffer about to be written still holds
+//    that value from two sweeps ago.  "Changed" is acc != cur, so a strip
+//    with a NaN always recomputes.  In Jacobi sweeps only the wave that
+//    entered through the halo moves; the rest of the block is skipped.
+//  * Convergence is tested with __syncthreads_or every 4th sweep, and K1
+//    skips converged block neighbourhoods entirely (the frontier).
+// Not used, on purpose: tensor cores (wgmma), because the sum must be eight
+// separately rounded float32 products added in a fixed order, which no
+// matrix unit gives; TMA or cp.async for the window and the weights,
+// because a visit reads about 70 KB once and then sweeps for tens of
+// microseconds.  With 35 KB of shared memory a persistent block could
+// prefetch the next block's window during the sweeps; that is later work.
 //
 // Numerics: the sum is base + w_0 x_0 + ... + w_7 x_7 in NEIGHBOR_OFFSETS
 // order with separate multiply and add roundings (__fmul_rn/__fadd_rn, and
@@ -50,43 +75,105 @@
 namespace {
 
 // NEIGHBOR_OFFSETS (core/stencil.py): E, NE, N, NW, W, SW, S, SE.
-__device__ __forceinline__ int off_i(int k) {
+__device__ __forceinline__ constexpr int off_i(int k) {
   return (k >= 1 && k <= 3) ? -1 : ((k >= 5) ? 1 : 0);
 }
-__device__ __forceinline__ int off_j(int k) {
+__device__ __forceinline__ constexpr int off_j(int k) {
   return (k <= 1 || k == 7) ? 1 : ((k >= 3 && k <= 5) ? -1 : 0);
 }
 
+// Thread (tx, ty) of a (B, TY) block owns the pixels of column tx in rows
+// ty*R .. ty*R + R - 1.  The pixels of one warp form a strip of SH rows by
+// LW columns; the block is a grid of SR x SC strips.
 template <int B>
 struct Shape {
-  static constexpr int TY = (B < 512 / B) ? B : 512 / B;  // thread rows
-  static constexpr int R = B / TY;                        // rows per thread
-  static constexpr int WN = B + 2;                        // window side
+  static constexpr int R = (B >= 64) ? 8 : 4;   // rows per thread
+  static constexpr int TY = B / R;              // thread rows
   static constexpr int THREADS = B * TY;
-  static constexpr size_t SMEM = (2 * WN * WN + 8 * B * B) * sizeof(float);
+  static constexpr int WN = B + 2;              // window side
+  static constexpr int LW = (B < 32) ? B : 32;  // strip width
+  static constexpr int SH = R * (32 / LW);      // strip height
+  static constexpr int SR = B / SH, SC = B / LW;
+  static constexpr int NS = SR * SC;            // strips per block
+  // two x windows and two sets of strip flags
+  static constexpr size_t SMEM =
+      2 * WN * WN * sizeof(float) + 2 * NS * sizeof(int);
+  static_assert(THREADS % 32 == 0 && THREADS >= NS, "whole warps");
+  static_assert(SMEM <= 48 * 1024, "fits without the opt-in limit");
 };
 
-// Incoming weights from the compact receivers (K1): ws[k] at p is the
-// weight that the source q = p - o_k sends along k, decoded from K and W1
-// (slot 2 carries 1 - W1, as expand_compact builds it; k2 == 15: none).
+// Incoming weights from the compact receivers (K1): the weight that the
+// source q = p - o_k sends along k is decoded from K and W1 at q (slot 2
+// carries 1 - W1, as expand_compact builds it; k2 == 15: none).
 struct CompactWeights {
   const uint8_t* K;
   const float* W1;
-  __device__ __forceinline__ float operator()(int k, size_t g) const {
-    const int kk = K[g];
-    const int k1 = kk >> 4, k2 = kk & 15;
-    const float w1 = W1[g];
-    return (k1 == k) ? w1 : ((k2 == k) ? __fsub_rn(1.f, w1) : 0.f);
+
+  // w[r][k] for the thread's R pixels.  The (B+2)^2 source window of K and
+  // W1 is staged in `scratch` (the x windows' memory, free until this
+  // returns), then each thread reads the (R+2) x 3 sources around its strip
+  // once and hands each source's weights to the pixels that receive them.
+  template <int B>
+  __device__ __forceinline__ void load(float (&w)[Shape<B>::R][8],
+                                       float* scratch, int n, int m, int i0,
+                                       int j0) const {
+    using S = Shape<B>;
+    constexpr int R = S::R, WN = S::WN;
+    float* w1s = scratch;
+    uint8_t* ks = reinterpret_cast<uint8_t*>(scratch + WN * WN);
+    const int tx = threadIdx.x, r0 = threadIdx.y * R;
+    for (int t = threadIdx.y * B + tx; t < WN * WN; t += S::THREADS) {
+      const int gi = i0 - 1 + t / WN, gj = j0 - 1 + t % WN;
+      const bool in = gi >= 0 && gi < n && gj >= 0 && gj < m;
+      const size_t g = (size_t)gi * m + gj;
+      ks[t] = in ? K[g] : (uint8_t)255;
+      w1s[t] = in ? W1[g] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < R + 2; ++q) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int t = (r0 + q) * WN + tx + c;
+        const int kk = ks[t];
+        const int k1 = kk >> 4, k2 = kk & 15;
+        const float w1 = w1s[t];
+        const float w2 = __fsub_rn(1.f, w1);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          // the pixel of this strip that source (q, c) reaches along k
+          const int r = q - 1 + off_i(k);
+          if (off_j(k) == 1 - c && r >= 0 && r < R) {
+            w[r][k] = (k1 == k) ? w1 : ((k2 == k) ? w2 : 0.f);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the caller overwrites scratch
   }
 };
 
 // Incoming weights from the 8 dense planes (K2): any nonnegative weights,
-// any number of them per pixel.
+// any number of them per pixel; 0 for a source outside the canvas.
 struct DenseWeights {
   const float* W;
-  size_t plane;  // n * m
-  __device__ __forceinline__ float operator()(int k, size_t g) const {
-    return W[k * plane + g];
+
+  template <int B>
+  __device__ __forceinline__ void load(float (&w)[Shape<B>::R][8],
+                                       float* /*scratch*/, int n, int m,
+                                       int i0, int j0) const {
+    constexpr int R = Shape<B>::R;
+    const size_t plane = (size_t)n * m;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int gi = i0 + threadIdx.y * R + r - off_i(k);
+        const int gj = j0 + threadIdx.x - off_j(k);
+        const bool in = gi >= 0 && gi < n && gj >= 0 && gj < m;
+        w[r][k] = in ? W[k * plane + (size_t)gi * m + gj] : 0.f;
+      }
+    }
   }
 };
 
@@ -98,72 +185,72 @@ __device__ __forceinline__ void relax_block(
     const float* __restrict__ base, float* __restrict__ x_out,
     int* __restrict__ chg, int n, int m, int inner_max, int bi, int bj) {
   using S = Shape<B>;
-  constexpr int TY = S::TY, R = S::R, WN = S::WN;
+  constexpr int R = S::R, WN = S::WN, NS = S::NS;
   extern __shared__ float smem[];
-  float* xs0 = smem;                 // x window, buffer 0
-  float* xs1 = smem + WN * WN;       // x window, buffer 1
-  float* ws = smem + 2 * WN * WN;    // incoming weights [8][B][B]
+  float* cur = smem;            // x window read by this sweep
+  float* nxt = smem + WN * WN;  // x window written by this sweep
+  int* flags = reinterpret_cast<int*>(smem + 2 * WN * WN);
 
-  const int nb_j = m / B;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * B + tx;
-  const int i0 = bi * B, j0 = bj * B;
+  const int tid = ty * B + tx, lane = tid & 31;
+  const int i0 = bi * B, j0 = bj * B, r0 = ty * R;
 
+  // Once per visit, into registers: the incoming weights and the base.
+  float w[R][8];
+  weight.template load<B>(w, smem, n, m, i0, j0);
+  float bse[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    bse[r] = base[(size_t)(i0 + r0 + r) * m + (j0 + tx)];
+  }
   // Halo window of x into both buffers (the halo stays frozen).
   for (int t = tid; t < WN * WN; t += S::THREADS) {
     const int gi = i0 - 1 + t / WN, gj = j0 - 1 + t % WN;
     float v = 0.f;
     if (gi >= 0 && gi < n && gj >= 0 && gj < m) v = x[(size_t)gi * m + gj];
-    xs0[t] = v;
-    xs1[t] = v;
+    cur[t] = v;
+    nxt[t] = v;
   }
-  // The incoming weights, once per visit: ws[k][i][j] is the weight that
-  // the source q = p - o_k sends to p = (i, j) along offset k; 0 for a
-  // source outside the canvas.
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = ty + r * TY;
-      const int gi = i0 + i - off_i(k), gj = j0 + tx - off_j(k);
-      float w = 0.f;
-      if (gi >= 0 && gi < n && gj >= 0 && gj < m) {
-        w = weight(k, (size_t)gi * m + gj);
-      }
-      ws[(k * B + i) * B + tx] = w;
-    }
-  }
-  float bse[R], x0[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const size_t g = (size_t)(i0 + ty + r * TY) * m + (j0 + tx);
-    bse[r] = base[g];
-    x0[r] = x[g];
-  }
+  // Strip flags: the first sweep finds every strip "changed".
+  int* f_rd = flags;       // written by the sweep before
+  int* f_wr = flags + NS;  // written by this sweep
+  if (tid < NS) f_rd[tid] = 1;
   __syncthreads();
 
-  float* cur = xs0;
-  float* nxt = xs1;
+  // This warp's strip, and the strip of its 3x3 neighbourhood that this
+  // lane polls (lanes 0..8; none beyond the block's rim: the halo is frozen).
+  const int sr = ty / (32 / S::LW), sc = tx / S::LW;
+  const int qr = sr + lane / 3 - 1, qc = sc + lane % 3 - 1;
+  const bool poll = lane < 9 && qr >= 0 && qr < S::SR && qc >= 0 && qc < S::SC;
+
   int it = 0;
   int changed = 1;
   while (it < inner_max && changed) {
 #pragma unroll 1
     for (int s = 0; s < 4; ++s) {
       int local = 0;
+      if (__any_sync(0xffffffffu, poll && f_rd[qr * S::SC + qc])) {
+        float v[R + 2][3];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = ty + r * TY;
-        float acc = bse[r];
+        for (int q = 0; q < R + 2; ++q) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const float xv = cur[(i + 1 - off_i(k)) * WN + (tx + 1 - off_j(k))];
-          acc = __fadd_rn(acc, __fmul_rn(ws[(k * B + i) * B + tx], xv));
+          for (int c = 0; c < 3; ++c) v[q][c] = cur[(r0 + q) * WN + tx + c];
         }
-        const int c = (i + 1) * WN + (tx + 1);
-        local |= (acc != cur[c]);
-        nxt[c] = acc;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float acc = bse[r];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            acc = __fadd_rn(
+                acc, __fmul_rn(w[r][k], v[r + 1 - off_i(k)][1 - off_j(k)]));
+          }
+          local |= (acc != v[r + 1][1]);
+          nxt[(r0 + r + 1) * WN + tx + 1] = acc;
+        }
+        local = __any_sync(0xffffffffu, local);
       }
-      // one barrier per sweep: the next sweep writes the buffer this one read
+      if (lane == 0) f_wr[sr * S::SC + sc] = local;
+      // one barrier per sweep: the next sweep writes what this one read
       if (s == 3) {
         changed = __syncthreads_or(local);
       } else {
@@ -172,6 +259,9 @@ __device__ __forceinline__ void relax_block(
       float* t = cur;
       cur = nxt;
       nxt = t;
+      int* f = f_rd;
+      f_rd = f_wr;
+      f_wr = f;
     }
     it += 4;
   }
@@ -179,13 +269,13 @@ __device__ __forceinline__ void relax_block(
   int moved = 0;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int i = ty + r * TY;
-    const float v = cur[(i + 1) * WN + (tx + 1)];
-    moved |= (v != x0[r]);
-    x_out[(size_t)(i0 + i) * m + (j0 + tx)] = v;
+    const size_t g = (size_t)(i0 + r0 + r) * m + (j0 + tx);
+    const float v = cur[(r0 + r + 1) * WN + tx + 1];
+    moved |= (v != x[g]);
+    x_out[g] = v;
   }
   moved = __syncthreads_or(moved);
-  if (tid == 0) chg[bi * nb_j + bj] = moved;
+  if (tid == 0) chg[bi * (m / B) + bj] = moved;
 }
 
 // K1: one round over the compact receivers with the frontier skip.
@@ -216,7 +306,7 @@ uca_gs_round_kernel(const float* __restrict__ x,
   if (!dirty) {
 #pragma unroll
     for (int r = 0; r < S::R; ++r) {
-      const size_t g = (size_t)(bi * B + threadIdx.y + r * S::TY) * m
+      const size_t g = (size_t)(bi * B + threadIdx.y * S::R + r) * m
                        + (bj * B + threadIdx.x);
       x_out[g] = x[g];
     }
@@ -236,17 +326,14 @@ uca_block_round_kernel(const float* __restrict__ x,
                        float* __restrict__ x_out,
                        int* __restrict__ chg,
                        int n, int m, int inner_max) {
-  relax_block<B>(x, DenseWeights{W, (size_t)n * m}, base, x_out, chg, n, m,
-                 inner_max, blockIdx.y, blockIdx.x);
+  relax_block<B>(x, DenseWeights{W}, base, x_out, chg, n, m, inner_max,
+                 blockIdx.y, blockIdx.x);
 }
 
 template <int B, class Kernel, class... Args>
 cudaError_t launch(Kernel kernel, int n, int m, cudaStream_t stream,
                    Args... args) {
   using S = Shape<B>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
-  if (e != cudaSuccess) return e;
   const dim3 grid(m / B, n / B);
   const dim3 block(B, S::TY);
   kernel<<<grid, block, S::SMEM, stream>>>(args...);
@@ -307,5 +394,16 @@ extern "C" int uca_block_round_f32(const void* x, const void* W,
       return launch<64>(uca_block_round_kernel<64>, n, m, st, xf, wf, bf, of,
                         cf, n, m, inner_max);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// Bytes of dynamic shared memory a block of either kernel uses at block
+// size B (ptxas does not report dynamic shared memory); -1 for a B the
+// kernels are not built for.
+extern "C" int uca_block_smem_bytes(int B) {
+  switch (B) {
+    case 16: return (int)Shape<16>::SMEM;
+    case 64: return (int)Shape<64>::SMEM;
+    default: return -1;
   }
 }

@@ -11,7 +11,10 @@ Port of ``pydem_tpu/ops/uca_block.py``, both of its TPU kernels:
 
 The canvas is tiled into B×B blocks; one *round* relaxes blocks, each to its
 local fixed point with its 1-px halo frozen, and reports a changed flag per
-block.  Rounds repeat until no block changes.
+block.  Rounds repeat until no block changes; K1's solvers read the flags
+on the host once per ``ROUNDS_PER_READ`` rounds, which changes neither the
+canvas nor the round count they return (a round after a still round is a
+no-op).
 
 On the GPU the blocks of a round run in no order, so unlike the TPU's
 Gauss-Seidel grid every K1 block reads the round-start canvas and writes a
@@ -277,7 +280,8 @@ def block_round(x, W, base, *, B, inner_max):
 
 block_round.launches = 0
 
-# C entries of csrc/uca_block.cu: (pointer arguments, int arguments)
+# C entries of csrc/uca_block.cu that launch: (pointer arguments, int
+# arguments), then the stream
 _ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_block_round_f32": (5, 4)}
 
 
@@ -291,6 +295,16 @@ def _kernel(entry):
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_smem_bytes(B):
+    """Dynamic shared memory, in bytes, of one block of either kernel at
+    block size ``B`` (builds the kernels if need be)."""
+    from ._build import load
+
+    fn = load("uca_block").uca_block_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(B)
 
 
 def _padded_check(base, B, inner_max):
@@ -307,34 +321,57 @@ def _block_any(mask, B):
     return mask.view(n // B, B, m // B, B).any(3).any(1).to(torch.int32)
 
 
-def _gs_driver(base, W, B, inner_max, max_rounds, round_fn, links=None):
+# rounds a K1 solve enqueues between two reads of their changed flags
+ROUNDS_PER_READ = 4
+
+
+def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None):
     """K1 round driver, with pit links folded into the base before each
     round when ``links`` is given.
 
     The fold, ``base + links(x)``, is evaluated from the canvas at the start
     of every round; blocks whose folded base changed are marked dirty beside
-    those whose 3×3 neighbourhood changed last round.  The loop stops after
-    a round that changed no block: the canvas, and with it the fold, then
-    stay as they are.  One host sync per round reads the flags' sum.
+    those whose 3×3 neighbourhood changed last round.  The solve ends with
+    the first round that changed no block: the canvas, and with it the fold,
+    then stay as they are.
+
+    The host reads the flags once per ``ROUNDS_PER_READ`` rounds (never
+    enqueueing past ``max_rounds``): each round's count of changed blocks
+    stays on the device, and one transfer brings the batch's counts.  A
+    round after a round without change is a bitwise no-op (every block is
+    skipped), so the canvas returned is that of the first still round and
+    ``rounds`` is that round's index, exactly as if the flags were read
+    after every round.  ``_gs_solve.host_reads`` counts the transfers.
     """
     inner_max = _padded_check(base, B, inner_max)
     n, m = base.shape
     K, W1 = compact_from_dense(W)
     base = base.contiguous()
-    b_prev = base if links is None else links.add_to(base, base)
+    x, b_prev = base, None
     prev = torch.ones((n // B, m // B), dtype=torch.int32, device=base.device)
-    x, chg = round_fn(base, K, W1, b_prev, prev, B=B, inner_max=inner_max)
-    rounds = 1
-    while rounds < max_rounds and int(chg.sum()) > 0:
-        if links is None:
-            b, prev = base, chg
-        else:
-            b = links.add_to(base, x)
-            prev = chg | _block_any(b != b_prev, B)
-        x, chg = round_fn(x, K, W1, b, prev, B=B, inner_max=inner_max)
-        b_prev = b
-        rounds += 1
-    return x, rounds
+    rounds = 0
+    while True:
+        counts = []
+        for _ in range(max(1, min(ROUNDS_PER_READ, max_rounds - rounds))):
+            if links is None:
+                b = base
+            else:
+                b = links.add_to(base, x)
+                if b_prev is not None:
+                    prev = prev | _block_any(b != b_prev, B)
+            x, prev = round_fn(x, K, W1, b, prev, B=B, inner_max=inner_max)
+            b_prev = b
+            counts.append(prev.sum())
+        counts = torch.stack(counts).tolist()
+        _gs_solve.host_reads += 1
+        if 0 in counts:
+            return x, rounds + counts.index(0) + 1
+        rounds += len(counts)
+        if rounds >= max_rounds:
+            return x, rounds
+
+
+_gs_solve.host_reads = 0
 
 
 def accumulate_blocked_gs(base, W, B=64, inner_max=None, max_rounds=100_000,
@@ -347,7 +384,7 @@ def accumulate_blocked_gs(base, W, B=64, inner_max=None, max_rounds=100_000,
     :func:`gs_round`, or :func:`gs_round_plain` to hold the kernel against
     its plain version on the same device.  Returns ``(area, rounds)``.
     """
-    return _gs_driver(base, W, B, inner_max, max_rounds, round_fn)
+    return _gs_solve(base, W, B, inner_max, max_rounds, round_fn)
 
 
 def accumulate_blocked_pits_gs(base, W, pit_src, pit_dst, pit_w, B=64,
@@ -357,7 +394,7 @@ def accumulate_blocked_pits_gs(base, W, pit_src, pit_dst, pit_w, B=64,
     (``pit_src → pit_dst`` with weight ``pit_w``, flat indices into the
     canvas), folded into the base at the start of every round with the
     deterministic fold of :class:`PitLinks`."""
-    return _gs_driver(base, W, B, inner_max, max_rounds, round_fn,
+    return _gs_solve(base, W, B, inner_max, max_rounds, round_fn,
                       PitLinks(pit_src, pit_dst, pit_w))
 
 

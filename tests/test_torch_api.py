@@ -22,7 +22,8 @@ from pydem_tpu_torch.api import DEMProcessor
 
 torch.set_num_threads(1)
 
-DEVICE = dict(conditioning_backend="device", pit_backend="device")
+CHAIN = dict(conditioning_backend="device", pit_backend="device")
+DEVICE = dict(CHAIN, device="cpu")
 
 
 def _elev(name):
@@ -39,11 +40,11 @@ def test_device_chain_matches_jax(name):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         if name.endswith("quantized"):
-            want = JaxDEMProcessor(elev=elev.copy(), **DEVICE)
+            want = JaxDEMProcessor(elev=elev.copy(), **CHAIN)
             want_twi = want.calc_twi()
         else:
             with jax.disable_jit():
-                want = JaxDEMProcessor(elev=elev.copy(), **DEVICE)
+                want = JaxDEMProcessor(elev=elev.copy(), **CHAIN)
                 want_twi = want.calc_twi()
         for solver in ("jacobi", "blocked"):
             got = DEMProcessor(elev=elev.copy(), uca_solver=solver, **DEVICE)
@@ -91,7 +92,7 @@ def test_unported_paths_raise(what):
     elev = _elev("fixture 13")
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         if what == "host backends":
-            DEMProcessor(elev=elev).calc_twi()
+            DEMProcessor(elev=elev, device="cpu").calc_twi()
         elif what == "drain_flats":
             DEMProcessor(elev=elev, drain_pits=False, drain_flats=True,
                          **DEVICE).calc_uca()
@@ -101,7 +102,7 @@ def test_unported_paths_raise(what):
         elif what == "edge_done":
             DEMProcessor(elev=elev, **DEVICE).edge_done
         elif what == "elev_fn":
-            DEMProcessor("tile.tif")
+            DEMProcessor("tile.tif", device="cpu")
         else:
             DEMProcessor(elev=elev, **DEVICE).save_array("x", "uca")
 
@@ -109,7 +110,7 @@ def test_unported_paths_raise(what):
 def test_options_and_device_are_checked():
     elev = _elev("fixture 13")
     with pytest.raises(TypeError, match="Unknown DEMProcessor option"):
-        DEMProcessor(elev=elev, no_such_option=1)
+        DEMProcessor(elev=elev, device="cpu", no_such_option=1)
     dp = DEMProcessor(elev=elev, **DEVICE)
     assert dp.device == torch.device("cpu") and dp.dtype == torch.float64
     assert dp._resolved_solver() == "jacobi"  # "auto" on the CPU
@@ -118,7 +119,7 @@ def test_options_and_device_are_checked():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: device='cuda' is valid here")
     with pytest.raises(RuntimeError, match="cuda"):
-        DEMProcessor(elev=elev, device="cuda", **DEVICE)
+        DEMProcessor(elev=elev, device="cuda", **CHAIN)
 
 
 @pytest.mark.parametrize("below_sea", [False, True])
@@ -171,3 +172,23 @@ def test_twi_program_matches_jax(on_uca, limits):
     np.testing.assert_array_almost_equal(np.nan_to_num(got.numpy()),
                                          np.nan_to_num(np.asarray(want)),
                                          decimal=12)
+
+
+def test_default_device_is_the_card():
+    """Without ``device`` the processor runs on the GPU and raises without
+    one; it never moves to the CPU by itself.  ``device="cpu"`` runs."""
+    import inspect
+
+    assert (inspect.signature(DEMProcessor.__init__).parameters["device"]
+            .default == "cuda")
+    elev = _elev("fixture 13")
+    dp = DEMProcessor(elev=elev, **DEVICE)
+    assert dp.device == torch.device("cpu")
+    assert np.isfinite(dp.calc_twi()).any()
+    if torch.cuda.is_available():
+        assert DEMProcessor(elev=elev, **CHAIN).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            DEMProcessor(elev=elev, **CHAIN)
+        with pytest.raises(RuntimeError, match="cuda"):
+            DEMProcessor(elev=elev)

@@ -141,7 +141,7 @@ def test_port_imports_neither_jax_nor_pydem_tpu():
         "    out = terrain_step(e, o, o, o2, o2, uca_solver=solver)\n"
         "    assert torch.isfinite(out['uca']).any()\n"
         "dp = DEMProcessor(elev=np.round(e.numpy() * 40) / 40,"
-        " conditioning_backend='device', pit_backend='device')\n"
+        " conditioning_backend='device', pit_backend='device', device='cpu')\n"
         "assert np.isfinite(dp.calc_twi()).any()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'pydem_tpu')]\n"

@@ -82,15 +82,17 @@ def _dense(K, W1):
                      for k in range(8)])
 
 
-def _round_reference(x, dense, base, prev, B, inner_max):
+def _round_reference(x, dense, base, prev, B, inner_max, with_sweeps=False):
     """One round as the CUDA kernels run it: block by block, each with its
     own convergence loop (numpy), on dense weight planes; ``prev`` None
-    visits every block (K2), else the frontier of K1."""
+    visits every block (K2), else the frontier of K1.  With ``with_sweeps``
+    the sweeps each block took are returned too."""
     n, m = x.shape
     nb_i, nb_j = n // B, m // B
     xp = np.pad(x, 1)
     wp = np.pad(dense, ((0, 0), (1, 1), (1, 1)))
     out, chg = x.copy(), np.zeros((nb_i, nb_j), np.int32)
+    sweeps = np.zeros((nb_i, nb_j), np.int32)
     for bi in range(nb_i):
         for bj in range(nb_j):
             if prev is not None and not prev[max(bi - 1, 0): bi + 2,
@@ -113,7 +115,8 @@ def _round_reference(x, dense, base, prev, B, inner_max):
                 it += 4
             out[bi * B: bi * B + B, bj * B: bj * B + B] = win[1:-1, 1:-1]
             chg[bi, bj] = int((win[1:-1, 1:-1] != x0).any())
-    return out, chg
+            sweeps[bi, bj] = it
+    return (out, chg, sweeps) if with_sweeps else (out, chg)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -308,3 +311,259 @@ def test_block_round_rejects_bad_arguments():
         t_ub.block_round(x.to("meta"), W, x, **kw)
     with pytest.raises(ValueError, match="padded"):
         t_ub.accumulate_blocked(x[:12], W[:, :12], B=8)
+
+
+# -- the kernels' in-block activity skip, modelled on the CPU ---------------
+#
+# Inside a block visit the CUDA kernels keep the x window in two buffers and
+# give every warp's strip of pixels a "changed in the last sweep" flag, in
+# two sets.  A strip is recomputed only if a strip of its 3x3 strip
+# neighbourhood changed in the sweep before; else its pixels in the buffer
+# being written are left as they are.  The model below runs that protocol
+# with torch ops; it must give the plain round's values, flags and sweep
+# counts bit for bit.
+
+def _strip_shape(B):
+    """(rows, columns) of a warp's strip in the kernels at block size B:
+    lanes across min(B, 32) columns, R = 8 (B = 64) or 4 (B = 16) rows a
+    thread."""
+    rows_per_thread = 8 if B >= 64 else 4
+    width = min(B, 32)
+    return rows_per_thread * (32 // width), width
+
+
+def _strip_relax(win, w_in, bse, B, inner_max):
+    """One block visit by the strip protocol.  ``win`` (B+2, B+2) is the x
+    window with its halo, ``w_in`` (8, B+2, B+2) the padded weight windows,
+    ``bse`` (B, B).  Returns (values, sweeps, strip-sweeps skipped)."""
+    sh, sw = _strip_shape(B)
+    sr, sc = B // sh, B // sw
+    buf = [win.clone(), win.clone()]
+    # the first sweep finds every strip "changed"
+    flags = [torch.ones((sr, sc), dtype=torch.bool),
+             torch.zeros((sr, sc), dtype=torch.bool)]
+    w_k = [w_in[k, 1 - di: 1 - di + B, 1 - dj: 1 - dj + B]
+           for k, (di, dj) in enumerate(NEIGHBOR_OFFSETS)]
+    sweep = skipped = 0
+    changed = True
+    while sweep < inner_max and changed:
+        for _ in range(4):
+            cur, nxt = buf[sweep & 1], buf[(sweep + 1) & 1]
+            rd, wr = flags[sweep & 1], flags[(sweep + 1) & 1]
+            # strips beyond the block's rim do not exist: the halo is frozen
+            active = torch.nn.functional.max_pool2d(
+                rd[None, None].float(), 3, 1, 1)[0, 0] > 0
+            acc = bse
+            for k, (di, dj) in enumerate(NEIGHBOR_OFFSETS):
+                acc = acc + w_k[k] * cur[1 - di: 1 - di + B,
+                                         1 - dj: 1 - dj + B]
+            moved = (acc != cur[1:-1, 1:-1]).view(sr, sh, sc, sw)
+            wr.copy_(moved.any(3).any(1) & active)
+            px = active.repeat_interleave(sh, 0).repeat_interleave(sw, 1)
+            # a skipped strip keeps what the buffer held two sweeps ago
+            nxt[1:-1, 1:-1] = torch.where(px, acc, nxt[1:-1, 1:-1])
+            skipped += int((~active).sum())
+            sweep += 1
+        changed = bool(wr.any())  # the flags of the 4th sweep
+    return buf[sweep & 1][1:-1, 1:-1], sweep, skipped
+
+
+def _strip_round(x, dense, base, prev, B, inner_max):
+    """One round by the strip protocol; arguments as ``_round_reference``.
+    Returns (x_new, chg, sweeps per block, strip-sweeps skipped)."""
+    n, m = x.shape
+    nb_i, nb_j = n // B, m // B
+    xp = torch.nn.functional.pad(torch.from_numpy(x), (1, 1, 1, 1))
+    wp = torch.nn.functional.pad(torch.from_numpy(dense), (1, 1, 1, 1))
+    bt = torch.from_numpy(base)
+    out = torch.from_numpy(x).clone()
+    chg = np.zeros((nb_i, nb_j), np.int32)
+    sweeps = np.zeros((nb_i, nb_j), np.int32)
+    skipped = 0
+    for bi in range(nb_i):
+        for bj in range(nb_j):
+            if prev is not None and not prev[max(bi - 1, 0): bi + 2,
+                                             max(bj - 1, 0): bj + 2].any():
+                continue
+            rows = slice(bi * B, bi * B + B)
+            cols = slice(bj * B, bj * B + B)
+            win = xp[bi * B: bi * B + B + 2, bj * B: bj * B + B + 2]
+            got, sweeps[bi, bj], skip = _strip_relax(
+                win, wp[:, bi * B: bi * B + B + 2, bj * B: bj * B + B + 2],
+                bt[rows, cols], B, inner_max)
+            skipped += skip
+            chg[bi, bj] = int((got != win[1:-1, 1:-1]).any())
+            out[rows, cols] = got
+    return out.numpy(), chg, sweeps, skipped
+
+
+def _terrain_planes(n, m, dtype):
+    """Dense receiver planes of fixture 30 cut to (n, m), by the port."""
+    elev, _a, _u = fixtures.get_test_case(30, max(n, m))
+    elev = torch.from_numpy(elev[:n, :m].astype(dtype))
+    ones = torch.ones(n - 1, dtype=elev.dtype)
+    mag, direction = t_sd.slopes_directions(elev, ones, ones)
+    flats = t_sd.find_flats_edges(elev, mag)
+    direction = torch.where(flats, -1, direction)
+    section, proportion = t_rec.section_proportion(direction, flats, ones,
+                                                   ones)
+    return t_rec.receiver_weights(section, proportion, elev)
+
+
+@pytest.mark.parametrize("start", ["base", "changed halo", "nan"])
+@pytest.mark.parametrize("inner_kind", [4, 8, "2B+4"])
+@pytest.mark.parametrize("planes", ["receivers", "dense random"])
+@pytest.mark.parametrize("B", [16, 64])
+def test_strip_skip_protocol_is_exact(B, planes, inner_kind, start):
+    """The kernels' activity skip changes nothing: values, changed flags and
+    sweeps per block equal the plain round's, also when the cap ends the
+    visit, when only a wave from one changed halo moves, and with a NaN."""
+    dtype = np.float32
+    n, m = 2 * B, 3 * B
+    inner_max = 2 * B + 4 if inner_kind == "2B+4" else inner_kind
+    rng = np.random.RandomState(B + len(planes))
+    base_t = torch.from_numpy(rng.uniform(0.5, 1.5, (n, m)).astype(dtype))
+    if planes == "receivers":  # K1's contract
+        K, W1 = t_ub.compact_from_dense(_terrain_planes(n, m, dtype))
+        W = t_ub.expand_compact(K, W1)
+        solve = t_ub.accumulate_blocked_gs
+    else:  # K2's contract: any nonnegative weights, any number per pixel
+        W = rng.uniform(0, 0.1, (8, n, m)).astype(dtype)
+        W[:, rng.uniform(size=(n, m)) < 0.1] = 0
+        W = torch.from_numpy(W)
+        solve = t_ub.accumulate_blocked
+    prev = None
+    if start == "base":
+        x = base_t.clone()
+    else:
+        x, _rounds = solve(base_t, W, B=B)
+        x = x.clone()
+        if start == "changed halo":
+            # the last row of block (0, 1) moves: blocks (1, 0..2) see a
+            # changed halo, and at most a wave crosses them
+            x[B - 1, B: 2 * B] += 1
+            if planes == "receivers":
+                prev = np.zeros((n // B, m // B), np.int32)
+                prev[0, 1] = 1
+        else:
+            x[B + B // 2, B // 3] = np.nan
+    x, base, dense = x.numpy(), base_t.numpy(), W.numpy()
+
+    got, chg, sweeps, skipped = _strip_round(x, dense, base, prev, B,
+                                             inner_max)
+    if planes == "receivers":
+        prev_t = torch.from_numpy(
+            np.ones((n // B, m // B), np.int32) if prev is None else prev)
+        want, want_chg = t_ub.gs_round_plain(
+            torch.from_numpy(x), K, W1, base_t, prev_t, B=B,
+            inner_max=inner_max)
+    else:
+        want, want_chg = t_ub.block_round_plain(
+            torch.from_numpy(x), W, base_t, B=B, inner_max=inner_max)
+    np.testing.assert_array_equal(got, want.numpy())  # NaNs in equal places
+    np.testing.assert_array_equal(chg, want_chg.numpy())
+    _ref, _ref_chg, want_sweeps = _round_reference(
+        x, dense, base, prev, B, inner_max, with_sweeps=True)
+    np.testing.assert_array_equal(sweeps, want_sweeps)
+    if start == "nan":
+        assert np.isnan(got).sum() > 1  # the NaN spread, and never settled
+        assert sweeps[1, 0] == inner_max
+    if start == "changed halo" or inner_max > 8:
+        assert skipped > 0  # the protocol did skip strips in this case
+
+
+# -- the K1 round loop: one host read per few rounds ------------------------
+
+def _solve_reading_every_round(base, W, links, B, inner_max, max_rounds):
+    """The K1 solve with the changed flags read on the host after every
+    round: what the solvers must return, canvas and round count."""
+    n, m = base.shape
+    K, W1 = t_ub.compact_from_dense(W)
+    b_prev = base if links is None else links.add_to(base, base)
+    prev = torch.ones((n // B, m // B), dtype=torch.int32)
+    x, chg = t_ub.gs_round_plain(base, K, W1, b_prev, prev, B=B,
+                                 inner_max=inner_max)
+    rounds = 1
+    while rounds < max_rounds and int(chg.sum()) > 0:
+        if links is None:
+            b, prev = base, chg
+        else:
+            b = links.add_to(base, x)
+            prev = chg | t_ub._block_any(b != b_prev, B)
+        x, chg = t_ub.gs_round_plain(x, K, W1, b, prev, B=B,
+                                     inner_max=inner_max)
+        b_prev = b
+        rounds += 1
+    return x, rounds
+
+
+def _round_loop_inputs(name):
+    """(base, W, links or None, B, inner_max, rounds to convergence)."""
+    if name.startswith("no edges"):
+        base = torch.ones((16, 16), dtype=torch.float64)
+        W = torch.zeros((8, 16, 16), dtype=torch.float64)
+        if name == "no edges":
+            return base, W, None, 8, 8, 1
+        if name == "no edges, no links":
+            empty = torch.zeros(0, dtype=torch.int64)
+            return base, W, (empty, empty, torch.zeros(0, dtype=base.dtype)), \
+                8, 8, 1
+        link = (torch.tensor([3]), torch.tensor([200]),
+                torch.tensor([0.5], dtype=base.dtype))
+        return base, W, link, 8, 8, 2
+    case, B, inner_max, rounds = {
+        "fixture 33, B=16": (33, 16, 36, 2),
+        "fixture 33, B=8": (33, 8, 8, 4),
+        "fixture 5, B=8": (5, 8, 8, 8),
+        "fixture 24, B=8": (24, 8, 8, 6),
+        "fixture 33, B=16, 4 sweeps": (33, 16, 4, 5),
+        "fixture 13 pits, B=8": (13, 8, 8, 4),
+        "fixture 13 pits, B=16": (13, 16, 36, 3),
+        "fixture 16 pits, B=8, 4 sweeps": (16, 8, 4, 6),
+    }[name]
+    if "pits" in name:
+        W, base, ps, pd, pw = _pit_inputs(case)
+        base, W, ps, pd, pw = _torch(base, W, ps, pd, pw)
+        return base, W, (ps, pd, pw), B, inner_max, rounds
+    W, base = _jax_state(case)
+    base, W = _torch(base, W)
+    return base, W, None, B, inner_max, rounds
+
+
+@pytest.mark.parametrize("max_rounds", [100_000, 1, 3, 4, 5])
+@pytest.mark.parametrize("name", [
+    "no edges", "no edges, no links", "no edges, one link",
+    "fixture 33, B=16", "fixture 33, B=8", "fixture 5, B=8",
+    "fixture 24, B=8", "fixture 33, B=16, 4 sweeps", "fixture 13 pits, B=8",
+    "fixture 13 pits, B=16", "fixture 16 pits, B=8, 4 sweeps"])
+def test_round_loop_equals_reading_every_round(name, max_rounds):
+    """The solvers read the flags once per few rounds; canvas (bitwise) and
+    round count are those of a loop that reads them every round, for round
+    counts of 1, 2, multiples of 4 and others, with and without pit links,
+    and when ``max_rounds`` ends the solve before it converged."""
+    base, W, links, B, inner_max, converged_in = _round_loop_inputs(name)
+    want, want_rounds = _solve_reading_every_round(
+        base, W, None if links is None else t_ub.PitLinks(*links), B,
+        inner_max, max_rounds)
+    assert want_rounds == min(converged_in, max_rounds)
+
+    calls = []
+
+    def counting_round(*args, **kw):
+        calls.append(1)
+        return t_ub.gs_round_plain(*args, **kw)
+
+    reads = t_ub._gs_solve.host_reads
+    kw = dict(B=B, inner_max=inner_max, max_rounds=max_rounds,
+              round_fn=counting_round)
+    if links is None:
+        got, rounds = t_ub.accumulate_blocked_gs(base, W, **kw)
+    else:
+        got, rounds = t_ub.accumulate_blocked_pits_gs(base, W, *links, **kw)
+    assert rounds == want_rounds
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # never past max_rounds, at most 3 rounds past the first still one, and
+    # one read per batch of 4
+    assert rounds <= len(calls) <= min(rounds + 3, max(max_rounds, 1))
+    assert len(calls) == min(-(-rounds // 4) * 4, max(max_rounds, 1))
+    assert t_ub._gs_solve.host_reads - reads == -(-rounds // 4)
