@@ -37,7 +37,8 @@ Phases, each reported on its own lines:
 7. float64 on the card: the chain's functions (``fill_flats_device``,
    ``drain_pit_paths``, ``pit_links_device_packed``, ``_uca_chain_program``
    with jacobi) at 256² on CUDA against the same calls on the CPU: equal
-   flats, NaN pattern and link sets, values equal to relative 1e-9;
+   flats, NaN pattern and link sets, values equal to relative 1e-9, and the
+   ``edge_done`` flood (``_edge_flood_program``) an equal mask;
 8. times with CUDA events, median of 3 after a warm-up, per-rep times too:
    the terrain step at 2048², the hard chain at 2048² with its stage
    table, one K1 and one K2 round beside their plain rounds at 2048², one
@@ -46,7 +47,31 @@ Phases, each reported on its own lines:
    the fold, K2, jacobi).  Each kernel's bound is computed beside its time:
    the bytes of the timed round (every input once, every output once) over
    the card's memory rate, or, if larger, one multiply-add per nonzero
-   weight over its float32 rate.
+   weight over its float32 rate;
+9. main path, the manager: the 2048² hard terrain written as a 2×2 grid of
+   overlapping float32 GeoTIFF tiles (overlap 32 rows, 16 columns, lat/lon
+   transforms) into a temporary directory, then
+   ``ProcessManager(in_path, dem_proc_kwargs=dict(conditioning_backend=
+   "device", pit_backend="device", uca_solver="blocked")).process_twi()``
+   and ``save_non_overlap_data_geotiff()`` on the default device.  Checked:
+   the grid is (2048, 2048) and the mosaic is the unsplit array; the K1
+   launch counter rose; the store holds every array with ``success`` all
+   True; ``uca`` and ``twi`` equal those of one ``DEMProcessor`` on the
+   unsplit array within the hard gate with an equal NaN pattern; each
+   exported GeoTIFF reads back to the store's array (float32, NaN as
+   -9999) with its overview IFDs (factors 3, 9, 27) and the mosaic's
+   transform; ``edge_done`` is the complement of ``reachability`` of
+   ``edge_todo`` through the solve's links with no-data pixels done; a
+   ``resume=True`` run skips every stage and returns a bitwise equal twi;
+   ``python -m pydem_tpu_torch.cli process <dir>`` as a subprocess (the
+   default, host, backends on the same 2048² tiles) exits 0 and writes the
+   same five files; the default (host) backends at 256² on the card against
+   the CPU in float64: on a noisy cone with a no-data notch inside the JAX
+   package's float32 envelope (``tests/test_parity_f32.py``), on the hard
+   terrain (which float32 takes outside that envelope on any device) an
+   equal elevation and NaN pattern, the differences printed.  Timed: the
+   manager's stage seconds, tile reading + mosaic, uploads, store writes,
+   the GeoTIFF export and the total, median of 3 after the checked run.
 
 Then a JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
@@ -55,8 +80,11 @@ exit and no result line.  The port imports neither JAX nor the JAX package.
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -65,11 +93,16 @@ import numpy as np
 import torch
 
 from pydem_tpu_torch import api, default_dtype, native
-from pydem_tpu_torch.api import DEMProcessor, _pre_program, _uca_chain_program
+from pydem_tpu_torch.api import (DEMProcessor, _edge_flood_program,
+                                 _pre_program, _uca_chain_program)
 from pydem_tpu_torch.core.conditioning import drain_pit_paths
 from pydem_tpu_torch.core.flats_device import fill_flats_device
 from pydem_tpu_torch.core.receivers import receiver_weights
-from pydem_tpu_torch.core.uca import accumulate, base_area
+from pydem_tpu_torch.core.uca import accumulate, base_area, reachability
+from pydem_tpu_torch.geometry import mk_transform
+from pydem_tpu_torch.io import read_geotiff, write_geotiff
+from pydem_tpu_torch.io.store import ArrayStore
+from pydem_tpu_torch.manager import ProcessManager
 from pydem_tpu_torch.ops import _build
 from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed
 from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
@@ -120,6 +153,53 @@ def make_hard_terrain(n, dtype="float64"):
     elev = elev - elev.min() + 0.05
     elev[(x > 0.8) & (np.abs(y) < 0.1)] = 0.0  # sea notch
     return elev.astype(dtype)
+
+
+def make_noisy_cone(n, noise=0.003, seed=3):
+    """A cone with unquantized noise and a no-data notch, float32 values:
+    terrain that float32 keeps inside the JAX package's parity envelope,
+    with a few pits left for the host pit search after conditioning."""
+    rng = np.random.RandomState(seed)
+    x, y = np.mgrid[-1:1:complex(0, n), -1:1:complex(0, n)]
+    elev = 1 - np.sqrt(x**2 + y**2) / np.sqrt(2.0) + rng.randn(n, n) * noise
+    elev[(x > 0.8) & (np.abs(y) < 0.1)] = np.nan
+    return (elev - np.nanmin(elev) + 0.05).astype("float32")
+
+
+def write_tiles(elev, path, nx_grid=2, ny_grid=2, nx_overlap=16,
+                ny_overlap=32, lat=(46, 45), lon=(-73, -72)):
+    """``elev`` as a grid of overlapping GeoTIFF tiles with lat/lon
+    transforms in ``path``: the tile edges and transforms of the package's
+    ``fixtures.mk_test_multifile``, for an array of one's own."""
+    os.makedirs(path)
+
+    def chunk_edges(nn, chunk_size, chunk_overlap):
+        chunk_size = int(chunk_size)
+        left = np.arange(0, nn - chunk_overlap, chunk_size)
+        left[1:] -= chunk_overlap // 2
+        right = np.arange(0, nn - chunk_overlap, chunk_size)
+        right[:-1] = right[1:] + int(np.ceil(chunk_overlap / 2))
+        right[-1] = nn
+        return left, np.minimum(right, nn)
+
+    ni, nj = elev.shape
+    top_edge, bottom_edge = chunk_edges(ni, np.ceil(ni / ny_grid), ny_overlap)
+    left_edge, right_edge = chunk_edges(nj, np.ceil(nj / nx_grid), nx_overlap)
+    lats = np.linspace(lat[0], lat[1], ni)
+    lons = np.linspace(lon[0], lon[1], nj)
+    count = 0
+    for te, be in zip(top_edge, bottom_edge):
+        for le, re_ in zip(left_edge, right_edge):
+            count += 1
+            block = elev[te:be, le:re_]
+            ph = -abs(lats[te] - lats[be - 1]) / (block.shape[0] - 1.0)
+            pw = abs(lons[le] - lons[re_ - 1]) / (block.shape[1] - 1.0)
+            transform = mk_transform(max(lats[te], lats[be - 1]),
+                                     min(lons[le], lons[re_ - 1]), ph, pw,
+                                     lat_lon_centered=True)
+            write_geotiff(os.path.join(path, "chunk_%03d_elev.tif" % count),
+                          block, transform, nodata=-9999)
+    return count
 
 
 def log(phase, msg):
@@ -495,23 +575,29 @@ def phase_f64_chain(device, n=256):
             mag, _direction, flats, section, proportion = _pre_program(
                 e, t(one), t(one))
             packed = pit_links_device_packed(flats, e, one, one)
-            area, sweeps, _min, _todo, flats2, _mag2 = _uca_chain_program(
+            area, sweeps, _min, todo, flats2, _mag2 = _uca_chain_program(
                 e, section, proportion, flats, mag, t(np.ones(n)),
                 t(np.ones(n)), packed["src"], packed["dst"], packed["wgt"],
                 packed["drained_idx"], packed["drained_mag"], True, True,
                 10 ** 6, 4, solver="jacobi")
+            flood = _edge_flood_program(e, section, proportion, todo,
+                                        packed["src"], packed["dst"],
+                                        packed["wgt"])
         order = np.lexsort((packed["dst"].cpu().numpy(),
                             packed["src"].cpu().numpy()))
         runs[where] = dict(
             filled=filled.cpu(), carved=torch.from_numpy(carved),
             area=area.cpu(), flats=flats.cpu(), flats2=flats2.cpu(),
+            todo=todo.cpu(), done=~flood.cpu(),
             links=torch.stack([packed[k].cpu()[order]
                                for k in ("src", "dst")]),
             wgt=packed["wgt"].cpu()[order], sweeps=sweeps)
     a, b = runs["cpu"], runs["card"]
-    for key in ("flats", "flats2", "links"):
+    for key in ("flats", "flats2", "links", "todo", "done"):
         check(torch.equal(a[key], b[key]), "float64 card vs CPU: %s differ"
               % key)
+    check(bool(a["todo"].any()) and not bool(a["done"].all()),
+          "float64 chain: the edge flood had nothing to flood")
     check(a["sweeps"] == b["sweeps"], "float64 card vs CPU: %d vs %d sweeps"
           % (a["sweeps"], b["sweeps"]))
     worst = {}
@@ -524,8 +610,10 @@ def phase_f64_chain(device, n=256):
         check(worst[key] <= F64_RTOL, "float64 card vs CPU: %s rel %g"
               % (key, worst[key]))
     log("f64", "%d² chain in float64, card vs CPU: flats, NaN pattern, %d "
-        "links and %d sweeps equal; max relative differences %s"
-        % (n, a["links"].shape[1], a["sweeps"], worst))
+        "links, %d sweeps and the edge_done flood (%d px not done) equal; "
+        "max relative differences %s"
+        % (n, a["links"].shape[1], a["sweeps"], int((~a["done"]).sum()),
+           worst))
 
 
 def time_chain_stages(device, card):
@@ -710,6 +798,318 @@ def phase_times(device, card, state):
     return k1, k2, k1_err, k2_err
 
 
+MANAGER_KW = dict(conditioning_backend="device", pit_backend="device",
+                  uca_solver="blocked")
+STORE_KEYS = ("elev", "aspect", "slope", "uca", "edge_todo", "edge_done",
+              "uca_edges", "uca_edge_metrics", "twi", "success")
+EXPORT_KEYS = ("elev", "aspect", "slope", "uca", "twi")
+TIMED_PARTS = ("mosaic", "elevation", "aspect_slope", "uca", "twi",
+               "uploads", "store_writes", "export", "total")
+
+
+class TimedStore(ArrayStore):
+    """An ArrayStore that adds up the seconds of its whole-array writes."""
+
+    write_seconds = 0.0
+
+    def __setitem__(self, name, data):
+        t0 = time.perf_counter()
+        super().__setitem__(name, data)
+        self.write_seconds += time.perf_counter() - t0
+
+
+def manager_run(tiles, work, tag, **kw):
+    """One run of the manager path through its entry points: tiles in,
+    ``process_twi``, GeoTIFFs out.  Returns the manager, the twi, the written
+    files and the seconds of each part (host clock; the device is
+    synchronised at the end of the pipeline and around every upload, which
+    is how the uploads are timed)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "pits had no place to drain"
+        t_all = time.perf_counter()
+        pm = ProcessManager(in_path=tiles,
+                            out_path=os.path.join(work, tag + ".zarr"), **kw)
+        pm.out_file = TimedStore(pm.out_path)
+        pm.compute_grid()
+        t0 = time.perf_counter()
+        dp = pm._processor()  # reads the tiles and mosaics them
+        mosaic_s = time.perf_counter() - t0
+        upload = {"seconds": 0.0, "bytes": 0}
+        to_dev = dp._to_dev
+
+        def timed_to_dev(a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = to_dev(a)
+            torch.cuda.synchronize()
+            upload["seconds"] += time.perf_counter() - t0
+            upload["bytes"] += out.numel() * out.element_size()
+            return out
+
+        dp._to_dev = timed_to_dev
+        twi = pm.process_twi()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = pm.save_non_overlap_data_geotiff(
+            os.path.join(work, tag + "_geotiff"))
+        export_s = time.perf_counter() - t0
+        total_s = time.perf_counter() - t_all
+    times = dict(pm.timer.report(), mosaic=mosaic_s,
+                 uploads=upload["seconds"], upload_bytes=upload["bytes"],
+                 store_writes=pm.out_file.write_seconds, export=export_s,
+                 total=total_s)
+    return pm, twi, written, times
+
+
+def gate_equal(name, got, want, tol):
+    """NaN pattern equal and values within ``tol``; returns (max abs
+    difference, bitwise equal)."""
+    got, want = np.asarray(got), np.asarray(want)
+    check(np.array_equal(np.isnan(got), np.isnan(want)),
+          "%s: NaN patterns differ" % name)
+    g, w = np.nan_to_num(got), np.nan_to_num(want)
+    check(np.allclose(g, w, **tol), "%s differ beyond %s (max abs %g)"
+          % (name, tol, np.abs(g - w).max()))
+    return float(np.abs(g - w).max()), bool(np.array_equal(g, w))
+
+
+def f32_envelope_stats(ref, got):
+    """(relative p99, share above 1e-3) of ``got`` against the float64
+    ``ref`` over their finite pixels, as ``tests/test_parity_f32.py`` of the
+    JAX package measures them."""
+    ref, got = np.asarray(ref, "float64"), np.asarray(got, "float64")
+    ok = np.isfinite(ref) & np.isfinite(got)
+    rel = np.abs(ref[ok] - got[ok]) / np.maximum(np.abs(ref[ok]), 1e-30)
+    return float(np.quantile(rel, 0.99)), float((rel > 1e-3).mean())
+
+
+def check_manager_store(pm, hard, launches):
+    """The checked run's grid, mosaic, launches and store."""
+    check(pm.compute_grid() == (N_MAIN, N_MAIN),
+          "compute_grid gave %s" % (pm.grid_shape,))
+    check(np.array_equal(pm._mosaic_elev(), hard.astype("float64")),
+          "the mosaic of the tiles is not the unsplit array")
+    rounds = pm._dp.uca_sweeps
+    check(0 < rounds <= launches <= rounds + 3,
+          "the manager path launched K1 %d times for %d rounds"
+          % (launches, rounds))
+    store = pm.out_file
+    for key in STORE_KEYS:
+        check(key in store, "the store lacks %r" % key)
+    success = store["success"]
+    check(success.shape == (pm.n_inputs, 4) and bool(success.all()),
+          "success is %s" % (success.tolist(),))
+    for key in ("elev", "aspect", "slope", "uca", "twi", "edge_todo",
+                "edge_done", "uca_edges"):
+        check(store._meta(key)["shape"] == [N_MAIN, N_MAIN],
+              "store %s has shape %s" % (key, store._meta(key)["shape"]))
+    log("manager", "%d tiles -> grid %s, %d K1 launches for %d rounds, store "
+        "holds %s, success all True" % (pm.n_inputs, pm.grid_shape, launches,
+                                        rounds, ", ".join(STORE_KEYS)))
+    return store
+
+
+def check_manager_exports(pm, store, written):
+    check([os.path.basename(f) for f in written]
+          == [k + ".tif" for k in EXPORT_KEYS], "exported %s" % (written,))
+    for key, fn in zip(EXPORT_KEYS, written):
+        g = read_geotiff(fn)
+        ref = store[key].astype("float32")
+        check(g.data.dtype == np.float32 and np.array_equal(
+            g.data, np.where(np.isnan(ref), np.float32(-9999), ref)),
+            "%s.tif does not read back to the store's array" % key)
+        check(g.nodata == -9999 and tuple(g.transform) == tuple(pm.transform),
+              "%s.tif: nodata %s, transform %s" % (key, g.nodata,
+                                                   g.transform))
+        for k, fac in enumerate((3, 9, 27), start=1):
+            ov = read_geotiff(fn, ifd_index=k, header_only=True)
+            check(ov.shape == (N_MAIN // fac, N_MAIN // fac),
+                  "%s.tif overview %d has shape %s" % (key, fac, ov.shape))
+    log("manager", "5 GeoTIFFs read back to the store's arrays (float32, NaN "
+        "as -9999), each with overview IFDs 3, 9, 27 and the mosaic's "
+        "transform; %d no-data px in uca.tif"
+        % int(np.isnan(store["uca"]).sum()))
+
+
+def check_manager_edge_done(pm, store):
+    """edge_done == ~reachability(edge_todo) through the solve's links, with
+    no-data pixels done."""
+    dp = pm._dp
+    section, proportion, pits, _min_area = dp._edge_flood_args
+    check(pits[0] is not None and bool((pits[2] > 0).all()),
+          "the manager's solve kept no pit links for the flood")
+    elev_d = dp._field_dev("elev")
+    W = receiver_weights(section, proportion, elev_d)
+    flood = reachability(dp._field_dev("edge_todo"), W, *pits)
+    done = ~flood.cpu().numpy()
+    done[np.isnan(store["elev"])] = True
+    check(np.array_equal(store["edge_todo"], dp.edge_todo),
+          "the store's edge_todo is not the solve's")
+    check(np.array_equal(store["edge_done"], done),
+          "edge_done is not the complement of the flooded edge_todo")
+    log("manager", "edge_done == ~reachability(edge_todo) through %d links: "
+        "%d todo px on the mosaic's boundary, %d px not done"
+        % (pits[0].numel(), int(store["edge_todo"].sum()),
+           int((~done).sum())))
+
+
+def check_host_backends(device, work):
+    """The default (host) backends through the manager at 256² with the
+    tensors on the card, against the same run on the CPU in float64."""
+    n = 256
+    for name, elev in (("noisy cone", make_noisy_cone(n)),
+                       ("hard", make_hard_terrain(n, "float32"))):
+        tag = name.replace(" ", "_")
+        tiles = os.path.join(work, "tiles_%s" % tag)
+        write_tiles(elev, tiles)
+        gs_round.launches = 0
+        card_pm, _t, _w, _s = manager_run(tiles, work, tag + "_card")
+        launches = gs_round.launches
+        cpu_pm, _t, _w, _s = manager_run(tiles, work, tag + "_cpu",
+                                         device="cpu")
+        check(card_pm._dp.device.type == "cuda" and launches > 0
+              and card_pm._dp._dev("uca") is None,
+              "%s: the host-state route did not run K1 on the card" % name)
+        a, b = cpu_pm.out_file, card_pm.out_file
+        check(np.array_equal(a["elev"], b["elev"], equal_nan=True),
+              "%s: host conditioning differs between the runs" % name)
+        stats = {}
+        for key in ("slope", "aspect", "uca", "twi"):
+            check(np.array_equal(np.isnan(a[key]), np.isnan(b[key])),
+                  "%s: %s NaN pattern differs from the CPU run" % (name, key))
+            stats[key] = f32_envelope_stats(a[key], b[key])
+        same = {k: float((a[k] == b[k]).mean())
+                for k in ("edge_todo", "edge_done")}
+        if name == "noisy cone":
+            check(stats["slope"][0] < 1e-5 and stats["aspect"][0] < 1e-4
+                  and stats["aspect"][1] < 0.02 and stats["uca"][0] < 0.25
+                  and stats["twi"][0] < 0.06,
+                  "%s: card float32 outside the f32 envelope: %s"
+                  % (name, stats))
+        log("manager", "host backends, %s %d², card float32 vs CPU float64: "
+            "elev and NaN patterns equal, %d K1 launches, (rel p99, share > "
+            "1e-3) = %s, equal share of edge masks %s%s"
+            % (name, n, launches, stats, same,
+               ", inside the f32 envelope" if name == "noisy cone" else
+               " (float32 takes this terrain outside the envelope on any "
+               "device; printed, not gated)"))
+
+
+def phase_manager(device, card):
+    """Phase 9: the manager path at 2048² over a 2×2 tile grid."""
+    work = tempfile.mkdtemp(prefix="pydem_smoke_")
+    try:
+        return _phase_manager(device, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_manager(device, card, work):
+    hard = make_hard_terrain(N_MAIN, "float32")
+    tiles = os.path.join(work, "tiles")
+    check(write_tiles(hard, tiles) == 4, "expected a 2x2 tile grid")
+
+    gs_round.launches = 0
+    pm, twi, written, times0 = manager_run(tiles, work, "run0",
+                                           dem_proc_kwargs=MANAGER_KW)
+    launches = gs_round.launches
+    check(pm._dp.device.type == device.type == "cuda",
+          "the manager ran on %s" % pm._dp.device)
+    store = check_manager_store(pm, hard, launches)
+    with open(os.path.join(pm.out_path, "metrics.json")) as f:
+        metrics0 = json.load(f)
+    check(sorted(metrics0["stage_seconds"]) == ["aspect_slope", "elevation",
+                                                "twi", "uca"],
+          "metrics.json stages: %s" % metrics0["stage_seconds"])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dX, dY, dX2, dY2 = pm._pixel_vectors()
+        one = DEMProcessor(elev=hard.astype("float64"), dX=dX, dY=dY, dX2=dX2,
+                           dY2=dY2, **MANAGER_KW)
+        one.calc_twi()
+    for key, got, want in (("uca", store["uca"], one.uca),
+                           ("twi", store["twi"], one.twi)):
+        err, bitwise = gate_equal("manager %s vs one DEMProcessor" % key, got,
+                                  want, GATE_TOL["hard"])
+        log("manager", "%s of the tiled mosaic vs one DEMProcessor on the "
+            "unsplit array: within %s, NaN pattern equal, max abs %g, "
+            "bitwise equal: %s" % (key, GATE_TOL["hard"], err, bitwise))
+    check(np.array_equal(np.nan_to_num(np.asarray(twi)),
+                         np.nan_to_num(store["twi"])),
+          "process_twi did not return the stored twi")
+    check_manager_exports(pm, store, written)
+    check_manager_edge_done(pm, store)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pm2 = ProcessManager(in_path=tiles, out_path=pm.out_path, resume=True,
+                             dem_proc_kwargs=MANAGER_KW)
+        t0 = time.perf_counter()
+        twi2 = pm2.process_twi()
+        resume_s = time.perf_counter() - t0
+    with open(os.path.join(pm.out_path, "metrics.json")) as f:
+        stage_s = json.load(f)["stage_seconds"]
+    check(all(v < 0.05 for v in stage_s.values()) and not pm2.timer.report(),
+          "the resumed run ran stages again: %s" % stage_s)
+    check(np.array_equal(np.asarray(twi2), store["twi"], equal_nan=True),
+          "the resumed run's twi is not bitwise the first run's")
+    log("manager", "resume=True: every stage skipped (stage seconds %s), twi "
+        "bitwise equal, %.3f s" % (stage_s, resume_s))
+
+    cli_out = os.path.join(work, "cli_geotiff")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "pydem_tpu_torch.cli", "process", tiles,
+         "--store", os.path.join(work, "cli.zarr"), "--out", cli_out],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    check(cli.returncode == 0, "the CLI exited with %d: %s"
+          % (cli.returncode, cli.stderr[-2000:]))
+    check(sorted(os.listdir(cli_out)) == sorted(k + ".tif"
+                                                for k in EXPORT_KEYS),
+          "the CLI wrote %s" % sorted(os.listdir(cli_out)))
+    cli_uca = read_geotiff(os.path.join(cli_out, "uca.tif"))
+    check(cli_uca.shape == (N_MAIN, N_MAIN)
+          and tuple(cli_uca.transform) == tuple(pm.transform),
+          "the CLI's uca.tif: shape %s" % (cli_uca.shape,))
+    ref = store["uca"].astype("float32")
+    both = (cli_uca.data != -9999) & ~np.isnan(ref)
+    rel = np.abs(cli_uca.data[both] - ref[both]) / np.abs(ref[both])
+    log("manager", "python -m pydem_tpu_torch.cli process <dir> (default "
+        "device, host backends, %d²): exit 0, the same five files, %.1f s "
+        "[%s]; its uca vs the device backends' uca (another conditioning "
+        "arithmetic, so flow paths through filled flats may differ; printed, "
+        "not gated): relative p50 %.3g, p90 %.3g, share above 1e-3 %.4f over "
+        "%d common px"
+        % (N_MAIN, cli_s, card, np.quantile(rel, 0.5), np.quantile(rel, 0.9),
+           float((rel > 1e-3).mean()), int(both.sum())))
+
+    check_host_backends(device, work)
+
+    reps = []
+    for k in range(1, 4):
+        tag = "run%d" % k
+        _pm, _twi, _written, t = manager_run(tiles, work, tag,
+                                             dem_proc_kwargs=MANAGER_KW)
+        reps.append(t)
+        shutil.rmtree(os.path.join(work, tag + ".zarr"))
+        shutil.rmtree(os.path.join(work, tag + "_geotiff"))
+    for part in TIMED_PARTS:
+        log("time", "manager path %d², %-12s median %.3f s, reps %s s, "
+            "checked first run %.3f s [%s]"
+            % (N_MAIN, part, statistics.median(r[part] for r in reps),
+               ["%.3f" % r[part] for r in reps], times0[part], card))
+    log("time", "manager path %d²: %.1f MB uploaded a run (the elevation "
+        "stage and the slope stage each upload the canvas: host state sits "
+        "between the manager's stages), %.4g px/s end to end [%s]"
+        % (N_MAIN, reps[0]["upload_bytes"] / 1e6,
+           N_MAIN * N_MAIN / statistics.median(r["total"] for r in reps),
+           card))
+    return launches
+
+
 def main():
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -726,6 +1126,8 @@ def main():
     phase_f64_chain(device)
     k1_ms, k2_ms, e1, e2 = phase_times(device, card, state)
     k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    del state
+    k1_launches += phase_manager(device, card)
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [{
         "name": "uca_gs_round",

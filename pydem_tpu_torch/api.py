@@ -1,23 +1,26 @@
-"""Single-tile API: :class:`DEMProcessor`, the device chain.
+"""Single-tile API: :class:`DEMProcessor`.
 
-Port of ``pydem_tpu/api.py``'s device fast path: with
-``conditioning_backend="device"`` and ``pit_backend="device"`` the whole
-chain runs on the processor's ``device`` (flat filling, pit gate, the host
-carve's delta, slope/flats/section, pit links, the UCA fixed point, TWI).
-Only the pit carve runs on the host, in C++ (:mod:`pydem_tpu_torch.native`),
-and only the carved pixels travel back.  State arrays stay on the device and
-their numpy views are fetched on first read (:class:`_Field`).
+Port of ``pydem_tpu/api.py``: same constructor conventions (a raster file or
+an in-memory array, dX/dY as scalars or per-row arrays), same public methods
+(``calc_fill_flats``, ``calc_pit_drain_paths``, ``calc_slopes_directions``,
+``calc_uca``, ``calc_twi``, ``find_flats``), same tunables, defaults and
+``CONFIG_KEYS`` as the JAX package, plus ``device`` (default ``"cuda"``;
+never chosen by what is available: without a GPU the constructor raises, and
+the CPU is used only when asked for with ``device="cpu"``).  Floats are
+:func:`pydem_tpu_torch.default_dtype` of the device.
 
-Same constructor conventions, tunables, defaults and ``CONFIG_KEYS`` as the
-JAX package, plus ``device`` (default ``"cuda"``; never chosen by what is
-available: without a GPU the constructor raises, and the CPU is used only
-when asked for with ``device="cpu"``).  Floats are :func:`pydem_tpu_torch.default_dtype` of the device.
+Two routes, as in the JAX package:
 
-Not ported yet (ROADMAP queue 1 item 4), each raising
-``NotImplementedError``: the host conditioning and host pit backends, the
-``drain_flats``/``drain_pits_spill`` modes (``drain_pits=False``), the tile
-edge update (``calc_uca(uca_init=...)``), ``edge_done``, reading rasters
-(``elev_fn``) and saving/loading arrays.
+- the host-state route (the default backends): conditioning runs on the host
+  (:mod:`.core.conditioning`), each stage uploads its inputs, runs its
+  stencil program on the device and stores numpy state;
+- the device chain (``conditioning_backend="device"``,
+  ``pit_backend="device"``, ``drain_pits=True``): flat filling, pit gate,
+  the host carve's delta, slope/flats/section, pit links, the UCA fixed
+  point and TWI run on the device; only the pit carve runs on the host, in
+  C++ (:mod:`pydem_tpu_torch.native`), and only the carved pixels travel
+  back.  State arrays stay on the device and their numpy views are fetched
+  on first read (:class:`_Field`).
 
 Differences from the JAX version, by design: the pit links and the carve
 delta are not padded to power-of-two buckets (they kept XLA's compile keys
@@ -33,13 +36,15 @@ import torch
 import torch.nn.functional as F
 
 from . import default_dtype
-from .core.conditioning import drain_pit_paths
+from .core import conditioning as cond
 from .core.flats_device import fill_flats_device
 from .core.receivers import receiver_weights, section_proportion
 from .core.slope_direction import find_flats_edges, slopes_directions
 from .core.stencil import NEIGHBOR_OFFSETS, shift
-from .core.uca import accumulate, base_area, finalize_uca, seeds_and_edge_todo
-from .ops.pit_growth import pit_links_device_packed
+from .core.uca import (accumulate, accumulate_update, base_area, finalize_uca,
+                       grid_edge_mask, reachability, seeds_and_edge_todo)
+from .io.raw import read_raster_kwargs
+from .ops.pit_growth import connectivity_pits_device, pit_links_device_packed
 from .parallel.sharded import _block_size
 
 FLAT_ID_INT = -1
@@ -54,24 +59,26 @@ def _probe(name, val=None):
         _stage_probe(name, val)
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        "pydem_tpu_torch.DEMProcessor: %s is not ported yet (ROADMAP queue 1 "
-        "item 4); use conditioning_backend='device', pit_backend='device' "
-        "and drain_pits=True" % what)
-
-
 def _nanmin(a):
     return torch.where(torch.isnan(a), torch.inf, a).min()
 
 
-def _pre_program(elev, dX, dY):
-    """slope/direction + flats + section/proportion."""
+def _slope_program(elev, dX, dY):
+    """mag/direction + downstream-extended flats."""
     mag, direction = slopes_directions(elev, dX, dY)
     flats = find_flats_edges(elev, mag)
     direction = torch.where(flats, FLAT_ID_INT, direction)
     mag = torch.where(flats, FLAT_ID_INT, mag)
-    section, proportion = section_proportion(direction, flats, dX, dY)
+    return mag, direction, flats
+
+
+_section_program = section_proportion
+
+
+def _pre_program(elev, dX, dY):
+    """slope/direction + flats + section/proportion."""
+    mag, direction, flats = _slope_program(elev, dX, dY)
+    section, proportion = _section_program(direction, flats, dX, dY)
     return mag, direction, flats, section, proportion
 
 
@@ -124,6 +131,22 @@ def _solve_uca(base, W, shape, pit_src, pit_dst, pit_w, max_iters,
     return area[:n, :m], n_sweeps
 
 
+def _uca_program(elev, section, proportion, flats2, dX2, dY2, pit_src,
+                 pit_dst, pit_w, max_iters, check_every, solver="jacobi",
+                 block_size=None):
+    """The UCA stage of the host-state route: receiver planes and base,
+    the fixed point, flats masked.  ``pit_src`` None: no links.  Returns
+    ``(area, n_sweeps, min_area, edge_todo)``."""
+    W = receiver_weights(section, proportion, elev)
+    base = base_area(dX2, dY2, elev.shape, elev.dtype)
+    min_area = _nanmin(base)
+    area, n_sweeps = _solve_uca(base, W, elev.shape, pit_src, pit_dst, pit_w,
+                                max_iters, check_every, solver, block_size)
+    area = finalize_uca(area, flats2)
+    edge_todo = seeds_and_edge_todo(W, section, elev)
+    return area, n_sweeps, min_area, edge_todo
+
+
 def _uca_chain_program(elev, section, proportion, flats, mag, dX2, dY2,
                        pit_src, pit_dst, pit_w, drained_idx, drained_mag,
                        has_pits, has_drained, max_iters, check_every,
@@ -161,6 +184,18 @@ def _twi_program(uca, mag, min_area, min_slope, sat_limit, on_uca, limits):
     if limits:
         twi = torch.minimum(twi, torch.log(sat_limit * min_area / min_slope))
     return twi * 10
+
+
+def _edge_flood_program(elev, section, proportion, edge_todo, pit_src,
+                        pit_dst, pit_w):
+    """Flood the initial edge-todo mask downstream through the drainage
+    graph: the ``edge_todo[j] += edge_todo[i]*w`` propagation the reference
+    performs during the fresh solve, whose boolean complement is its
+    ``edge_done`` (dem_processing.py:973-975).  On the pruned DAG the
+    done-gated edge skip never fires in a fresh solve, so the flood is plain
+    reachability.  ``pit_src`` None: no links."""
+    W = receiver_weights(section, proportion, elev)
+    return reachability(edge_todo, W, pit_src, pit_dst, pit_w)
 
 
 class _Field:
@@ -233,8 +268,12 @@ class DEMProcessor:
     # UCA solver controls
     uca_check_every = 4
     uca_max_iters = 1_000_000
-    # "host" (not ported yet) or "device"
+    # "host" = the reference's exact semantics in numpy/scipy
+    # (core.conditioning); "device" = the label-flood / segment-reduction
+    # implementation on the device (core.flats_device)
     conditioning_backend = "host"
+    # "host" = serial per-pit growth; "device" = all pits grown at once in
+    # windows (ops.pit_growth)
     pit_backend = "host"
     # "jacobi" = global sweeps; "blocked" = block rounds (the CUDA kernel on
     # a GPU); "auto" = blocked on CUDA with min(n, m) >= 256, else jacobi
@@ -256,13 +295,16 @@ class DEMProcessor:
     ]
 
     def __init__(self, elev_fn=None, device="cuda", **kwargs):
-        if elev_fn:
-            raise _not_ported("reading a raster (elev_fn)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DEMProcessor(device=%r): torch.cuda is not "
                                "available" % (device,))
         self.dtype = default_dtype(self.device)
+
+        if elev_fn:
+            kwds = read_raster_kwargs(elev_fn)
+            kwds.update(kwargs)
+            kwargs = kwds
 
         elev = np.asarray(kwargs.pop("elev"))
         if np.ma.isMaskedArray(elev):
@@ -301,6 +343,7 @@ class DEMProcessor:
         self.section = None
         self.proportion = None
         self.edge_todo = None
+        self.edge_done = None
         self.twi_min_area = np.inf
 
         for key, val in kwargs.items():
@@ -322,7 +365,10 @@ class DEMProcessor:
         of at least 256 px a side, jacobi otherwise."""
         if self.uca_solver != "auto":
             return self.uca_solver
-        n, m = self.elev.shape
+        arr = self._dev("elev")
+        if arr is None:
+            arr = self.__dict__.get("_np_elev")
+        n, m = arr.shape if arr is not None else (0, 0)
         return ("blocked" if self.device.type == "cuda" and min(n, m) >= 256
                 else "jacobi")
 
@@ -371,8 +417,17 @@ class DEMProcessor:
                 or self.__dict__.get("_dev_" + name) is not None)
 
     def _to_dev(self, a):
-        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                               device=self.device)
+        """A host array on the processor's device: floats in its float
+        dtype, integer and bool planes as they are."""
+        a = np.asarray(a)
+        return torch.as_tensor(a, dtype=self.dtype if a.dtype.kind == "f"
+                               else None, device=self.device)
+
+    def _field_dev(self, name):
+        """The field as a device tensor: the device copy when the chain left
+        one, else an upload of the host array."""
+        d = self._dev(name)
+        return d if d is not None else self._to_dev(getattr(self, name))
 
     @property
     def _fast_device(self):
@@ -382,27 +437,133 @@ class DEMProcessor:
                 and self.pit_backend == "device"
                 and self.drain_pits)
 
-    def _require_fast_device(self):
-        if not self._fast_device:
-            raise _not_ported(
-                "conditioning_backend=%r, pit_backend=%r, drain_pits=%r (the "
-                "host backends and the drain_flats/drain_pits_spill modes)"
-                % (self.conditioning_backend, self.pit_backend,
-                   self.drain_pits))
+    def _connectivity_pits(self):
+        kw = dict(max_iter=self.drain_pits_max_iter,
+                  max_dist=self.drain_pits_max_dist,
+                  max_dist_XY=self.drain_pits_max_dist_XY,
+                  min_border=self.drain_pits_min_border)
+        if self.pit_backend == "device":
+            return connectivity_pits_device(
+                self.flats, self.elev, self.mag, self.dX, self.dY,
+                device=self.device, **kw)
+        return cond.connectivity_pits(self.flats, self.elev, self.mag,
+                                      self.dX, self.dY, **kw)
 
-    # -- persistence (not ported) ------------------------------------------
+    def _drain_links(self):
+        """Sparse (src, dst, weight) drain links + updated flats/mag for the
+        configured pit/flat mode, with the reference's mode precedence
+        (dem_processing.py:1094-1124: drain_pits, elif drain_flats, elif
+        drain_pits_spill)."""
+        if self.drain_pits:
+            return self._connectivity_pits()
+        if self.drain_flats:
+            return cond.connectivity_flats(self.flats, self.elev, self.mag,
+                                           self.dX)
+        if self.drain_pits_spill:
+            return cond.connectivity_pits_spill(
+                self.section, self.flats, self.elev, self.mag,
+                self.dX, self.dY,
+                max_iter=self.drain_pits_max_iter,
+                max_dist=self.drain_pits_max_dist,
+                max_dist_XY=self.drain_pits_max_dist_XY)
+        z = np.zeros(0)
+        return z.astype("int64"), z.astype("int64"), z, self.flats, self.mag
+
+    def _pruned_links_dev(self, pit_src, pit_dst, pit_w):
+        """Host link triples pruned to weights > 1e-8 (adjacency pruning,
+        dem_processing.py:1136) and uploaded; ``(None, None, None)`` when
+        none is left."""
+        keep = pit_w > 1e-8
+        if not keep.any():
+            return None, None, None
+        return (self._to_dev(pit_src[keep]), self._to_dev(pit_dst[keep]),
+                self._to_dev(pit_w[keep]))
+
+    # -- persistence (dem_processing.py:260-303) ---------------------------
+
+    def get_fn(self, name=None):
+        from .geometry import get_fn_from_coords
+
+        if not self.bounds:
+            raise ValueError("processor has no bounds (constructed from an "
+                             "in-memory array)")
+        left, bottom, right, top = self.bounds
+        return get_fn_from_coords((bottom, left, top, right), name)
+
+    def get_full_fn(self, name, rootpath="."):
+        import os
+
+        return os.path.join(rootpath, name, self.get_fn(name))
 
     def save_array(self, fn, name):
-        raise _not_ported("save_array")
+        np.savez_compressed(fn + ".npz", getattr(self, name))
 
     def load_array(self, fn, name):
-        raise _not_ported("load_array")
+        """Load a previously saved field ('elev', 'mag', 'direction', 'uca',
+        'twi') from <fn>.npz."""
+        import os
+
+        if not os.path.exists(fn + ".npz"):
+            raise RuntimeError("File %s does not exist." % (fn + ".npz"))
+        with np.load(fn + ".npz") as arr:
+            setattr(self, name, arr["arr_0"])
+
+    def load_elevation(self, fn):
+        self.load_array(fn, "elev")
+
+    def load_slope(self, fn):
+        self.load_array(fn, "mag")
+
+    def load_direction(self, fn):
+        self.load_array(fn, "direction")
+
+    def load_uca(self, fn):
+        self.load_array(fn, "uca")
+
+    # -- conditioning ------------------------------------------------------
+
+    def calc_fill_flats(self):
+        kw = dict(source_tol=self.fill_flats_source_tol,
+                  fill_peaks=self.fill_flats_peaks,
+                  fill_pits=self.fill_flats_pits,
+                  below_sea=self.fill_flats_below_sea,
+                  maximum_pit_area=self.maximum_pit_area)
+        if self.conditioning_backend == "device":
+            self.elev = fill_flats_device(self._to_dev(self.elev),
+                                          **kw).cpu().numpy()
+        else:
+            self.elev = cond.fill_flats(self.elev, **kw)
+        return self.elev
+
+    def calc_pit_drain_paths(self):
+        self.elev = cond.drain_pit_paths(
+            self.elev, self.dX, self.dY,
+            max_iter=self.drain_pits_max_iter,
+            max_dist=self.drain_pits_max_dist,
+            max_dist_XY=self.drain_pits_max_dist_XY,
+            below_sea=self.fill_flats_below_sea,
+        )
+        return self.elev
 
     # -- slope / direction -------------------------------------------------
 
     def calc_slopes_directions(self):
-        self._require_fast_device()
-        self._slopes_device()
+        if self._fast_device:
+            self._slopes_device()
+            return self.mag, self.direction
+
+        if self.fill_flats:
+            self.calc_fill_flats()
+        if self.drain_pits_path:
+            self.calc_pit_drain_paths()
+
+        mag, direction, flats = _slope_program(
+            self._to_dev(self.elev), self._to_dev(self.dX),
+            self._to_dev(self.dY))
+
+        self.mag = mag.cpu().numpy()
+        self.direction = direction.cpu().numpy()
+        self.flats = flats.cpu().numpy()
         return self.mag, self.direction
 
     # -- the device chain --------------------------------------------------
@@ -432,7 +593,7 @@ class DEMProcessor:
             _probe("pit_gate")
             down = elev_d.cpu().numpy()
             _probe("carve_download")
-            elev_np = drain_pit_paths(
+            elev_np = cond.drain_pit_paths(
                 down, self.dX, self.dY,
                 max_iter=self.drain_pits_max_iter,
                 max_dist=self.drain_pits_max_dist,
@@ -466,9 +627,7 @@ class DEMProcessor:
     def _calc_uca_device(self, fetch=True):
         if self._dev("section") is None:
             self._slopes_device()
-        elev_d = self._dev("elev")
-        if elev_d is None:
-            elev_d = self._to_dev(self.elev)
+        elev_d = self._field_dev("elev")
 
         packed = pit_links_device_packed(
             self._dev("flats"), elev_d, self.dX, self.dY,
@@ -508,30 +667,198 @@ class DEMProcessor:
         self._set_dev("mag", mag2)
         self._set_dev("flats", flats2)
         self._set_dev("edge_todo", edge_todo)
+        # the flood behind edge_done sees the links the solve saw; min_area
+        # stays on the device until edge_done is read
+        self._edge_done = None
+        self._edge_flood_args = (
+            self._dev("section"), self._dev("proportion"),
+            links if has_pits else (None, None, None), min_area)
         return self.uca if fetch else None
+
+    def find_flats(self):
+        self.flats = self.mag == FLAT_ID_INT
 
     # -- UCA ---------------------------------------------------------------
 
+    def _use_device_chain(self):
+        """The device chain runs a fresh solve unless the state came from
+        the host (direction set, no section left on the device)."""
+        return self._fast_device and (not self._has("direction")
+                                      or self._dev("section") is not None)
+
     def calc_uca(self, plotflag=False, edge_init_data=None, uca_init=None):
+        if uca_init is None and self._use_device_chain():
+            return self._calc_uca_device()
+        if self.direction is None:
+            self.calc_slopes_directions()
         if uca_init is not None:
-            raise _not_ported("the tile edge update (calc_uca(uca_init=...))")
-        self._require_fast_device()
-        if self._has("direction") and self._dev("section") is None:
-            raise _not_ported("calc_uca from host-side direction/flats")
-        return self._calc_uca_device()
+            return self._calc_uca_edge_update(edge_init_data, uca_init)
+
+        section, proportion = _section_program(
+            self._to_dev(self.direction), self._to_dev(self.flats),
+            self._to_dev(self.dX), self._to_dev(self.dY))
+        self.section = section.cpu().numpy()
+        self.proportion = proportion.cpu().numpy()
+
+        pit_src, pit_dst, pit_w, flats2, mag2 = self._drain_links()
+        pits = self._pruned_links_dev(pit_src, pit_dst, pit_w)
+
+        area, n_sweeps, min_area, edge_todo = _uca_program(
+            self._to_dev(self.elev), section, proportion,
+            self._to_dev(flats2), self._to_dev(self.dX2),
+            self._to_dev(self.dY2), *pits, self.uca_max_iters,
+            self.uca_check_every, solver=self._resolved_solver(),
+            block_size=self.uca_block_size)
+        self.uca_sweeps = n_sweeps
+        self.twi_min_area = min(self.twi_min_area, float(min_area))
+
+        self.uca = area.cpu().numpy()
+        self.mag = np.asarray(mag2)
+        self.flats = np.asarray(flats2)
+
+        self.edge_todo = edge_todo.cpu().numpy()
+        # edge_done needs the todo mask flooded downstream through the whole
+        # drainage graph (an O(longest-path) sweep).  It only matters for
+        # tile-based workflows, so it is computed on first access (see
+        # :attr:`edge_done`).
+        self._edge_done = None
+        self._edge_flood_args = (section, proportion, pits, min_area)
+        return self.uca
 
     @property
     def edge_done(self):
-        raise _not_ported("edge_done")
+        """Per-pixel "no further cross-tile input pending" mask
+        (dem_processing.py:973-980): the complement of the edge-todo mask
+        flooded downstream, with masked pixels always done and, under
+        ``apply_uca_limit_edges``, saturated pixels (uca > 2·limit·min_area)
+        marked done as the large-domain early exit.  Computed on first
+        access (an O(longest-flow-path) flood on the device)."""
+        if self._edge_done is None and self._edge_flood_args is not None:
+            section, proportion, pits, min_area = self._edge_flood_args
+            flood = _edge_flood_program(
+                self._field_dev("elev"), section, proportion,
+                self._field_dev("edge_todo"), *pits)
+            done = ~flood.cpu().numpy()
+            # masked (no-data) pixels never await cross-tile input (:975)
+            done[np.isnan(self.elev)] = True
+            if self.apply_uca_limit_edges:
+                # "2x because of bifurcations" (dem_processing.py:977-980)
+                with np.errstate(invalid="ignore"):
+                    done[self.uca > self.uca_saturation_limit * 2
+                         * float(min_area)] = True
+            self._edge_done = done
+        return self._edge_done
+
+    @edge_done.setter
+    def edge_done(self, value):
+        self._edge_done = value
+        self._edge_flood_args = None
+
+    def _calc_uca_edge_update(self, edge_init_data, uca_init):
+        """Incremental cross-tile edge update: propagate only the *delta*
+        area attributable to newly-finished neighbor edges.
+
+        Functional port of the reference's tile edge-resolution pass
+        (dem_processing.py:682-771 setup, :778-862 propagation) on the dense
+        solver: already-initialized edge pixels are blocked from receiving
+        (the ``done[row_id] & on_edge`` skip of cyutils.pyx:159-161) and the
+        remaining todo-mask is flooded forward (drain_connections).  The
+        masks are set up on the host in numpy, as in the JAX package; the
+        two floods and the delta propagation run on the device.
+        """
+        shape = self.elev.shape
+        edge_data, edge_init_done, edge_init_todo = edge_init_data
+        init = np.zeros(shape, "float64")
+        done = np.zeros(shape, bool)
+        todo = np.zeros(shape, bool)
+        sides = {"left": (slice(None), 0), "right": (slice(None), -1),
+                 "top": (0, slice(None)), "bottom": (-1, slice(None))}
+        for key, val in sides.items():
+            done[val] |= np.asarray(edge_init_done[key]).reshape(done[val].shape)
+            init[val] += (np.asarray(edge_data[key])
+                          * np.asarray(edge_init_done[key])).reshape(init[val].shape)
+            todo[val] |= np.asarray(edge_init_todo[key]).reshape(todo[val].shape)
+        for key, val in sides.items():
+            sel = init[val]
+            sel[~done[val]] = 0
+            init[val] = sel
+
+        uca0 = np.asarray(uca_init, "float64")
+
+        section, proportion = _section_program(
+            self._to_dev(self.direction), self._to_dev(self.flats),
+            self._to_dev(self.dX), self._to_dev(self.dY))
+        self.section = section.cpu().numpy()
+        self.proportion = proportion.cpu().numpy()
+
+        pit_src, pit_dst, pit_w, flats2, mag2 = self._drain_links()
+        pits = self._pruned_links_dev(pit_src, pit_dst, pit_w)
+        has_pits = pits[0] is not None
+
+        W = receiver_weights(section, proportion, self._to_dev(self.elev))
+
+        # seed the delta: newly-done edges minus the area already counted
+        ids0 = done & todo
+        todo_active = todo & ~done
+        delta0 = np.zeros(shape, "float64")
+        delta0[done[:, 0], 0] = init[done[:, 0], 0] - uca0[done[:, 0], 0]
+        delta0[done[:, -1], -1] = init[done[:, -1], -1] - uca0[done[:, -1], -1]
+        delta0[-1, done[-1, :]] = init[-1, done[-1, :]] - uca0[-1, done[-1, :]]
+        delta0[0, done[0, :]] = init[0, done[0, :]] - uca0[0, done[0, :]]
+        delta0[flats2] = np.nan
+
+        # Effective done-state (dem_processing.py:820-833): everything is
+        # done except strict descendants of the seed set (drain_connections
+        # flood), then the seeds themselves are re-marked done.  Edge pixels
+        # that are done never receive (cyutils skip rule); pixels outside
+        # seeds ∪ descendants are never activated so they never push.
+        Wb = (W > 0).cpu().numpy()
+        one_step = np.zeros(shape, bool)
+        for k, (di, dj) in enumerate(NEIGHBOR_OFFSETS):
+            src = Wb[k] & ids0
+            tgt = np.zeros(shape, bool)
+            si = slice(max(0, di), shape[0] + min(0, di))
+            sj = slice(max(0, dj), shape[1] + min(0, dj))
+            oi = slice(max(0, -di), shape[0] + min(0, -di))
+            oj = slice(max(0, -dj), shape[1] + min(0, -dj))
+            tgt[si, sj] = src[oi, oj]
+            one_step |= tgt
+        if has_pits:
+            keep = pit_w > 1e-8
+            flat_one = one_step.ravel()
+            sel = ids0.ravel()[pit_src[keep]]
+            flat_one[pit_dst[keep][sel]] = True
+            one_step = flat_one.reshape(shape)
+        reach1 = reachability(self._to_dev(one_step), W, *pits).cpu().numpy()
+
+        edge = grid_edge_mask(shape).numpy()
+        done_eff = ~reach1 | ids0
+        # the masks in the solve's float dtype
+        receive = self._to_dev(~(edge & done_eff)).to(self.dtype)
+        push = self._to_dev(ids0 | reach1).to(self.dtype)
+        delta, _n = accumulate_update(
+            self._to_dev(delta0), W, receive, push, *pits,
+            max_iters=self.uca_max_iters, check_every=self.uca_check_every)
+        delta = delta.cpu().numpy()
+        delta[flats2] = np.nan
+
+        flooded = reachability(self._to_dev(todo_active), W, *pits)
+
+        self.uca = uca0 + delta
+        self.mag = np.asarray(mag2)
+        self.flats = np.asarray(flats2)
+        self.edge_todo = todo_active
+        self.edge_done = ~flooded.cpu().numpy()
+        return self.uca
 
     # -- TWI ---------------------------------------------------------------
 
     def calc_twi(self):
         if not self._has("uca"):
-            self._require_fast_device()
-            if self._has("direction") and self._dev("section") is None:
-                raise _not_ported("calc_uca from host-side direction/flats")
-            self._calc_uca_device(fetch=False)
+            if self._use_device_chain():
+                self._calc_uca_device(fetch=False)
+            else:
+                self.calc_uca()
         if (self._dev("uca") is not None and self._dev("mag") is not None
                 and self.__dict__.get("_np_uca") is None
                 and self.__dict__.get("_np_mag") is None):

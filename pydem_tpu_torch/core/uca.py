@@ -107,6 +107,84 @@ def finalize_uca(area, flats):
     return torch.where(flats, float("nan"), area)
 
 
+def accumulate_update(delta0, W, receive_mask, push_mask=None, pit_src=None,
+                      pit_dst=None, pit_w=None, max_iters=1_000_000,
+                      check_every=4):
+    """Propagate an edge delta through the drainage graph (the tile edge
+    update): like :func:`accumulate` but with no base self-area, with
+    receiving suppressed where ``receive_mask`` is 0 (edge pixels that were
+    already initialised) and pushing suppressed where ``push_mask`` is 0
+    (seeded done-but-not-todo edges keep their delta in the cell and never
+    join the wave front).  The masks are floats of ``delta0``'s dtype; the
+    pit terms go through :class:`PitLinks`.  One host read per
+    ``check_every`` sweeps.  Returns ``(delta, n_sweeps)``."""
+    links = None if pit_src is None else PitLinks(pit_src, pit_dst, pit_w)
+    x = delta0
+    prev = torch.full_like(delta0, -1.0)
+    it = 0
+    while it < max_iters and bool((x != prev).any()):
+        new = x
+        for _ in range(check_every):
+            src = new if push_mask is None else new * push_mask
+            new = delta0 + receive_mask * flow_sweep(src, W, links)
+        x, prev, it = new, x, it + check_every
+    return x, it
+
+
+# sweeps of the flood between two host reads of its "changed" flag
+FLOOD_SWEEPS_PER_READ = 4
+
+
+def reachability(seed, W, pit_src=None, pit_dst=None, pit_w=None):
+    """Boolean flood along drainage edges: all pixels reachable downstream
+    from ``seed`` (which it includes).
+
+    The pit hop marks a link's destination when its source is reached and
+    its weight is positive.  The JAX version writes it as a scatter-max; here
+    the links' hits are reduced into one flag per distinct destination (an
+    integer ``amax``, order-free) and or-ed in at unique indices, so the hop
+    is deterministic on CUDA.  A sweep past the fixed point changes nothing,
+    so the loop reads the host once per :data:`FLOOD_SWEEPS_PER_READ`
+    sweeps."""
+    Wb = W > 0
+    hop = None
+    if pit_src is not None and pit_src.numel():
+        dst_u, inverse = torch.unique(pit_dst.long(), return_inverse=True)
+        hop = (pit_src.long(), pit_w > 0, dst_u, inverse)
+
+    def sweep(t):
+        new = t
+        for k, (di, dj) in enumerate(NEIGHBOR_OFFSETS):
+            new = new | scatter_shift(Wb[k] & t, di, dj, False)
+        if hop is not None:
+            src, live, dst_u, inverse = hop
+            contrib = (t.reshape(-1)[src] & live).to(torch.int32)
+            hit = torch.zeros(dst_u.numel(), dtype=torch.int32,
+                              device=t.device)
+            hit.scatter_reduce_(0, inverse, contrib, "amax")
+            flat = new.reshape(-1).clone()
+            flat[dst_u] = flat[dst_u] | hit.bool()  # unique destinations
+            new = flat.view(t.shape)
+        return new
+
+    t = seed
+    while True:
+        new = t
+        for _ in range(FLOOD_SWEEPS_PER_READ):
+            new = sweep(new)
+        if not bool((new != t).any()):
+            return new
+        t = new
+
+
+def grid_edge_mask(shape, device=None):
+    """True on the outermost ring of an (n, m) canvas."""
+    e = torch.zeros(shape, dtype=torch.bool, device=device)
+    e[0, :] = e[-1, :] = True
+    e[:, 0] = e[:, -1] = True
+    return e
+
+
 def seeds_and_edge_todo(W, section, elev):
     """Which grid-edge pixels still await inflow from a neighbouring tile
     (port of the JAX function of the same name): edge pixels with outflow

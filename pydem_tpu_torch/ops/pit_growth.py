@@ -1,8 +1,10 @@
 """Device-parallel pit drainage search: all pits grow at once, each in its
 own window.
 
-Port of ``grow_pits``, the dense link extraction and
-``pit_links_device_packed`` from ``pydem_tpu/ops/pit_growth.py``.  Every pit
+Port of ``pydem_tpu/ops/pit_growth.py``: ``grow_pits``, the dense link
+extraction, ``pit_links_device_packed`` (the device chain's), and
+``pit_links_device`` / ``connectivity_pits_device`` (host arrays out: the
+``pit_backend="device"`` choice of the host-state ``calc_uca``).  Every pit
 grows a region by its minimum-elevation border until it finds strictly
 lower drain pixels, inside a window of side ``W`` centred on it (clipped to
 the canvas).  The JAX version ``vmap``s one pit's search; here the pits are
@@ -19,7 +21,11 @@ Differences from the JAX version, by design:
   triples as soon as the batch is grown, so only one batch's planes are
   live at a time;
 - the link arrays hold exactly the links (no zero-weight padding), and
-  drained-pit arrays hold one entry per pit.
+  drained-pit arrays hold one entry per pit;
+- ``pit_links_device`` uses the same dense extraction as the packed search.
+  The JAX version cuts each pit's drains to a fixed ``link_capacity`` (a
+  static shape for XLA) and assembles the pits that overflow it on the host;
+  the dense extraction has no capacity, so there is no overflow path.
 """
 from __future__ import annotations
 
@@ -167,13 +173,14 @@ def _compact_dense(take, wgt, dst_flat, src_b):
 
 
 def _grow_dense_batches(elev, pits_bool, pit_i, pit_j, consts, W, keep_clipped,
-                        **kw):
+                        prune=True, **kw):
     """Grow the pits in batches of at most :data:`PIT_BATCH` and compact each
     batch's links as soon as it is grown.
 
     A lane's links are taken when it drained (and, unless ``keep_clipped``,
     did not touch an inner window edge), pruned to weights > 1e-8 (the
-    reference's adjacency pruning, dem_processing.py:1136).  Returns
+    reference's adjacency pruning, dem_processing.py:1136) unless ``prune``
+    is False.  Returns
     ``(src, dst, wgt, mean_s, ok, clipped)``: the links, then per lane.
     """
     m = elev.shape[1]
@@ -183,7 +190,9 @@ def _grow_dense_batches(elev, pits_bool, pit_i, pit_j, consts, W, keep_clipped,
         dst, wgt, valid, mean_s, ok, clipped = _grow_extract_dense(
             elev, pits_bool, pi, pj, *consts, W=W, **kw)
         drained = ok if keep_clipped else ok & ~clipped
-        take = _lanes(drained) & valid & (wgt > 1e-8)
+        take = _lanes(drained) & valid
+        if prune:
+            take = take & (wgt > 1e-8)
         parts.append(_compact_dense(take, wgt, dst, pi * m + pj)
                      + (mean_s, ok, clipped))
     return tuple(torch.cat(c) for c in zip(*parts))
@@ -256,3 +265,71 @@ def pit_links_device_packed(flats_d, elev_d, dX, dY, max_iter=300,
     return {"src": src, "dst": dst, "wgt": wgt, "drained_idx": drained_idx,
             "drained_mag": mean_s.to(fdt), "n_warn": n_warn,
             "n_links": src.numel()}
+
+
+def pit_links_device(flats_d, elev_d, dX, dY, max_iter=300, max_dist=32,
+                     max_dist_XY=None, min_border=False, window=96):
+    """Pit-link search on the device of ``elev_d``, host arrays out.
+
+    One tier at ``window`` (no retry), no weight pruning: the caller prunes,
+    as it does for the host search.  There is no ``link_capacity`` (see the
+    module docstring).
+
+    Returns numpy ``(src, dst, wgt, drained_src_flat, drained_mean_s)``:
+    the link triples in pit scan order, row-major within a pit, plus the
+    flat indices of the pits that drained and their new slope magnitudes
+    (the caller clears ``flats`` and sets ``mag`` there).  Warns, as the host
+    search does, when pits found no drain.
+    """
+    import warnings
+
+    n, m = elev_d.shape
+    pits_bool = flats_d & (elev_d > 0)
+    pit_i, pit_j = _pit_coords(pits_bool)
+    z64 = np.zeros(0, "int64")
+    if pit_i.numel() == 0:
+        return z64, z64, np.zeros(0, "float64"), z64, np.zeros(0, "float64")
+
+    dX = np.asarray(dX, "float64")
+    dY = np.asarray(dY, "float64")
+    fdt, dev = elev_d.dtype, elev_d.device
+    consts = tuple(torch.as_tensor(c, dtype=fdt, device=dev) for c in (
+        np.concatenate([[0.0], np.cumsum(dX)]),
+        np.concatenate([[0.0], np.cumsum(dY)]), dX))
+    src, dst, wgt, mean_s, ok, _clipped = _grow_dense_batches(
+        elev_d, pits_bool, pit_i, pit_j, consts, int(min(window, n, m)),
+        keep_clipped=True, prune=False,
+        max_dist_xy=float(max_dist_XY or 0.0), max_iter=max_iter,
+        min_border=min_border, max_dist=max_dist, has_xy=bool(max_dist_XY))
+    n_warn = int((~ok).sum())
+    if n_warn:
+        warnings.warn("%d pits had no place to drain to in this chunk"
+                      % n_warn)
+    drained_src = (pit_i * m + pit_j)[ok]
+    return (src.cpu().numpy().astype("int64"),
+            dst.cpu().numpy().astype("int64"),
+            wgt.cpu().numpy().astype("float64"),
+            drained_src.cpu().numpy().astype("int64"),
+            mean_s[ok].cpu().numpy().astype("float64"))
+
+
+def connectivity_pits_device(flats, elev, mag, dX, dY, max_iter=300,
+                             max_dist=32, max_dist_XY=None, min_border=False,
+                             window=96, device="cpu"):
+    """Drop-in replacement for ``conditioning.connectivity_pits`` with the
+    growth loops and the link assembly on ``device``, in its default float
+    dtype.  Same return signature (host arrays; the flats/mag updates are
+    applied here)."""
+    from .. import default_dtype
+
+    flats = np.asarray(flats).copy()
+    mag = np.asarray(mag).copy()
+    src, dst, wgt, drained_src, drained_mean = pit_links_device(
+        torch.as_tensor(flats, device=device),
+        torch.as_tensor(np.asarray(elev), dtype=default_dtype(device),
+                        device=device),
+        dX, dY, max_iter=max_iter, max_dist=max_dist,
+        max_dist_XY=max_dist_XY, min_border=min_border, window=window)
+    mag.ravel()[drained_src] = drained_mean
+    flats.ravel()[drained_src] = False
+    return src, dst, wgt, flats, mag

@@ -1,4 +1,5 @@
 """pydem_tpu_torch.DEMProcessor's device chain == pydem_tpu's (CPU, float64).
+(The host-state route is held in ``tests/test_torch_api_host.py``.)
 
 Both run with ``conditioning_backend="device", pit_backend="device"``: flat
 filling, the pit gate and carve, slope/flats/section, pit links, the UCA
@@ -88,23 +89,52 @@ def test_state_stays_on_the_device_until_read():
 
 @pytest.mark.parametrize("what", ["host backends", "drain_flats", "uca_init",
                                   "edge_done", "elev_fn", "save_array"])
-def test_unported_paths_raise(what):
+def test_unported_paths_raise(what, tmp_path):
+    """The paths that raised ``NotImplementedError`` while only the device
+    chain was ported now run (their parity with the JAX package is held in
+    ``tests/test_torch_api_host.py``); nothing of ``DEMProcessor`` is left
+    that raises it, and what is (``out_of_core``, ``mesh``) raises from
+    ``ProcessManager`` naming its ROADMAP item."""
+    from pydem_tpu_torch.manager import ProcessManager
+
     elev = _elev("fixture 13")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
         if what == "host backends":
-            DEMProcessor(elev=elev, device="cpu").calc_twi()
+            dp = DEMProcessor(elev=elev, device="cpu")
+            assert np.isfinite(dp.calc_twi()).any() and dp._dev("uca") is None
         elif what == "drain_flats":
-            DEMProcessor(elev=elev, drain_pits=False, drain_flats=True,
-                         **DEVICE).calc_uca()
+            uca = DEMProcessor(elev=elev, drain_pits=False, drain_flats=True,
+                               **DEVICE).calc_uca()
+            assert np.nanmax(uca) > 1
         elif what == "uca_init":
-            DEMProcessor(elev=elev, **DEVICE).calc_uca(
-                uca_init=np.zeros_like(elev))
+            dp = DEMProcessor(elev=elev, **DEVICE)
+            uca0 = dp.calc_uca().copy()
+            n, m = elev.shape
+            sides = {"left": n, "right": n, "top": m, "bottom": m}
+            data = {k: np.zeros(n) for k, n in sides.items()}
+            flag = {k: np.zeros(n, bool) for k, n in sides.items()}
+            out = dp.calc_uca(uca_init=uca0, edge_init_data=[data, flag, flag])
+            np.testing.assert_array_equal(out, uca0)  # no edge data: no delta
         elif what == "edge_done":
-            DEMProcessor(elev=elev, **DEVICE).edge_done
+            dp = DEMProcessor(elev=elev, **DEVICE)
+            dp.calc_uca()
+            assert dp.edge_done.shape == elev.shape
+            assert dp.edge_done.dtype == bool
         elif what == "elev_fn":
-            DEMProcessor("tile.tif", device="cpu")
+            with pytest.raises(FileNotFoundError):
+                DEMProcessor(str(tmp_path / "tile.tif"), device="cpu")
         else:
-            DEMProcessor(elev=elev, **DEVICE).save_array("x", "uca")
+            dp = DEMProcessor(elev=elev, **DEVICE)
+            dp.calc_uca()
+            dp.save_array(str(tmp_path / "x"), "uca")
+            dp2 = DEMProcessor(elev=elev, **DEVICE)
+            dp2.load_uca(str(tmp_path / "x"))
+            np.testing.assert_array_equal(dp2.uca, dp.uca)
+    for kw, item in ((dict(out_of_core=True), "queue 1 item 6"),
+                     (dict(mesh=object()), "queue 1 item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            ProcessManager(in_path=str(tmp_path), device="cpu", **kw)
 
 
 def test_options_and_device_are_checked():

@@ -2,9 +2,9 @@
 
 Each stage gets the JAX package's own output of the stage before it, so a
 difference is charged to the stage that made it.  Integer and bool planes
-must match exactly.  Float planes that pass through ``atan2`` (mag,
-direction, proportion, W) are held to rtol 1e-12: XLA's and PyTorch's
-``atan2`` may differ in the last ulp.  UCA and TWI use ``decimal=10``, as
+must match exactly (``reachability`` and ``grid_edge_mask`` too).  Float
+planes that pass through ``atan2`` (mag, direction, proportion, W) are held
+to rtol 1e-12: XLA's and PyTorch's ``atan2`` may differ in the last ulp.  UCA and TWI use ``decimal=10``, as
 ``tests/test_uca_block.py`` does.
 """
 import jax.numpy as jnp
@@ -243,3 +243,85 @@ def test_seeds_and_edge_todo_matches(chain, case):
     got = t_uca.seeds_and_edge_todo(_t(c["W"]), _t(c["section"]),
                                     _t(c["elev"]))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _links(case):
+    """A few synthetic non-adjacent links (one with weight 0, two into the
+    same destination) on the case's canvas."""
+    rng = np.random.RandomState(case)
+    src = rng.choice(N * N, 12, replace=False)
+    dst = rng.choice(N * N, 12, replace=False)
+    dst[1] = dst[0]
+    w = rng.uniform(0.2, 1.0, 12)
+    w[3] = 0.0
+    return src.astype("int64"), dst.astype("int64"), w
+
+
+@pytest.mark.parametrize("pits", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_reachability_matches(chain, case, pits):
+    """The downstream flood from a few seeds, with and without pit hops
+    (exact: a bool plane)."""
+    c = chain(case, False)
+    seed = np.zeros((N, N), bool)
+    seed[np.random.RandomState(case).randint(0, N, 6),
+         np.random.RandomState(case + 1).randint(0, N, 6)] = True
+    src, dst, w = _links(case)
+    if pits:
+        seed.ravel()[src[:4]] = True  # reached sources, one with weight 0
+    j_p = (jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w)) if pits else ()
+    t_p = (_t(src), _t(dst), _t(w)) if pits else ()
+    want = np.asarray(j_uca.reachability(jnp.asarray(seed), c["W"], *j_p))
+    got = t_uca.reachability(_t(seed), _t(c["W"]), *t_p)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[seed].all()
+
+
+def test_reachability_pit_hop_rules():
+    """With no stencil edges at all, only a reached source with a positive
+    weight marks its destination; two links into one pixel do not collide."""
+    W = torch.zeros((8, 6, 6), dtype=torch.float64)
+    seed = torch.zeros((6, 6), dtype=torch.bool)
+    seed[1, 1] = True
+    src = torch.tensor([7, 7, 20, 7, 20])     # (1, 1) reached; (3, 2) not
+    dst = torch.tensor([14, 15, 30, 33, 14])  # 14 gets a live and a dead link
+    w = torch.tensor([1.0, 0.0, 1.0, 0.5, 1.0], dtype=torch.float64)
+    got = t_uca.reachability(seed, W, src, dst, w)
+    assert sorted(torch.nonzero(got.reshape(-1)).squeeze(1).tolist()) == \
+        [7, 14, 33]
+    want = j_uca.reachability(jnp.asarray(seed.numpy()),
+                              jnp.asarray(W.numpy()), jnp.asarray(src.numpy()),
+                              jnp.asarray(dst.numpy()), jnp.asarray(w.numpy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("pits", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_accumulate_update_matches(chain, case, pits):
+    """The edge-delta propagation with receive and push masks (decimal=10,
+    equal sweep counts)."""
+    c = chain(case, False)
+    rng = np.random.RandomState(case)
+    delta0 = np.zeros((N, N))
+    delta0[:, 0] = rng.uniform(0, 5, N)
+    delta0[0, :] = rng.uniform(0, 5, N)
+    edge = np.asarray(j_uca.grid_edge_mask((N, N)))
+    receive = (~(edge & (rng.uniform(size=(N, N)) < 0.5))).astype("float64")
+    push = (rng.uniform(size=(N, N)) < 0.9).astype("float64")
+    src, dst, w = _links(case)
+    j_p = (jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w)) if pits else ()
+    t_p = (_t(src), _t(dst), _t(w)) if pits else ()
+    for pm_j, pm_t in ((None, None), (jnp.asarray(push), _t(push))):
+        want, want_n = j_uca.accumulate_update(
+            jnp.asarray(delta0), c["W"], jnp.asarray(receive), pm_j, *j_p)
+        got, got_n = t_uca.accumulate_update(_t(delta0), _t(c["W"]),
+                                             _t(receive), pm_t, *t_p)
+        assert got_n == int(want_n)
+        np.testing.assert_array_almost_equal(got.numpy(), np.asarray(want),
+                                             decimal=10)
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (2, 2), (32, 32)])
+def test_grid_edge_mask_matches(shape):
+    np.testing.assert_array_equal(t_uca.grid_edge_mask(shape).numpy(),
+                                  np.asarray(j_uca.grid_edge_mask(shape)))

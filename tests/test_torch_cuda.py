@@ -1,5 +1,6 @@
 """Checks of the CUDA UCA block kernels (K1 ``gs_round``, K2
-``block_round``) and the device chain that need an NVIDIA GPU.
+``block_round``), the device chain, the flood and the manager that need an
+NVIDIA GPU.
 
 They skip without one.  The GPU machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
@@ -217,3 +218,69 @@ def test_demprocessor_blocked_matches_jacobi(cuda):
     np.testing.assert_allclose(np.nan_to_num(b), np.nan_to_num(j), rtol=1e-4,
                                atol=1e-2)
     np.testing.assert_array_equal(runs["blocked"][1], b)
+
+
+def test_reachability_and_update_on_the_card_equal_the_cpu(cuda):
+    """The flood (with pit hops into shared destinations) and the delta
+    propagation give the CPU's result on the card: the flood exactly and
+    twice alike, the delta in float64 to relative 1e-12."""
+    from pydem_tpu_torch.core.uca import accumulate_update, reachability
+
+    W, _base = _state("cpu")
+    W = W.double()
+    n, m = W.shape[1:]
+    rng = np.random.RandomState(3)
+    src = torch.from_numpy(rng.choice(n * m, 400, replace=False))
+    dst = torch.from_numpy(rng.randint(0, 50, 400) * 97)  # many collisions
+    w = torch.from_numpy((rng.uniform(size=400) > 0.3) * rng.uniform(
+        0.1, 1.0, 400))
+    seed = torch.zeros((n, m), dtype=torch.bool)
+    seed.reshape(-1)[src[:40]] = True
+    want = reachability(seed, W, src, dst, w)
+    to = lambda t: t.to(cuda)  # noqa: E731
+    for _ in range(2):
+        got = reachability(to(seed), to(W), to(src), to(dst), to(w))
+        assert torch.equal(got.cpu(), want)
+
+    delta0 = torch.zeros((n, m), dtype=torch.float64)
+    delta0[:, 0] = torch.from_numpy(rng.uniform(0, 5, n))
+    receive = torch.ones((n, m), dtype=torch.float64)
+    receive[0, :] = 0
+    links = (src[:60], dst[:60] + torch.arange(60) * 3, w[:60] * 0.5)
+    want_d, want_n = accumulate_update(delta0, W, receive, None, *links)
+    got_d, got_n = accumulate_update(to(delta0), to(W), to(receive), None,
+                                     *(to(t) for t in links))
+    assert got_n == want_n
+    np.testing.assert_allclose(got_d.cpu().numpy(), want_d.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_manager_on_the_card_by_default(cuda, tmp_path):
+    """``ProcessManager`` without ``device``: the processor's tensors are on
+    the card, K1 runs for a 256² mosaic with the default (host) backends,
+    and the CLI's default device works."""
+    from chip_smoke import make_noisy_cone, write_tiles
+    from pydem_tpu_torch import cli
+    from pydem_tpu_torch.manager import ProcessManager
+
+    tiles = str(tmp_path / "tiles")
+    assert write_tiles(make_noisy_cone(256), tiles) == 4
+    ub.gs_round.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pm = ProcessManager(in_path=tiles)
+        twi = pm.process_twi()
+    assert pm._dp.device.type == "cuda" and pm.device.type == "cuda"
+    assert ub.gs_round.launches > 0
+    assert twi.shape == (256, 256) and pm.out_file["success"].all()
+    assert pm.out_file["edge_done"].dtype == bool
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cli.process([tiles, "--store", str(tmp_path / "cli.zarr"), "--out",
+                     str(tmp_path / "out")])
+    from pydem_tpu_torch.io import read_geotiff
+
+    got = read_geotiff(str(tmp_path / "out" / "uca.tif")).data
+    ref = pm.out_file["uca"].astype("float32")
+    np.testing.assert_array_equal(got, np.where(np.isnan(ref),
+                                                np.float32(-9999), ref))

@@ -164,3 +164,63 @@ def test_pit_fold_is_a_sequential_sum_in_link_order():
     assert torch.equal(empty.add_to(torch.from_numpy(out),
                                     torch.from_numpy(x)),
                        torch.from_numpy(out))
+
+
+def _link_set(src, dst, wgt):
+    order = np.lexsort((dst, src))
+    return src[order], dst[order], wgt[order]
+
+
+@pytest.mark.parametrize("name", ["fixture 13", "fixture 16", "hard 128",
+                                  "options"])
+def test_pit_links_device_match_jax_and_host(name):
+    """``pit_links_device`` and ``connectivity_pits_device`` give the link
+    set of the JAX package's device search, and of the host search
+    (``connectivity_pits``) where no pit's search leaves its window: equal
+    sources and destinations, weights and magnitudes to ``decimal=10``."""
+    from pydem_tpu.ops.pit_growth import connectivity_pits_device as j_cpd
+    from pydem_tpu_torch.core.conditioning import connectivity_pits
+    from pydem_tpu_torch.ops.pit_growth import (connectivity_pits_device,
+                                                 pit_links_device)
+
+    (flats, elev, dX, dY), kw = _case(name)
+    mag = np.where(flats, -1.0, 0.25)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = j_cpd(flats, elev, mag, dX, dY, **kw)
+        host = connectivity_pits(flats, elev, mag, dX, dY, **kw)
+        got = connectivity_pits_device(flats, elev, mag, dX, dY,
+                                       device="cpu", **kw)
+        raw = pit_links_device(torch.tensor(flats), torch.tensor(elev), dX,
+                               dY, **kw)
+    assert got[0].size > 0 and got[0].dtype == np.int64
+    for other in (want, host):
+        for g, o in zip(_link_set(*got[:3]), _link_set(*other[:3])):
+            np.testing.assert_array_almost_equal(g, np.asarray(o), decimal=10)
+        np.testing.assert_array_equal(got[3], np.asarray(other[3]))  # flats
+        np.testing.assert_array_almost_equal(got[4], np.asarray(other[4]),
+                                             decimal=10)             # mag
+    for g, r in zip(got[:3], raw[:3]):
+        np.testing.assert_array_equal(g, r)
+    assert not got[3].ravel()[raw[3]].any()  # drained pits left the flats
+    np.testing.assert_array_equal(got[4].ravel()[raw[3]], raw[4])
+    assert flats.ravel()[raw[3]].all() and mag[0, 0] == got[4][0, 0]
+
+
+def test_pit_links_device_without_pits_and_warning():
+    from pydem_tpu_torch.ops.pit_growth import pit_links_device
+
+    elev = np.add.outer(np.arange(16.0), np.arange(16.0)) + 1
+    d = np.ones(15)
+    out = pit_links_device(torch.zeros((16, 16), dtype=torch.bool),
+                           torch.from_numpy(elev), d, d)
+    assert [a.size for a in out] == [0] * 5
+    # a pit in a closed basin deeper than max_iter growth steps: no drain
+    bowl = np.full((16, 16), 9.0)
+    bowl[8, 8] = 1.0
+    flats = np.zeros((16, 16), bool)
+    flats[8, 8] = True
+    with pytest.warns(UserWarning, match="no place to drain"):
+        out = pit_links_device(torch.from_numpy(flats),
+                               torch.from_numpy(bowl), d, d, max_iter=2)
+    assert out[0].size == 0 and out[3].size == 0
