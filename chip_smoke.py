@@ -71,12 +71,51 @@ Phases, each reported on its own lines:
    terrain (which float32 takes outside that envelope on any device) an
    equal elevation and NaN pattern, the differences printed.  Timed: the
    manager's stage seconds, tile reading + mosaic, uploads, store writes,
-   the GeoTIFF export and the total, median of 3 after the checked run.
+   the GeoTIFF export and the total, median of 3 after the checked run;
+10. main path, out of core (``pydem_tpu_torch/outofcore.py``):
+    a. K1's ring form on a 2048² window of the 4096² cone's planes, in the
+       middle and at the canvas corner (cut as the engine cuts it: beyond
+       the canvas the state's NaN ring is sanitised to 0): ring kernel ==
+       ring plain bit for bit over two rounds, the ring comes back
+       untouched, and the window's blocks equal the same blocks of one
+       full-canvas K1 round from the same state; one ring round timed
+       beside its plain round, its bound and the 2048² full-canvas round;
+    b. the 8192² float32 cone through ``OutOfCoreEngine(superblock=2048,
+       fill_flats=False, drain_pits_path=False).run()`` twice, the store
+       in a temporary directory (4096² with S = 1024 if it has too little
+       room): with the device budget forced to 0 every stage streams
+       windows through the store and every visit launches the ring
+       kernel; with the card's own budget the stages after conditioning
+       run as one device-resident pass.  ``uca``, ``twi``, ``slope``,
+       ``aspect`` and ``flats`` of the two must be bitwise equal (NaN
+       patterns with them), and ``uca`` must match ``terrain_step`` on
+       the whole canvas.  Printed: stage seconds, outer rounds, visits
+       made and skipped, K1 launches, bytes and seconds of the store's
+       window reads and writes, peak device memory (also of the fused
+       pass at 2048² and 4096², in planes of the canvas: the factor of
+       ``_fits_device_resident``), and the share of the streamed ``uca``
+       stage's wall time in which the kernel ran (CUDA events around
+       every launch);
+    c. the 2048² hard terrain of phase 9 as the same tiles through
+       ``ProcessManager(in_path, out_of_core=True, superblock=512)`` with
+       default options (host conditioning per margin window, once) and
+       ``save_non_overlap_data_geotiff()``: the store holds every array,
+       the files read back to the store, a ``resume=True`` rerun
+       recomputes nothing; then the ``uca`` stage again on the same store
+       with the budget forced to 0: streamed against device-resident
+       ``uca`` inside the hard gate with an equal NaN pattern (pit links
+       fold in float64 on the host when streaming, in float32 on the
+       card), the link count and the largest difference printed;
+    d. the engine on the card (float32) against the engine on the CPU
+       (float64) at 256², S = 64: the noisy cone inside the float32
+       envelope and its ``uca`` within relative p99 1e-3 of the in-core
+       float32 ``DEMProcessor``; the hard terrain printed.
 
 Then a JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
 exit and no result line.  The port imports neither JAX nor the JAX package.
 """
+import gc
 import json
 import os
 import re
@@ -85,6 +124,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -92,7 +132,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from pydem_tpu_torch import api, default_dtype, native
+from pydem_tpu_torch import api, default_dtype, native, outofcore
 from pydem_tpu_torch.api import (DEMProcessor, _edge_flood_program,
                                  _pre_program, _uca_chain_program)
 from pydem_tpu_torch.core.conditioning import drain_pit_paths
@@ -105,20 +145,25 @@ from pydem_tpu_torch.io.store import ArrayStore
 from pydem_tpu_torch.manager import ProcessManager
 from pydem_tpu_torch.ops import _build
 from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed
+from pydem_tpu_torch.outofcore import OutOfCoreEngine
 from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
                                            accumulate_blocked_gs,
                                            accumulate_blocked_pits,
                                            accumulate_blocked_pits_gs,
                                            block_round, block_round_plain,
                                            compact_from_dense, gs_round,
-                                           gs_round_plain, kernel_smem_bytes)
+                                           gs_round_plain, gs_round_ring,
+                                           gs_round_ring_plain,
+                                           kernel_smem_bytes)
 from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
 from pydem_tpu_torch.parallel.sharded import (_block_size, terrain_pre,
                                               terrain_step)
+from pydem_tpu_torch.profiling import StageTimer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN = 2048   # the bench headline canvas
 N_CHECK = 512   # a second kernel-vs-plain canvas, few blocks per side
+N_OOC, S_OOC = 8192, 2048  # the out-of-core canvas and its super-block
 # Kernel vs plain: both sum base + w_0*x_0 + ... + w_7*x_7 in the same order
 # with separate float32 multiply and add roundings (the kernel is built with
 # -fmad=false), so they must agree exactly.
@@ -1110,6 +1155,436 @@ def _phase_manager(device, card, work):
     return launches
 
 
+# -- phase 10: the out-of-core engine ---------------------------------------
+
+OOC_FREE_BYTES = 8 << 30  # room the two 8192² stores need, with slack
+
+
+def ring_window(x, K, W1, base, i0, j0, S):
+    """The (S+2)² window at (i0, j0) of a canvas's planes, cut as the
+    out-of-core engine reads it: beyond the canvas x is 0 (a sanitised NaN),
+    K is "no edge" and W1 is 0; ``base`` covers the S² region."""
+    pad = torch.nn.functional.pad
+    sl = (slice(i0, i0 + S + 2), slice(j0, j0 + S + 2))
+    x_win = torch.nan_to_num(pad(x, (1, 1, 1, 1), value=float("nan"))[sl])
+    return (x_win.contiguous(),
+            pad(K, (1, 1, 1, 1), value=255)[sl].contiguous(),
+            pad(W1, (1, 1, 1, 1))[sl].contiguous(),
+            base[i0: i0 + S, j0: j0 + S].contiguous())
+
+
+def phase_ring_round(device, card, k1_ms):
+    """10a: K1's ring form against its plain version and against the
+    full-canvas round; one ring round timed.  Returns (times, max error)."""
+    n, S, B = 2 * S_OOC, S_OOC, 64
+    elev = torch.from_numpy(make_cone(n)).to(device)
+    W, base = weights_and_base(elev)
+    K, W1 = compact_from_dense(W)
+    del W, elev
+    kw = dict(B=B, inner_max=2 * B + 4)
+    ones = torch.ones((n // B,) * 2, dtype=torch.int32, device=device)
+    x, _chg = gs_round(base, K, W1, base, ones, **kw)  # a mid-solve state
+    full, full_chg = gs_round(x, K, W1, base, ones, **kw)
+    worst = 0.0
+    for where, (i0, j0) in (("interior", (S // 2, S // 2)),
+                            ("corner", (0, 0))):
+        xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
+        prev = ones[: S // B, : S // B].contiguous()
+        ring = torch.ones_like(xw, dtype=torch.bool)
+        ring[1:-1, 1:-1] = False
+        for r in range(2):
+            xk, ck = gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
+            xp, cp = gs_round_ring_plain(xw, Kw, W1w, bw, prev, **kw)
+            torch.cuda.synchronize()
+            err = nan_equal_max_err(xk, xp)
+            worst = max(worst, err)
+            check(err <= KERNEL_TOL and torch.equal(ck, cp),
+                  "ring round, %s window, round %d: kernel != plain (max err "
+                  "%g)" % (where, r, err))
+            check(torch.equal(xk[ring], xw[ring]),
+                  "ring round, %s window: the ring was written" % where)
+            if r == 0:
+                check(torch.equal(xk[1:-1, 1:-1],
+                                  full[i0: i0 + S, j0: j0 + S])
+                      and torch.equal(ck, full_chg[i0 // B: (i0 + S) // B,
+                                                   j0 // B: (j0 + S) // B]),
+                      "ring round, %s window: its blocks are not those of "
+                      "the full-canvas round" % where)
+            xw, prev = xk, ck
+        log("ooc", "10a ring round, %s %d² window of the %d² cone, B=%d: 2 "
+            "rounds kernel == plain bitwise, ring untouched, round 1 == the "
+            "same blocks of the full-canvas round, %d of %d blocks changed "
+            "in round 2" % (where, S, n, B, int(prev.sum()), prev.numel()))
+    xw, Kw, W1w, bw = ring_window(base, K, W1, base, S // 2, S // 2, S)
+    prev = ones[: S // B, : S // B].contiguous()
+    times, err = time_round(
+        "10a first K1 ring round, %d² window B=%d (all blocks visited)"
+        % (S, B), (("kernel", gs_round_ring), ("plain", gs_round_ring_plain)),
+        ((xw, Kw, W1w, bw, prev), kw), card)
+    out, chg = gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (xw, Kw, W1w, bw, prev, out, chg))
+    times["bound"] = nbytes / HBM_BYTES_PER_S * 1e3
+    log("time", "10a ring round %.3f ms beside the %d² full-canvas round "
+        "%.3f ms (phase 8, this run): ratio %.3f; bound %.4f ms by bytes "
+        "(%.1f MB), %.1f%% of the kernel's time [%s]"
+        % (times["kernel"], N_MAIN, k1_ms["kernel"],
+           times["kernel"] / k1_ms["kernel"], times["bound"], nbytes / 1e6,
+           100 * times["bound"] / times["kernel"], card))
+    return times, max(worst, err)
+
+
+class CountingStore(ArrayStore):
+    """An ArrayStore that adds up the bytes and seconds of its window reads
+    and writes (called from the engine's IO thread and the main thread)."""
+
+    def __init__(self, root):
+        super().__init__(root)
+        self.io = dict(read_bytes=0, read_s=0.0, write_bytes=0, write_s=0.0)
+        self._lock = threading.Lock()
+
+    def _add(self, kind, nbytes, t0):
+        with self._lock:
+            self.io[kind + "_bytes"] += nbytes
+            self.io[kind + "_s"] += time.perf_counter() - t0
+
+    def read_window(self, name, rows, cols):
+        t0 = time.perf_counter()
+        out = super().read_window(name, rows, cols)
+        self._add("read", out.nbytes, t0)
+        return out
+
+    def write_window(self, name, data, offset):
+        t0 = time.perf_counter()
+        super().write_window(name, data, offset)
+        meta = self._meta(name)
+        self._add("write", np.asarray(data).size
+                  * np.dtype(meta["dtype"]).itemsize, t0)
+
+
+def ooc_run(work, tag, elev, S, budget, time_kernel=False, **opts):
+    """``elev`` into a fresh store by S² windows, then one
+    ``OutOfCoreEngine(...).run()`` on the default device with unit pixels.
+    Returns the store, the engine and what the run took."""
+    n, m = elev.shape
+    store = CountingStore(os.path.join(work, tag + ".zarr"))
+    store.create("elev_src", elev.shape, "float64", chunks=(S, S),
+                 fill=np.nan, overwrite=True, compress=False)
+    for i0 in range(0, n, S):
+        for j0 in range(0, m, S):
+            store.write_window("elev_src", elev[i0: i0 + S, j0: j0 + S]
+                               .astype("float64"), (i0, j0))
+    store.io.update(read_bytes=0, read_s=0.0, write_bytes=0, write_s=0.0)
+    timer = StageTimer()
+    spans = []
+
+    def timed_ring(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = gs_round_ring(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return res
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "pits had no place to drain"
+        eng = OutOfCoreEngine(store, elev.shape, np.ones(n - 1),
+                              np.ones(n - 1), np.ones(n), np.ones(n),
+                              dem_proc_kwargs=opts, superblock=S,
+                              device_cache_bytes=budget, timer=timer)
+        check(eng.device.type == "cuda" and eng._work_dtype == "float32",
+              "the engine runs on %s in %s" % (eng.device, eng._work_dtype))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases keep
+        gs_round.launches = gs_round_ring.launches = 0
+        if time_kernel:
+            outofcore.gs_round_ring = timed_ring
+        try:
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            outofcore.gs_round_ring = gs_round_ring
+    res = dict(total=total, stages=timer.report(), rounds=eng.uca_rounds,
+               visits=eng.uca_visits, skipped=eng.uca_skipped,
+               launches=gs_round.launches, ring_launches=gs_round_ring.launches,
+               peak=torch.cuda.max_memory_allocated() - held,
+               io=dict(store.io),
+               kernel_s=sum(a.elapsed_time(b) for a, b in spans) / 1e3)
+    return store, eng, res
+
+
+def ooc_report(tag, n, S, res, card):
+    io = res["io"]
+    log("ooc", "%s %d² S=%d: total %.3f s, stage seconds %s, %d outer "
+        "rounds, %d visits made and %d skipped by the frontier, K1 launches "
+        "%d whole-canvas + %d ring [%s]"
+        % (tag, n, S, res["total"],
+           {k: round(v, 3) for k, v in res["stages"].items()}, res["rounds"],
+           res["visits"], res["skipped"], res["launches"],
+           res["ring_launches"], card))
+    log("ooc", "%s %d²: store window reads %.1f MB in %.3f s (%.0f MB/s "
+        "summed over calls), writes %.1f MB in %.3f s (%.0f MB/s); peak "
+        "device memory %.3f GB = %.1f planes of the canvas [%s]"
+        % (tag, n, io["read_bytes"] / 1e6, io["read_s"],
+           io["read_bytes"] / 1e6 / max(io["read_s"], 1e-9),
+           io["write_bytes"] / 1e6, io["write_s"],
+           io["write_bytes"] / 1e6 / max(io["write_s"], 1e-9),
+           res["peak"] / 1e9, res["peak"] / (n * n * 4.0), card))
+
+
+OOC_OPTS = dict(fill_flats=False, drain_pits_path=False)
+
+
+def phase_ooc_scale(device, card):
+    """10b: the big cone through the engine in both regimes."""
+    work = tempfile.mkdtemp(prefix="pydem_smoke_ooc_")
+    try:
+        n, S = N_OOC, S_OOC
+        free = shutil.disk_usage(work).free
+        if free < OOC_FREE_BYTES:
+            n, S = n // 2, S // 2
+            log("ooc", "10b: the temporary directory has %.1f GB free, "
+                "running %d² with S=%d instead of %d²" % (free / 1e9, n, S,
+                                                          N_OOC))
+        return _phase_ooc_scale(device, card, work, n, S)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_ooc_scale(device, card, work, n, S):
+    # the factor of _fits_device_resident: the fused pass's peak, in planes
+    for small in (N_MAIN, 2 * N_MAIN):
+        tag = "probe%d" % small
+        _store, eng, res = ooc_run(work, tag, make_cone(small), small // 4,
+                                   None, **OOC_OPTS)
+        check(eng._fits_device_resident() and res["ring_launches"] == 0,
+              "the %d² probe did not take the fused pass" % small)
+        log("ooc", "10b fused pass %d²: peak device memory %.3f GB = %.1f "
+            "planes of the canvas (the engine budgets %d) [%s]"
+            % (small, res["peak"] / 1e9, res["peak"] / (small * small * 4.0),
+               outofcore._DEVICE_RESIDENT_PLANES, card))
+        check(res["peak"] <= outofcore._DEVICE_RESIDENT_PLANES * small
+              * small * 4, "the fused pass at %d² exceeds the engine's "
+              "memory factor" % small)
+        shutil.rmtree(os.path.join(work, tag + ".zarr"))
+
+    elev = make_cone(n)
+    s_str, e_str, streamed = ooc_run(work, "streamed", elev, S, 0,
+                                     time_kernel=True, **OOC_OPTS)
+    check(not e_str._fits_device_resident() and streamed["launches"] == 0
+          and streamed["ring_launches"] > 0 and streamed["visits"] > 0,
+          "budget 0 did not stream: %s" % streamed)
+    ooc_report("10b streamed (budget 0)", n, S, streamed, card)
+    uca_s = streamed["stages"]["uca"]
+    log("ooc", "10b streamed uca stage: %.3f s wall, %.3f s of ring-kernel "
+        "time summed over %d launches (CUDA events): the kernel ran in "
+        "%.1f%% of the stage; %.3f s a visit [%s]"
+        % (uca_s, streamed["kernel_s"], streamed["ring_launches"],
+           100 * streamed["kernel_s"] / uca_s, uca_s / streamed["visits"],
+           card))
+    s_fus, e_fus, fused = ooc_run(work, "fused", elev, S, None, **OOC_OPTS)
+    check(e_fus._fits_device_resident() and fused["ring_launches"] == 0
+          and fused["launches"] > 0, "the card's own budget (%d bytes) did "
+          "not take the fused pass: %s" % (e_fus.device_cache_bytes, fused))
+    check(fused["peak"] <= outofcore._DEVICE_RESIDENT_PLANES * n * n * 4,
+          "the fused pass exceeds the engine's memory factor")
+    ooc_report("10b fused (budget %.1f GB)" % (e_fus.device_cache_bytes / 1e9),
+               n, S, fused, card)
+    check(len(e_str._links[0]) == len(e_fus._links[0]) == 0,
+          "the cone has pit links")
+
+    uca = None
+    for key in ("slope", "aspect", "flats", "uca", "twi"):
+        a, b = s_str[key], s_fus[key]
+        check(a.shape == (n, n) and a.dtype == b.dtype
+              and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
+              "10b: %s of the streamed and the fused regime differ" % key)
+        if key == "uca":
+            uca = b
+    check(uca.dtype == np.float32, "uca is stored as %s" % uca.dtype)
+    flats = s_fus["flats"]
+    check(bool((np.isfinite(uca) | flats).all()) and bool(
+        (uca[np.isfinite(uca)] > 0).all()), "10b: uca not finite and "
+        "positive outside flats")
+    step = terrain_step(torch.from_numpy(elev).to(device),
+                        *spacing(n, torch.float32, device),
+                        uca_solver="blocked")
+    err, bitwise = gate_equal("10b engine uca vs terrain_step", uca,
+                              step["uca"].cpu().numpy(), GATE_TOL["cone"])
+    log("ooc", "10b %d²: slope, aspect, flats, uca, twi of the two regimes "
+        "bitwise equal (NaN patterns with them); uca vs terrain_step(blocked) "
+        "on the whole canvas within %s, max abs %g, bitwise equal: %s, %d "
+        "rounds vs %d" % (n, GATE_TOL["cone"], err, bitwise, fused["rounds"],
+                          step["uca_sweeps"]))
+    return (streamed["launches"] + streamed["ring_launches"]
+            + fused["launches"] + fused["ring_launches"])
+
+
+OOC_STORE_KEYS = STORE_KEYS + ("elev_src", "flats", "uca_state")
+
+
+def phase_ooc_hard(device, card):
+    """10c: the hard terrain's tiles through the out-of-core manager."""
+    work = tempfile.mkdtemp(prefix="pydem_smoke_ooc_")
+    try:
+        return _phase_ooc_hard(device, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_ooc_hard(device, card, work):
+    S = 512
+    hard = make_hard_terrain(N_MAIN, "float32")
+    tiles = os.path.join(work, "tiles")
+    check(write_tiles(hard, tiles) == 4, "expected a 2x2 tile grid")
+    kw = dict(in_path=tiles, out_path=os.path.join(work, "ooc.zarr"),
+              out_of_core=True, superblock=S)
+    gs_round.launches = gs_round_ring.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        pm = ProcessManager(**kw)
+        store = pm.process_twi()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = pm.save_non_overlap_data_geotiff(
+            os.path.join(work, "ooc_geotiff"))
+        export_s = time.perf_counter() - t0
+    launches = gs_round.launches + gs_round_ring.launches
+    eng = pm._ooc
+    check(eng.device.type == "cuda" and eng._fits_device_resident()
+          and gs_round.launches > 0,
+          "the out-of-core manager did not run on the card")
+    check(pm.grid_shape == (N_MAIN, N_MAIN) and store is pm.out_file,
+          "out-of-core manager: grid %s" % (pm.grid_shape,))
+    check(np.array_equal(store["elev_src"], hard.astype("float64")),
+          "the ingested canvas is not the unsplit array")
+    for key in OOC_STORE_KEYS:
+        check(key in store, "the out-of-core store lacks %r" % key)
+    check(bool(store["success"].all()), "success is not all True")
+    with open(os.path.join(pm.out_path, "metrics.json")) as f:
+        metrics = json.load(f)
+    check(metrics["uca_iters_to_converge"] == eng.uca_rounds
+          and abs(metrics["halo_fraction"] - eng.halo_fraction()) < 1e-12,
+          "metrics.json: %s" % metrics)
+    check_manager_exports(pm, store, written)
+    n_links = len(eng._links[0])
+    check(n_links > 0, "the conditioned hard terrain has no pit links")
+    log("ooc", "10c ProcessManager(out_of_core=True, superblock=%d) on the "
+        "%d² hard terrain's 4 tiles: %.1f s, stage seconds %s, %d rounds, "
+        "%d K1 launches, %d pit links, export %.1f s [%s]"
+        % (S, N_MAIN, run_s, {k: round(v, 2) for k, v
+                              in metrics["stage_seconds"].items()},
+           eng.uca_rounds, launches, n_links, export_s, card))
+
+    uca_dev, twi_dev = store["uca"], store["twi"]
+    gs_round.launches = gs_round_ring.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pm2 = ProcessManager(resume=True, **kw)
+        t0 = time.perf_counter()
+        pm2.process_twi()
+        resume_s = time.perf_counter() - t0
+    check(gs_round.launches + gs_round_ring.launches == 0
+          and sorted(pm2.timer.report()) == ["ingest"]
+          and pm2._ooc.uca_rounds == eng.uca_rounds,
+          "the resumed out-of-core run computed again: %s"
+          % pm2.timer.report())
+    check(np.array_equal(store["uca"], uca_dev, equal_nan=True)
+          and np.array_equal(store["twi"], twi_dev, equal_nan=True),
+          "the resumed run changed the store")
+    log("ooc", "10c resume=True: nothing recomputed (no launch, no stage "
+        "but the skipped ingest), %.3f s" % resume_s)
+
+    # the uca stage again on the same store, streamed
+    eng.device_cache_bytes = 0
+    check(not eng._fits_device_resident(), "budget 0 still fits")
+    gs_round_ring.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eng.uca()
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    ring_launches = gs_round_ring.launches
+    check(ring_launches > 0 and gs_round.launches == 0,
+          "the streamed uca stage launched no ring round")
+    uca_str = np.where(store["flats"], np.nan, store["uca_state"])
+    err, bitwise = gate_equal("10c streamed vs device-resident uca", uca_str,
+                              uca_dev, GATE_TOL["hard"])
+    log("ooc", "10c uca stage on the same store, streamed (S=%d, %d outer "
+        "rounds, %d visits, %d skipped, %d ring launches, %.1f s) vs "
+        "device-resident (%d rounds): within %s, NaN pattern equal, %d pit "
+        "links, max abs difference %g, bitwise equal: %s [%s]"
+        % (S, eng.uca_rounds, eng.uca_visits, eng.uca_skipped, ring_launches,
+           stream_s, metrics["uca_iters_to_converge"], GATE_TOL["hard"],
+           n_links, err, bitwise, card))
+    return launches + ring_launches
+
+
+def phase_ooc_precision(device):
+    """10d: the engine on the card in float32 against the CPU in float64."""
+    n, S = 256, 64
+    work = tempfile.mkdtemp(prefix="pydem_smoke_ooc_")
+    try:
+        for name, elev in (("noisy cone", make_noisy_cone(n)),
+                           ("hard", make_hard_terrain(n, "float32"))):
+            tag = name.replace(" ", "_")
+            s_card, e_card, res = ooc_run(work, tag + "_card", elev, S, 0)
+            store = ArrayStore(os.path.join(work, tag + "_cpu.zarr"))
+            store["elev_src"] = elev.astype("float64")
+            one = np.ones(n)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                e_cpu = OutOfCoreEngine(store, elev.shape, one[1:], one[1:],
+                                        one, one, superblock=S,
+                                        device_cache_bytes=0, device="cpu")
+                e_cpu.run()
+                core = DEMProcessor(elev=elev.astype("float64"))
+                core.calc_twi()
+            check(e_cpu._work_dtype == "float64" and res["ring_launches"] > 0,
+                  "10d %s: regimes" % name)
+            check(np.array_equal(store["elev"], s_card["elev"],
+                                 equal_nan=True),
+                  "10d %s: host conditioning differs between the runs" % name)
+            stats = {}
+            for key in ("slope", "aspect", "uca", "twi"):
+                check(np.array_equal(np.isnan(store[key]),
+                                     np.isnan(s_card[key])),
+                      "10d %s: %s NaN pattern differs from the CPU run"
+                      % (name, key))
+                stats[key] = f32_envelope_stats(store[key], s_card[key])
+            core_stats = f32_envelope_stats(core.uca, s_card["uca"])
+            nan_match = np.array_equal(np.isnan(core.uca),
+                                       np.isnan(s_card["uca"]))
+            if name == "noisy cone":
+                check(stats["slope"][0] < 1e-5 and stats["aspect"][0] < 1e-4
+                      and stats["aspect"][1] < 0.02 and stats["uca"][0] < 0.25
+                      and stats["twi"][0] < 0.06,
+                      "10d %s: card float32 outside the f32 envelope: %s"
+                      % (name, stats))
+                check(s_card["uca"].dtype == np.float32 and nan_match
+                      and core_stats[0] < 1e-3, "10d %s: engine vs in-core "
+                      "float32 uca: NaN match %s, rel p99 %g"
+                      % (name, nan_match, core_stats[0]))
+            log("ooc", "10d %s %d² S=%d, engine on the card (float32, "
+                "streamed, %d ring launches) vs on the CPU (float64): elev "
+                "and NaN patterns equal, (rel p99, share > 1e-3) = %s; uca "
+                "vs the in-core float32 DEMProcessor: NaN match %s, rel p99 "
+                "%.3g%s" % (name, n, S, res["ring_launches"], stats,
+                            nan_match, core_stats[0],
+                            ", inside the f32 envelope" if name == "noisy cone"
+                            else " (printed, not gated)"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -1128,6 +1603,11 @@ def main():
     k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
     del state
     k1_launches += phase_manager(device, card)
+    ring_ms, e1 = phase_ring_round(device, card, k1_ms)
+    k1_err = max(k1_err, e1)
+    k1_launches += phase_ooc_scale(device, card)
+    k1_launches += phase_ooc_hard(device, card)
+    phase_ooc_precision(device)
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [{
         "name": "uca_gs_round",
@@ -1141,6 +1621,10 @@ def main():
         "bound_ms": k1_ms["bound"],
         "bound_by": k1_ms["bound_by"],
         "library_ms": None,  # no PyTorch call computes a relaxation round
+        # the ring form (uca_gs_round_ring_f32), one round of a 2048² window
+        "ring_ms": ring_ms["kernel"],
+        "ring_plain_ms": ring_ms["plain"],
+        "ring_bound_ms": ring_ms["bound"],
     }, {
         "name": "uca_block_round",
         "route": "cuda",

@@ -105,9 +105,8 @@ def process(argv=None):
                    help="skip stages whose outputs already exist in the "
                         "store (crash/preemption recovery)")
     p.add_argument("--out-of-core", action="store_true",
-                   help="stream super-blocks through the store instead of "
-                        "holding one canvas (not ported yet: raises "
-                        "NotImplementedError)")
+                   help="bounded-memory mode: stream super-blocks through "
+                        "the store instead of holding one canvas")
     p.add_argument("--superblock", type=int, default=4096,
                    help="out-of-core super-block size (pixels)")
     p.add_argument("--resampling", default="mean",

@@ -24,13 +24,25 @@ def section_theta(dX, dY, n):
     return t[torch.clamp(i - 1, 0, n - 3)][:, None]
 
 
-def section_proportion(direction, flats, dX, dY):
+def section_proportion(direction, flats, dX=None, dY=None, theta=None):
     """Facet index (0-7) and straight-neighbor proportion per pixel; flats
-    get section -1 / proportion NaN."""
+    get section -1 / proportion NaN.
+
+    ``theta`` optionally gives the per-row facet angle directly (n values):
+    windowed callers need the *global* row angles, not the window-local
+    fence clipping of :func:`section_theta`.
+    """
     n, m = direction.shape
-    dX = torch.as_tensor(dX, dtype=direction.dtype, device=direction.device)
-    dY = torch.as_tensor(dY, dtype=direction.dtype, device=direction.device)
-    theta = section_theta(dX, dY, n).expand(n, m)
+
+    def like(a):
+        return torch.as_tensor(a, dtype=direction.dtype,
+                               device=direction.device)
+
+    if theta is None:
+        theta = section_theta(like(dX), like(dY), n)
+    else:
+        theta = like(theta).reshape(n, 1)
+    theta = theta.expand(n, m)
     pi = np.pi
 
     # divide by a tensor on the device: CUDA divides by a Python number as a

@@ -16,9 +16,11 @@ twi, success``).
 
 The manager is host code around :class:`~pydem_tpu_torch.api.DEMProcessor`;
 its ``device`` keyword (default ``"cuda"``) is handed to the processor, which
-raises without a GPU unless ``device="cpu"`` is asked for.  Not ported yet:
-``out_of_core=True`` (ROADMAP.md queue 1 item 6, the super-block engine) and
-``mesh=`` (item 7, the multi-device solver); both raise
+raises without a GPU unless ``device="cpu"`` is asked for.  With
+``out_of_core=True`` the mosaic never materialises: tiles stream into the
+store and :class:`~pydem_tpu_torch.outofcore.OutOfCoreEngine` runs the
+pipeline in ``superblock``-sized windows on the same device.  Not ported yet:
+``mesh=`` (ROADMAP.md queue 1 item 7, the multi-device solver), which raises
 ``NotImplementedError``.
 
 Deliberate improvements over the reference (documented deviations):
@@ -70,11 +72,6 @@ class ProcessManager:
                  dem_proc_kwargs=None, grid_round_decimals=2, _debug=False,
                  mesh=None, resume=False, out_of_core=False, superblock=4096,
                  measure_halo_overlap=False, device="cuda"):
-        if out_of_core:
-            raise NotImplementedError(
-                "pydem_tpu_torch.ProcessManager: out_of_core=True (the "
-                "super-block engine) is not ported yet (ROADMAP.md queue 1 "
-                "item 6)")
         if mesh is not None:
             raise NotImplementedError(
                 "pydem_tpu_torch.ProcessManager: mesh= (the multi-device "
@@ -83,8 +80,8 @@ class ProcessManager:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ProcessManager(device=%r): torch.cuda is not "
                                "available" % (device,))
-        # measure_halo_overlap and superblock are read only by the mesh and
-        # out-of-core routes; accepted so that callers need not change
+        # measure_halo_overlap is read only by the mesh route; accepted so
+        # that callers need not change
         self.in_path = in_path
         self.n_workers = n_workers  # accepted for API parity; device-parallel
         self.out_path = out_path or os.path.join(in_path, "results.zarr")
@@ -94,7 +91,13 @@ class ProcessManager:
         # crash-resume: stages whose output arrays already exist in the
         # store are skipped (the reference's per-tile success-skip,
         # process_manager.py:1274-1275, at stage granularity)
+        # (the out-of-core engine resumes per super-block / per UCA round)
         self.resume = resume
+        # bounded-memory mode: stream S x S super-blocks through the store
+        # instead of holding one canvas (see pydem_tpu_torch.outofcore)
+        self.out_of_core = out_of_core
+        self.superblock = superblock
+        self._ooc = None
 
         self.elev_source_files = sorted(
             os.path.join(in_path, fn) for fn in os.listdir(in_path)
@@ -433,7 +436,65 @@ class ProcessManager:
         self.out_file["uca_edge_metrics"] = metrics
         return 0  # rounds needed
 
+    # -- bounded-memory (out-of-core) pipeline -------------------------------
+
+    def _ingest_out_of_core(self, S):
+        """Stream tiles into the store canvas one at a time (the mosaic
+        never materializes; NaN pixels of later tiles don't clobber data
+        from earlier overlapping tiles)."""
+        if self.resume and "elev_src" in self.out_file:
+            return
+        self.out_file.create("elev_src", self.grid_shape, "float64",
+                             chunks=(S, S), fill=np.nan, overwrite=True)
+        for fn, slc in zip(self.elev_source_files, self.grid_slice):
+            new = _read_elev_f64(fn)
+            cur = self.out_file.read_window(
+                "elev_src", (slc[0].start, slc[0].stop),
+                (slc[1].start, slc[1].stop))
+            self.out_file.write_window(
+                "elev_src", np.where(np.isfinite(new), new, cur),
+                (slc[0].start, slc[1].start))
+
+    def _process_twi_out_of_core(self):
+        from .outofcore import OutOfCoreEngine
+
+        if self.grid_shape is None:
+            self.compute_grid()
+        dX, dY, dX2, dY2 = self._pixel_vectors()
+        eng = OutOfCoreEngine(self.out_file, self.grid_shape, dX, dY, dX2,
+                              dY2, dem_proc_kwargs=self.dem_proc_kwargs,
+                              superblock=self.superblock, resume=self.resume,
+                              timer=self.timer, device=self.device)
+        self._ooc = eng
+        with self.timer.stage("ingest"):
+            self._ingest_out_of_core(eng.S)
+        eng.run()
+        # store-surface parity with the in-core stages: the global solve
+        # leaves no pending cross-tile work, so the edge state is constant
+        # (lazy fill-value arrays: nothing canvas-sized materializes) and
+        # the scheduler metrics are the loop-exit (0, 0)
+        n, m = self.grid_shape
+        if "edge_todo" not in self.out_file:
+            self.out_file.create("edge_todo", (n, m), "bool", fill=False)
+            self.out_file.create("edge_done", (n, m), "bool", fill=True)
+        if "uca_edges" not in self.out_file:
+            self.out_file.create("uca_edges", (n, m), eng._work_dtype,
+                                 fill=np.nan)
+            S = eng.S
+            for i0 in range(0, n, S):
+                for j0 in range(0, m, S):
+                    w = self.out_file.read_window(
+                        "uca", (i0, min(i0 + S, n)), (j0, min(j0 + S, m)))
+                    self.out_file.write_window("uca_edges", w, (i0, j0))
+        self.out_file["uca_edge_metrics"] = np.zeros((self.n_inputs, 2))
+        self.out_file["success"] = np.ones((self.n_inputs, 4), bool)
+        self._dump_metrics()
+        return self.out_file
+
     def process_twi(self):
+        if self.out_of_core:
+            # the store handle: the canvas never materializes
+            return self._process_twi_out_of_core()
         if self.grid_shape is None:
             self.compute_grid()
         self._success_init()
@@ -470,6 +531,9 @@ class ProcessManager:
             "canvas_shape": list(self.grid_shape or ()),
             "n_tiles": self.n_inputs,
         }
+        if self._ooc is not None:
+            metrics["uca_iters_to_converge"] = int(self._ooc.uca_rounds)
+            metrics["halo_fraction"] = self._ooc.halo_fraction()
         with open(os.path.join(self.out_path, "metrics.json"), "w") as f:
             json.dump(metrics, f, indent=2)
         return metrics

@@ -27,6 +27,16 @@
 //    or K2's pre-exploded (B+16, B+256) tiles.  Out of the canvas, x and
 //    the weights read 0.
 //
+// K1 also has a ring form (uca_gs_round_ring_f32), for a window of a larger
+// canvas: x, K, W1 and x_out carry a 1-px ring around the n x m region that
+// the blocks tile.  The ring of x is read as the frozen halo of the region's
+// rim blocks and copied to x_out unchanged; the ring of K and W1 is real,
+// because ring pixels send flow into the region.  base, prev and chg cover
+// the region only.  Every pixel's sum is then the same rounding sequence as
+// in a round over the whole canvas, so the blocks of the window come out
+// bit for bit as the same blocks of that round.  Rows of m + 2 floats are
+// not 128-byte aligned; the loads are a few percent of a visit.
+//
 // What bounds it on the card.  Per visited block a round reads the halo
 // window of x, the weights of the block's sources (K1: K at 1 B and W1;
 // K2: 8 planes at 4 B each) and base, and writes the block: about 17 bytes
@@ -104,7 +114,10 @@ struct Shape {
 
 // Incoming weights from the compact receivers (K1): the weight that the
 // source q = p - o_k sends along k is decoded from K and W1 at q (slot 2
-// carries 1 - W1, as expand_compact builds it; k2 == 15: none).
+// carries 1 - W1, as expand_compact builds it; k2 == 15: none).  RING = 1:
+// K and W1 are (n + 2, m + 2) planes whose 1-px ring is real, so every source
+// of the window is read; RING = 0: (n, m), no source outside the canvas.
+template <int RING>
 struct CompactWeights {
   const uint8_t* K;
   const float* W1;
@@ -124,8 +137,8 @@ struct CompactWeights {
     const int tx = threadIdx.x, r0 = threadIdx.y * R;
     for (int t = threadIdx.y * B + tx; t < WN * WN; t += S::THREADS) {
       const int gi = i0 - 1 + t / WN, gj = j0 - 1 + t % WN;
-      const bool in = gi >= 0 && gi < n && gj >= 0 && gj < m;
-      const size_t g = (size_t)gi * m + gj;
+      const bool in = RING || (gi >= 0 && gi < n && gj >= 0 && gj < m);
+      const size_t g = (size_t)(gi + RING) * (m + 2 * RING) + (gj + RING);
       ks[t] = in ? K[g] : (uint8_t)255;
       w1s[t] = in ? W1[g] : 0.f;
     }
@@ -179,7 +192,9 @@ struct DenseWeights {
 
 // Relax block (bi, bj) to its local fixed point with its 1-px halo frozen,
 // write it to x_out and its changed flag to chg.  Both kernels end here.
-template <int B, class Weights>
+// RING = 1: x and x_out are (n + 2, m + 2) with the region at (1, 1), and the
+// halo of a rim block is the ring; RING = 0: (n, m), the halo reads 0 there.
+template <int B, int RING, class Weights>
 __device__ __forceinline__ void relax_block(
     const float* __restrict__ x, const Weights& weight,
     const float* __restrict__ base, float* __restrict__ x_out,
@@ -194,6 +209,7 @@ __device__ __forceinline__ void relax_block(
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * B + tx, lane = tid & 31;
   const int i0 = bi * B, j0 = bj * B, r0 = ty * R;
+  const size_t pitch = m + 2 * RING;  // row length of x and x_out
 
   // Once per visit, into registers: the incoming weights and the base.
   float w[R][8];
@@ -207,7 +223,9 @@ __device__ __forceinline__ void relax_block(
   for (int t = tid; t < WN * WN; t += S::THREADS) {
     const int gi = i0 - 1 + t / WN, gj = j0 - 1 + t % WN;
     float v = 0.f;
-    if (gi >= 0 && gi < n && gj >= 0 && gj < m) v = x[(size_t)gi * m + gj];
+    if (RING || (gi >= 0 && gi < n && gj >= 0 && gj < m)) {
+      v = x[(size_t)(gi + RING) * pitch + (gj + RING)];
+    }
     cur[t] = v;
     nxt[t] = v;
   }
@@ -269,7 +287,7 @@ __device__ __forceinline__ void relax_block(
   int moved = 0;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const size_t g = (size_t)(i0 + r0 + r) * m + (j0 + tx);
+    const size_t g = (size_t)(i0 + r0 + r + RING) * pitch + (j0 + tx + RING);
     const float v = cur[(r0 + r + 1) * WN + tx + 1];
     moved |= (v != x[g]);
     x_out[g] = v;
@@ -278,8 +296,9 @@ __device__ __forceinline__ void relax_block(
   if (tid == 0) chg[bi * (m / B) + bj] = moved;
 }
 
-// K1: one round over the compact receivers with the frontier skip.
-template <int B>
+// K1: one round over the compact receivers with the frontier skip.  RING = 1
+// is the ring form: the rim blocks also copy their part of the ring to x_out.
+template <int B, int RING>
 __global__ void __launch_bounds__(Shape<B>::THREADS)
 uca_gs_round_kernel(const float* __restrict__ x,
                     const uint8_t* __restrict__ K,
@@ -292,6 +311,25 @@ uca_gs_round_kernel(const float* __restrict__ x,
   using S = Shape<B>;
   const int nb_i = n / B, nb_j = m / B;
   const int bi = blockIdx.y, bj = blockIdx.x;
+  const size_t pitch = m + 2 * RING;
+
+  if (RING && (bi == 0 || bi == nb_i - 1 || bj == 0 || bj == nb_j - 1)) {
+    // The ring pixels on the perimeter of this block's window; a corner of
+    // the ring is written by up to three blocks, all with the same value.
+    const int t = threadIdx.y * B + threadIdx.x;
+    if (t < S::WN) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // top, bottom, left, right
+        const int wi = (e == 0) ? 0 : ((e == 1) ? S::WN - 1 : t);
+        const int wj = (e < 2) ? t : ((e == 2) ? 0 : S::WN - 1);
+        const int gi = bi * B - 1 + wi, gj = bj * B - 1 + wj;
+        if (gi < 0 || gi >= n || gj < 0 || gj >= m) {
+          const size_t g = (size_t)(gi + 1) * pitch + (gj + 1);
+          x_out[g] = x[g];
+        }
+      }
+    }
+  }
 
   // Frontier: relax only if some block of the 3x3 neighbourhood changed.
   int dirty = 0;
@@ -306,15 +344,15 @@ uca_gs_round_kernel(const float* __restrict__ x,
   if (!dirty) {
 #pragma unroll
     for (int r = 0; r < S::R; ++r) {
-      const size_t g = (size_t)(bi * B + threadIdx.y * S::R + r) * m
-                       + (bj * B + threadIdx.x);
+      const size_t g = (size_t)(bi * B + threadIdx.y * S::R + r + RING) * pitch
+                       + (bj * B + threadIdx.x + RING);
       x_out[g] = x[g];
     }
     if (threadIdx.x == 0 && threadIdx.y == 0) chg[bi * nb_j + bj] = 0;
     return;
   }
-  relax_block<B>(x, CompactWeights{K, W1}, base, x_out, chg, n, m, inner_max,
-                 bi, bj);
+  relax_block<B, RING>(x, CompactWeights<RING>{K, W1}, base, x_out, chg, n, m,
+                       inner_max, bi, bj);
 }
 
 // K2: one round over the dense weight planes, every block visited.
@@ -326,8 +364,8 @@ uca_block_round_kernel(const float* __restrict__ x,
                        float* __restrict__ x_out,
                        int* __restrict__ chg,
                        int n, int m, int inner_max) {
-  relax_block<B>(x, DenseWeights{W}, base, x_out, chg, n, m, inner_max,
-                 blockIdx.y, blockIdx.x);
+  relax_block<B, 0>(x, DenseWeights{W}, base, x_out, chg, n, m, inner_max,
+                    blockIdx.y, blockIdx.x);
 }
 
 template <int B, class Kernel, class... Args>
@@ -338,6 +376,29 @@ cudaError_t launch(Kernel kernel, int n, int m, cudaStream_t stream,
   const dim3 block(B, S::TY);
   kernel<<<grid, block, S::SMEM, stream>>>(args...);
   return cudaGetLastError();
+}
+
+template <int RING>
+int gs_round_entry(const void* x, const void* K, const void* W1,
+                   const void* base, const void* prev, void* x_out, void* chg,
+                   int n, int m, int B, int inner_max, void* stream) {
+  const auto* xf = static_cast<const float*>(x);
+  const auto* kf = static_cast<const uint8_t*>(K);
+  const auto* wf = static_cast<const float*>(W1);
+  const auto* bf = static_cast<const float*>(base);
+  const auto* pf = static_cast<const int*>(prev);
+  auto* of = static_cast<float*>(x_out);
+  auto* cf = static_cast<int*>(chg);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (B) {
+    case 16:
+      return launch<16>(uca_gs_round_kernel<16, RING>, n, m, st, xf, kf, wf,
+                        bf, pf, of, cf, n, m, inner_max);
+    case 64:
+      return launch<64>(uca_gs_round_kernel<64, RING>, n, m, st, xf, kf, wf,
+                        bf, pf, of, cf, n, m, inner_max);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -352,23 +413,23 @@ extern "C" int uca_gs_round_f32(const void* x, const void* K, const void* W1,
                                 const void* base, const void* prev,
                                 void* x_out, void* chg, int n, int m, int B,
                                 int inner_max, void* stream) {
-  const auto* xf = static_cast<const float*>(x);
-  const auto* kf = static_cast<const uint8_t*>(K);
-  const auto* wf = static_cast<const float*>(W1);
-  const auto* bf = static_cast<const float*>(base);
-  const auto* pf = static_cast<const int*>(prev);
-  auto* of = static_cast<float*>(x_out);
-  auto* cf = static_cast<int*>(chg);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (B) {
-    case 16:
-      return launch<16>(uca_gs_round_kernel<16>, n, m, st, xf, kf, wf, bf, pf,
-                        of, cf, n, m, inner_max);
-    case 64:
-      return launch<64>(uca_gs_round_kernel<64>, n, m, st, xf, kf, wf, bf, pf,
-                        of, cf, n, m, inner_max);
-    default: return cudaErrorInvalidValue;
-  }
+  return gs_round_entry<0>(x, K, W1, base, prev, x_out, chg, n, m, B,
+                           inner_max, stream);
+}
+
+// One K1 round in the ring form: x, W1, x_out (n + 2, m + 2) float32 and K
+// (n + 2, m + 2) uint8 carry a 1-px ring around the n x m region; base
+// (n, m) float32 and prev, chg (n/B, m/B) int32 cover the region.  The ring
+// of x is the region's frozen halo and comes back unchanged in x_out; the
+// ring of K and W1 holds the ring pixels' real receivers.  Otherwise as
+// uca_gs_round_f32.
+extern "C" int uca_gs_round_ring_f32(const void* x, const void* K,
+                                     const void* W1, const void* base,
+                                     const void* prev, void* x_out, void* chg,
+                                     int n, int m, int B, int inner_max,
+                                     void* stream) {
+  return gs_round_entry<1>(x, K, W1, base, prev, x_out, chg, n, m, B,
+                           inner_max, stream);
 }
 
 // One K2 round (dense weight planes, every block).  x, base, x_out (n, m)

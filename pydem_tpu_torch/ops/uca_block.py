@@ -26,6 +26,16 @@ plain rounds compute it bit for bit as the kernels do.
 :func:`gs_round` and :func:`block_round` launch their kernel
 (``csrc/uca_block.cu``) for CUDA tensors and run their plain version
 (:func:`gs_round_plain`, :func:`block_round_plain`) for CPU tensors.
+
+K1 also has a *ring form*, :func:`gs_round_ring` with its plain version
+:func:`gs_round_ring_plain`, for a window of a larger canvas (the out-of-core
+engine's super-block visit): ``x``, ``K`` and ``W1`` carry a 1-px ring
+around the region that the blocks tile.  The ring of ``x`` holds the
+neighbours' values, is read as the frozen halo of the rim blocks and comes
+back untouched; the ring of ``K``/``W1`` holds the ring pixels' real
+receivers, since they send flow into the region.  Every pixel's sum is the
+rounding sequence of a whole-canvas round, so the window's blocks come out
+bit for bit as the same blocks of that round.
 """
 from __future__ import annotations
 
@@ -104,20 +114,26 @@ def _check_planes(x, named):
             raise TypeError("%s is %s but x is %s" % (name, t.dtype, x.dtype))
 
 
-def _check_round_args(x, K, W1, base, prev, B):
-    _check_canvas(x, B)
-    n, m = x.shape
+def _check_round_args(x, K, W1, base, prev, B, ring=0):
+    """K1's arguments; ``ring`` = 1 for the ring form, whose ``x``, ``K`` and
+    ``W1`` are 2 px larger than ``base`` each way."""
+    _check_canvas(base, B)
+    n, m = base.shape
     if K.dtype != torch.uint8:
         raise TypeError("K must be uint8, got %s" % K.dtype)
     if prev.dtype != torch.int32:
         raise TypeError("prev must be int32, got %s" % prev.dtype)
-    if tuple(K.shape) != (n, m):
-        raise ValueError("K has shape %s, expected %s"
-                         % (tuple(K.shape), (n, m)))
+    full = (n + 2 * ring, m + 2 * ring)
+    for name, t in (("x", x), ("K", K)):
+        if tuple(t.shape) != full:
+            raise ValueError("%s has shape %s, expected %s"
+                             % (name, tuple(t.shape), full))
     if tuple(prev.shape) != (n // B, m // B):
         raise ValueError("prev has shape %s, expected %s"
                          % (tuple(prev.shape), (n // B, m // B)))
-    _check_planes(x, (("W1", W1), ("base", base)))
+    _check_planes(x, (("W1", W1),))
+    if base.dtype != x.dtype:
+        raise TypeError("base is %s but x is %s" % (base.dtype, x.dtype))
 
 
 def _check_block_args(x, W, base, B):
@@ -128,19 +144,21 @@ def _check_block_args(x, W, base, B):
     _check_planes(x, (("W", W), ("base", base)))
 
 
-def _relax_blocks(x, W, base, dirty, *, B, inner_max):
-    """The sweep loop of both plain rounds.
+def _relax_blocks(x, W, base, dirty, *, B, inner_max, ring=False):
+    """The sweep loop of the plain rounds.
 
     The ``dirty`` blocks ((n/B, m/B) bool) are cut out of the zero-padded
     canvas with their 1-px halo and relaxed together by Jacobi sweeps, 4 per
     convergence test, capped at ``inner_max``; the other blocks keep their
-    values.  A block whose 4th sweep changed nothing is at its fixed point,
+    values.  With ``ring``, ``x`` and ``W`` already carry a 1-px ring around
+    the (n, m) region of ``base`` and take the zero pad's place: the ring is
+    read and comes back as it was.  A block whose 4th sweep changed nothing is at its fixed point,
     so sweeping it on with the others is a bitwise no-op: the lockstep loop
     gives each block exactly the kernel's result.  ``W`` are the dense
     (8, n, m) weight planes (``W[k]`` sends along ``NEIGHBOR_OFFSETS[k]``).
     Returns ``(x_new, chg)`` with ``chg`` the (n/B, m/B) int32 changed flags.
     """
-    n, m = x.shape
+    n, m = base.shape
     nb_i, nb_j = n // B, m // B
     out = x.clone()
     chg = torch.zeros((nb_i, nb_j), dtype=torch.int32, device=x.device)
@@ -153,8 +171,8 @@ def _relax_blocks(x, W, base, dirty, *, B, inner_max):
         w = a.unfold(-2, size, B).unfold(-2, size, B)
         return w[..., dirty, :, :]
 
-    win = windows(x, B + 2, True)  # a copy: updated in place below
-    w_in = windows(W, B + 2, True)
+    win = windows(x, B + 2, not ring)  # a copy: updated in place below
+    w_in = windows(W, B + 2, not ring)
     bse = windows(base, B, False)
     # incoming weight of receiver p along k: source q = p - o_k
     w_k = [w_in[k, :, 1 - di: 1 - di + B, 1 - dj: 1 - dj + B]
@@ -175,7 +193,8 @@ def _relax_blocks(x, W, base, dirty, *, B, inner_max):
         changed = bool(moved.any())
         it += 4
 
-    blocks = out.view(nb_i, B, nb_j, B).permute(0, 2, 1, 3)
+    region = out[1:-1, 1:-1] if ring else out
+    blocks = region.view(nb_i, B, nb_j, B).permute(0, 2, 1, 3)
     blocks[dirty] = interior  # writes through the view into `out`
     chg[dirty] = (interior != x0).flatten(1).any(1).to(torch.int32)
     return out, chg
@@ -191,6 +210,19 @@ def gs_round_plain(x, K, W1, base, prev, *, B, inner_max):
     _check_round_args(x, K, W1, base, prev, B)
     return _relax_blocks(x, expand_compact(K, W1), base, dilate(prev != 0),
                          B=B, inner_max=inner_max)
+
+
+def gs_round_ring_plain(x, K, W1, base, prev, *, B, inner_max):
+    """One K1 round in the ring form, in plain PyTorch (the kernel's twin).
+
+    ``x``, ``K``, ``W1``: (n+2, m+2), the (n, m) region that the blocks tile
+    with a 1-px ring; ``base``: (n, m); ``prev``: (n/B, m/B).  As
+    :func:`gs_round_plain`, with the ring where that round reads zeros.
+    Returns ``(x_new, chg)``: ``x_new`` (n+2, m+2) with the ring of ``x``.
+    """
+    _check_round_args(x, K, W1, base, prev, B, ring=1)
+    return _relax_blocks(x, expand_compact(K, W1), base, dilate(prev != 0),
+                         B=B, inner_max=inner_max, ring=True)
 
 
 def block_round_plain(x, W, base, *, B, inner_max):
@@ -258,6 +290,33 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
 gs_round.launches = 0
 
 
+def gs_round_ring(x, K, W1, base, prev, *, B, inner_max):
+    """One K1 round in the ring form: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  See :func:`gs_round_ring_plain` for the
+    contract.
+
+    ``gs_round_ring.launches`` counts kernel launches (never plain runs).
+    """
+    if x.device.type == "cpu":
+        return gs_round_ring_plain(x, K, W1, base, prev, B=B,
+                                   inner_max=inner_max)
+    if x.device.type != "cuda":
+        raise ValueError("gs_round_ring: unsupported device %s" % x.device)
+    _check_round_args(x, K, W1, base, prev, B, ring=1)
+    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
+                              ("prev", prev)))
+    n, m = base.shape
+    out = torch.empty_like(x)
+    chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
+    _launch("uca_gs_round_ring_f32", x, K, W1, base, prev, out, chg, n, m, B,
+            inner_max)
+    gs_round_ring.launches += 1
+    return out, chg
+
+
+gs_round_ring.launches = 0
+
+
 def block_round(x, W, base, *, B, inner_max):
     """One K2 round: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors.  See :func:`block_round_plain` for the contract.
@@ -282,7 +341,8 @@ block_round.launches = 0
 
 # C entries of csrc/uca_block.cu that launch: (pointer arguments, int
 # arguments), then the stream
-_ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_block_round_f32": (5, 4)}
+_ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_gs_round_ring_f32": (7, 4),
+            "uca_block_round_f32": (5, 4)}
 
 
 @functools.cache
@@ -325,9 +385,17 @@ def _block_any(mask, B):
 ROUNDS_PER_READ = 4
 
 
-def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None):
+def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None,
+              x0=None):
     """K1 round driver, with pit links folded into the base before each
     round when ``links`` is given.
+
+    ``W`` is the dense (8, ., .) planes or their compact ``(K, W1)`` pair.
+    The solve starts from ``base``, or from ``x0`` when given.  For the ring
+    form (``round_fn`` :func:`gs_round_ring` or its plain version) ``x0`` and
+    the weights are 2 px larger than ``base`` each way, and so is the canvas
+    returned; ``links`` index a canvas of ``base``'s shape and are not used
+    with a ring.
 
     The fold, ``base + links(x)``, is evaluated from the canvas at the start
     of every round; blocks whose folded base changed are marked dirty beside
@@ -345,9 +413,9 @@ def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None):
     """
     inner_max = _padded_check(base, B, inner_max)
     n, m = base.shape
-    K, W1 = compact_from_dense(W)
+    K, W1 = W if isinstance(W, tuple) else compact_from_dense(W)
     base = base.contiguous()
-    x, b_prev = base, None
+    x, b_prev = (base if x0 is None else x0.contiguous()), None
     prev = torch.ones((n // B, m // B), dtype=torch.int32, device=base.device)
     rounds = 0
     while True:

@@ -93,8 +93,8 @@ def test_unported_paths_raise(what, tmp_path):
     """The paths that raised ``NotImplementedError`` while only the device
     chain was ported now run (their parity with the JAX package is held in
     ``tests/test_torch_api_host.py``); nothing of ``DEMProcessor`` is left
-    that raises it, and what is (``out_of_core``, ``mesh``) raises from
-    ``ProcessManager`` naming its ROADMAP item."""
+    that raises it, and what is (``mesh``) raises from ``ProcessManager``
+    naming its ROADMAP item; ``out_of_core`` is accepted."""
     from pydem_tpu_torch.manager import ProcessManager
 
     elev = _elev("fixture 13")
@@ -131,10 +131,11 @@ def test_unported_paths_raise(what, tmp_path):
             dp2 = DEMProcessor(elev=elev, **DEVICE)
             dp2.load_uca(str(tmp_path / "x"))
             np.testing.assert_array_equal(dp2.uca, dp.uca)
-    for kw, item in ((dict(out_of_core=True), "queue 1 item 6"),
-                     (dict(mesh=object()), "queue 1 item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            ProcessManager(in_path=str(tmp_path), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        ProcessManager(in_path=str(tmp_path), device="cpu", mesh=object())
+    pm = ProcessManager(in_path=str(tmp_path), device="cpu", out_of_core=True,
+                        superblock=16)
+    assert pm.out_of_core and pm.superblock == 16
 
 
 def test_options_and_device_are_checked():

@@ -2,7 +2,7 @@
 against the JAX package's CLI on the same file (written GeoTIFFs equal to
 ``decimal=5``, they are float32; the NaN/no-data pattern exact), the refusal
 to run without ``--device cpu`` on a machine without a GPU, and
-``--out-of-core`` raising.
+``process --out-of-core`` against the in-memory route.
 """
 import os
 import subprocess
@@ -101,9 +101,31 @@ def test_process_command(tiles, tmp_path):
         (32 // 3, 32 // 3)
 
 
-def test_process_out_of_core_raises(tiles):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        cli.process([tiles, "--out-of-core", "--device", "cpu"])
+def test_process_out_of_core(tiles, tmp_path):
+    """``process --out-of-core --superblock 16 --resume`` twice (the case of
+    the JAX package's ``tests/test_cli.py``): the second run resumes from the
+    store and writes the same files; the files equal the in-memory route's
+    (float32, ``decimal=5``)."""
+    out = str(tmp_path / "out")
+    store = str(tmp_path / "ooc.zarr")
+    args = [tiles, "--out", out, "--store", store, "--out-of-core",
+            "--superblock", "16", "--resume", "--device", "cpu"]
+    assert cli.main(["process"] + args) in (0, None)
+    names = sorted(os.listdir(out))
+    assert names == ["aspect.tif", "elev.tif", "slope.tif", "twi.tif",
+                     "uca.tif"]
+    for flag in ("_oocore_uca.json", "_oocore_condition.json",
+                 "pit_links.npz", "metrics.json"):
+        assert os.path.exists(os.path.join(store, flag)), flag
+    first = {n: open(os.path.join(out, n), "rb").read() for n in names}
+    assert cli.main(["process"] + args) in (0, None)
+    for n in names:
+        assert open(os.path.join(out, n), "rb").read() == first[n]
+    mem = str(tmp_path / "mem")
+    cli.process([tiles, "--out", mem, "--store", str(tmp_path / "mem.zarr"),
+                 "--device", "cpu"])
+    for n in names:
+        _same_tif(os.path.join(out, n), os.path.join(mem, n))
 
 
 @pytest.mark.parametrize("cmd", ["TWIDinf", "AreaDinf", "DinfFlowDir",

@@ -154,6 +154,35 @@ def test_section_proportion_matches(chain, case, graded):
                                       jnp.asarray(c["dY"]), N))
 
 
+@pytest.mark.parametrize("graded", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_section_proportion_theta_matches(chain, case, graded):
+    """``theta=``: a window of rows with the *global* row angles gives the
+    global planes' rows (section exact, proportion ``decimal=12``), in the
+    port as in the JAX function."""
+    c = chain(case, graded)
+    theta = np.asarray(j_rec.section_theta(
+        jnp.asarray(c["dX"]), jnp.asarray(c["dY"]), N))[:, 0]
+    rows = slice(3, N - 5)
+    direction = np.asarray(c["direction"])[rows]
+    flats = np.asarray(c["flats"])[rows]
+    sec, prop = t_rec.section_proportion(_t(direction), _t(flats),
+                                         theta=_t(theta[rows]))
+    jsec, jprop = j_rec.section_proportion(
+        jnp.asarray(direction), jnp.asarray(flats), theta=theta[rows])
+    np.testing.assert_array_equal(sec.numpy(), np.asarray(jsec))
+    np.testing.assert_array_almost_equal(prop.numpy(), np.asarray(jprop),
+                                         decimal=12)
+    np.testing.assert_array_equal(sec.numpy(),
+                                  np.asarray(c["section"])[rows])
+    _close(prop, np.asarray(c["proportion"])[rows])
+    # theta as numpy, a list-like column or a tensor: the same planes
+    sec2, prop2 = t_rec.section_proportion(_t(direction), _t(flats),
+                                           theta=theta[rows][:, None])
+    assert torch.equal(sec, sec2)
+    assert torch.equal(torch.nan_to_num(prop), torch.nan_to_num(prop2))
+
+
 def test_section_proportion_negative_sections():
     """A non-flat pixel with direction -1 gives section -2, and flats -1:
     both index the angle table from its end, as numpy indexing does."""

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_hard_terrain
+from chip_smoke import make_hard_terrain, ring_window
 from pydem_tpu_torch.api import DEMProcessor
 from pydem_tpu_torch.ops import uca_block as ub
 from pydem_tpu_torch.parallel.sharded import terrain_pre
@@ -284,3 +284,94 @@ def test_manager_on_the_card_by_default(cuda, tmp_path):
     ref = pm.out_file["uca"].astype("float32")
     np.testing.assert_array_equal(got, np.where(np.isnan(ref),
                                                 np.float32(-9999), ref))
+
+
+@pytest.mark.parametrize("S", [512, 2048])
+@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+def test_ring_round_equals_plain_and_full_canvas(cuda, S, B):
+    """The ring form of K1 on an interior and a corner window of a 2S²
+    canvas: kernel == plain bitwise over three rounds, the ring comes back
+    untouched, and the window's blocks equal the same blocks of one
+    full-canvas K1 round from the same x."""
+    n = 2 * S
+    W, base = _state(cuda, n, n)
+    K, W1 = ub.compact_from_dense(W)
+    kw = dict(B=B, inner_max=2 * B + 4)
+    ones = torch.ones((n // B, n // B), dtype=torch.int32, device=cuda)
+    x, _c = ub.gs_round(base, K, W1, base, ones, **kw)  # a mid-solve state
+    full, full_chg = ub.gs_round(x, K, W1, base, ones, **kw)
+    for i0, j0 in ((S // 2, S // 2), (0, 0), (S, S)):
+        xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
+        prev = ones[: S // B, : S // B].contiguous()
+        ring = torch.ones_like(xw, dtype=torch.bool)
+        ring[1:-1, 1:-1] = False
+        for r in range(3):
+            xk, ck = ub.gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
+            xp, cp = ub.gs_round_ring_plain(xw, Kw, W1w, bw, prev, **kw)
+            assert torch.equal(xk, xp) and torch.equal(ck, cp)
+            assert torch.equal(xk[ring], xw[ring])
+            if r == 0:
+                assert torch.equal(xk[1:-1, 1:-1],
+                                   full[i0: i0 + S, j0: j0 + S])
+                assert torch.equal(ck, full_chg[i0 // B: (i0 + S) // B,
+                                                j0 // B: (j0 + S) // B])
+            xw, prev = xk, ck
+
+
+def test_ring_wrapper_rejects_what_it_cannot_run(cuda):
+    W, base = _state(cuda, 64, 64)
+    K, W1 = ub.compact_from_dense(W)
+    xw, Kw, W1w, bw = ring_window(base, K, W1, base, 0, 0, 32)
+    prev = torch.ones((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="x has shape"):
+        ub.gs_round_ring(bw, Kw, W1w, bw, prev, B=16, inner_max=36)
+    with pytest.raises(TypeError, match="float32"):
+        ub.gs_round_ring(xw.double(), Kw, W1w.double(), bw.double(), prev,
+                         B=16, inner_max=36)
+    with pytest.raises(ValueError, match="contiguous"):
+        ub.gs_round_ring(xw.t(), Kw, W1w, bw, prev, B=16, inner_max=36)
+
+
+def test_out_of_core_engine_on_the_card(cuda, tmp_path):
+    """``OutOfCoreEngine`` without ``device`` at 512², S = 128, on the noisy
+    cone: the streaming regime launches the ring kernel, the fused regime
+    the whole-canvas one; ``elev``, ``slope``, ``aspect``, ``flats`` and the
+    NaN patterns agree bitwise, ``uca`` within the bench gate (bitwise where
+    the terrain has no pit links)."""
+    from chip_smoke import make_noisy_cone
+    from pydem_tpu_torch.io.store import ArrayStore
+    from pydem_tpu_torch.outofcore import OutOfCoreEngine
+
+    n, S = 512, 128
+    elev = make_noisy_cone(n).astype("float64")
+    stores = {}
+    for tag, budget in (("streamed", 0), ("fused", None)):
+        store = ArrayStore(str(tmp_path / (tag + ".zarr")))
+        store.create("elev_src", elev.shape, "float64", chunks=(S, S),
+                     fill=np.nan, overwrite=True)
+        store.write_window("elev_src", elev, (0, 0))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            eng = OutOfCoreEngine(store, elev.shape, np.ones(n - 1),
+                                  np.ones(n - 1), np.ones(n), np.ones(n),
+                                  superblock=S, device_cache_bytes=budget)
+            assert eng.device.type == "cuda" and eng.B == 64
+            assert eng._work_dtype == "float32"
+            assert eng._fits_device_resident() == (budget is None)
+            ub.gs_round.launches = ub.gs_round_ring.launches = 0
+            eng.run()
+        if budget == 0:
+            assert ub.gs_round_ring.launches > 0 == ub.gs_round.launches
+        else:
+            assert ub.gs_round.launches > 0 == ub.gs_round_ring.launches
+        stores[tag] = (store, eng)
+    (a, ea), (b, eb) = stores["streamed"], stores["fused"]
+    for key in ("elev", "slope", "aspect", "flats"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    for key in ("uca", "twi"):
+        assert a[key].dtype == np.float32
+        np.testing.assert_array_equal(np.isnan(a[key]), np.isnan(b[key]))
+        if len(ea._links[0]) == 0:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    np.testing.assert_allclose(np.nan_to_num(a["uca"]),
+                               np.nan_to_num(b["uca"]), rtol=1e-4, atol=1e-2)

@@ -182,10 +182,12 @@ def test_grid_errors_raise(tmp_path, fault, match):
 def test_no_inputs_and_unported_options_raise(tmp_path):
     with pytest.raises(RuntimeError, match="no input rasters"):
         _pm(str(tmp_path)).compute_grid()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _pm(str(tmp_path), out_of_core=True)
+    with pytest.raises(RuntimeError, match="no input rasters"):
+        _pm(str(tmp_path), out_of_core=True).process_twi()
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         _pm(str(tmp_path), mesh=object())
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        _pm(str(tmp_path), mesh=object(), out_of_core=True)
 
 
 def test_default_device_is_the_card(tmp_path):
@@ -417,3 +419,116 @@ def test_device_backends_through_the_manager(tmp_path, single_uca,
     np.testing.assert_array_almost_equal(single_uca.uca[1:-1, 1:-1],
                                          pm.out_file["uca"][1:-1, 1:-1])
     assert pm.out_file["edge_done"].dtype == bool
+
+
+# -- out of core --------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ooc_runs(tmp_path_factory):
+    """The same 2×2 tiles (fixture 33, 32², overlap 2, unit pixels) through
+    the port's in-memory manager, the port's out-of-core manager and the JAX
+    package's out-of-core manager (the case of
+    ``tests/test_outofcore.py::test_manager_out_of_core_end_to_end``).
+
+    The JAX engine's slope stage runs op by op (``jax.disable_jit()`` around
+    its ``_slope_program``): jitted on the CPU, XLA contracts an FMA in the
+    facet sweep and flips a near-tie facet of this fixture at 32², as it does
+    for the in-core chain (``tests/test_torch_api_host.py``)."""
+    import jax
+
+    from pydem_tpu import outofcore as j_outofcore
+
+    tmp = tmp_path_factory.mktemp("ooc")
+    manager.DEBUG = j_manager.DEBUG = True
+    jitted = j_outofcore._slope_program
+
+    def op_by_op(*args):
+        with jax.disable_jit():
+            return jitted(*args)
+
+    j_outofcore._slope_program = op_by_op
+    try:
+        chunks = fixtures.mk_test_multifile(TEST_NUM, NN, str(tmp),
+                                            nx_grid=2, ny_grid=2,
+                                            nx_overlap=2, ny_overlap=2)
+        mem = _pm(chunks, out_path=str(tmp / "mem.zarr"))
+        mem.process_twi()
+        ooc = _pm(chunks, out_of_core=True, superblock=16,
+                  out_path=str(tmp / "ooc.zarr"))
+        ret = ooc.process_twi()
+        jm = j_manager.ProcessManager(in_path=chunks, out_of_core=True,
+                                      superblock=16,
+                                      out_path=str(tmp / "jax.zarr"))
+        jm.process_twi()
+        yield mem, ooc, jm, ret, chunks
+    finally:
+        manager.DEBUG = j_manager.DEBUG = False
+        j_outofcore._slope_program = jitted
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_out_of_core_matches_in_memory_and_jax(ooc_runs, key):
+    mem, ooc, jm, _ret, _chunks = ooc_runs
+    got = ooc.out_file[key]
+    assert got.shape == (NN, NN) and got.dtype == np.float64
+    a = mem.out_file[key]
+    assert (np.isnan(a) == np.isnan(got)).all()
+    np.testing.assert_array_almost_equal(np.nan_to_num(a),
+                                         np.nan_to_num(got))
+    want = jm.out_file[key]
+    assert (np.isnan(want) == np.isnan(got)).all()
+    if key == "elev":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_array_almost_equal(
+            np.nan_to_num(got), np.nan_to_num(want), decimal=10)
+
+
+def test_out_of_core_store_surface(ooc_runs):
+    """The out-of-core run returns the store, never the canvas, and leaves
+    the arrays and metrics of the in-core stages."""
+    _mem, ooc, jm, ret, _chunks = ooc_runs
+    assert ret is ooc.out_file and ooc._dp is None
+    assert ooc._ooc.device == torch.device("cpu") and ooc._ooc.S == 16
+    for key in ("elev_src", "flats", "uca_state", "edge_todo", "edge_done",
+                "uca_edges", "uca_edge_metrics", "success"):
+        assert key in ooc.out_file, key
+        got, want = ooc.out_file[key], jm.out_file[key]
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+    assert ooc.out_file["success"].all()
+    assert ooc.out_file["edge_done"].all()
+    assert not ooc.out_file["edge_todo"].any()
+    np.testing.assert_array_equal(ooc.out_file["uca_edges"],
+                                  ooc.out_file["uca"])
+    with open(os.path.join(ooc.out_path, "metrics.json")) as f:
+        got = json.load(f)
+    with open(os.path.join(jm.out_path, "metrics.json")) as f:
+        want = json.load(f)
+    assert sorted(got["stage_seconds"]) == sorted(want["stage_seconds"])
+    assert got["uca_iters_to_converge"] == ooc._ooc.uca_rounds >= 1
+    assert got["halo_fraction"] == want["halo_fraction"]
+    assert got["canvas_shape"] == want["canvas_shape"] == [NN, NN]
+
+
+def test_out_of_core_resume_and_export(ooc_runs, tmp_path):
+    """A ``resume=True`` rerun on the finished store runs no stage and keeps
+    the arrays; the streaming GeoTIFF export reads the out-of-core store."""
+    _mem, ooc, _jm, _ret, chunks = ooc_runs
+    manager.DEBUG = True
+    try:
+        uca0 = ooc.out_file["uca"]
+        pm = _pm(chunks, out_of_core=True, superblock=16, resume=True,
+                 out_path=ooc.out_path)
+        pm.process_twi()
+        assert sorted(pm.timer.report()) == ["ingest"]
+        assert pm._ooc.uca_rounds == ooc._ooc.uca_rounds
+        np.testing.assert_array_equal(pm.out_file["uca"], uca0)
+        written = pm.save_non_overlap_data_geotiff(str(tmp_path / "out"))
+    finally:
+        manager.DEBUG = False
+    assert [os.path.basename(f) for f in written] == [k + ".tif"
+                                                      for k in KEYS]
+    g = read_geotiff(str(tmp_path / "out" / "uca.tif"))
+    ref = uca0.astype("float32")
+    np.testing.assert_array_equal(
+        g.data, np.where(np.isnan(ref), np.float32(-9999), ref))

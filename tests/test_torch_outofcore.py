@@ -1,0 +1,319 @@
+"""pydem_tpu_torch.outofcore on the CPU (float64): the cases of
+``tests/test_outofcore.py`` on the port.
+
+Each engine case runs the same numpy input (``fixtures.get_test_case``)
+through the port's ``OutOfCoreEngine(device="cpu")``, the port's in-core
+``DEMProcessor(device="cpu")`` and the JAX package's ``OutOfCoreEngine``,
+and compares store arrays.  On the CPU the port's K1 ring round is its plain
+version; the JAX engine reaches its Pallas kernel in interpret mode, as its
+own tests run it.
+
+Tolerances: ``elev`` and ``flats`` exact, NaN patterns equal, ``slope``,
+``aspect``, ``uca`` (unit pixels, so in pixels) and ``twi`` ``decimal=10``;
+the port's two regimes, and two runs of one regime, bitwise.
+
+The JAX engine runs jitted, as its own tests run it.  Jitted on the CPU, XLA
+contracts an FMA in the facet sweep, which can flip a near-tie facet; on
+these fixtures, through the engine's windows, it does not (the comparison
+with the JAX store would show it at once).
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from pydem_tpu import fixtures as j_fixtures
+from pydem_tpu.io.store import ArrayStore as JArrayStore
+from pydem_tpu.outofcore import OutOfCoreEngine as JEngine
+from pydem_tpu.outofcore import _sb_uca_solve as j_sb_uca_solve
+from pydem_tpu_torch import fixtures, outofcore
+from pydem_tpu_torch.api import DEMProcessor
+from pydem_tpu_torch.io.store import ArrayStore
+from pydem_tpu_torch.outofcore import OutOfCoreEngine, _sb_uca_solve
+
+torch.set_num_threads(1)
+
+FIELDS = ("elev", "slope", "aspect", "uca", "twi")
+NO_COND = dict(fill_flats=False, drain_pits_path=False)
+# name -> (fixture, size, rows kept, superblock, margin, options, budget)
+CASES = {
+    "cone_partial_blocks": (33, 48, 40, 16, 64, {}, None),
+    "small_margin": (33, 96, 96, 32, 24, {}, None),
+    "pit_links_cross_blocks": (13, 48, 48, 16, 64, NO_COND, None),
+    "masked_sea": (24, 48, 48, 16, 64, {}, None),
+    "streaming_with_frontier": (13, 48, 48, 16, 64, {}, 0),
+    "streaming_pit_free": (33, 48, 48, 16, 64, {}, 0),
+    "streaming_6x6_blocks": (33, 96, 96, 16, 24, {}, 0),
+}
+
+
+def _case_elev(name):
+    num, size, rows = CASES[name][:3]
+    elev, _a, _u = fixtures.get_test_case(num, size)
+    j_elev, _a, _u = j_fixtures.get_test_case(num, size)
+    np.testing.assert_array_equal(elev, j_elev)
+    return elev[:rows]
+
+
+def _engine(cls, store_cls, path, elev, S=16, margin=64, resume=False,
+            budget=None, **kwargs):
+    store = store_cls(str(path))
+    store.create("elev_src", elev.shape, "float64", chunks=(S, S),
+                 fill=np.nan, overwrite=True)
+    store.write_window("elev_src", elev, (0, 0))
+    n = elev.shape[0]
+    extra = {"device": "cpu"} if cls is OutOfCoreEngine else {}
+    eng = cls(store, elev.shape, np.ones(n - 1), np.ones(n - 1), np.ones(n),
+              np.ones(n), dem_proc_kwargs=kwargs, superblock=S, margin=margin,
+              resume=resume, device_cache_bytes=budget, **extra)
+    return store, eng
+
+
+def _t_engine(path, elev, **kw):
+    return _engine(OutOfCoreEngine, ArrayStore, path, elev, **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(tmp_path_factory):
+    """The JAX engine's store and engine, one run per case."""
+    runs = {}
+
+    def get(name):
+        if name not in runs:
+            _num, _size, _rows, S, margin, opts, budget = CASES[name]
+            store, eng = _engine(
+                JEngine, JArrayStore,
+                tmp_path_factory.mktemp("jax_" + name) / "ooc.zarr",
+                _case_elev(name), S=S, margin=margin, budget=budget, **opts)
+            eng.run()
+            runs[name] = (store, eng)
+        return runs[name]
+
+    return get
+
+
+def _assert_fields(got, want, fields, what):
+    for key in fields:
+        a = np.asarray(want[key], "float64")
+        b = np.asarray(got[key], "float64")
+        assert (np.isnan(a) == np.isnan(b)).all(), (what, key)
+        if key == "elev":
+            np.testing.assert_array_equal(a, b, err_msg="%s elev" % what)
+        else:
+            np.testing.assert_array_almost_equal(
+                np.nan_to_num(a), np.nan_to_num(b), decimal=10,
+                err_msg="%s %s" % (what, key))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_engine_matches_in_core_and_jax(tmp_path, jax_runs, name):
+    _num, _size, _rows, S, margin, opts, budget = CASES[name]
+    elev = _case_elev(name)
+    store, eng = _t_engine(tmp_path / "ooc.zarr", elev, S=S, margin=margin,
+                           budget=budget, **opts)
+    assert eng._fits_device_resident() == (budget is None)
+    eng.run()
+    assert eng.uca_rounds >= 1
+    if budget == 0:
+        assert eng.uca_visits >= eng.nbi * eng.nbj
+    if name == "streaming_6x6_blocks":
+        assert eng.uca_skipped > 0  # the frontier skipped some visits
+
+    n = elev.shape[0]
+    dp = DEMProcessor(elev=elev.copy(), dX=np.ones(n - 1), dY=np.ones(n - 1),
+                      dX2=np.ones(n), dY2=np.ones(n), device="cpu", **opts)
+    dp.calc_twi()
+    # a seam through a flat wider than the margin may condition differently
+    # from the global pass (module docstring); as in the JAX package's tests
+    # the masked case is held on uca, the pit cases on uca and twi
+    in_core = {"masked_sea": ("uca",),
+               "pit_links_cross_blocks": ("uca", "twi")}.get(name, FIELDS)
+    _assert_fields(store, {"slope": dp.mag, "aspect": dp.direction,
+                           "uca": dp.uca, "twi": dp.twi, "elev": dp.elev},
+                   in_core, "in-core")
+
+    j_store, j_eng = jax_runs(name)
+    _assert_fields(store, j_store, FIELDS, "JAX engine")
+    np.testing.assert_array_equal(store["flats"], j_store["flats"])
+    for a, b in zip(eng._links, j_eng._links):
+        np.testing.assert_array_almost_equal(a, b, decimal=12)
+    if name == "pit_links_cross_blocks":
+        assert len(eng._links[0]) > 0  # the fixture actually has pit links
+
+
+def test_engine_resume_is_idempotent(tmp_path):
+    elev = _case_elev("cone_partial_blocks")
+    store, eng = _t_engine(tmp_path / "ooc.zarr", elev)
+    eng.run()
+    uca0 = store["uca"]
+    store2, eng2 = _t_engine(tmp_path / "ooc.zarr", elev, resume=True)
+    eng2.condition = None  # a stage that ran again would raise
+    eng2.run()
+    assert eng2.uca_rounds == eng.uca_rounds
+    np.testing.assert_array_equal(uca0, store2["uca"])
+
+
+def test_streaming_resume_continues(tmp_path):
+    """A streaming run cut after its UCA stage resumes from the stored
+    state and round count and ends at the same arrays."""
+    elev = _case_elev("streaming_with_frontier")
+    s1, e1 = _t_engine(tmp_path / "a.zarr", elev, budget=0)
+    e1.run()
+    s2, e2 = _t_engine(tmp_path / "b.zarr", elev, budget=0)
+    e2.condition(), e2.slope_direction(), e2.pit_links(), e2.uca()
+    s3, e3 = _t_engine(tmp_path / "b.zarr", elev, budget=0, resume=True)
+    e3.run()
+    assert e3.uca_rounds == e2.uca_rounds + 1  # one still round more
+    for key in ("uca", "twi"):
+        np.testing.assert_array_equal(s1[key], s3[key])
+
+
+def test_engine_device_vs_streaming_identical(tmp_path, monkeypatch):
+    """The device-resident regime and the streaming rounds reach the same
+    fixed point bitwise on a pit-free canvas; the budget is steered by the
+    environment variable, as the JAX package's test does."""
+    elev = _case_elev("cone_partial_blocks")
+    s1, e1 = _t_engine(tmp_path / "a.zarr", elev)
+    assert e1._fits_device_resident()
+    e1.run()
+    monkeypatch.setenv("PYDEM_OOC_DEVICE_CACHE", "0")
+    s2, e2 = _t_engine(tmp_path / "b.zarr", elev)
+    assert e2.device_cache_bytes == 0 and not e2._fits_device_resident()
+    e2.run()
+    assert len(e1._links[0]) == len(e2._links[0]) == 0
+    for key in ("slope", "aspect", "flats", "uca", "twi"):
+        np.testing.assert_array_equal(s1[key], s2[key], err_msg=key)
+
+
+def test_streaming_is_deterministic(tmp_path):
+    """Two streaming runs (pit links, frontier, the IO thread) give bitwise
+    equal arrays and equal round and visit counts."""
+    elev = _case_elev("streaming_with_frontier")
+    runs = []
+    for tag in "ab":
+        store, eng = _t_engine(tmp_path / (tag + ".zarr"), elev, budget=0)
+        eng.run()
+        runs.append((store["uca"], store["twi"], eng.uca_rounds,
+                     eng.uca_visits, eng.uca_skipped))
+    a, b = runs
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert a[2:] == b[2:]
+
+
+def test_streaming_cache_budget_does_not_change_result(tmp_path):
+    """With room for the per-block static planes but not for the canvas the
+    visits reuse cached weights; the arrays are those of the uncached run."""
+    elev = _case_elev("streaming_with_frontier")
+    s0, e0 = _t_engine(tmp_path / "a.zarr", elev, budget=0)
+    e0.run()
+    n, m = elev.shape
+    budget = outofcore._DEVICE_RESIDENT_PLANES * n * m * 8 - 1
+    s1, e1 = _t_engine(tmp_path / "b.zarr", elev, budget=budget)
+    assert not e1._fits_device_resident()
+    e1.run()
+    np.testing.assert_array_equal(s0["uca"], s1["uca"])
+    assert (e0.uca_rounds, e0.uca_visits) == (e1.uca_rounds, e1.uca_visits)
+
+
+@pytest.mark.parametrize("corner", [False, True])
+def test_sb_uca_solve_matches_jax(corner):
+    """One super-block visit on the same windows: the port's ring rounds
+    (plain, float64) against the JAX function (Pallas in interpret mode)."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(5)
+    n, S, B = 64, 32, 16
+    elev, _a, _u = fixtures.get_test_case(33, n)
+    one = np.ones(n)
+    dp = DEMProcessor(elev=elev, dX=one[1:], dY=one[1:], dX2=one, dY2=one,
+                      device="cpu", **NO_COND)
+    dp.calc_slopes_directions()
+    i0 = j0 = 0 if corner else 16
+
+    def win(a, fill):
+        p = np.pad(np.asarray(a, "float64"), 1, constant_values=fill)
+        return p[i0: i0 + S + 2, j0: j0 + S + 2]
+
+    x = np.ones((n, n)) + rng.rand(n, n)
+    x_win = win(x, np.nan)
+    e_win, d_win = win(dp.elev, np.nan), win(dp.direction, np.nan)
+    f_win = np.pad(dp.flats, 1)[i0: i0 + S + 2, j0: j0 + S + 2]
+    theta = np.full(S + 2, np.arctan2(1.0, 1.0))
+    base = np.ones((S, S))
+    caps = dict(B=B, inner_max=2 * B + 4, max_rounds=4 * (S // B) + 8)
+
+    out, chg, rounds = _sb_uca_solve(
+        *(torch.from_numpy(np.ascontiguousarray(a))
+          for a in (x_win, e_win, d_win, f_win, theta, base)), **caps)
+    j_out, j_chg, _r = j_sb_uca_solve(
+        *(jnp.asarray(a) for a in (x_win, e_win, d_win, f_win, theta, base)),
+        0, B=8, inner_max=20, max_rounds=4 * (S // 8) + 8, interpret=True)
+    assert rounds >= 1 and bool(chg) == bool(j_chg)
+    np.testing.assert_array_almost_equal(out.numpy(), np.asarray(j_out),
+                                         decimal=10)
+
+
+def test_engine_argument_errors(tmp_path):
+    elev = _case_elev("cone_partial_blocks")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        OutOfCoreEngine(ArrayStore(str(tmp_path / "b.zarr")), elev.shape,
+                        1, 1, 1, 1, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="multiple of the kernel block"):
+        _t_engine(tmp_path / "c.zarr", elev, S=24)
+    with pytest.raises(NotImplementedError, match="deprecated drain"):
+        _t_engine(tmp_path / "d.zarr", elev, drain_flats=True)
+    # block size: 64 where the super-block is a multiple of 64, else 16
+    assert _t_engine(tmp_path / "e.zarr", elev, S=128)[1].B == 64
+    assert _t_engine(tmp_path / "f.zarr", elev, S=96)[1].B == 16
+    assert _t_engine(tmp_path / "g.zarr", elev, S=48)[1].B == 16
+
+
+def test_default_device_is_the_card(tmp_path):
+    """Without ``device`` the engine runs on the GPU and raises without one;
+    it never moves to the CPU by itself."""
+    import inspect
+
+    assert (inspect.signature(OutOfCoreEngine.__init__).parameters["device"]
+            .default == "cuda")
+    elev = _case_elev("cone_partial_blocks")
+    store = ArrayStore(str(tmp_path / "a.zarr"))
+    n = elev.shape[0]
+    args = (store, elev.shape, np.ones(n - 1), np.ones(n - 1), np.ones(n),
+            np.ones(n))
+    if torch.cuda.is_available():
+        assert OutOfCoreEngine(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            OutOfCoreEngine(*args)
+    eng = OutOfCoreEngine(*args, device="cpu")
+    assert eng.device == torch.device("cpu")
+    assert eng._work_dtype == "float64"
+
+
+def test_device_budget(monkeypatch):
+    """The environment variable overrides the budget; on the CPU it is the
+    4 GiB constant."""
+    monkeypatch.delenv("PYDEM_OOC_DEVICE_CACHE", raising=False)
+    assert outofcore._default_device_cache("cpu") == 4 << 30
+    monkeypatch.setenv("PYDEM_OOC_DEVICE_CACHE", "12345")
+    assert outofcore._default_device_cache("cpu") == 12345
+    assert outofcore._default_device_cache("cuda") == 12345
+
+
+def test_port_imports_no_jax():
+    """No module of the port, nor the chip scripts, imports jax or the JAX
+    package."""
+    import re
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    files = [os.path.join(root, f) for f in ("chip_smoke.py",
+                                             "chip_variants.py")]
+    for d, _dirs, names in os.walk(os.path.join(root, "pydem_tpu_torch")):
+        files += [os.path.join(d, f) for f in names if f.endswith(".py")]
+    assert len(files) > 20
+    pat = re.compile(r"^\s*(import|from)\s+(jax|pydem_tpu)(\.|\s|$)", re.M)
+    for fn in files:
+        with open(fn) as f:
+            assert not pat.search(f.read()), fn

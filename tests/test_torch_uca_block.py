@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ring_window
 from pydem_tpu import DEMProcessor, fixtures
 from pydem_tpu.core import conditioning as j_cond
 from pydem_tpu.core.receivers import receiver_weights, section_proportion
@@ -151,6 +152,113 @@ def test_plain_round_matches_per_block_reference(dtype, inner_max, prev_kind):
     assert got.dtype == torch.from_numpy(x).dtype
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(chg.numpy(), want_chg)
+
+
+def _ring_case(B, n, dtype=np.float64, seed=3):
+    """A canvas's compact planes, base and a mid-solve state."""
+    elev, _a, _u = fixtures.get_test_case(30, n)
+    elev = torch.from_numpy(elev.astype(dtype))
+    ones = torch.ones(n - 1, dtype=elev.dtype)
+    mag, direction = t_sd.slopes_directions(elev, ones, ones)
+    flats = t_sd.find_flats_edges(elev, mag)
+    direction = torch.where(flats, -1, direction)
+    section, proportion = t_rec.section_proportion(direction, flats, ones,
+                                                   ones)
+    K, W1 = t_ub.compact_from_dense(
+        t_rec.receiver_weights(section, proportion, elev))
+    rng = np.random.RandomState(seed)
+    base = torch.from_numpy(rng.uniform(0.5, 1.5, (n, n)).astype(dtype))
+    x = base + torch.from_numpy(rng.uniform(0, 20, (n, n)).astype(dtype))
+    return x, K, W1, base
+
+
+@pytest.mark.parametrize("prev_kind", ["ones", "one flag"])
+@pytest.mark.parametrize("where", ["interior", "corner", "far corner",
+                                   "edge"])
+@pytest.mark.parametrize("B,n,S", [(16, 96, 64), (64, 256, 192)])
+def test_ring_round_equals_full_canvas_round(B, n, S, where, prev_kind):
+    """A window's blocks after one ring round are bitwise the same blocks of
+    one full-canvas ``gs_round_plain`` from the same x, flags included; the
+    ring comes back untouched.  With one flag set (the window's first
+    block) the frontier skips the blocks away from it in both."""
+    x, K, W1, base = _ring_case(B, n)
+    i0, j0 = {"interior": (B, B), "corner": (0, 0),
+              "far corner": (n - S, n - S), "edge": (0, B)}[where]
+    bi, bj = i0 // B, j0 // B
+    prev = torch.ones((n // B, n // B), dtype=torch.int32)
+    if prev_kind == "one flag":
+        prev = torch.zeros_like(prev)
+        prev[bi + 1, bj + 1] = 1  # its 3x3 neighbourhood is in the window
+    kw = dict(B=B, inner_max=2 * B + 4)
+    full, full_chg = t_ub.gs_round_plain(x, K, W1, base, prev, **kw)
+    xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
+    pw = prev[bi: bi + S // B, bj: bj + S // B].contiguous()
+    got, chg = t_ub.gs_round_ring(xw, Kw, W1w, bw, pw, **kw)
+    assert t_ub.gs_round_ring.launches == 0  # the plain version ran
+    ring = torch.ones_like(xw, dtype=torch.bool)
+    ring[1:-1, 1:-1] = False
+    assert torch.equal(got[ring], xw[ring])
+    assert torch.equal(got[1:-1, 1:-1], full[i0: i0 + S, j0: j0 + S])
+    assert torch.equal(chg, full_chg[bi: bi + S // B, bj: bj + S // B])
+    assert chg.any()
+    if prev_kind == "one flag" and S // B > 3:
+        assert torch.equal(got[-1 - B: -1, -1 - B: -1],
+                           xw[-1 - B: -1, -1 - B: -1])  # a skipped block
+
+
+def test_ring_round_leaves_the_plain_round_unchanged():
+    """``gs_round_plain`` on a canvas equals the ring round on the canvas
+    wrapped in a ring of zeros and "no edge" weights: the ring form reads
+    its ring where the canvas form reads its zero pad."""
+    B, n = 16, 64
+    x, K, W1, base = _ring_case(B, n)
+    prev = torch.ones((n // B, n // B), dtype=torch.int32)
+    kw = dict(B=B, inner_max=2 * B + 4)
+    want, want_chg = t_ub.gs_round_plain(x, K, W1, base, prev, **kw)
+    xw, Kw, W1w, bw = ring_window(x, K, W1, base, 0, 0, n)
+    got, chg = t_ub.gs_round_ring_plain(xw, Kw, W1w, bw, prev, **kw)
+    assert torch.equal(got[1:-1, 1:-1], want) and torch.equal(chg, want_chg)
+    assert not got[0].any() and not got[:, -1].any()
+
+
+def test_ring_solve_reaches_the_canvas_fixed_point():
+    """``_gs_solve`` over the ring round (``x0`` and compact weights with a
+    ring) on a window whose ring holds the solved canvas gives the solved
+    canvas's window back, from any interior start."""
+    B, n, S = 16, 96, 32
+    _x, K, W1, base = _ring_case(B, n)
+    W = t_ub.expand_compact(K, W1)
+    solved, _r = t_ub.accumulate_blocked_gs(base, W, B=B)
+    xw, Kw, W1w, bw = ring_window(solved, K, W1, base, B, 2 * B, S)
+    start = xw.clone()
+    start[1:-1, 1:-1] = bw
+    out, rounds = t_ub._gs_solve(bw, (Kw, W1w), B, None, 100,
+                                 t_ub.gs_round_ring, x0=start)
+    assert 1 <= rounds < 100 and out.shape == xw.shape
+    assert torch.equal(out, xw)
+    # already solved: the first round is still
+    out2, rounds2 = t_ub._gs_solve(bw, (Kw, W1w), B, None, 100,
+                                   t_ub.gs_round_ring, x0=xw)
+    assert rounds2 == 1 and torch.equal(out2, xw)
+
+
+def test_ring_round_rejects_bad_arguments():
+    x, K, W1, base = _ring_case(16, 64)
+    xw, Kw, W1w, bw = ring_window(x, K, W1, base, 0, 0, 32)
+    prev = torch.ones((2, 2), dtype=torch.int32)
+    kw = dict(B=16, inner_max=36)
+    with pytest.raises(ValueError, match="x has shape"):
+        t_ub.gs_round_ring(bw, Kw, W1w, bw, prev, **kw)
+    with pytest.raises(ValueError, match="K has shape"):
+        t_ub.gs_round_ring(xw, Kw[1:-1, 1:-1], W1w, bw, prev, **kw)
+    with pytest.raises(ValueError, match="W1 has shape"):
+        t_ub.gs_round_ring(xw, Kw, W1w[1:-1, 1:-1], bw, prev, **kw)
+    with pytest.raises(ValueError, match="multiple"):
+        t_ub.gs_round_ring(xw[:-4], Kw[:-4], W1w[:-4], bw[:-4], prev, **kw)
+    with pytest.raises(TypeError, match="base is"):
+        t_ub.gs_round_ring(xw, Kw, W1w, bw.float(), prev, **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_ub.gs_round_ring(xw.to("meta"), Kw, W1w, bw, prev, **kw)
 
 
 def test_cpu_round_runs_plain_and_counts_no_launch():
