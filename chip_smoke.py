@@ -110,8 +110,37 @@ Phases, each reported on its own lines:
        (float64) at 256², S = 64: the noisy cone inside the float32
        envelope and its ``uca`` within relative p99 1e-3 of the in-core
        float32 ``DEMProcessor``; the hard terrain printed.
+11. main path, the mesh (``pydem_tpu_torch/parallel``), shards on this one
+    card:
+    a. K1's subset rounds (``gs_round_subset``, the kernel over the interior
+       and the boundary block list) on 4096² ring windows of the 8192²
+       cone, the shard shape of b (the centred window and b's top-left
+       shard), with and without a flag ring: kernel == plain bit for bit
+       for each subset, interior then boundary into one output == one full
+       ring round, the ring untouched; the three rounds timed beside their
+       byte bounds on the centred window;
+    b. ``run_sharded(uca_solver="blocked")`` on the 8192² float32 cone over
+       a 2×2 mesh of four shards on the card: the split round (interior on
+       each shard's stream while the rings are copied, then the frame);
+       ``mag``, ``direction``, ``flats``, ``uca``, ``twi`` and the round
+       count equal to one device's ``terrain_step(uca_solver="blocked")``
+       bit for bit; wall time, K1 launches by form, host reads, peak device
+       memory; the solve alone on the same planes with the split and the
+       serial round forced, bit for bit equal; the one-card overlap of
+       ``measure_halo_overlap``; the 2048² cone over 1×2 and 2×4 meshes the
+       same way;
+    c. the hard chain's planes and pit links (phase 6) through
+       ``sharded_uca(pit_links=...)`` on a 2×2 mesh (split), and the serial
+       round forced, bit for bit equal to ``accumulate_blocked_pits_gs`` on
+       one device;
+    d. ``ProcessManager(mesh=2×2)`` on the 2048² cone as four tiles,
+       ``process_twi()`` and the GeoTIFF export (files read back), against
+       the in-memory manager on the same tiles (equal NaN patterns, values
+       within the cone's gate), stage seconds printed; then
+       ``dryrun_multichip(4)``.
 
-Then a JSON line with the kernel table, and as the last line
+Then a JSON line with the kernel table (K1's canvas, ring and subset forms
+and K2, each with its launches on the main paths), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
 exit and no result line.  The port imports neither JAX nor the JAX package.
 """
@@ -156,8 +185,15 @@ from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
                                            gs_round_ring_plain,
                                            kernel_smem_bytes)
 from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
-from pydem_tpu_torch.parallel.sharded import (_block_size, terrain_pre,
-                                              terrain_step)
+from pydem_tpu_torch.ops.uca_block import gs_round_subset, subset_blocks
+from pydem_tpu_torch.parallel import sharded
+from pydem_tpu_torch.parallel.dryrun import dryrun_multichip
+from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, shard_dims
+from pydem_tpu_torch.parallel.mesh import split as mesh_split
+from pydem_tpu_torch.parallel.sharded import (_block_size,
+                                              measure_halo_overlap,
+                                              run_sharded, sharded_uca,
+                                              terrain_pre, terrain_step)
 from pydem_tpu_torch.profiling import StageTimer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1421,8 +1457,8 @@ def _phase_ooc_scale(device, card, work, n, S):
         "on the whole canvas within %s, max abs %g, bitwise equal: %s, %d "
         "rounds vs %d" % (n, GATE_TOL["cone"], err, bitwise, fused["rounds"],
                           step["uca_sweeps"]))
-    return (streamed["launches"] + streamed["ring_launches"]
-            + fused["launches"] + fused["ring_launches"])
+    return (streamed["launches"] + fused["launches"],
+            streamed["ring_launches"] + fused["ring_launches"])
 
 
 OOC_STORE_KEYS = STORE_KEYS + ("elev_src", "flats", "uca_state")
@@ -1456,7 +1492,7 @@ def _phase_ooc_hard(device, card, work):
         written = pm.save_non_overlap_data_geotiff(
             os.path.join(work, "ooc_geotiff"))
         export_s = time.perf_counter() - t0
-    launches = gs_round.launches + gs_round_ring.launches
+    launches, ring_first = gs_round.launches, gs_round_ring.launches
     eng = pm._ooc
     check(eng.device.type == "cuda" and eng._fits_device_resident()
           and gs_round.launches > 0,
@@ -1481,7 +1517,7 @@ def _phase_ooc_hard(device, card, work):
         "%d K1 launches, %d pit links, export %.1f s [%s]"
         % (S, N_MAIN, run_s, {k: round(v, 2) for k, v
                               in metrics["stage_seconds"].items()},
-           eng.uca_rounds, launches, n_links, export_s, card))
+           eng.uca_rounds, launches + ring_first, n_links, export_s, card))
 
     uca_dev, twi_dev = store["uca"], store["twi"]
     gs_round.launches = gs_round_ring.launches = 0
@@ -1525,7 +1561,7 @@ def _phase_ooc_hard(device, card, work):
         % (S, eng.uca_rounds, eng.uca_visits, eng.uca_skipped, ring_launches,
            stream_s, metrics["uca_iters_to_converge"], GATE_TOL["hard"],
            n_links, err, bitwise, card))
-    return launches + ring_launches
+    return launches, ring_first + ring_launches
 
 
 def phase_ooc_precision(device):
@@ -1585,6 +1621,337 @@ def phase_ooc_precision(device):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 11: the mesh path ------------------------------------------------
+
+N_MESH = 8192  # the sharded canvas: four 4096² shards on one card
+
+
+def subset_bound(blocks, B, S, ring):
+    """The least time, in ms, of a K1 round over ``blocks`` (flat indices on
+    an (S/B)² grid) of an S² region with a 1-px ring, by bytes: the x, K and
+    W1 pixels their (B+2)² windows read (each once), their base, their
+    output blocks and, on the rim, the ring they copy, their flags and the
+    flags they test, the list; and the byte count."""
+    nb = S // B
+    listed = torch.zeros(nb * nb, dtype=torch.bool)
+    listed[blocks.cpu().long()] = True
+    own = torch.nn.functional.pad(
+        listed.view(nb, nb).repeat_interleave(B, 0).repeat_interleave(B, 1),
+        (1, 1, 1, 1))
+    near = own.clone()
+    for di, dj in ((0, 1), (1, 0), (0, -1), (-1, 0), (1, 1), (1, -1),
+                   (-1, 1), (-1, -1)):
+        near |= torch.roll(own, (di, dj), (0, 1))
+    window = int(near.sum())
+    ring_px = int((near & ~torch.nn.functional.pad(
+        torch.ones(S, S, dtype=torch.bool), (1, 1, 1, 1))).sum()) if ring \
+        else 0
+    nbytes = (window * (4 + 1 + 4) + int(own.sum()) * (4 + 4) + ring_px * 4
+              + int(listed.sum()) * (4 + 4 + 9 * 4))
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_subset_rounds(device, card):
+    """11a: K1's subset rounds on 4096² ring windows of the 8192² cone, the
+    shard shape of 11b's 2×2 mesh (a 64×64 block grid at B = 64): the
+    centred window, whose ring is all neighbours, and 11b's top-left shard,
+    whose ring is the canvas edge on two sides; against their plain version
+    and against one full ring round, with and without a flag ring; the
+    three rounds timed beside their bounds.  Returns (times, max error)."""
+    n, S, B = N_MESH, N_MESH // 2, 64
+    elev = torch.from_numpy(make_cone(n)).to(device)
+    W, base = weights_and_base(elev)
+    K, W1 = compact_from_dense(W)
+    del W, elev
+    kw = dict(B=B, inner_max=2 * B + 4)
+    nb = S // B
+    ones = torch.ones((n // B,) * 2, dtype=torch.int32, device=device)
+    x, _chg = gs_round(base, K, W1, base, ones, **kw)  # a mid-solve state
+    worst = 0.0
+    rng = np.random.RandomState(5)
+    for where, (i0, j0) in (("centred", (S // 2, S // 2)),
+                            ("top-left shard", (0, 0))):
+        xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
+        ring = torch.ones_like(xw, dtype=torch.bool)
+        ring[1:-1, 1:-1] = False
+        # every flag set; then a sparse flag ring (the frontier reads it)
+        for prev in (ones[:nb, :nb].contiguous(),
+                     torch.from_numpy((rng.rand(nb + 2, nb + 2) < 0.1)
+                                      .astype(np.int32)).to(device)):
+            full, full_chg = gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
+            out = (torch.full_like(xw, -1.0),
+                   torch.full((nb, nb), -1, dtype=torch.int32,
+                              device=device))
+            for subset in ("interior", "boundary"):
+                xk, ck = gs_round_subset(xw, Kw, W1w, bw, prev,
+                                         subset=subset, **kw)
+                xp, cp = gs_round_ring_plain(
+                    xw, Kw, W1w, bw, prev, **kw,
+                    blocks=subset_blocks(nb, nb, subset, device))
+                torch.cuda.synchronize()
+                err = nan_equal_max_err(xk, xp)
+                worst = max(worst, err)
+                check(err <= KERNEL_TOL and torch.equal(ck, cp),
+                      "11a %s window, %s round: kernel != plain (max err %g)"
+                      % (where, subset, err))
+                gs_round_subset(xw, Kw, W1w, bw, prev, subset=subset,
+                                out=out, **kw)
+            check(torch.equal(out[0], full) and torch.equal(out[1], full_chg),
+                  "11a %s window: interior then boundary != one full ring "
+                  "round" % where)
+            check(torch.equal(out[0][ring], xw[ring]),
+                  "11a %s window: the ring moved" % where)
+        log("mesh", "11a subset rounds on the %s %d² window of the %d² cone, "
+            "B=%d: interior (%d blocks) and boundary (%d blocks) kernel == "
+            "plain bitwise, flags in block space, with and without a flag "
+            "ring; interior then boundary == one full ring round bitwise, "
+            "ring untouched" % (where, S, n, B, (nb - 2) ** 2, 4 * (nb - 1)))
+    del x, ones
+    xw, Kw, W1w, bw = ring_window(base, K, W1, base, S // 2, S // 2, S)
+    del K, W1, base
+    prev = torch.ones((nb, nb), dtype=torch.int32, device=device)
+    times = {}
+    for subset in ("interior", "boundary", "full"):
+        blocks = (None if subset == "full"
+                  else subset_blocks(nb, nb, subset, device))
+        bufs = [(xw.clone(), torch.zeros((nb, nb), dtype=torch.int32,
+                                         device=device)) for _ in range(2)]
+
+        def kern(*a, subset=subset, out=bufs[0], **k):
+            if subset == "full":
+                return gs_round_ring(*a, out=out, **k)
+            return gs_round_subset(*a, subset=subset, out=out, **k)
+
+        def plain(*a, blocks=blocks, out=bufs[1], **k):
+            return gs_round_ring_plain(*a, blocks=blocks, out=out, **k)
+
+        t, err = time_round("11a K1 %s round, %d² window B=%d (all its blocks "
+                            "visited, into a given output)" % (subset, S, B),
+                            (("kernel", kern), ("plain", plain)),
+                            ((xw, Kw, W1w, bw, prev), kw), card)
+        worst = max(worst, err)
+        if blocks is None:
+            blocks = torch.arange(nb * nb)
+        t["bound"], t["bytes"] = subset_bound(blocks, B, S,
+                                              subset != "interior")
+        times[subset] = t
+        log("time", "11a %s round: %.3f ms; bound %.4f ms by bytes (%.1f MB), "
+            "%.1f%% of the kernel's time [%s]"
+            % (subset, t["kernel"], t["bound"], t["bytes"] / 1e6,
+               100 * t["bound"] / t["kernel"], card))
+    log("time", "11a interior + boundary %.3f ms against one full ring round "
+        "%.3f ms: ratio %.3f [%s]"
+        % (times["interior"]["kernel"] + times["boundary"]["kernel"],
+           times["full"]["kernel"], (times["interior"]["kernel"]
+                                     + times["boundary"]["kernel"])
+           / times["full"]["kernel"], card))
+    return times, worst
+
+
+def synced_seconds(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_step_equal(tag, got, want):
+    for key in ("mag", "direction", "flats", "uca", "twi"):
+        a, b = got[key], want[key]
+        check(tuple(a.shape) == tuple(b.shape) and torch.equal(
+            torch.nan_to_num(a.double()), torch.nan_to_num(b.double())),
+            "%s: %s differs from one device's" % (tag, key))
+    check(got["uca_sweeps"] == want["uca_sweeps"], "%s: %d rounds, one "
+          "device %d" % (tag, got["uca_sweeps"], want["uca_sweeps"]))
+
+
+def mesh_of(device, shape):
+    return make_mesh([device] * (shape[0] * shape[1]), shape)
+
+
+def forced_solve(base, W, mesh, split, links=None):
+    """The sharded K1 solve of ``base``/``W`` (and pit links) with the
+    split (True) or the serial (False) round forced, through the solver's
+    private switch.  Returns (area, rounds)."""
+    n_l, m_l = shard_dims(base.shape, mesh)
+    area_s, rounds = sharded._blocked_shards(
+        mesh_split(base, mesh), mesh_split(W, mesh), mesh,
+        _block_size(*base.shape),
+        links=sharded._links_of(links, mesh, n_l, m_l, base.dtype),
+        _force_split=split)
+    check(sharded._blocked_shards.last_split == split,
+          "the solver did not take the forced round")
+    return assemble(area_s, mesh), rounds
+
+
+def phase_sharded(device, card):
+    """11b: the 8192² cone over four shards on the card against one device,
+    split and serial rounds; 1×2 and 2×4 meshes at 2048²; the one-card
+    overlap.  Returns the launches (ring, subset) of the main run."""
+    n = N_MESH
+    elev = torch.from_numpy(make_cone(n)).to(device)
+    args = spacing(n, torch.float32, device)
+    single, single_s = synced_seconds(
+        lambda: terrain_step(elev, *args, uca_solver="blocked"))
+    log("mesh", "11b terrain_step(blocked) on one device, %d² cone: %.3f s, "
+        "%d rounds [%s]" % (n, single_s, single["uca_sweeps"], card))
+    mesh = mesh_of(device, (2, 2))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gs_round.launches = gs_round_ring.launches = gs_round_subset.launches = 0
+    reads = sharded._blocked_shards.host_reads
+    out, split_s = synced_seconds(lambda: run_sharded(
+        elev, *args, mesh=mesh, uca_solver="blocked"))
+    launches = dict(canvas=gs_round.launches, ring=gs_round_ring.launches,
+                    subset=gs_round_subset.launches)
+    reads = sharded._blocked_shards.host_reads - reads
+    peak = torch.cuda.max_memory_allocated() - held
+    check(sharded._blocked_shards.last_split and launches["subset"] > 0
+          and launches["canvas"] == 0,
+          "11b: the 2x2 run did not take the split round: %s" % launches)
+    rounds = out["uca_sweeps"]
+    check(launches["subset"] >= 2 * 4 * rounds, "11b: %d subset launches for "
+          "%d rounds of 4 shards" % (launches["subset"], rounds))
+    check_step_equal("11b 2x2 split", out, single)
+    log("mesh", "11b run_sharded(blocked) over a 2x2 mesh of four %d² shards "
+        "on %s: mag, direction, flats, uca, twi bitwise equal to one device's "
+        "terrain_step, %d rounds both; %.3f s (one device %.3f s); K1 "
+        "launches: %d subset (interior + boundary), %d ring, %d canvas; %d "
+        "host reads of the change counts; peak device memory %.3f GB = %.1f "
+        "planes of the canvas [%s]"
+        % (n // 2, device, rounds, split_s, single_s, launches["subset"],
+           launches["ring"], launches["canvas"], reads, peak / 1e9,
+           peak / (n * n * 4.0), card))
+    del out, single
+    _mag, _dir, _flats, W, base = terrain_pre(elev, *args)
+    del elev, _mag, _dir, _flats
+    (a_split, r_split), split_solve_s = synced_seconds(
+        lambda: forced_solve(base, W, mesh, True))
+    (a_serial, r_serial), serial_s = synced_seconds(
+        lambda: forced_solve(base, W, mesh, False))
+    check(r_split == r_serial == rounds and torch.equal(a_split, a_serial),
+          "11b: serial rounds differ from split rounds (%d, %d rounds)"
+          % (r_serial, r_split))
+    log("mesh", "11b the solve alone on the same planes, both rounds forced: "
+        "serial (exchange, then one ring round a shard) %.3f s, split %.3f "
+        "s, areas bitwise equal, %d rounds both [%s]"
+        % (serial_s, split_solve_s, rounds, card))
+    del a_split, a_serial
+    ov = measure_halo_overlap(base, W, mesh)
+    log("mesh", "11b overlap, %d² 2x2: exchange %.3f ms, relax %.3f ms, full "
+        "(split %s) %.3f ms a round (%s, every block visited); overlap "
+        "fraction %s (one card: the rings are copies on the card) [%s]"
+        % (n, 1e3 * ov["t_exchange_per_round"],
+           1e3 * ov["t_relax_per_round"], ov["split_round"],
+           1e3 * ov["t_full_per_round"], ov["timer"],
+           ov["overlap_fraction"], card))
+    del W, base
+    for shape in ((1, 2), (2, 4)):
+        e = torch.from_numpy(make_cone(N_MAIN)).to(device)
+        a = spacing(N_MAIN, torch.float32, device)
+        one, one_s = synced_seconds(
+            lambda: terrain_step(e, *a, uca_solver="blocked"))
+        m = mesh_of(device, shape)
+        got, got_s = synced_seconds(
+            lambda: run_sharded(e, *a, mesh=m, uca_solver="blocked"))
+        check_step_equal("11b %dx%d" % shape, got, one)
+        _mg, _dr, _fl, W2, b2 = terrain_pre(e, *a)
+        ov = measure_halo_overlap(b2, W2, m)
+        log("mesh", "11b %d² cone over a %dx%d mesh (split %s): bitwise equal "
+            "to one device, %d rounds; %.3f s (one device %.3f s); overlap: "
+            "exchange %.3f ms, relax %.3f ms, full %.3f ms a round, fraction "
+            "%s (one card, %s) [%s]"
+            % (N_MAIN, shape[0], shape[1], sharded._blocked_shards.last_split,
+               got["uca_sweeps"], got_s, one_s,
+               1e3 * ov["t_exchange_per_round"],
+               1e3 * ov["t_relax_per_round"], 1e3 * ov["t_full_per_round"],
+               ov["overlap_fraction"], ov["timer"], card))
+    return launches
+
+
+def phase_sharded_pits(device, card, state):
+    """11c: the hard chain's planes and pit links through sharded_uca on a
+    2x2 mesh (which takes the split round) against
+    accumulate_blocked_pits_gs on one device; the serial round forced."""
+    W, base, links = state
+    want, rw = accumulate_blocked_pits_gs(base, W, *links)
+    mesh = mesh_of(device, (2, 2))
+    got, rg = sharded_uca(base, W, mesh, pit_links=links)
+    check(sharded._blocked_shards.last_split, "11c: 2x2 did not split")
+    for split, (got, rg) in ((True, (got, rg)),
+                             (False, forced_solve(base, W, mesh, False,
+                                                  links))):
+        err = nan_equal_max_err(got, want)
+        check(err == 0.0 and rg == rw, "11c: sharded pit solve (split %s) "
+              "differs from one device: max err %g, rounds %d vs %d"
+              % (split, err, rg, rw))
+    log("mesh", "11c %d² hard terrain, %d pit links, 2x2 mesh: "
+        "sharded_uca(pit_links=...) bitwise equal to "
+        "accumulate_blocked_pits_gs on one device, split and serial, %d "
+        "rounds both (the fold adds each destination's links in link order "
+        "on one device, as PitLinks does)" % (N_MAIN, len(links[0]), rw))
+
+
+def phase_mesh_manager(device, card):
+    """11d: ProcessManager(mesh=2x2 on the card) over the 2048² cone's four
+    tiles, process_twi and the GeoTIFF export, against the in-memory
+    manager on the same tiles; then dryrun_multichip(4)."""
+    work = tempfile.mkdtemp(prefix="pydem_smoke_mesh_")
+    try:
+        tiles = os.path.join(work, "tiles")
+        cone = make_cone(N_MAIN)
+        check(write_tiles(cone, tiles) == 4, "expected a 2x2 tile grid")
+        runs = {}
+        for tag, mesh in (("in-memory", None),
+                          ("mesh", mesh_of(device, (2, 2)))):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                gs_round.launches = gs_round_subset.launches = 0
+                t0 = time.perf_counter()
+                pm = ProcessManager(in_path=tiles, mesh=mesh,
+                                    out_path=os.path.join(work, tag + ".zarr"),
+                                    superblock=N_MAIN // 2)
+                twi = pm.process_twi()
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                written, export_s = None, 0.0
+                if mesh is not None:
+                    t0 = time.perf_counter()
+                    written = pm.save_non_overlap_data_geotiff(
+                        os.path.join(work, "mesh_geotiff"))
+                    export_s = time.perf_counter() - t0
+            runs[tag] = (pm, twi, run_s, export_s, gs_round.launches,
+                         gs_round_subset.launches)
+            if written is not None:
+                check_manager_exports(pm, pm.out_file, written)
+        pm0, twi0, s0, _e0, l0, _sub0 = runs["in-memory"]
+        pm1, twi1, s1, e1, l1, sub1 = runs["mesh"]
+        check(pm1._ooc is not None and pm1._ooc.mesh is not None
+              and sub1 > 0 and l1 == 0,
+              "11d: the mesh manager did not solve over the mesh (%d subset, "
+              "%d canvas launches)" % (sub1, l1))
+        errs = {}
+        for key in ("elev", "slope", "aspect", "uca", "twi"):
+            errs[key], _bitwise = gate_equal(
+                "11d %s" % key, pm1.out_file[key], pm0.out_file[key],
+                GATE_TOL["cone"])
+        log("mesh", "11d ProcessManager(mesh=2x2 on %s) on the %d² cone's 4 "
+            "tiles: process_twi %.1f s (in memory %.1f s), export %.1f s, "
+            "stage seconds %s; elev, slope, aspect, uca, twi against the "
+            "in-memory manager: NaN patterns equal, max abs %s within %s; "
+            "%d subset launches, %d rounds [%s]"
+            % (device, N_MAIN, s1, s0, e1,
+               {k: round(v, 3) for k, v in pm1.timer.report().items()},
+               errs, GATE_TOL["cone"], sub1, pm1._ooc.uca_rounds, card))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res, dry_s = synced_seconds(lambda: dryrun_multichip(4))
+    log("mesh", "11d dryrun_multichip(4): %s, %.1f s" % (res, dry_s))
+
+
 def main():
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -1601,18 +1968,28 @@ def main():
     phase_f64_chain(device)
     k1_ms, k2_ms, e1, e2 = phase_times(device, card, state)
     k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
-    del state
     k1_launches += phase_manager(device, card)
-    ring_ms, e1 = phase_ring_round(device, card, k1_ms)
-    k1_err = max(k1_err, e1)
-    k1_launches += phase_ooc_scale(device, card)
-    k1_launches += phase_ooc_hard(device, card)
+    ring_ms, ring_err = phase_ring_round(device, card, k1_ms)
+    canvas, ring_launches = phase_ooc_scale(device, card)
+    k1_launches += canvas
+    canvas, ring = phase_ooc_hard(device, card)
+    k1_launches += canvas
+    ring_launches += ring
     phase_ooc_precision(device)
+    subset_ms, subset_err = phase_subset_rounds(device, card)
+    mesh_launches = phase_sharded(device, card)
+    ring_launches += mesh_launches["ring"]
+    phase_sharded_pits(device, card, state)
+    del state
+    phase_mesh_manager(device, card)
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
+    src = "pydem_tpu_torch/ops/csrc/uca_block.cu"
+    split_round = {k: subset_ms["interior"][k] + subset_ms["boundary"][k]
+                   for k in ("kernel", "plain", "bound")}
     print(json.dumps({"kernels": [{
         "name": "uca_gs_round",
         "route": "cuda",
-        "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
+        "source": src,
         "replaces": "pydem_tpu/ops/uca_block.py:256",
         "launches": k1_launches,
         "max_abs_err": k1_err,
@@ -1621,10 +1998,41 @@ def main():
         "bound_ms": k1_ms["bound"],
         "bound_by": k1_ms["bound_by"],
         "library_ms": None,  # no PyTorch call computes a relaxation round
-        # the ring form (uca_gs_round_ring_f32), one round of a 2048² window
-        "ring_ms": ring_ms["kernel"],
-        "ring_plain_ms": ring_ms["plain"],
-        "ring_bound_ms": ring_ms["bound"],
+    }, {
+        # K1's ring form (uca_gs_round_ring_list_f32 over every block), one
+        # round of a 2048² window
+        "name": "uca_gs_round_ring",
+        "route": "cuda",
+        "source": src,
+        "replaces": "pydem_tpu/ops/uca_block.py:256",
+        "launches": ring_launches,
+        "max_abs_err": ring_err,
+        "ms": ring_ms["kernel"],
+        "plain_ms": ring_ms["plain"],
+        "bound_ms": ring_ms["bound"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        # K1's subset rounds (uca_gs_round_ring_list_f32 over the interior
+        # and the boundary block lists): one interior plus one boundary
+        # round of a 4096² window, a shard of the 8192² cone over 2x2, the
+        # compute of one split round
+        "name": "uca_gs_round_subset",
+        "route": "cuda",
+        "source": src,
+        "replaces": "pydem_tpu/ops/uca_block.py:242 (_subset_grid; subset "
+                    "branches of _gs_kernel :279-303)",
+        "launches": mesh_launches["subset"],
+        "max_abs_err": subset_err,
+        "ms": split_round["kernel"],
+        "plain_ms": split_round["plain"],
+        "bound_ms": split_round["bound"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "interior_ms": subset_ms["interior"]["kernel"],
+        "boundary_ms": subset_ms["boundary"]["kernel"],
+        "boundary_bound_ms": subset_ms["boundary"]["bound"],
+        "full_ring_ms": subset_ms["full"]["kernel"],
     }, {
         "name": "uca_block_round",
         "route": "cuda",

@@ -19,9 +19,14 @@ its ``device`` keyword (default ``"cuda"``) is handed to the processor, which
 raises without a GPU unless ``device="cpu"`` is asked for.  With
 ``out_of_core=True`` the mosaic never materialises: tiles stream into the
 store and :class:`~pydem_tpu_torch.outofcore.OutOfCoreEngine` runs the
-pipeline in ``superblock``-sized windows on the same device.  Not ported yet:
-``mesh=`` (ROADMAP.md queue 1 item 7, the multi-device solver), which raises
-``NotImplementedError``.
+pipeline in ``superblock``-sized windows on the same device.  With ``mesh``
+(a :class:`~pydem_tpu_torch.parallel.mesh.Mesh` whose devices are of the
+``device``'s type) the canvases shard over the mesh: ``process_twi`` takes
+the streaming route of the out-of-core engine with the engine's UCA solve
+sharded (conditioning and pit links on margin windows from the store, as in
+the JAX package), and the stage-by-stage calls ``process_aspect_slope`` /
+``process_uca`` run :class:`~pydem_tpu_torch.parallel.sharded.
+ShardedPipeline` on the mosaic.
 
 Deliberate improvements over the reference (documented deviations):
 
@@ -42,6 +47,7 @@ from .geometry import pixel_scales
 from .io.geotiff import write_geotiff
 from .io.raw import read_raster
 from .io.store import ArrayStore
+from .parallel.mesh import check_mesh
 from .profiling import StageTimer
 
 # Test hook with the same meaning as process_manager.DEBUG (:52): force unit
@@ -72,16 +78,15 @@ class ProcessManager:
                  dem_proc_kwargs=None, grid_round_decimals=2, _debug=False,
                  mesh=None, resume=False, out_of_core=False, superblock=4096,
                  measure_halo_overlap=False, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "pydem_tpu_torch.ProcessManager: mesh= (the multi-device "
-                "solver) is not ported yet (ROADMAP.md queue 1 item 7)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ProcessManager(device=%r): torch.cuda is not "
                                "available" % (device,))
-        # measure_halo_overlap is read only by the mesh route; accepted so
-        # that callers need not change
+        check_mesh(mesh, self.device)
+        self.mesh = mesh
+        # metrics.json: also time the halo/compute overlap on the mesh
+        # (parallel.sharded.measure_halo_overlap)
+        self.measure_halo_overlap = measure_halo_overlap
         self.in_path = in_path
         self.n_workers = n_workers  # accepted for API parity; device-parallel
         self.out_path = out_path or os.path.join(in_path, "results.zarr")
@@ -109,6 +114,7 @@ class ProcessManager:
         self.grid_shape = None
         self.grid_slice = []
         self._dp = None
+        self._sp = None
 
     @property
     def n_inputs(self):
@@ -339,6 +345,17 @@ class ProcessManager:
         self.out_file["elev"] = dp.elev
         return self.out_file["elev"]
 
+    def _sharded_pipeline(self):
+        """The mesh pipeline over the conditioned mosaic, built once."""
+        if self._sp is None:
+            from .parallel.sharded import ShardedPipeline
+
+            dp = self._processor()
+            self._sp = ShardedPipeline(dp.elev, dp.dX, dp.dY, dp.dX2, dp.dY2,
+                                       self.mesh,
+                                       uca_solver=dp._resolved_solver())
+        return self._sp
+
     def process_aspect_slope(self, indices=None):
         dp = self._processor()
         # conditioning already applied by process_elevation; DEMProcessor
@@ -351,7 +368,11 @@ class ProcessManager:
             dp.flats = dp.mag == -1
             return dp.mag, dp.direction
         with self.timer.stage("aspect_slope"):
-            dp.calc_slopes_directions()
+            if self.mesh is not None:
+                dp.mag, dp.direction, dp.flats = \
+                    self._sharded_pipeline().pre()
+            else:
+                dp.calc_slopes_directions()
         self.out_file["aspect"] = dp.direction
         self.out_file["slope"] = dp.mag
         return dp.mag, dp.direction
@@ -372,12 +393,15 @@ class ProcessManager:
                 dp.uca_sweeps = st.get("uca_sweeps", -1)
             return dp.uca
         with self.timer.stage("uca"):
-            dp.calc_uca()
+            if self.mesh is not None:
+                self._sharded_uca(dp)
+            else:
+                dp.calc_uca()
         # real edge state from the solve: canvas-boundary pixels that await
         # inflow from OUTSIDE the mosaic stay todo (dem_processing.py:
         # 909-930); everything else is done by construction of the global
         # solve.  A state without edge bookkeeping (a resumed run whose uca
-        # was loaded) counts as all-done.
+        # was loaded, or the mesh route) counts as all-done.
         if dp._has("edge_todo"):
             self.out_file["edge_todo"] = np.asarray(dp.edge_todo)
             self.out_file["edge_done"] = np.asarray(dp.edge_done)
@@ -392,6 +416,29 @@ class ProcessManager:
         # (edge_todo/edge_done/_uca_state.json) must already be durable
         self.out_file["uca"] = dp.uca
         return dp.uca
+
+    def _sharded_uca(self, dp):
+        """The UCA stage over the mesh: the host's pit links (the spill
+        mode's connectivity needs section), the sharded solve."""
+        if dp.direction is None:
+            self.process_aspect_slope()
+        sp = self._sharded_pipeline()
+        if dp.drain_pits_spill and not (dp.drain_pits or dp.drain_flats):
+            from .api import _section_program
+
+            section, proportion = _section_program(
+                dp._to_dev(dp.direction), dp._to_dev(dp.flats),
+                dp._to_dev(dp.dX), dp._to_dev(dp.dY))
+            dp.section = section.cpu().numpy()
+            dp.proportion = proportion.cpu().numpy()
+        pit_src, pit_dst, pit_w, flats2, mag2 = dp._drain_links()
+        keep = pit_w > 1e-8  # pruning, dem_processing.py:1136
+        area, rounds = sp.uca((pit_src[keep], pit_dst[keep], pit_w[keep]))
+        dp.uca = np.where(flats2, np.nan, area)
+        dp.mag = np.asarray(mag2)
+        dp.flats = np.asarray(flats2)
+        dp.uca_sweeps = rounds
+        dp.twi_min_area = min(dp.twi_min_area, sp.min_area)
 
     def process_uca_edges(self, indices=None):
         """Cross-tile UCA edge resolution.
@@ -464,7 +511,8 @@ class ProcessManager:
         eng = OutOfCoreEngine(self.out_file, self.grid_shape, dX, dY, dX2,
                               dY2, dem_proc_kwargs=self.dem_proc_kwargs,
                               superblock=self.superblock, resume=self.resume,
-                              timer=self.timer, device=self.device)
+                              timer=self.timer, mesh=self.mesh,
+                              device=self.device)
         self._ooc = eng
         with self.timer.stage("ingest"):
             self._ingest_out_of_core(eng.S)
@@ -492,9 +540,17 @@ class ProcessManager:
         return self.out_file
 
     def process_twi(self):
-        if self.out_of_core:
-            # the store handle: the canvas never materializes
-            return self._process_twi_out_of_core()
+        # A mesh run takes the streaming route even when out_of_core is off,
+        # as in the JAX package: conditioning and pit links run on margin
+        # windows from the store and the canvases gather into the device
+        # pass, so the mosaic is never conditioned whole on the host.
+        # Stage-by-stage calls (process_elevation, ...) keep the in-memory
+        # behaviour.
+        if self.out_of_core or self.mesh is not None:
+            out = self._process_twi_out_of_core()
+            if self.out_of_core:
+                return out  # the store handle: the canvas never materializes
+            return self.out_file["twi"]  # the in-memory return contract
         if self.grid_shape is None:
             self.compute_grid()
         self._success_init()
@@ -531,6 +587,9 @@ class ProcessManager:
             "canvas_shape": list(self.grid_shape or ()),
             "n_tiles": self.n_inputs,
         }
+        if self._sp is not None:
+            metrics.update(self._sp.halo_metrics(
+                measure=self.measure_halo_overlap))
         if self._ooc is not None:
             metrics["uca_iters_to_converge"] = int(self._ooc.uca_rounds)
             metrics["halo_fraction"] = self._ooc.halo_fraction()

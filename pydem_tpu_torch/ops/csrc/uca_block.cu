@@ -27,15 +27,29 @@
 //    or K2's pre-exploded (B+16, B+256) tiles.  Out of the canvas, x and
 //    the weights read 0.
 //
-// K1 also has a ring form (uca_gs_round_ring_f32), for a window of a larger
-// canvas: x, K, W1 and x_out carry a 1-px ring around the n x m region that
-// the blocks tile.  The ring of x is read as the frozen halo of the region's
-// rim blocks and copied to x_out unchanged; the ring of K and W1 is real,
-// because ring pixels send flow into the region.  base, prev and chg cover
-// the region only.  Every pixel's sum is then the same rounding sequence as
-// in a round over the whole canvas, so the blocks of the window come out
-// bit for bit as the same blocks of that round.  Rows of m + 2 floats are
-// not 128-byte aligned; the loads are a few percent of a visit.
+// K1 also has a ring form (uca_gs_round_ring_list_f32), for a window of a
+// larger canvas: x, K, W1 and x_out carry a 1-px ring around the n x m
+// region that the blocks tile.  The ring of x is read as the frozen halo of
+// the region's rim blocks and copied to x_out unchanged; the ring of K and
+// W1 is real, because ring pixels send flow into the region.  base, prev and
+// chg cover the region only.  Every pixel's sum is then the same rounding
+// sequence as in a round over the whole canvas, so the blocks of the window
+// come out bit for bit as the same blocks of that round.  Rows of m + 2
+// floats are not 128-byte aligned; the loads are a few percent of a visit.
+//
+// The ring form also takes a block list and a flag ring, which replace the
+// `subset` grids of the TPU kernel (_subset_grid, the interior/boundary
+// branches of _gs_kernel): the sharded solver relaxes a shard's interior
+// blocks, which never read the ring, while its ring is in flight, and its
+// frame after the ring landed.  A launch over a list is a 1-D grid of the
+// list's length; block b of the list is block (b / (m/B), b % (m/B)), and it
+// writes its block of x_out and its flag at that block's place in chg (block
+// space for every list, where the TPU's boundary subset wrote program ids
+// and only summed them, so the cross-round frontier stays sound).  Blocks
+// not listed write nothing; without a list the grid is every block.  With
+// prev_ring = 1, prev is (n/B + 2) x (m/B + 2): the region's flags with a
+// 1-block ring of the neighbouring shards' flags, read by the rim blocks'
+// frontier test.
 //
 // What bounds it on the card.  Per visited block a round reads the halo
 // window of x, the weights of the block's sources (K1: K at 1 B and W1;
@@ -293,13 +307,18 @@ __device__ __forceinline__ void relax_block(
     x_out[g] = v;
   }
   moved = __syncthreads_or(moved);
-  if (tid == 0) chg[bi * (m / B) + bj] = moved;
+  if (tid == 0) chg[(i0 / B) * (m / B) + j0 / B] = moved;
 }
 
 // K1: one round over the compact receivers with the frontier skip.  RING = 1
 // is the ring form: the rim blocks also copy their part of the ring to x_out.
+// `blocks` null: a (m/B, n/B) grid visits every block; else a 1-D grid
+// visits the listed blocks.  prev_ring: prev carries a 1-block flag ring.
+// The minimum of one block per SM lets ptxas give the 64-thread B = 16
+// blocks more than the 64 registers it otherwise holds them to (where the
+// block index read from the list spilled); B = 64 is unchanged.
 template <int B, int RING>
-__global__ void __launch_bounds__(Shape<B>::THREADS)
+__global__ void __launch_bounds__(Shape<B>::THREADS, 1)
 uca_gs_round_kernel(const float* __restrict__ x,
                     const uint8_t* __restrict__ K,
                     const float* __restrict__ W1,
@@ -307,10 +326,16 @@ uca_gs_round_kernel(const float* __restrict__ x,
                     const int* __restrict__ prev,
                     float* __restrict__ x_out,
                     int* __restrict__ chg,
-                    int n, int m, int inner_max) {
+                    const int* __restrict__ blocks,
+                    int n, int m, int inner_max, int prev_ring) {
   using S = Shape<B>;
   const int nb_i = n / B, nb_j = m / B;
-  const int bi = blockIdx.y, bj = blockIdx.x;
+  int bi = blockIdx.y, bj = blockIdx.x;
+  if (blocks != nullptr) {
+    const int b = blocks[blockIdx.x];
+    bi = b / nb_j;
+    bj = b - bi * nb_j;
+  }
   const size_t pitch = m + 2 * RING;
 
   if (RING && (bi == 0 || bi == nb_i - 1 || bj == 0 || bj == nb_j - 1)) {
@@ -336,7 +361,9 @@ uca_gs_round_kernel(const float* __restrict__ x,
   for (int a = -1; a <= 1; ++a) {
     for (int b = -1; b <= 1; ++b) {
       const int qi = bi + a, qj = bj + b;
-      if (qi >= 0 && qi < nb_i && qj >= 0 && qj < nb_j) {
+      if (prev_ring) {  // the ring holds the neighbours' flags (0: none)
+        dirty |= prev[(qi + 1) * (nb_j + 2) + (qj + 1)];
+      } else if (qi >= 0 && qi < nb_i && qj >= 0 && qj < nb_j) {
         dirty |= prev[qi * nb_j + qj];
       }
     }
@@ -368,11 +395,13 @@ uca_block_round_kernel(const float* __restrict__ x,
                     blockIdx.y, blockIdx.x);
 }
 
+// nblocks < 0: the (m/B, n/B) grid of every block; else a 1-D grid of
+// nblocks (the length of a block list).
 template <int B, class Kernel, class... Args>
-cudaError_t launch(Kernel kernel, int n, int m, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(Kernel kernel, int n, int m, int nblocks,
+                   cudaStream_t stream, Args... args) {
   using S = Shape<B>;
-  const dim3 grid(m / B, n / B);
+  const dim3 grid = nblocks < 0 ? dim3(m / B, n / B) : dim3(nblocks);
   const dim3 block(B, S::TY);
   kernel<<<grid, block, S::SMEM, stream>>>(args...);
   return cudaGetLastError();
@@ -381,7 +410,8 @@ cudaError_t launch(Kernel kernel, int n, int m, cudaStream_t stream,
 template <int RING>
 int gs_round_entry(const void* x, const void* K, const void* W1,
                    const void* base, const void* prev, void* x_out, void* chg,
-                   int n, int m, int B, int inner_max, void* stream) {
+                   const void* blocks, int n, int m, int B, int inner_max,
+                   int nblocks, int prev_ring, void* stream) {
   const auto* xf = static_cast<const float*>(x);
   const auto* kf = static_cast<const uint8_t*>(K);
   const auto* wf = static_cast<const float*>(W1);
@@ -389,14 +419,19 @@ int gs_round_entry(const void* x, const void* K, const void* W1,
   const auto* pf = static_cast<const int*>(prev);
   auto* of = static_cast<float*>(x_out);
   auto* cf = static_cast<int*>(chg);
+  const auto* lf = static_cast<const int*>(blocks);
   auto st = static_cast<cudaStream_t>(stream);
+  if (lf == nullptr) nblocks = -1;
+  if (nblocks == 0) return cudaSuccess;  // an empty list visits nothing
   switch (B) {
     case 16:
-      return launch<16>(uca_gs_round_kernel<16, RING>, n, m, st, xf, kf, wf,
-                        bf, pf, of, cf, n, m, inner_max);
+      return launch<16>(uca_gs_round_kernel<16, RING>, n, m, nblocks, st, xf,
+                        kf, wf, bf, pf, of, cf, lf, n, m, inner_max,
+                        prev_ring);
     case 64:
-      return launch<64>(uca_gs_round_kernel<64, RING>, n, m, st, xf, kf, wf,
-                        bf, pf, of, cf, n, m, inner_max);
+      return launch<64>(uca_gs_round_kernel<64, RING>, n, m, nblocks, st, xf,
+                        kf, wf, bf, pf, of, cf, lf, n, m, inner_max,
+                        prev_ring);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -413,8 +448,8 @@ extern "C" int uca_gs_round_f32(const void* x, const void* K, const void* W1,
                                 const void* base, const void* prev,
                                 void* x_out, void* chg, int n, int m, int B,
                                 int inner_max, void* stream) {
-  return gs_round_entry<0>(x, K, W1, base, prev, x_out, chg, n, m, B,
-                           inner_max, stream);
+  return gs_round_entry<0>(x, K, W1, base, prev, x_out, chg, nullptr, n, m,
+                           B, inner_max, -1, 0, stream);
 }
 
 // One K1 round in the ring form: x, W1, x_out (n + 2, m + 2) float32 and K
@@ -422,14 +457,22 @@ extern "C" int uca_gs_round_f32(const void* x, const void* K, const void* W1,
 // (n, m) float32 and prev, chg (n/B, m/B) int32 cover the region.  The ring
 // of x is the region's frozen halo and comes back unchanged in x_out; the
 // ring of K and W1 holds the ring pixels' real receivers.  Otherwise as
-// uca_gs_round_f32.
-extern "C" int uca_gs_round_ring_f32(const void* x, const void* K,
-                                     const void* W1, const void* base,
-                                     const void* prev, void* x_out, void* chg,
-                                     int n, int m, int B, int inner_max,
-                                     void* stream) {
-  return gs_round_entry<1>(x, K, W1, base, prev, x_out, chg, n, m, B,
-                           inner_max, stream);
+// uca_gs_round_f32, and: `blocks` (nblocks int32 flat block indices
+// bi * (m/B) + bj, on the device) restricts the round to those blocks, each
+// writing its block of x_out, its flag in chg and, on the region's rim, its
+// part of the ring; nothing else of x_out and chg is written.  A null
+// `blocks` (nblocks = -1) visits every block.  prev_ring = 1: prev is
+// (n/B + 2, m/B + 2), the region's flags inside a 1-block ring of the
+// neighbouring regions' flags (0 where there is none).
+extern "C" int uca_gs_round_ring_list_f32(const void* x, const void* K,
+                                          const void* W1, const void* base,
+                                          const void* prev, void* x_out,
+                                          void* chg, const void* blocks,
+                                          int n, int m, int B, int inner_max,
+                                          int nblocks, int prev_ring,
+                                          void* stream) {
+  return gs_round_entry<1>(x, K, W1, base, prev, x_out, chg, blocks, n, m, B,
+                           inner_max, nblocks, prev_ring, stream);
 }
 
 // One K2 round (dense weight planes, every block).  x, base, x_out (n, m)
@@ -449,11 +492,11 @@ extern "C" int uca_block_round_f32(const void* x, const void* W,
   auto st = static_cast<cudaStream_t>(stream);
   switch (B) {
     case 16:
-      return launch<16>(uca_block_round_kernel<16>, n, m, st, xf, wf, bf, of,
-                        cf, n, m, inner_max);
+      return launch<16>(uca_block_round_kernel<16>, n, m, -1, st, xf, wf, bf,
+                        of, cf, n, m, inner_max);
     case 64:
-      return launch<64>(uca_block_round_kernel<64>, n, m, st, xf, wf, bf, of,
-                        cf, n, m, inner_max);
+      return launch<64>(uca_block_round_kernel<64>, n, m, -1, st, xf, wf, bf,
+                        of, cf, n, m, inner_max);
     default: return cudaErrorInvalidValue;
   }
 }

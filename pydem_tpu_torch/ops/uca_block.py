@@ -36,6 +36,19 @@ back untouched; the ring of ``K``/``W1`` holds the ring pixels' real
 receivers, since they send flow into the region.  Every pixel's sum is the
 rounding sequence of a whole-canvas round, so the window's blocks come out
 bit for bit as the same blocks of that round.
+
+The ring form takes two more things, for the sharded solver
+(:mod:`pydem_tpu_torch.parallel.sharded`), which gives each shard a 1-px ring
+of its neighbours' values.  A *flag ring*: ``prev`` may be
+(n/B + 2, m/B + 2), the region's changed flags inside a 1-block ring of the
+neighbouring shards' flags, so that the frontier test of a rim block sees
+across the shard's edge as it would on one canvas.  And *subset rounds*
+(:func:`gs_round_subset`, the TPU kernel's ``subset`` grids): a launch over
+a list of blocks, ``"interior"`` (the blocks off the region's rim, which
+never read the ring) or ``"boundary"`` (the rim), each writing only its own
+blocks, flags and part of the ring into a shared output; interior then
+boundary is one ring round, bit for bit.  The plain version takes the same
+list (``gs_round_ring_plain(..., blocks=)``).
 """
 from __future__ import annotations
 
@@ -116,7 +129,9 @@ def _check_planes(x, named):
 
 def _check_round_args(x, K, W1, base, prev, B, ring=0):
     """K1's arguments; ``ring`` = 1 for the ring form, whose ``x``, ``K`` and
-    ``W1`` are 2 px larger than ``base`` each way."""
+    ``W1`` are 2 px larger than ``base`` each way and whose ``prev`` may
+    carry a 1-block flag ring.  Returns 1 if ``prev`` has that ring, else
+    0."""
     _check_canvas(base, B)
     n, m = base.shape
     if K.dtype != torch.uint8:
@@ -128,12 +143,49 @@ def _check_round_args(x, K, W1, base, prev, B, ring=0):
         if tuple(t.shape) != full:
             raise ValueError("%s has shape %s, expected %s"
                              % (name, tuple(t.shape), full))
-    if tuple(prev.shape) != (n // B, m // B):
+    flags = [(n // B, m // B)]
+    if ring:
+        flags.append((n // B + 2, m // B + 2))
+    if tuple(prev.shape) not in flags:
         raise ValueError("prev has shape %s, expected %s"
-                         % (tuple(prev.shape), (n // B, m // B)))
+                         % (tuple(prev.shape), " or ".join(map(str, flags))))
     _check_planes(x, (("W1", W1),))
     if base.dtype != x.dtype:
         raise TypeError("base is %s but x is %s" % (base.dtype, x.dtype))
+    return int(tuple(prev.shape) != flags[0])
+
+
+def _dirty(prev, prev_ring):
+    """The blocks a K1 round relaxes: those whose 3×3 block neighbourhood
+    has a nonzero flag (a flag ring is read, then dropped)."""
+    d = dilate(prev != 0)
+    return d[1:-1, 1:-1] if prev_ring else d
+
+
+SUBSETS = ("interior", "boundary")
+
+
+@functools.cache
+def _subset_list(nb_i, nb_j, subset, device):
+    idx = torch.arange(nb_i * nb_j, dtype=torch.int32).view(nb_i, nb_j)
+    rim = torch.ones((nb_i, nb_j), dtype=torch.bool)
+    rim[1:-1, 1:-1] = False
+    return idx[rim if subset == "boundary" else ~rim].to(device)
+
+
+def subset_blocks(nb_i, nb_j, subset, device="cpu"):
+    """The flat block indices (``bi * nb_j + bj``, int32, row-major) of a
+    subset round over an ``nb_i`` × ``nb_j`` block grid: ``"interior"``, the
+    blocks off the rim, which never read the ring; ``"boundary"``, the rim.
+    The TPU kernel's ``_subset_grid`` mapped them onto its grid; the grid
+    must be at least 3×3 for the two to be a partition with an interior."""
+    if subset not in SUBSETS:
+        raise ValueError("subset must be one of %s, got %r"
+                         % (SUBSETS, subset))
+    if nb_i < 3 or nb_j < 3:
+        raise ValueError("subset rounds need a block grid of at least 3x3, "
+                         "got %dx%d" % (nb_i, nb_j))
+    return _subset_list(nb_i, nb_j, subset, torch.device(device))
 
 
 def _check_block_args(x, W, base, B):
@@ -212,17 +264,48 @@ def gs_round_plain(x, K, W1, base, prev, *, B, inner_max):
                          B=B, inner_max=inner_max)
 
 
-def gs_round_ring_plain(x, K, W1, base, prev, *, B, inner_max):
+def gs_round_ring_plain(x, K, W1, base, prev, *, B, inner_max, blocks=None,
+                        out=None):
     """One K1 round in the ring form, in plain PyTorch (the kernel's twin).
 
     ``x``, ``K``, ``W1``: (n+2, m+2), the (n, m) region that the blocks tile
-    with a 1-px ring; ``base``: (n, m); ``prev``: (n/B, m/B).  As
-    :func:`gs_round_plain`, with the ring where that round reads zeros.
-    Returns ``(x_new, chg)``: ``x_new`` (n+2, m+2) with the ring of ``x``.
+    with a 1-px ring; ``base``: (n, m); ``prev``: (n/B, m/B), or
+    (n/B+2, m/B+2) with a flag ring.  As :func:`gs_round_plain`, with the
+    ring where that round reads zeros.  Returns ``(x_new, chg)``: ``x_new``
+    (n+2, m+2) with the ring of ``x``.
+
+    ``blocks``: flat block indices (see :func:`subset_blocks`); only those
+    blocks are visited, and only they write their values, their flags and
+    the ring pixels next to them.  ``out``: an ``(x_new, chg)`` pair to
+    write into (the other blocks keep what it holds); without it they keep
+    ``x``'s values and report 0.
     """
-    _check_round_args(x, K, W1, base, prev, B, ring=1)
-    return _relax_blocks(x, expand_compact(K, W1), base, dilate(prev != 0),
-                         B=B, inner_max=inner_max, ring=True)
+    prev_ring = _check_round_args(x, K, W1, base, prev, B, ring=1)
+    n, m = base.shape
+    nb_i, nb_j = n // B, m // B
+    dirty = _dirty(prev, prev_ring)
+    if blocks is None and out is None:
+        return _relax_blocks(x, expand_compact(K, W1), base, dirty, B=B,
+                             inner_max=inner_max, ring=True)
+    listed = torch.ones((nb_i, nb_j), dtype=torch.bool, device=x.device)
+    if blocks is not None:
+        listed = torch.zeros_like(listed).view(-1)
+        listed[blocks.long().to(x.device)] = True
+        listed = listed.view(nb_i, nb_j)
+    new, chg = _relax_blocks(x, expand_compact(K, W1), base, dirty & listed,
+                             B=B, inner_max=inner_max, ring=True)
+    if out is None:
+        out = (x.clone(), torch.zeros_like(chg))
+    x_out, chg_out = out
+    # the listed blocks' pixels, and the ring pixels next to them
+    own = F.pad(listed.repeat_interleave(B, 0).repeat_interleave(B, 1),
+                (1, 1, 1, 1))
+    ring = torch.ones_like(own)
+    ring[1:-1, 1:-1] = False
+    px = own | (dilate(own) & ring)
+    x_out[px] = new[px]
+    chg_out[listed] = chg[listed]
+    return x_out, chg_out
 
 
 def block_round_plain(x, W, base, *, B, inner_max):
@@ -290,31 +373,87 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
 gs_round.launches = 0
 
 
-def gs_round_ring(x, K, W1, base, prev, *, B, inner_max):
+def _ring_launch(name, x, K, W1, base, prev, B, inner_max, blocks, out):
+    """Checks, output buffers and the launch of K1's ring form; ``blocks`` a
+    device int32 list or None.  Returns ``(x_new, chg)``."""
+    if x.device.type != "cuda":
+        raise ValueError("%s: unsupported device %s" % (name, x.device))
+    prev_ring = _check_round_args(x, K, W1, base, prev, B, ring=1)
+    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
+                              ("prev", prev)))
+    n, m = base.shape
+    if out is not None:
+        x_out, chg = out
+        if (x_out.shape != x.shape or x_out.dtype != x.dtype
+                or tuple(chg.shape) != (n // B, m // B)
+                or chg.dtype != torch.int32):
+            raise ValueError("%s: out must be an (x, flags) pair of shapes "
+                             "%s, %s" % (name, tuple(x.shape),
+                                         (n // B, m // B)))
+        _check_kernel_args(x, B, (("out x", x_out), ("out flags", chg)))
+        if x_out.data_ptr() == x.data_ptr():
+            raise ValueError("%s: out must not be x (every block reads the "
+                             "round-start canvas)" % name)
+    elif blocks is None:
+        x_out = torch.empty_like(x)
+        chg = torch.empty((n // B, m // B), dtype=torch.int32,
+                          device=x.device)
+    else:
+        x_out = x.clone()
+        chg = torch.zeros((n // B, m // B), dtype=torch.int32,
+                          device=x.device)
+    _launch("uca_gs_round_ring_list_f32", x, K, W1, base, prev, x_out, chg,
+            blocks, n, m, B, inner_max,
+            -1 if blocks is None else blocks.numel(), prev_ring)
+    return x_out, chg
+
+
+def gs_round_ring(x, K, W1, base, prev, *, B, inner_max, out=None):
     """One K1 round in the ring form: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  See :func:`gs_round_ring_plain` for the
-    contract.
+    contract (``prev`` may carry a flag ring; ``out`` an ``(x, flags)`` pair
+    to write into).
 
     ``gs_round_ring.launches`` counts kernel launches (never plain runs).
     """
     if x.device.type == "cpu":
         return gs_round_ring_plain(x, K, W1, base, prev, B=B,
-                                   inner_max=inner_max)
-    if x.device.type != "cuda":
-        raise ValueError("gs_round_ring: unsupported device %s" % x.device)
-    _check_round_args(x, K, W1, base, prev, B, ring=1)
-    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
-                              ("prev", prev)))
-    n, m = base.shape
-    out = torch.empty_like(x)
-    chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
-    _launch("uca_gs_round_ring_f32", x, K, W1, base, prev, out, chg, n, m, B,
-            inner_max)
+                                   inner_max=inner_max, out=out)
+    res = _ring_launch("gs_round_ring", x, K, W1, base, prev, B, inner_max,
+                       None, out)
     gs_round_ring.launches += 1
-    return out, chg
+    return res
 
 
 gs_round_ring.launches = 0
+
+
+def gs_round_subset(x, K, W1, base, prev, *, B, inner_max, subset, out=None):
+    """A K1 ring-form round restricted to the ``subset`` (``"interior"`` or
+    ``"boundary"``, see :func:`subset_blocks`) of the region's blocks: the
+    kernel over that block list for CUDA tensors, its plain version
+    (``gs_round_ring_plain(..., blocks=)``) for CPU tensors.  Only the
+    subset's blocks, their flags and (boundary) the ring are written, into
+    ``out`` when given: an interior and a boundary round into one ``out``
+    make one :func:`gs_round_ring`, bit for bit.  Raises ``ValueError`` for
+    a block grid under 3×3.
+
+    ``gs_round_subset.launches`` counts kernel launches (never plain runs).
+    """
+    n, m = base.shape
+    _check_canvas(base, B)
+    blocks = subset_blocks(n // B, m // B, subset, x.device)
+    if x.device.type == "cpu":
+        return gs_round_ring_plain(x, K, W1, base, prev, B=B,
+                                   inner_max=inner_max, blocks=blocks,
+                                   out=out)
+    res = _ring_launch("gs_round_subset", x, K, W1, base, prev, B, inner_max,
+                       blocks, out)
+    gs_round_subset.launches += 1
+    return res
+
+
+gs_round_subset.launches = 0
 
 
 def block_round(x, W, base, *, B, inner_max):
@@ -341,7 +480,7 @@ block_round.launches = 0
 
 # C entries of csrc/uca_block.cu that launch: (pointer arguments, int
 # arguments), then the stream
-_ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_gs_round_ring_f32": (7, 4),
+_ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_gs_round_ring_list_f32": (8, 5),
             "uca_block_round_f32": (5, 4)}
 
 

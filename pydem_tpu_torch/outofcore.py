@@ -41,7 +41,16 @@ Differences from the JAX module, by design:
   kept.  Round counts may differ from the JAX engine's; fixed points do not.
 - No padding buckets and no jitted closures: eager PyTorch compiles nothing,
   so pit links keep their exact size and ``links=None`` means no links.
-- ``mesh=`` raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7).
+- ``mesh`` (a :class:`~pydem_tpu_torch.parallel.mesh.Mesh`): the
+  device-resident UCA stage solves through
+  :func:`~pydem_tpu_torch.parallel.sharded.sharded_uca` over the mesh, on a
+  canvas padded to a multiple of the mesh with NaN elevation (the canvas
+  edge's pruning) and zero base.  The gathered canvases and the weight
+  planes sit on the engine's device and only the solver's shards spread
+  over the mesh, so the budget stays one device's (the JAX engine's counts
+  every device of the mesh: its canvases shard under GSPMD).  The fused
+  pass runs only when the mesh divides the canvas: its slope program would
+  see a padded canvas's edge elsewhere.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ from .core import conditioning as cond
 from .core.receivers import receiver_weights, section_proportion
 from .core.twi import twi as twi_fn
 from .ops.uca_block import _gs_solve, compact_from_dense, gs_round_ring
+from .parallel.mesh import check_mesh
 
 # super-block visit corner orders per outer round
 _SWEEP_FLIPS = ((False, False), (True, True), (False, True), (True, False))
@@ -126,10 +136,6 @@ class OutOfCoreEngine:
     def __init__(self, store, shape, dX, dY, dX2, dY2, dem_proc_kwargs=None,
                  superblock=512, margin=None, resume=False, timer=None,
                  mesh=None, device_cache_bytes=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "pydem_tpu_torch.OutOfCoreEngine: mesh= (canvases sharded "
-                "over devices) is not ported yet (ROADMAP.md queue 1 item 7)")
         self.store = store
         self.shape = tuple(shape)
         self.dX = np.asarray(dX, "float64")
@@ -141,6 +147,8 @@ class OutOfCoreEngine:
         self.dp = DEMProcessor(elev=np.zeros((2, 2)), device=device,
                                **(dem_proc_kwargs or {}))
         self.device = self.dp.device
+        check_mesh(mesh, self.device)
+        self.mesh = mesh
         if self.dp.drain_flats or self.dp.drain_pits_spill:
             raise NotImplementedError(
                 "deprecated drain modes are not supported out-of-core")
@@ -395,17 +403,23 @@ class OutOfCoreEngine:
         ``torch.cuda.max_memory_allocated`` by ``chip_smoke.py`` (phase 10b
         and its memory probe; the numbers are in PERF.md), it stays under
         ``_DEVICE_RESIDENT_PLANES`` planes of the canvas at the work dtype.
+        With a mesh the canvas is the padded one, and the budget is still
+        the engine's device's alone: every canvas of the pass is gathered
+        whole on that device, whatever devices the solver's shards use.
         """
-        n, m = self.shape
+        np_, mp_, _mesh = self._padded_dims()
         isz = np.dtype(self._work_dtype).itemsize
-        return (_DEVICE_RESIDENT_PLANES * n * m * isz
+        return (_DEVICE_RESIDENT_PLANES * np_ * mp_ * isz
                 <= self.device_cache_bytes)
 
     def _padded_dims(self):
-        """(np_, mp_, sharding): the canvas dims as the device holds them;
-        one device pads nothing and shards nothing."""
+        """(np_, mp_, mesh): the canvas dims as the device holds them, a
+        multiple of the mesh's when there is one."""
         n, m = self.shape
-        return n, m, None
+        if self.mesh is None:
+            return n, m, None
+        gy, gx = self.mesh.shape
+        return n + (-n) % gy, m + (-m) % gx, self.mesh
 
     def _gather_canvas(self, name, dtype, fill=0):
         """Stream store windows up into a device canvas: the host never
@@ -454,34 +468,50 @@ class OutOfCoreEngine:
         """Device-resident UCA: stream the static canvases to the device
         once (or take them already there from the fused pipeline), run the
         global blocked solve (the solver of the in-core pipeline,
-        ``api._solve_uca``), stream the state back.  Exact: the streaming
-        path's per-window weights reproduce the global receiver_weights (see
-        ``_sb_weights``), and here they ARE the global weights.  Pit links
-        fold in the work dtype here and in float64 on the host when
-        streaming, so with links the two regimes agree to rounding only."""
+        ``api._solve_uca``, or with a mesh ``parallel.sharded.sharded_uca``),
+        stream the state back.  Exact: the streaming path's per-window
+        weights reproduce the global receiver_weights (see ``_sb_weights``),
+        and here they ARE the global weights.  Pit links fold in the work
+        dtype here and in float64 on the host when streaming, so with links
+        the two regimes agree to rounding only."""
         n, m = self.shape
+        np_, mp_, mesh = self._padded_dims()
         wd = default_dtype(self.device)
+        # NaN elevation beyond the logical canvas: the out-of-grid pruning
+        # of receiver_weights, so the mesh's pad does not blur the edge
         if elev is None:
             elev = self._gather_canvas("elev", wd, fill=np.nan)
         if direction is None:
             direction = self._gather_canvas("aspect", wd)
         if flats is None:
             flats = self._gather_canvas("flats", torch.bool, fill=False)
-        base = self._to_dev(np.nan_to_num(self.dX2 * self.dY2))[:, None] \
-            .expand(n, m)
+        base = self._to_dev(np.pad(np.nan_to_num(self.dX2 * self.dY2),
+                                   (0, np_ - n)))[:, None].expand(np_, mp_)
+        theta = np.pad(self.theta, (0, np_ - n), mode="edge")
 
         src, dst, w = self._links if self._links is not None \
             else self.pit_links()
-        links = (None, None, None)
-        if len(src):
-            links = (self._to_dev(src), self._to_dev(dst), self._to_dev(w))
+        # flat link indices into the padded canvas
+        src, dst = (src // m) * mp_ + src % m, (dst // m) * mp_ + dst % m
 
         section, proportion = section_proportion(
-            direction, flats, theta=self._to_dev(self.theta))
+            direction, flats, theta=self._to_dev(theta))
         W = receiver_weights(section, proportion, elev)
         del section, proportion
-        x, rounds = _solve_uca(base, W, (n, m), *links, 0, 0, "blocked",
-                               self.B)
+        if mesh is not None:
+            from .parallel.sharded import sharded_uca
+
+            links = ((self._to_dev(src), self._to_dev(dst), self._to_dev(w))
+                     if len(src) else None)
+            x, rounds = sharded_uca(base, W, mesh, pit_links=links,
+                                    uca_solver="blocked", B=self.B)
+        else:
+            links = (None, None, None)
+            if len(src):
+                links = (self._to_dev(src), self._to_dev(dst),
+                         self._to_dev(w))
+            x, rounds = _solve_uca(base, W, (n, m), *links, 0, 0, "blocked",
+                                   self.B)
         del W
 
         self._scatter_canvas("uca_state", x, fill=0.0)
@@ -759,7 +789,11 @@ class OutOfCoreEngine:
             with open(state_fn) as f:
                 self.uca_rounds = json.load(f)["round"]
             return
-        if (self._fits_device_resident()
+        # the fused pass computes slope and direction on the whole canvas; a
+        # mesh's pad would move the canvas edge, whose facet subsets are
+        # positional, so a padded mesh run takes the staged stages
+        np_, mp_, _mesh = self._padded_dims()
+        if (self._fits_device_resident() and (np_, mp_) == self.shape
                 and not (self.resume and "uca_state" in self.store)):
             self._run_fused_device()
             return

@@ -1,0 +1,186 @@
+"""Several processes, one shard each: the ``torch.distributed`` back end.
+
+Port of ``pydem_tpu/parallel/multihost.py``.  The JAX version lets
+``jax.distributed`` coordinate the processes and GSPMD lay the canvas over
+the global mesh.  Here each rank of the default process group owns one
+shard of a :class:`~pydem_tpu_torch.parallel.mesh.Mesh` made with
+``distributed=True``, and :class:`DistExchange` is the mesh's exchange: the
+1-px rings travel by point-to-point sends (rows, then whole columns, as the
+in-process back end copies them) and the convergence sum by ``all_reduce``.
+The sharded solvers of :mod:`.sharded` run on it unchanged.  A run is:
+
+    multihost.initialize("tcp://host:port", num_processes, process_id)
+    out = multihost.run_global(this_ranks_row_band, dX, dY, dX2, dY2)
+
+Gloo carries it on CPU tensors.  On GPUs the process group would be NCCL
+with one GPU per rank; that has not been run (NCCL takes no two ranks on one
+GPU, and no machine of this project has more than one).
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from .mesh import Mesh
+
+
+def initialize(coordinator_address=None, num_processes=None, process_id=None,
+               backend="gloo"):
+    """Join the default process group (no-op for one process or when it is
+    already up).  ``coordinator_address``: ``host:port`` of rank 0 (or any
+    ``init_method`` URL); ``backend``: ``"gloo"`` (CPU tensors) or
+    ``"nccl"``."""
+    if num_processes in (None, 1) or dist.is_initialized():
+        return
+    url = coordinator_address
+    if url is not None and "://" not in url:
+        url = "tcp://" + url
+    dist.init_process_group(backend, init_method=url,
+                            world_size=num_processes, rank=process_id)
+
+
+def global_mesh(shape=None, device=None):
+    """The mesh of every rank, one shard each, rank ``iy * gx + ix``:
+    ``(world, 1)`` row bands by default, so each process owns contiguous
+    canvas rows.  ``device``: this rank's device (default: the CPU under
+    gloo, ``cuda:<rank mod GPUs>`` under NCCL)."""
+    world = dist.get_world_size()
+    shape = (world, 1) if shape is None else tuple(shape)
+    if shape[0] * shape[1] != world:
+        raise ValueError("a %dx%d mesh needs %d ranks, the group has %d"
+                         % (shape + (shape[0] * shape[1], world)))
+    if device is None:
+        device = (torch.device("cuda", dist.get_rank()
+                               % torch.cuda.device_count())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+    return Mesh([torch.device(device)] * world, shape, distributed=True)
+
+
+class DistExchange:
+    """Back end (b): this rank's shard; its neighbours are other ranks."""
+
+    def __init__(self, mesh):
+        if not mesh.distributed:
+            raise ValueError("DistExchange needs a mesh with "
+                             "distributed=True")
+        gy, gx = mesh.shape
+        if dist.get_world_size() != gy * gx:
+            raise ValueError("a %dx%d mesh over %d ranks"
+                             % (gy, gx, dist.get_world_size()))
+        self.mesh = mesh
+        self.rank = dist.get_rank()
+        self.iy, self.ix = divmod(self.rank, gx)
+
+    def _trade(self, pairs):
+        """``pairs``: (peer rank, tensor to send, tensor to receive into).
+        All sends and receives are posted, then waited for."""
+        reqs, bufs = [], []
+        for peer, send, recv in pairs:
+            buf = torch.empty_like(recv)
+            reqs.append(dist.isend(send.contiguous(), peer))
+            reqs.append(dist.irecv(buf, peer))
+            bufs.append((recv, buf))
+        for r in reqs:
+            r.wait()
+        for recv, buf in bufs:
+            recv.copy_(buf)
+
+    def halo(self, planes, depth=1):
+        """As :meth:`LocalExchange.halo`, for this rank's one plane."""
+        gy, gx = self.mesh.shape
+        d = depth
+        p = planes[0]
+        n_l, m_l = p.shape[-2] - 2 * d, p.shape[-1] - 2 * d
+        up, down = self.rank - gx, self.rank + gx
+        rows = []
+        if self.iy > 0:
+            rows.append((up, p[..., d:2 * d, d:d + m_l],
+                         p[..., :d, d:d + m_l]))
+        if self.iy < gy - 1:
+            rows.append((down, p[..., n_l: n_l + d, d:d + m_l],
+                         p[..., n_l + d:, d:d + m_l]))
+        self._trade(rows)
+        cols = []
+        if self.ix > 0:
+            cols.append((self.rank - 1, p[..., :, d:2 * d], p[..., :, :d]))
+        if self.ix < gx - 1:
+            cols.append((self.rank + 1, p[..., :, m_l: m_l + d],
+                         p[..., :, m_l + d:]))
+        self._trade(cols)
+        return planes
+
+    def reduce(self, values, op="sum"):
+        """``op`` ("sum", "min" or "max") over this rank's values and every
+        other rank's, on this rank's device."""
+        v = torch.stack([torch.as_tensor(t) for t in values])
+        v = {"sum": v.sum, "min": v.amin, "max": v.amax}[op](0)
+        dist.all_reduce(v, {"sum": dist.ReduceOp.SUM,
+                            "min": dist.ReduceOp.MIN,
+                            "max": dist.ReduceOp.MAX}[op])
+        return v
+
+    def sum_(self, t):
+        """Sum ``t`` over the ranks, in place."""
+        dist.all_reduce(t, dist.ReduceOp.SUM)
+        return t
+
+    def gather(self, shard, device=None):
+        """The whole canvas from every rank's shard, on every rank."""
+        gy, gx = self.mesh.shape
+        kind = shard.dtype
+        if kind == torch.bool:  # sent as bytes
+            shard = shard.to(torch.uint8)
+        parts = [torch.empty_like(shard) for _ in range(gy * gx)]
+        dist.all_gather(parts, shard.contiguous())
+        rows = [torch.cat(parts[iy * gx: (iy + 1) * gx], dim=-1)
+                for iy in range(gy)]
+        out = torch.cat(rows, dim=-2).to(kind)
+        return out if device is None else out.to(device)
+
+
+def assemble_global(local_rows, mesh):
+    """This rank's shard from its row band of the canvas (equal heights on
+    every rank, a ``(world, 1)`` mesh): the tensor on this rank's
+    device."""
+    gy, gx = mesh.shape
+    if gx != 1:
+        raise ValueError("row bands need a (world, 1) mesh, got %dx%d"
+                         % (gy, gx))
+    dev = mesh.devices.flat[dist.get_rank()]
+    return torch.as_tensor(local_rows).to(dev)
+
+
+def run_global(local_rows, dX, dY, dX2=None, dY2=None, mesh=None,
+               n_sweeps=None, uca_solver="jacobi"):
+    """The terrain step over the ranks: each passes its row band and the
+    whole canvas's row vectors (``dX``/``dY`` n-1, ``dX2``/``dY2`` n).
+    ``uca_solver="blocked"`` runs the sharded K1 solver with the rings sent
+    between ranks; the per-round change count is the one ``all_reduce``
+    that every rank joins.  Returns the dict of
+    :func:`~pydem_tpu_torch.parallel.sharded.run_sharded`, the canvases
+    assembled on every rank."""
+    from . import sharded
+    from .mesh import assemble
+
+    if mesh is None:
+        mesh = global_mesh()
+    sharded._check_solver(uca_solver)
+    shard = assemble_global(local_rows, mesh)
+    n = shard.shape[0] * mesh.shape[0]
+    dev, dt = shard.device, shard.dtype
+    args = sharded._row_vectors(n, dt, dev, dX, dY, dX2, dY2)
+    pre = sharded._pre_shards([shard], *args, mesh)
+    if n_sweeps is not None:
+        area_s, rounds = sharded._jacobi_shards(pre["base"], pre["W"], mesh,
+                                                n_sweeps=n_sweeps)
+    else:
+        area_s, rounds = sharded._solve_shards(pre["base"], pre["W"], mesh,
+                                               uca_solver=uca_solver)
+    uca_s, twi_s = sharded._post_shards(area_s, pre["flats"], pre["mag"],
+                                        pre["base"], mesh)
+    out = {k: assemble(v, mesh)
+           for k, v in (("mag", pre["mag"]), ("direction", pre["direction"]),
+                        ("flats", pre["flats"]), ("uca", uca_s),
+                        ("twi", twi_s))}
+    out["uca_sweeps"] = int(rounds)
+    return out

@@ -1,19 +1,74 @@
-"""The full terrain step on one device.
+"""The terrain step on one device and over a mesh of devices.
 
-Port of ``terrain_step`` from ``pydem_tpu/parallel/sharded.py``.  The mesh
-functions of that module (sharded label flood, sharded UCA, halo exchange)
-are not ported yet; they need ``torch.distributed`` and more than one GPU.
+Port of ``pydem_tpu/parallel/sharded.py``.  ``terrain_pre`` and
+``terrain_step`` run on the device of their input.  The mesh functions run
+over a :class:`~pydem_tpu_torch.parallel.mesh.Mesh`: the canvas is a list of
+shards, one per mesh cell, and everything that crosses a shard's edge goes
+through the mesh's exchange (``halo`` for the 1-px rings the JAX version
+moves with ``ppermute``, ``reduce`` for its ``psum``), in this process
+(every shard here, several may share one GPU) or over ``torch.distributed``
+(one shard per rank, :mod:`.multihost`).
+
+- :func:`label_flood_sharded`: local components first, then outer halo
+  rounds of ``(id + 1, rep)`` rings adopted at component granularity by one
+  shard-local scatter-min, until no shard changes (the JAX algorithm).
+- :func:`terrain_pre` with ``mesh``: the pre-stencils per shard on its
+  window with a 1-px halo of elevation (none on a side where the canvas
+  ends: the facet masks and the edge copies of ``slopes_directions`` are
+  positional, so a window's rim must be the canvas edge or lie outside the
+  shard), the flat extension on exchanged label and representative rings,
+  the receiver weights on the same window.  Every output pixel is computed
+  from the same values by the same operations as on one canvas: equal bit
+  for bit.
+- :func:`accumulate_sharded` / :func:`accumulate_sharded_pits`: each shard
+  is a K1 region with a 1-px ring (``ops.uca_block.gs_round_ring``); a round
+  exchanges the rings of the canvas and of the changed flags and relaxes.
+  K1 is block-Jacobi (every block reads the previous round's canvas), so
+  where shard edges fall on block edges a sharded round reads what a round
+  on one canvas reads, and the flag ring carries the frontier across shard
+  edges: the sharded solvers equal ``accumulate_blocked_gs`` /
+  ``accumulate_blocked_pits_gs`` on one device bit for bit, values and
+  round counts, for any shard grid.  (The JAX solver relaxes every block
+  every round and threads no frontier.)  Pit links fold into each shard's
+  effective base between rounds in link order, the fold of ``PitLinks``;
+  the compact receivers are exchanged once.
+- The *split round*: a shard's interior blocks (``gs_round_subset(...,
+  "interior")``, which never read the ring) relax on the shard's own CUDA
+  stream while the rings are copied on another, then its frame
+  (``"boundary"``) against the landed ring.  Interior then boundary is the
+  serial round bit for bit.  Used on CUDA when every shard holds at least
+  3×3 blocks and the shards share one card (the JAX solver splits only on a
+  TPU); the choice is the solver's, no caller's.  Shards on several cards
+  take the serial round: the split round would need a stream per device.
+- :func:`measure_halo_overlap` times exchange-only, relax-only and full
+  rounds (CUDA events on a GPU, the host clock on the CPU) and reports the
+  share of the cheaper phase hidden behind the other.  On shards that share
+  one card that is a one-card figure, not an interconnect's.
 """
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import default_dtype
 from ..core.flats_device import fill_flats_device
-from ..core.receivers import receiver_weights, section_proportion
-from ..core.slope_direction import find_flats_edges, slopes_directions
+from ..core.receivers import (receiver_weights, section_proportion,
+                              section_theta)
+from ..core.slope_direction import (find_flats_edges, label_flood,
+                                    slopes_directions)
+from ..core.stencil import NEIGHBOR_OFFSETS
 from ..core.twi import twi as twi_fn
 from ..core.uca import accumulate, base_area, finalize_uca, flow_sweep
+from .mesh import Mesh, assemble, make_mesh, shard_dims
+from .mesh import split as _split
+
+__all__ = ["Mesh", "make_mesh", "label_flood_sharded", "terrain_pre",
+           "terrain_post", "terrain_step", "accumulate_sharded",
+           "accumulate_sharded_pits", "sharded_uca", "ShardedPipeline",
+           "measure_halo_overlap", "run_sharded"]
 
 FLAT_ID_INT = -1
 
@@ -24,16 +79,31 @@ def _block_size(n, m):
     return 64 if min(n, m) >= 64 else 16
 
 
-def terrain_pre(elev, dX, dY, dX2, dY2, fill_flats=False):
+def _nanmin(a):
+    # torch has no NaN-ignoring min
+    return torch.where(torch.isnan(a), torch.inf, a).min()
+
+
+def terrain_pre(elev, dX, dY, dX2, dY2, fill_flats=False, mesh=None):
     """The stencil first half of the terrain step: slope/direction, flat
     extension, flow splitting, receiver weights, base area, on the device of
     ``elev``; with ``fill_flats``, the elevation is first conditioned by
     :func:`~pydem_tpu_torch.core.flats_device.fill_flats_device`.  Returns
-    ``(mag, direction, flats, W, base)``."""
+    ``(mag, direction, flats, W, base)``.
+
+    ``mesh``: the stencils run per shard (see the module docstring) and the
+    flat regions are labelled by :func:`label_flood_sharded`; the outputs
+    are assembled on ``elev``'s device and equal the unsharded ones bit for
+    bit.  Flat filling is a global flood and runs on the whole canvas
+    first.  The mesh must divide the canvas (``run_sharded`` pads)."""
     dX, dY, dX2, dY2 = (torch.as_tensor(a, dtype=elev.dtype, device=elev.device)
                         for a in (dX, dY, dX2, dY2))
     if fill_flats:
         elev = fill_flats_device(elev)
+    if mesh is not None:
+        pre = _pre_shards(_split(elev, mesh), dX, dY, dX2, dY2, mesh)
+        return tuple(assemble(pre[k], mesh, device=elev.device)
+                     for k in ("mag", "direction", "flats", "W", "base"))
     mag, direction = slopes_directions(elev, dX, dY)
     flats = find_flats_edges(elev, mag)
     direction = torch.where(flats, FLAT_ID_INT, direction)
@@ -42,6 +112,13 @@ def terrain_pre(elev, dX, dY, dX2, dY2, fill_flats=False):
     W = receiver_weights(section, proportion, elev)
     base = base_area(dX2, dY2, elev.shape, elev.dtype)
     return mag, direction, flats, W, base
+
+
+def terrain_post(area, flats, mag, base):
+    """``(uca, twi)`` from the solved area: NaN at flats, and the TWI with
+    the smallest base area."""
+    uca = finalize_uca(area, flats)
+    return uca, twi_fn(uca, mag, _nanmin(base))
 
 
 def terrain_step(elev, dX, dY, dX2, dY2, n_sweeps=None, uca_solver="jacobi",
@@ -80,10 +157,807 @@ def terrain_step(elev, dX, dY, dX2, dY2, n_sweeps=None, uca_solver="jacobi",
         area = area[:n, :m]
     else:
         area, sweeps = accumulate(base, W)
-    uca = finalize_uca(area, flats)
-
-    # nanmin(base): torch has no NaN-ignoring min
-    min_area = torch.where(torch.isnan(base), torch.inf, base).min()
-    twi = twi_fn(uca, mag, min_area)
+    uca, twi = terrain_post(area, flats, mag, base)
     return dict(mag=mag, direction=direction, flats=flats, uca=uca, twi=twi,
                 uca_sweeps=sweeps)
+
+
+# -- the sharded label flood ------------------------------------------------
+
+def _ringed(shards, fill, depth=1):
+    return [F.pad(s, (depth,) * 4, value=fill) for s in shards]
+
+
+def _flood_shards(mask_s, pay_s, mesh):
+    """:func:`label_flood_sharded` on shards."""
+    ex = mesh.exchange()
+    gy, gx = mesh.shape
+    n_l, m_l = mask_s[0].shape
+    n, m = n_l * gy, m_l * gx
+    N, NL = n * m, n_l * m_l
+    if N >= 2 ** 31:
+        raise ValueError("label_flood_sharded: canvas has %d pixels >= 2^31; "
+                         "int32 labels would overflow" % N)
+    BIG = N
+    state = []
+    for (iy, ix), mask, pay in zip(mesh.local_shards(), mask_s, pay_s):
+        dev = mask.device
+        # phase 1: local components (every scatter and gather in the shard)
+        loc, _rep = label_flood(mask, pay)
+        loc = torch.where(mask, loc, NL).reshape(-1).long()
+        li = torch.arange(n_l, device=dev)[:, None] + iy * n_l
+        lj = torch.arange(m_l, device=dev)[None, :] + ix * m_l
+        # per-component tables indexed by local root label (+ a sentinel);
+        # non-root entries hold their own pixel's id and are never read
+        gid_t = torch.cat([(li * m + lj).reshape(-1),
+                           torch.tensor([BIG], device=dev)])
+        rep_t = torch.cat([pay.reshape(-1),
+                           torch.tensor([float("nan")], dtype=pay.dtype,
+                                        device=dev)])
+        state.append([mask, loc, gid_t, rep_t])
+
+    while True:
+        enc_r, rep_r = [], []
+        for mask, loc, gid_t, rep_t in state:
+            gid_px = gid_t[loc].view(n_l, m_l)
+            # exchange (id + 1, rep): the ring's 0 where the canvas ends
+            # decodes to "no neighbour"
+            enc_r.append(F.pad(torch.where(mask, gid_px + 1, 0), (1,) * 4))
+            rep_r.append(F.pad(rep_t[loc].view(n_l, m_l), (1,) * 4))
+        ex.halo(enc_r)
+        ex.halo(rep_r)
+        changed = []
+        for st, gh, rh in zip(state, enc_r, rep_r):
+            mask, loc, gid_t, rep_t = st
+            gh = torch.where(gh == 0, BIG + 1, gh) - 1
+            cand_g = torch.full((n_l, m_l), BIG, dtype=gh.dtype,
+                                device=gh.device)
+            cand_r = torch.zeros((n_l, m_l), dtype=rep_t.dtype,
+                                 device=gh.device)
+            for di, dj in NEIGHBOR_OFFSETS:  # smallest 8-neighbour id
+                qg = gh[1 + di: 1 + di + n_l, 1 + dj: 1 + dj + m_l]
+                qr = rh[1 + di: 1 + di + n_l, 1 + dj: 1 + dj + m_l]
+                better = qg < cand_g
+                cand_g = torch.where(better, qg, cand_g)
+                cand_r = torch.where(better, qr, cand_r)
+            cand_g = torch.where(mask, cand_g, BIG).reshape(-1)
+            # adopt smaller ids at component granularity (scatter-min; an
+            # order-free reduction, deterministic on CUDA)
+            new_t = gid_t.clone().scatter_reduce_(0, loc, cand_g, "amin")
+            # the rep follows its id: pixels whose candidate won write it
+            # (ties share the id, hence the region and the same rep)
+            win = cand_g == new_t[loc]
+            tgt = torch.where(win & mask.reshape(-1), loc, NL)
+            rep_t2 = rep_t.clone()
+            rep_t2[tgt] = torch.where(win, cand_r.reshape(-1), rep_t[tgt])
+            changed.append((new_t != gid_t).any().to(torch.int32))
+            st[2], st[3] = new_t, rep_t2
+        if int(ex.reduce(changed)) == 0:
+            break
+    lbl_s, rep_s = [], []
+    for mask, loc, gid_t, rep_t in state:
+        lbl_s.append(torch.where(mask, gid_t[loc].view(n_l, m_l), BIG)
+                     .to(torch.int32))
+        rep_s.append(torch.where(mask, rep_t[loc].view(n_l, m_l),
+                                 float("nan")))
+    return lbl_s, rep_s
+
+
+def label_flood_sharded(mask, payload, mesh):
+    """Connected-component min-index labels and the representative payload,
+    as :func:`~pydem_tpu_torch.core.slope_direction.label_flood` gives them
+    (label = the region's smallest global flat index, int32, ``n*m`` off the
+    mask; rep = the payload there, NaN off the mask), computed over
+    ``mesh`` without a global scatter or gather:
+
+    1. each shard labels its local components with ``label_flood``;
+    2. per-component ``(global id, rep)`` tables then converge through outer
+       rounds: the shards exchange their pixels' ``(id + 1, rep)`` rings,
+       adopt the smallest neighbouring id with its rep by one shard-local
+       scatter-min, and the sum of the changed flags over the mesh decides
+       whether another round runs.
+
+    Outer rounds scale with the shard-graph diameter of the largest region,
+    not its pixel diameter.  The mesh must divide the canvas.  Returns the
+    assembled ``(labels, rep)`` on ``mask``'s device."""
+    lbl_s, rep_s = _flood_shards(_split(mask, mesh),
+                                 _split(payload, mesh), mesh)
+    return (assemble(lbl_s, mesh, device=mask.device),
+            assemble(rep_s, mesh, device=mask.device))
+
+
+# -- the pre-stencils per shard ---------------------------------------------
+
+# Depth of the elevation halo of a shard's pre-stencil window.  Slope and
+# direction are exact at pixels one or more away from the window's rim (the
+# rim is where the edge facet subsets and the edge copies apply), and the
+# receiver weights read the 8 neighbours' elevations; the flat extension
+# reads the neighbours' labels and representatives, which are exchanged.
+PRE_HALO = 1
+
+
+def _window(iy, ix, mesh, halo):
+    """The halo on each side (top, bottom, left, right) of shard (iy, ix):
+    ``halo``, or 0 where the canvas ends."""
+    gy, gx = mesh.shape
+    return (halo if iy > 0 else 0, halo if iy < gy - 1 else 0,
+            halo if ix > 0 else 0, halo if ix < gx - 1 else 0)
+
+
+def _pre_shards(elev_s, dX, dY, dX2, dY2, mesh, halo=PRE_HALO):
+    """``terrain_pre`` on shards: a dict of per-shard lists ``mag``,
+    ``direction``, ``flats``, ``W``, ``base``.  ``dX``/``dY`` (n-1) and
+    ``dX2``/``dY2`` (n) are the whole canvas's row vectors.  ``halo``: the
+    elevation halo (``PRE_HALO``; less is wrong at the shards' edges)."""
+    ex = mesh.exchange()
+    gy, _gx = mesh.shape
+    n_l, m_l = elev_s[0].shape
+    n = n_l * gy
+    dt = elev_s[0].dtype
+    vec = {}
+
+    def rows(name, a, dev):  # a row vector of the canvas, on dev, once
+        key = (name, dev)
+        if key not in vec:
+            vec[key] = torch.as_tensor(a, dtype=dt).to(dev)
+        return vec[key]
+
+    er = _ringed(elev_s, float("nan"), halo) if halo else list(elev_s)
+    if halo:
+        ex.halo(er, halo)
+    out = {k: [] for k in ("mag", "direction", "flats", "W", "base")}
+    wins, mag_s, dir_s = [], [], []
+    for (iy, ix), e in zip(mesh.local_shards(), er):
+        dev = e.device
+        top, bot, left, right = _window(iy, ix, mesh, halo)
+        E = e[halo - top: halo + n_l + bot, halo - left: halo + m_l + right]
+        r0, r1 = iy * n_l - top, (iy + 1) * n_l + bot
+        mag, direction = slopes_directions(E, rows("dX", dX, dev)[r0: r1 - 1],
+                                           rows("dY", dY, dev)[r0: r1 - 1])
+        crop = (slice(top, top + n_l), slice(left, left + m_l))
+        wins.append((E, (top, bot, left, right)))
+        mag_s.append(mag[crop])
+        dir_s.append(direction[crop])
+    flat_s = [mg == FLAT_ID_INT for mg in mag_s]
+    lbl_s, rep_s = _flood_shards(flat_s, elev_s, mesh)
+    # the flat extension reads the 8 neighbours' labels and reps
+    lr = [F.pad(torch.where(f, lb, -1), (1,) * 4, value=-1)
+          for f, lb in zip(flat_s, lbl_s)]
+    rr = _ringed(rep_s, float("nan"))
+    ex.halo(lr)
+    ex.halo(rr)
+    theta_c = {}
+    for k, (iy, _ix) in enumerate(mesh.local_shards()):
+        E, (top, bot, left, right) = wins[k]
+        dev = E.device
+        flat, e = flat_s[k], elev_s[k]
+        best_lbl = torch.full((n_l, m_l), -1, dtype=torch.int32, device=dev)
+        best_rep = torch.full_like(e, float("nan"))
+        for di, dj in NEIGHBOR_OFFSETS:
+            nl = lr[k][1 + di: 1 + di + n_l, 1 + dj: 1 + dj + m_l]
+            nr = rr[k][1 + di: 1 + di + n_l, 1 + dj: 1 + dj + m_l]
+            better = nl > best_lbl
+            best_lbl = torch.where(better, nl, best_lbl)
+            best_rep = torch.where(better, nr, best_rep)
+        flats = torch.where(best_lbl >= 0, e == best_rep, flat)
+        direction = torch.where(flats, FLAT_ID_INT, dir_s[k])
+        mag = torch.where(flats, FLAT_ID_INT, mag_s[k])
+        if dev not in theta_c:
+            theta_c[dev] = section_theta(rows("dX", dX, dev),
+                                         rows("dY", dY, dev), n)[:, 0]
+        i0 = iy * n_l
+        section, proportion = section_proportion(
+            direction, flats, theta=theta_c[dev][i0: i0 + n_l])
+        pad = (left, right, top, bot)
+        W = receiver_weights(F.pad(section, pad, value=FLAT_ID_INT),
+                             F.pad(proportion, pad, value=float("nan")), E)
+        out["W"].append(W[:, top: top + n_l, left: left + m_l].contiguous())
+        out["base"].append(base_area(rows("dX2", dX2, dev)[i0: i0 + n_l],
+                                     rows("dY2", dY2, dev)[i0: i0 + n_l],
+                                     (n_l, m_l), dt))
+        out["mag"].append(mag)
+        out["direction"].append(direction)
+        out["flats"].append(flats)
+    return out
+
+
+# -- the sharded UCA solvers ------------------------------------------------
+
+def _shard_block_size(n_l, m_l):
+    """The K1 block size for an n_l × m_l shard: 64, or 16, whichever is
+    the largest the kernel takes that divides both; None if neither does."""
+    for B in (64, 16):
+        if n_l % B == 0 and m_l % B == 0:
+            return B
+    return None
+
+
+class _ShardedLinks:
+    """Pit links over shards, folded as :class:`~pydem_tpu_torch.core.uca.
+    PitLinks` folds them on one canvas: sorted stably by destination, each
+    destination's contributions added one at a time in link order, on the
+    first shard's device, so the sum equals the one-canvas fold bit for
+    bit.  ``src``/``dst`` are flat indices into the (n, m) canvas the
+    shards tile; ``w`` their weights.  Over ``torch.distributed`` every rank
+    fills the contributions of its own shard and an ``all_reduce`` sums
+    them, then every rank folds them all and keeps its own
+    destinations."""
+
+    def __init__(self, src, dst, w, mesh, n_l, m_l, dtype):
+        gx = mesh.shape[1]
+        self.ex = mesh.exchange() if mesh.distributed else None
+        self.dev = mesh.devices[mesh.local_shards()[0]]
+        m = m_l * gx
+        dst = torch.as_tensor(dst).long().to(self.dev)
+        dst_sorted, order = torch.sort(dst, stable=True)
+        src = torch.as_tensor(src).long().to(self.dev)[order]
+        w = torch.as_tensor(w).to(self.dev, dtype)[order]
+        dst_u, inverse, counts = torch.unique_consecutive(
+            dst_sorted, return_inverse=True, return_counts=True)
+        self.width = int(counts.max()) if counts.numel() else 0
+        start = torch.cumsum(counts, 0) - counts
+        self.slot = inverse * self.width + (
+            torch.arange(dst_sorted.numel(), device=self.dev) - start[inverse])
+        self.n_links, self.n_dst = src.numel(), dst_u.numel()
+        self.parts = []
+        for iy, ix in mesh.local_shards():
+            dev = mesh.devices[iy, ix]
+
+            def local(idx):
+                i, j = idx // m - iy * n_l, idx % m - ix * m_l
+                sel = (i >= 0) & (i < n_l) & (j >= 0) & (j < m_l)
+                return sel.nonzero()[:, 0], i[sel], j[sel]
+
+            ls, si, sj = local(src)
+            ld, di, dj = local(dst_u)
+            self.parts.append(dict(
+                links=ls, w=w[ls].to(dev),
+                src=((si + 1) * (m_l + 2) + sj + 1).to(dev),  # ringed x
+                dsts=ld, dst=(di * m_l + dj).to(dev)))
+
+    def __len__(self):
+        return self.n_links
+
+    def add_to(self, out_s, xp_s):
+        """Per-shard ``out`` plus the links' inflow from the ringed canvases
+        ``xp_s`` (new tensors)."""
+        c = torch.zeros(self.n_links, dtype=out_s[0].dtype, device=self.dev)
+        acc = torch.zeros(self.n_dst, dtype=out_s[0].dtype, device=self.dev)
+        for p, xp, o in zip(self.parts, xp_s, out_s):
+            c[p["links"]] = (xp.reshape(-1)[p["src"]] * p["w"]).to(self.dev)
+            acc[p["dsts"]] = o.reshape(-1)[p["dst"]].to(self.dev)
+        if self.ex is not None:  # each rank filled its own entries (x + 0
+            self.ex.sum_(c)      # is x: the sums are exact)
+            self.ex.sum_(acc)
+        table = c.new_zeros(self.n_dst * self.width)
+        table[self.slot] = c  # unique slots
+        table = table.view(-1, self.width)
+        for r in range(self.width):
+            acc = acc + table[:, r]
+        res = []
+        for p, o in zip(self.parts, out_s):
+            flat = o.reshape(-1).clone()
+            flat[p["dst"]] = acc[p["dsts"]].to(o.device)
+            res.append(flat.view(o.shape))
+        return res
+
+
+def _one_card(mesh):
+    return mesh.device_type == "cuda" and mesh.distinct_devices == 1 \
+        and not mesh.distributed
+
+
+class _ShardRounds:
+    """The per-shard state of K1 ring rounds over a mesh: each shard's
+    canvas with its 1-px ring (two buffers), its compact receivers with the
+    neighbours' (exchanged once), its flags inside a flag ring, and, for the
+    split round, a CUDA stream per shard and one for the ring copies."""
+
+    def __init__(self, mesh, base_s, K_s, W1_s, B, inner_max, split):
+        from ..ops.uca_block import subset_blocks
+
+        self.mesh, self.ex, self.B, self.inner_max = (
+            mesh, mesh.exchange(), B, inner_max)
+        n_l, m_l = base_s[0].shape
+        self.nb = (n_l // B, m_l // B)
+        self.kp = self.ex.halo(_ringed(K_s, 255))  # "no edge" off the canvas
+        self.w1p = self.ex.halo(_ringed(W1_s, 0.0))
+        self.x = _ringed([b.contiguous() for b in base_s], 0.0)
+        self.xn = [torch.zeros_like(x) for x in self.x]
+        self.prev = [torch.zeros((self.nb[0] + 2, self.nb[1] + 2),
+                                 dtype=torch.int32, device=b.device)
+                     for b in base_s]
+        self.chg = [torch.zeros(self.nb, dtype=torch.int32, device=b.device)
+                    for b in base_s]
+        self.set_flags(1)
+        self.split = split
+        if split and mesh.device_type == "cuda":
+            dev = mesh.devices.flat[0]
+            for subset in ("interior", "boundary"):
+                subset_blocks(*self.nb, subset, dev)  # built before streams
+            self.streams = [torch.cuda.Stream(dev) for _ in base_s]
+            self.copy_stream = torch.cuda.Stream(dev)
+            self.events = [torch.cuda.Event() for _ in range(len(base_s) + 2)]
+            torch.cuda.current_stream(dev).synchronize()
+
+    def set_flags(self, value):
+        """Every block's flag (the frontier then relaxes everything)."""
+        for p in self.prev:
+            p[1:-1, 1:-1] = value
+
+    def exchange(self):
+        self.ex.halo(self.x)
+        self.ex.halo(self.prev)
+
+    def _relax(self, k, b, subset=None):
+        from ..ops.uca_block import gs_round_ring, gs_round_subset
+
+        args = (self.x[k], self.kp[k], self.w1p[k], b, self.prev[k])
+        kw = dict(B=self.B, inner_max=self.inner_max,
+                  out=(self.xn[k], self.chg[k]))
+        if subset is None:
+            gs_round_ring(*args, **kw)
+        else:
+            gs_round_subset(*args, subset=subset, **kw)
+
+    def round(self, b_s, mode="full"):
+        """One round: ``"full"`` (exchange, relax; the flags become the
+        frontier, the canvases swap), ``"exchange"`` or ``"relax"`` alone
+        (for timing; the canvases and flags stay).  Returns the number of
+        changed blocks over the mesh (a device scalar) for ``"full"``."""
+        if mode == "exchange":
+            self.exchange()
+            return None
+        if not self.split:
+            if mode == "full":
+                self.exchange()
+            for k, b in enumerate(b_s):
+                self._relax(k, b)
+        else:
+            self._split_round(b_s, mode)
+        if mode != "full":
+            return None
+        for p, c in zip(self.prev, self.chg):
+            p[1:-1, 1:-1] = c
+        self.x, self.xn = self.xn, self.x
+        return self.ex.reduce([c.sum() for c in self.chg])
+
+    def _split_round(self, b_s, mode):
+        """Interior blocks on each shard's stream while the copy stream
+        lands the rings; then each shard's frame.  The canvas is read from
+        ``x`` and written to ``xn`` (block-Jacobi), so the two never race."""
+        if self.mesh.device_type != "cuda":  # in order, on the host
+            for k, b in enumerate(b_s):
+                self._relax(k, b, "interior" if mode == "full" else None)
+            if mode == "full":
+                self.exchange()
+                for k, b in enumerate(b_s):
+                    self._relax(k, b, "boundary")
+            return
+        main = torch.cuda.current_stream(self.mesh.devices.flat[0])
+        start, ring = self.events[-2], self.events[-1]
+        start.record(main)
+        if mode == "full":
+            with torch.cuda.stream(self.copy_stream):
+                self.copy_stream.wait_event(start)
+                self.exchange()
+                ring.record(self.copy_stream)
+        for k, b in enumerate(b_s):
+            s = self.streams[k]
+            with torch.cuda.stream(s):
+                s.wait_event(start)
+                if mode == "full":
+                    self._relax(k, b, "interior")
+                    s.wait_event(ring)
+                    self._relax(k, b, "boundary")
+                else:
+                    self._relax(k, b)
+                self.events[k].record(s)
+        for ev in self.events[:len(b_s)]:
+            main.wait_event(ev)
+
+
+def _use_split(mesh, nb, force=None):
+    """Whether the rounds split: on one card with shards of at least 3×3
+    blocks ``nb``.  ``force`` (tests only) picks a branch; the split round
+    then needs the 3×3 blocks and the CPU or one card."""
+    big = nb[0] >= 3 and nb[1] >= 3
+    if force is None:
+        return big and _one_card(mesh)
+    if force and not big:
+        raise ValueError("split rounds need shards of at least 3x3 blocks, "
+                         "got %dx%d" % nb)
+    if force and not (mesh.device_type == "cpu" or _one_card(mesh)):
+        raise ValueError("split rounds run on the CPU or with every shard "
+                         "on one card")
+    return bool(force)
+
+
+# rounds the sharded solve enqueues between two reads of their change counts
+ROUNDS_PER_READ = 4
+
+
+def _blocked_shards(base_s, W_s, mesh, B, inner_max=None, max_rounds=100_000,
+                    links=None, _force_split=None):
+    """The sharded K1 solve on block-aligned shards (see the module
+    docstring).  ``W_s``: dense (8, n_l, m_l) planes or ``(K, W1)`` pairs;
+    ``links``: a :class:`_ShardedLinks` or None.  The loop is
+    ``ops.uca_block._gs_solve``'s: fold, round, one host read per
+    ``ROUNDS_PER_READ`` rounds.  ``_force_split`` lets tests take the split
+    or the serial round where :func:`_use_split` would pick the other.
+    Returns ``(area shards, rounds)``."""
+    from ..ops.uca_block import _block_any, compact_from_dense
+
+    n_l, m_l = base_s[0].shape
+    if n_l % B or m_l % B:
+        raise ValueError("shards %dx%d are not a multiple of the block size "
+                         "%d" % (n_l, m_l, B))
+    inner_max = 2 * B + 4 if inner_max is None else inner_max
+    base_s = [b.contiguous() for b in base_s]
+    KW = [w if isinstance(w, tuple) else compact_from_dense(w) for w in W_s]
+    nb = (n_l // B, m_l // B)
+    st = _ShardRounds(mesh, base_s, [k for k, _ in KW], [w for _, w in KW],
+                      B, inner_max, _use_split(mesh, nb, _force_split))
+    _blocked_shards.last_split = st.split
+    b_prev, rounds = None, 0
+    while True:
+        counts = []
+        for _ in range(max(1, min(ROUNDS_PER_READ, max_rounds - rounds))):
+            b_s = base_s
+            if links is not None:
+                b_s = links.add_to(base_s, st.x)
+                if b_prev is not None:
+                    for p, b, bp in zip(st.prev, b_s, b_prev):
+                        p[1:-1, 1:-1] |= _block_any(b != bp, B)
+            counts.append(st.round(b_s))
+            b_prev = b_s
+        counts = torch.stack(counts).tolist()
+        _blocked_shards.host_reads += 1
+        if 0 in counts:
+            rounds += counts.index(0) + 1
+            break
+        rounds += len(counts)
+        if rounds >= max_rounds:
+            break
+    return [x[1:-1, 1:-1] for x in st.x], rounds
+
+
+_blocked_shards.host_reads = 0
+_blocked_shards.last_split = None
+
+
+def _jacobi_shards(base_s, W_s, mesh, links=None, n_sweeps=None,
+                   max_iters=1_000_000, check_every=4):
+    """Jacobi sweeps over shards: ``core.uca.accumulate`` (or, with
+    ``n_sweeps``, that many sweeps) with the canvas's ring exchanged before
+    every sweep and the weights' once.  Each pixel's sum is the one-canvas
+    sweep's, bit for bit.  Returns ``(area shards, sweeps)``."""
+    ex = mesh.exchange()
+    Wp = ex.halo(_ringed(W_s, 0.0))
+
+    def sweep(x_s):
+        xr = ex.halo(_ringed(x_s, 0.0))
+        inflow = [flow_sweep(x, W)[1:-1, 1:-1] for x, W in zip(xr, Wp)]
+        if links is not None:
+            inflow = links.add_to(inflow, xr)
+        return [b + f for b, f in zip(base_s, inflow)]
+
+    x = list(base_s)
+    if n_sweeps is not None:
+        for _ in range(n_sweeps):
+            x = sweep(x)
+        return x, n_sweeps
+    prev = [torch.full_like(b, -1.0) for b in base_s]
+    it = 0
+    while it < max_iters and int(ex.reduce(
+            [(a != p).any().to(torch.int32) for a, p in zip(x, prev)])):
+        new = x
+        for _ in range(check_every):
+            new = sweep(new)
+        x, prev, it = new, x, it + check_every
+    return x, it
+
+
+def _check_solver(uca_solver):
+    if uca_solver not in ("jacobi", "blocked"):
+        raise ValueError("uca_solver must be 'jacobi' or 'blocked', got %r"
+                         % (uca_solver,))
+
+
+def _links_of(pit_links, mesh, n_l, m_l, dtype):
+    if pit_links is None or not len(pit_links[0]):
+        return None
+    return _ShardedLinks(*pit_links, mesh, n_l, m_l, dtype)
+
+
+def _solve_shards(base_s, W_s, mesh, pit_links=None, uca_solver="blocked",
+                  B=None):
+    """The UCA fixed point on the shards of an (n, m) canvas (``pit_links``
+    index it).  The blocked solver's block size ``B`` defaults to one
+    device's for the whole canvas (:func:`_block_size`), so that the solve
+    equals that device's round for round; it needs shards that are
+    multiples of ``B``: others are assembled, zero-padded (exact: pad pixels
+    carry no weight and no base area) and split again.  Returns ``(area
+    shards, rounds)``."""
+    _check_solver(uca_solver)
+    n_l, m_l = base_s[0].shape
+    dt = base_s[0].dtype
+    if uca_solver == "jacobi":
+        return _jacobi_shards(base_s, W_s, mesh,
+                              _links_of(pit_links, mesh, n_l, m_l, dt))
+    if B is None:
+        B = _block_size(n_l * mesh.shape[0], m_l * mesh.shape[1])
+    if n_l % B == 0 and m_l % B == 0:
+        return _blocked_shards(base_s, W_s, mesh, B,
+                               links=_links_of(pit_links, mesh, n_l, m_l, dt))
+    area, rounds = sharded_uca(assemble(base_s, mesh), assemble(W_s, mesh),
+                               mesh, pit_links=pit_links, B=B)
+    return _split(area, mesh), rounds
+
+
+def accumulate_sharded(base, W, mesh, B=None, inner_max=None,
+                       max_rounds=100_000):
+    """The UCA fixed point by K1 ring rounds over ``mesh`` (see the module
+    docstring): ``base`` (n, m) and ``W`` (8, n, m) on any device, the mesh
+    dividing the canvas into shards that are multiples of ``B`` (default:
+    64 or 16, the largest that fits, :func:`_shard_block_size`); the split
+    round runs on one card with shards of at least 3×3 blocks.  Returns
+    ``(area, rounds)``, the area assembled on ``base``'s device; both equal
+    ``accumulate_blocked_gs(base, W, B=B)`` on one device bit for bit."""
+    n_l, m_l = shard_dims(base.shape, mesh)
+    B = _shard_block_size(n_l, m_l) if B is None else B
+    if B is None:
+        raise ValueError("shard %dx%d too small for the blocked solver"
+                         % (n_l, m_l))
+    area_s, rounds = _blocked_shards(_split(base, mesh), _split(W, mesh),
+                                     mesh, B, inner_max, max_rounds)
+    return assemble(area_s, mesh, device=base.device), rounds
+
+
+def accumulate_sharded_pits(base, W, mesh, pit_src, pit_dst, pit_w, B=None,
+                            inner_max=None, max_rounds=100_000):
+    """:func:`accumulate_sharded` with non-adjacent pit links (flat indices
+    into the canvas, ``pit_src → pit_dst`` with weight ``pit_w``), folded
+    into each shard's effective base at the start of every round as
+    ``accumulate_blocked_pits_gs`` folds them on one canvas (blocks whose
+    folded base moved join the frontier).  The compact receivers are
+    exchanged once.  Equal to ``accumulate_blocked_pits_gs`` on one device
+    bit for bit, values and rounds."""
+    n_l, m_l = shard_dims(base.shape, mesh)
+    B = _shard_block_size(n_l, m_l) if B is None else B
+    if B is None:
+        raise ValueError("shard %dx%d too small for the blocked solver"
+                         % (n_l, m_l))
+    links = _links_of((pit_src, pit_dst, pit_w), mesh, n_l, m_l, base.dtype)
+    area_s, rounds = _blocked_shards(_split(base, mesh), _split(W, mesh),
+                                     mesh, B, inner_max, max_rounds,
+                                     links=links)
+    return assemble(area_s, mesh, device=base.device), rounds
+
+
+def _pad_to(a, n, m):
+    return F.pad(a, (0, m - a.shape[-1], 0, n - a.shape[-2]))
+
+
+def sharded_uca(base, W, mesh, pit_links=None, uca_solver="blocked", B=None):
+    """The UCA fixed point over ``mesh`` from unpadded ``base`` (n, m) and
+    ``W`` (8, n, m).  The canvas is zero-padded to a multiple of the mesh
+    (and, for ``"blocked"``, of ``B`` on every shard; ``B`` defaults to one
+    device's for the canvas, :func:`_block_size`, so the rounds are that
+    device's) — exact, since pad pixels carry no base area and no weight —
+    and the result cut back.  ``pit_links``: optional ``(src, dst,
+    w)`` flat indices into the unpadded canvas.  ``"jacobi"``: sharded
+    sweeps, equal to ``core.uca.accumulate`` bit for bit.  Returns
+    ``(area, rounds)`` with the area on ``base``'s device."""
+    _check_solver(uca_solver)
+    n, m = base.shape
+    gy, gx = mesh.shape
+    if uca_solver == "blocked" and B is None:
+        B = _block_size(n, m)
+    q = (B or 1)
+    np_, mp_ = n + (-n) % (q * gy), m + (-m) % (q * gx)
+    if pit_links is not None and len(pit_links[0]):
+        src, dst, w = (torch.as_tensor(v) for v in pit_links)
+        # flat indices into the padded canvas
+        pit_links = ((src // m) * mp_ + src % m, (dst // m) * mp_ + dst % m,
+                     w)
+    else:
+        pit_links = None
+    base_s = _split(_pad_to(base, np_, mp_), mesh)
+    W_s = _split(_pad_to(W, np_, mp_), mesh)
+    area_s, rounds = _solve_shards(base_s, W_s, mesh, pit_links, uca_solver,
+                                   B)
+    return assemble(area_s, mesh, device=base.device)[:n, :m], rounds
+
+
+def _post_shards(area_s, flats_s, mag_s, base_s, mesh):
+    """uca and twi per shard, with the smallest base area of the mesh."""
+    min_area = mesh.exchange().reduce([_nanmin(b) for b in base_s], "min")
+    uca_s = [finalize_uca(a, f) for a, f in zip(area_s, flats_s)]
+    twi_s = [twi_fn(u, mg, min_area.to(u.device))
+             for u, mg in zip(uca_s, mag_s)]
+    return uca_s, twi_s
+
+
+def _row_vectors(n, dt, device, dX, dY, dX2, dY2):
+    def vec(a, k, default):
+        if a is None:
+            return torch.full((k,), default, dtype=dt, device=device)
+        return torch.as_tensor(a, dtype=dt).to(device).expand(k).clone()
+
+    return (vec(dX, n - 1, 1.0), vec(dY, n - 1, 1.0), vec(dX2, n, 1.0),
+            vec(dY2, n, 1.0))
+
+
+def _extend_rows(v, k):
+    """``v`` with its last value repeated ``k`` more times."""
+    return torch.cat([v, v[-1:].expand(k)]) if k else v
+
+
+class ShardedPipeline:
+    """The manager's pipeline over a mesh, split where ``DEMProcessor``
+    splits it for the host pit search: :meth:`pre` runs the stencil stages
+    per shard and hands the host ``mag``, ``direction`` and ``flats``;
+    :meth:`uca` then solves the accumulation fixed point over the mesh with
+    the host's pit links.  The engine behind
+    ``ProcessManager(mesh=...).process_aspect_slope`` / ``process_uca``.
+    The mesh must divide the canvas."""
+
+    def __init__(self, elev, dX, dY, dX2, dY2, mesh, uca_solver="blocked"):
+        _check_solver(uca_solver)
+        self.mesh = mesh
+        self.uca_solver = uca_solver
+        dev = mesh.devices.flat[0]
+        self.dtype = default_dtype(dev)
+        elev = torch.as_tensor(np.asarray(elev), dtype=self.dtype).to(dev)
+        shard_dims(elev.shape, mesh)
+        self.shape = tuple(elev.shape)
+        self.elev_s = _split(elev, mesh)
+        self.args = _row_vectors(elev.shape[0], self.dtype, dev, dX, dY, dX2,
+                                 dY2)
+        self._pre = None
+        self.uca_rounds = -1
+
+    def pre(self):
+        """Slope/direction/flats over the mesh; returns host arrays."""
+        self._pre = _pre_shards(self.elev_s, *self.args, self.mesh)
+        self.min_area = float(self.mesh.exchange().reduce(
+            [_nanmin(b) for b in self._pre["base"]], "min"))
+        return tuple(assemble(self._pre[k], self.mesh).cpu().numpy()
+                     for k in ("mag", "direction", "flats"))
+
+    def uca(self, pit_links=None):
+        """The accumulation fixed point; returns ``(host area, rounds)``."""
+        if self._pre is None:
+            self.pre()
+        area_s, rounds = _solve_shards(self._pre["base"], self._pre["W"],
+                                       self.mesh, pit_links, self.uca_solver)
+        self.uca_rounds = int(rounds)
+        return assemble(area_s, self.mesh).cpu().numpy(), self.uca_rounds
+
+    def halo_metrics(self, measure=False):
+        """The per-round ring geometry of the decomposition (pixels and
+        bytes a shard receives, and their share of the canvas), and with
+        ``measure`` the timed overlap of :func:`measure_halo_overlap`."""
+        n, m = self.shape
+        gy, gx = self.mesh.shape
+        n_l, m_l = n // gy, m // gx
+        ring = 2 * (n_l + 2) + 2 * m_l  # rows, then extended columns
+        out = {"halo_px_per_round_per_shard": ring,
+               "halo_bytes_per_round_per_shard":
+                   ring * torch.finfo(self.dtype).bits // 8,
+               "halo_geometry_fraction": ring * gy * gx / float(n * m),
+               "mesh_shape": [int(gy), int(gx)],
+               "uca_rounds": self.uca_rounds}
+        if measure and self._pre is not None:
+            out.update(measure_halo_overlap(
+                assemble(self._pre["base"], self.mesh),
+                assemble(self._pre["W"], self.mesh), self.mesh))
+        return out
+
+
+def measure_halo_overlap(base, W, mesh, rounds=8, B=None):
+    """Time the halo/compute overlap of the sharded K1 round on this mesh.
+
+    Three fixed-round runs from the same start, every block visited in
+    every round: halo exchange only, relaxation only, and the production
+    round (the split round where :func:`accumulate_sharded` would use it,
+    else the serial one).  ``overlap_fraction = (t_exchange + t_relax -
+    t_full) / min(t_exchange, t_relax)``: the share of the cheaper phase
+    hidden behind the other (None when that phase is under 5% of the full
+    round: noise over noise).  Timed with CUDA events on a GPU and the host
+    clock on the CPU (``"timer"``), best of 3 after a warm-up.
+    ``"one_card"``: every shard was on one GPU, so the exchange is a copy
+    on that card, not a link between cards."""
+    n, m = base.shape
+    gy, gx = mesh.shape
+    B = _block_size(n, m) if B is None else B
+    np_, mp_ = n + (-n) % (B * gy), m + (-m) % (B * gx)
+    base_s = _split(_pad_to(base, np_, mp_), mesh)
+    from ..ops.uca_block import compact_from_dense
+
+    KW = [compact_from_dense(w) for w in _split(_pad_to(W, np_, mp_), mesh)]
+    nb = (np_ // gy // B, mp_ // gx // B)
+    st = _ShardRounds(mesh, base_s, [k for k, _ in KW], [w for _, w in KW],
+                      B, 2 * B + 4, _use_split(mesh, nb))
+    x0 = [x.clone() for x in st.x]
+    cuda = mesh.device_type == "cuda"
+    dev = mesh.devices.flat[0]
+
+    def run(mode):
+        for a, b in zip(st.x, x0):
+            a.copy_(b)
+        if cuda:
+            t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
+            t0.record()
+        else:
+            t = time.perf_counter()
+        for _ in range(rounds):
+            st.set_flags(1)
+            st.round(base_s, mode)
+        if cuda:
+            t1.record()
+            t1.synchronize()
+            return t0.elapsed_time(t1) / 1e3
+        return time.perf_counter() - t
+
+    out = {}
+    for mode in ("exchange", "relax", "full"):
+        run(mode)  # warm-up
+        out["t_%s_per_round" % mode] = min(run(mode) for _ in range(3)) \
+            / rounds
+    te, tr, tf = (out["t_exchange_per_round"], out["t_relax_per_round"],
+                  out["t_full_per_round"])
+    denom = min(te, tr)
+    out["overlap_fraction"] = (None if denom < 0.05 * tf
+                               else max(0.0, min(1.0, (te + tr - tf) / denom)))
+    out.update(overlap_rounds_timed=rounds, split_round=st.split,
+               timer="cuda events" if cuda else "host clock",
+               one_card=_one_card(mesh), block_size=B,
+               device=str(dev))
+    return out
+
+
+def run_sharded(elev, dX, dY, dX2=None, dY2=None, mesh=None, n_sweeps=None,
+                uca_solver="jacobi"):
+    """The terrain step over ``mesh`` (default: :func:`make_mesh`, every
+    visible GPU).  The canvas (a numpy array or tensor, its dtype kept) is
+    split over the mesh; a canvas the mesh does not divide is extended with
+    NaN (no-data) rows and columns first — the padded canvas is then the
+    computed domain, as in the JAX version — and the outputs cut back.
+
+    ``n_sweeps``: that many Jacobi sweeps; else ``uca_solver``: ``"jacobi"``
+    (sweeps over the shards to the fixed point) or ``"blocked"`` (the
+    sharded K1 solver, :func:`accumulate_sharded`).
+    Returns the dict of :func:`terrain_step`, its canvases assembled on the
+    first mesh device: equal to ``terrain_step`` on the same (padded) canvas
+    bit for bit, ``uca_sweeps`` included."""
+    if mesh is None:
+        mesh = make_mesh()
+    _check_solver(uca_solver)
+    dev = mesh.devices.flat[0]
+    elev = torch.as_tensor(elev).to(dev)
+    n_, m_ = elev.shape
+    dt = elev.dtype
+    dX, dY, dX2, dY2 = _row_vectors(n_, dt, dev, dX, dY, dX2, dY2)
+    gy, gx = mesh.shape
+    pad_n, pad_m = (-n_) % gy, (-m_) % gx
+    if pad_n or pad_m:
+        elev = F.pad(elev, (0, pad_m, 0, pad_n), value=float("nan"))
+        dX, dY, dX2, dY2 = (_extend_rows(v, pad_n) for v in (dX, dY, dX2,
+                                                              dY2))
+    pre = _pre_shards(_split(elev, mesh), dX, dY, dX2, dY2, mesh)
+    if n_sweeps is not None:
+        area_s, rounds = _jacobi_shards(pre["base"], pre["W"], mesh,
+                                        n_sweeps=n_sweeps)
+    else:
+        area_s, rounds = _solve_shards(pre["base"], pre["W"], mesh,
+                                       uca_solver=uca_solver)
+    uca_s, twi_s = _post_shards(area_s, pre["flats"], pre["mag"],
+                                pre["base"], mesh)
+    out = {k: assemble(v, mesh)[:n_, :m_]
+           for k, v in (("mag", pre["mag"]), ("direction", pre["direction"]),
+                        ("flats", pre["flats"]), ("uca", uca_s),
+                        ("twi", twi_s))}
+    out["uca_sweeps"] = int(rounds)
+    return out

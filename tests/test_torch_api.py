@@ -93,9 +93,10 @@ def test_unported_paths_raise(what, tmp_path):
     """The paths that raised ``NotImplementedError`` while only the device
     chain was ported now run (their parity with the JAX package is held in
     ``tests/test_torch_api_host.py``); nothing of ``DEMProcessor`` is left
-    that raises it, and what is (``mesh``) raises from ``ProcessManager``
-    naming its ROADMAP item; ``out_of_core`` is accepted."""
+    that raises it.  ``ProcessManager`` takes ``mesh`` (a ``Mesh``; anything
+    else is a ``TypeError``) and ``out_of_core``."""
     from pydem_tpu_torch.manager import ProcessManager
+    from pydem_tpu_torch.parallel.mesh import make_mesh
 
     elev = _elev("fixture 13")
     with warnings.catch_warnings():
@@ -131,8 +132,11 @@ def test_unported_paths_raise(what, tmp_path):
             dp2 = DEMProcessor(elev=elev, **DEVICE)
             dp2.load_uca(str(tmp_path / "x"))
             np.testing.assert_array_equal(dp2.uca, dp.uca)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         ProcessManager(in_path=str(tmp_path), device="cpu", mesh=object())
+    mesh = make_mesh(["cpu"] * 2, (1, 2))
+    assert ProcessManager(in_path=str(tmp_path), device="cpu",
+                          mesh=mesh).mesh is mesh
     pm = ProcessManager(in_path=str(tmp_path), device="cpu", out_of_core=True,
                         superblock=16)
     assert pm.out_of_core and pm.superblock == 16

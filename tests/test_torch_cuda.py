@@ -375,3 +375,102 @@ def test_out_of_core_engine_on_the_card(cuda, tmp_path):
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     np.testing.assert_allclose(np.nan_to_num(a["uca"]),
                                np.nan_to_num(b["uca"]), rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+@pytest.mark.parametrize("flag_ring", [False, True])
+def test_subset_kernel_equals_plain(cuda, B, flag_ring):
+    """K1's subset rounds (a launch over the interior or the boundary block
+    list) on a 512² window: kernel == plain bitwise for each subset, flags
+    in block space; interior then boundary into one output == one full ring
+    round, bitwise, the ring untouched; with a sparse flag ring the
+    frontier reads the ring."""
+    n, S = 1024, 512
+    W, base = _state(cuda, n, n)
+    K, W1 = ub.compact_from_dense(W)
+    kw = dict(B=B, inner_max=2 * B + 4)
+    ones = torch.ones((n // B, n // B), dtype=torch.int32, device=cuda)
+    x, _c = ub.gs_round(base, K, W1, base, ones, **kw)  # a mid-solve state
+    xw, Kw, W1w, bw = ring_window(x, K, W1, base, S // 2, S // 2, S)
+    nb = S // B
+    if flag_ring:
+        rng = np.random.RandomState(2)
+        prev = torch.from_numpy((rng.rand(nb + 2, nb + 2) < 0.2)
+                                .astype(np.int32)).to(cuda)
+    else:
+        prev = ones[:nb, :nb].contiguous()
+    full, full_chg = ub.gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
+    pf, pfc = ub.gs_round_ring_plain(xw, Kw, W1w, bw, prev, **kw)
+    assert torch.equal(full, pf) and torch.equal(full_chg, pfc)
+    out = (torch.full_like(xw, -1.0),
+           torch.full((nb, nb), -1, dtype=torch.int32, device=cuda))
+    outp = tuple(t.clone() for t in out)
+    before = ub.gs_round_subset.launches
+    for subset in ub.SUBSETS:
+        ub.gs_round_subset(xw, Kw, W1w, bw, prev, subset=subset, out=out,
+                           **kw)
+        blocks = ub.subset_blocks(nb, nb, subset, cuda)
+        ub.gs_round_ring_plain(xw, Kw, W1w, bw, prev, blocks=blocks,
+                               out=outp, **kw)
+        assert torch.equal(out[0], outp[0]) and torch.equal(out[1], outp[1])
+    assert ub.gs_round_subset.launches - before == 2
+    assert torch.equal(out[0], full) and torch.equal(out[1], full_chg)
+    ring = torch.ones_like(xw, dtype=torch.bool)
+    ring[1:-1, 1:-1] = False
+    assert torch.equal(out[0][ring], xw[ring])
+
+
+def test_subset_wrapper_rejects_what_it_cannot_run(cuda):
+    W, base = _state(cuda, 64, 64)
+    K, W1 = ub.compact_from_dense(W)
+    xw, Kw, W1w, bw = ring_window(base, K, W1, base, 0, 0, 32)
+    prev = torch.ones((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at least 3x3"):
+        ub.gs_round_subset(xw, Kw, W1w, bw, prev, B=16, inner_max=36,
+                           subset="interior")
+    with pytest.raises(ValueError, match="out must not be x"):
+        ub.gs_round_ring(xw, Kw, W1w, bw, prev, B=16, inner_max=36,
+                         out=(xw, prev.clone()))
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 4)])
+def test_sharded_equals_single_device_on_the_card(cuda, shape):
+    """``run_sharded(uca_solver="blocked")`` over shards on ``cuda:0`` at
+    512²: every output bitwise equal to one device's
+    ``terrain_step(blocked)``, rounds equal; the solver takes the split
+    round, which launches the subset kernel, where the shards hold at least
+    3×3 blocks (1×2: 8×4, 2×2: 4×4; 2×4 has 4×2), and the split and the
+    serial round, both forced, agree bitwise; with pit links the sharded
+    fold equals ``accumulate_blocked_pits_gs``."""
+    from pydem_tpu_torch.parallel import sharded
+    from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, split
+    from pydem_tpu_torch.parallel.sharded import (accumulate_sharded_pits,
+                                                  run_sharded, terrain_step)
+
+    n = 512
+    mesh = make_mesh([cuda] * (shape[0] * shape[1]), shape)
+    elev = torch.from_numpy(make_hard_terrain(n, "float32")).to(cuda)
+    rows = (torch.ones(n - 1, device=cuda),) * 2 + (
+        torch.ones(n, device=cuda),) * 2
+    single = terrain_step(elev, *rows, uca_solver="blocked")
+    splits = shape != (2, 4)
+    before = ub.gs_round_subset.launches
+    out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
+    for key in ("mag", "direction", "flats", "uca", "twi"):
+        assert torch.equal(torch.nan_to_num(out[key].double()),
+                           torch.nan_to_num(single[key].double())), key
+    assert out["uca_sweeps"] == single["uca_sweeps"]
+    assert (ub.gs_round_subset.launches > before) == splits
+    assert sharded._blocked_shards.last_split == splits
+    W, base = _state(cuda, n, n)
+    if splits:
+        runs = [sharded._blocked_shards(split(base, mesh), split(W, mesh),
+                                        mesh, 64, _force_split=force)
+                for force in (True, False)]
+        (a_s, r_s), (a_p, r_p) = runs
+        assert r_s == r_p and torch.equal(assemble(a_s, mesh),
+                                          assemble(a_p, mesh))
+    links = _pit_links(cuda, n, n)
+    want, rw = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
+    got, rg = accumulate_sharded_pits(base, W, mesh, *links, B=64)
+    assert rg == rw and torch.equal(got, want)

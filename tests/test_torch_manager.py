@@ -184,10 +184,14 @@ def test_no_inputs_and_unported_options_raise(tmp_path):
         _pm(str(tmp_path)).compute_grid()
     with pytest.raises(RuntimeError, match="no input rasters"):
         _pm(str(tmp_path), out_of_core=True).process_twi()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         _pm(str(tmp_path), mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         _pm(str(tmp_path), mesh=object(), out_of_core=True)
+    with pytest.raises(ValueError, match="devices are cuda"):
+        _pm(str(tmp_path), mesh=make_mesh(["cuda"] * 2, (1, 2)))
 
 
 def test_default_device_is_the_card(tmp_path):
@@ -532,3 +536,97 @@ def test_out_of_core_resume_and_export(ooc_runs, tmp_path):
     ref = uca0.astype("float32")
     np.testing.assert_array_equal(
         g.data, np.where(np.isnan(ref), np.float32(-9999), ref))
+
+
+# -- over a mesh --------------------------------------------------------------
+
+def _cpu_mesh(shape=(2, 4)):
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(ooc_runs, tmp_path_factory):
+    """The tiles of ``ooc_runs`` through ``ProcessManager(mesh=2×4 CPU
+    devices)`` with each UCA solver: the streaming route with the engine's
+    UCA sharded (the JAX manager's mesh route)."""
+    mem, _ooc, _jm, _ret, chunks = ooc_runs
+    tmp = tmp_path_factory.mktemp("mesh")
+    manager.DEBUG = True
+    try:
+        runs = {}
+        for solver in ("jacobi", "blocked"):
+            pm = _pm(chunks, mesh=_cpu_mesh(), out_path=str(tmp / solver),
+                     superblock=32,
+                     dem_proc_kwargs=dict(uca_solver=solver))
+            runs[solver] = (pm, pm.process_twi())
+        yield mem, runs
+    finally:
+        manager.DEBUG = False
+
+
+@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("solver", ["jacobi", "blocked"])
+def test_mesh_manager_matches_in_memory(mesh_runs, solver, key):
+    """ProcessManager(mesh=...) == the in-memory manager on the same tiles,
+    atol 1e-10 (``tests/test_manager_mesh.py`` of the JAX package)."""
+    mem, runs = mesh_runs
+    pm, twi = runs[solver]
+    a, b = mem.out_file[key], pm.out_file[key]
+    assert (np.isnan(a) == np.isnan(b)).all()
+    np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b),
+                               atol=1e-10, err_msg=key)
+    np.testing.assert_array_equal(twi, pm.out_file["twi"])
+    assert pm._ooc.mesh is pm.mesh and pm.out_file["success"].all()
+
+
+def test_mesh_stages_run_the_sharded_pipeline(tmp_path, debug_pixels):
+    """Stage by stage, a mesh manager runs ShardedPipeline on the mosaic:
+    on a pit-rich fixture with conditioning off (its pit links cross the
+    shards) aspect, slope and uca equal the in-memory manager's, atol
+    1e-10; metrics.json carries the halo geometry and, asked for, the timed
+    overlap."""
+    opts = dict(fill_flats=False, drain_pits_path=False)
+    chunks = fixtures.mk_test_multifile(13, NN, str(tmp_path), nx_grid=2,
+                                        ny_grid=2, nx_overlap=2, ny_overlap=2)
+    pms = [_pm(chunks, out_path=str(tmp_path / "mem.zarr"),
+               dem_proc_kwargs=opts),
+           _pm(chunks, out_path=str(tmp_path / "mesh.zarr"), mesh=_cpu_mesh(),
+               dem_proc_kwargs=dict(opts, uca_solver="blocked"),
+               measure_halo_overlap=True)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for pm in pms:
+            pm.compute_grid()
+            pm.process_elevation()
+            pm.process_aspect_slope()
+            pm.process_uca()
+            pm._dump_metrics()
+    mem, mesh = pms
+    assert mesh._sp is not None and mesh._sp.uca_solver == "blocked"
+    for key in ("aspect", "slope", "uca"):
+        a, b = mem.out_file[key], mesh.out_file[key]
+        assert (np.isnan(a) == np.isnan(b)).all(), key
+        np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b),
+                                   atol=1e-10, err_msg=key)
+    with open(os.path.join(mesh.out_path, "metrics.json")) as f:
+        metrics = json.load(f)
+    assert metrics["mesh_shape"] == [2, 4]
+    assert metrics["uca_iters_to_converge"] == mesh._sp.uca_rounds >= 1
+    assert metrics["timer"] == "host clock" and "overlap_fraction" in metrics
+
+
+def test_mesh_route_never_materializes_the_host_mosaic(tmp_path,
+                                                       monkeypatch,
+                                                       debug_pixels):
+    def boom(self):
+        raise AssertionError("the mesh route mosaicked the tiles on the host")
+
+    monkeypatch.setattr(ProcessManager, "_mosaic_elev", boom)
+    chunks = fixtures.mk_test_multifile(TEST_NUM, NN, str(tmp_path),
+                                        nx_grid=2, ny_grid=2, nx_overlap=2,
+                                        ny_overlap=2)
+    pm = _pm(chunks, mesh=_cpu_mesh((2, 2)), superblock=32)
+    twi = pm.process_twi()
+    assert np.isfinite(twi).any() and pm.out_file["success"].all()

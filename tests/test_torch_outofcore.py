@@ -257,7 +257,7 @@ def test_sb_uca_solve_matches_jax(corner):
 
 def test_engine_argument_errors(tmp_path):
     elev = _case_elev("cone_partial_blocks")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         OutOfCoreEngine(ArrayStore(str(tmp_path / "b.zarr")), elev.shape,
                         1, 1, 1, 1, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="multiple of the kernel block"):
@@ -317,3 +317,65 @@ def test_port_imports_no_jax():
     for fn in files:
         with open(fn) as f:
             assert not pat.search(f.read()), fn
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("name", ["cone_partial_blocks",
+                                  "pit_links_cross_blocks"])
+def test_engine_mesh_route_equals_single_device(tmp_path, name, shape):
+    """OutOfCoreEngine(mesh=...) on CPU shards == the engine on one device,
+    bitwise, rounds equal: the device-resident UCA stage solves through
+    sharded_uca.  A canvas the mesh divides takes the fused pass; the
+    others (40×48 over 2×4, 48² over 2×4 is divided) pad to the mesh with
+    NaN elevation and take the staged stages."""
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    _num, _size, _rows, S, margin, opts, _budget = CASES[name]
+    elev = _case_elev(name)[:, :45 if name.startswith("pit") else None]
+    mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
+    s0, e0 = _t_engine(tmp_path / "one.zarr", elev, S=S, margin=margin,
+                       **opts)
+    e0.run()
+    store = ArrayStore(str(tmp_path / "mesh.zarr"))
+    store.create("elev_src", elev.shape, "float64", chunks=(S, S),
+                 fill=np.nan, overwrite=True)
+    store.write_window("elev_src", elev, (0, 0))
+    n = elev.shape[0]
+    e1 = OutOfCoreEngine(store, elev.shape, np.ones(n - 1), np.ones(n - 1),
+                         np.ones(n), np.ones(n), dem_proc_kwargs=opts,
+                         superblock=S, margin=margin, mesh=mesh,
+                         device="cpu")
+    np_, mp_, got_mesh = e1._padded_dims()
+    assert got_mesh is mesh and np_ % shape[0] == 0 and mp_ % shape[1] == 0
+    assert e1._fits_device_resident()  # one distinct device: its budget
+    e1.run()
+    assert e1.uca_rounds == e0.uca_rounds
+    assert len(e1._links[0]) == len(e0._links[0])
+    for key in ("slope", "aspect", "flats", "uca", "twi"):
+        np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (3, 2)])
+def test_mesh_does_not_enlarge_the_device_budget(tmp_path, shape):
+    """The device-resident pass gathers every canvas whole on the engine's
+    device, so a mesh whose cells name distinct devices admits no larger
+    canvas than that device alone; the canvas counted is the one padded to
+    the mesh (40×48 over 3×2 is 42×48)."""
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    elev = _case_elev("cone_partial_blocks")
+    k = shape[0] * shape[1]
+    mesh = make_mesh([torch.device("cpu", i) for i in range(k)], shape)
+    assert mesh.distinct_devices == k
+    n, m = elev.shape
+    np_, mp_ = n + (-n) % shape[0], m + (-m) % shape[1]
+    need = outofcore._DEVICE_RESIDENT_PLANES * np_ * mp_ * 8
+    store = ArrayStore(str(tmp_path / "a.zarr"))
+    # one byte short for one device, though k such budgets would hold it
+    for budget, fits in ((need, True), (need - 1, False)):
+        eng = OutOfCoreEngine(store, elev.shape, np.ones(n - 1),
+                              np.ones(n - 1), np.ones(n), np.ones(n),
+                              mesh=mesh, device_cache_bytes=budget,
+                              device="cpu")
+        assert eng._padded_dims()[:2] == (np_, mp_)
+        assert eng._fits_device_resident() == fits, budget

@@ -675,3 +675,91 @@ def test_round_loop_equals_reading_every_round(name, max_rounds):
     assert rounds <= len(calls) <= min(rounds + 3, max(max_rounds, 1))
     assert len(calls) == min(-(-rounds // 4) * 4, max(max_rounds, 1))
     assert t_ub._gs_solve.host_reads - reads == -(-rounds // 4)
+
+
+@pytest.mark.parametrize("flag_ring", [False, True])
+@pytest.mark.parametrize("B,n", [(8, 64), (16, 96)])
+def test_subset_rounds_make_one_ring_round(B, n, flag_ring):
+    """K1's subset rounds in plain PyTorch (the twin of the kernel's block
+    lists): the interior round writes only the interior blocks and their
+    flags, the boundary round only the rim blocks, their flags and the
+    ring; the two into one output are one full ring round, bitwise; with a
+    flag ring the frontier reads it."""
+    x, K, W1, base = _ring_case(B, n + 2 * B)
+    xw, Kw, W1w, bw = ring_window(x, K, W1, base, B, B, n)
+    nb = n // B
+    # one flag: a neighbour's corner block in the flag ring, else the
+    # window's second block; the frontier relaxes the blocks around it
+    prev = torch.zeros((nb + 2,) * 2 if flag_ring else (nb, nb),
+                       dtype=torch.int32)
+    prev[0, 0 if flag_ring else 1] = 1
+    kw = dict(B=B, inner_max=2 * B + 4)
+    full, full_chg = t_ub.gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
+    fill = (torch.full_like(xw, -1.0),
+            torch.full((nb, nb), -1, dtype=torch.int32))
+    interior = torch.zeros((nb, nb), dtype=torch.bool)
+    interior[1:-1, 1:-1] = True
+    px = interior.repeat_interleave(B, 0).repeat_interleave(B, 1)
+    px = torch.nn.functional.pad(px, (1, 1, 1, 1))
+    out = tuple(t.clone() for t in fill)
+    t_ub.gs_round_subset(xw, Kw, W1w, bw, prev, subset="interior", out=out,
+                         **kw)
+    assert torch.equal(out[0][px], full[px])
+    assert torch.equal(out[0][~px], fill[0][~px])
+    assert torch.equal(out[1][interior], full_chg[interior])
+    assert (out[1][~interior] == -1).all()
+    t_ub.gs_round_subset(xw, Kw, W1w, bw, prev, subset="boundary", out=out,
+                         **kw)
+    assert torch.equal(out[0], full) and torch.equal(out[1], full_chg)
+    dirty = t_ub._dirty(prev, flag_ring)
+    assert int(dirty.sum()) == (1 if flag_ring else 6)
+    assert full_chg.any() and not (full_chg.bool() & ~dirty).any()
+    alone, chg = t_ub.gs_round_subset(xw, Kw, W1w, bw, prev,
+                                      subset="boundary", **kw)
+    assert torch.equal(alone[px], xw[px]) and not chg[interior].any()
+    assert t_ub.gs_round_subset.launches == 0  # the plain version ran
+
+
+def test_flag_ring_is_the_canvas_frontier():
+    """A window whose flag ring holds the canvas's flags around it (0 beyond
+    the canvas) relaxes exactly the blocks a whole-canvas round relaxes
+    there, from a sparse frontier."""
+    B, n, S = 8, 64, 32
+    x, K, W1, base = _ring_case(B, n)
+    rng = np.random.RandomState(7)
+    prev = torch.from_numpy((rng.rand(n // B, n // B) < 0.15)
+                            .astype(np.int32))
+    kw = dict(B=B, inner_max=2 * B + 4)
+    full, full_chg = t_ub.gs_round_plain(x, K, W1, base, prev, **kw)
+    ring = torch.nn.functional.pad(prev, (1, 1, 1, 1))
+    for i0, j0 in ((0, 0), (S, 0), (B, 2 * B)):
+        bi, bj = i0 // B, j0 // B
+        xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
+        pw = ring[bi: bi + S // B + 2, bj: bj + S // B + 2].contiguous()
+        got, chg = t_ub.gs_round_ring(xw, Kw, W1w, bw, pw, **kw)
+        assert torch.equal(got[1:-1, 1:-1], full[i0: i0 + S, j0: j0 + S])
+        assert torch.equal(chg, full_chg[bi: bi + S // B, bj: bj + S // B])
+
+
+def test_subset_blocks_partition_and_reject_small_grids():
+    inner = t_ub.subset_blocks(4, 5, "interior")
+    rim = t_ub.subset_blocks(4, 5, "boundary")
+    assert inner.dtype == rim.dtype == torch.int32
+    assert inner.tolist() == [6, 7, 8, 11, 12, 13]
+    assert sorted(inner.tolist() + rim.tolist()) == list(range(20))
+    assert len(t_ub.subset_blocks(64, 64, "boundary")) == 252
+    for shape in ((2, 2), (2, 5), (5, 2)):
+        with pytest.raises(ValueError, match="at least 3x3"):
+            t_ub.subset_blocks(*shape, "interior")
+    with pytest.raises(ValueError, match="subset must be"):
+        t_ub.subset_blocks(4, 4, "all")
+    x, K, W1, base = _ring_case(16, 64)
+    xw, Kw, W1w, bw = ring_window(x, K, W1, base, 0, 0, 32)
+    with pytest.raises(ValueError, match="at least 3x3"):
+        t_ub.gs_round_subset(xw, Kw, W1w, bw,
+                             torch.ones((2, 2), dtype=torch.int32), B=16,
+                             inner_max=36, subset="boundary")
+    with pytest.raises(ValueError, match="prev has shape"):
+        t_ub.gs_round_ring(xw, Kw, W1w, bw,
+                           torch.ones((3, 3), dtype=torch.int32), B=16,
+                           inner_max=36)
