@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # phases 1-11, one card
+    python3 chip_smoke.py --multicard  # phases 1, 2 and 12, four cards
 
 Phases, each reported on its own lines:
 
@@ -138,13 +139,51 @@ Phases, each reported on its own lines:
        the in-memory manager on the same tiles (equal NaN patterns, values
        within the cone's gate), stage seconds printed; then
        ``dryrun_multichip(4)``.
+12. ``--multicard`` only, the mesh over four cards, one shard a card
+    (``cuda:0..3``, a 2×2 mesh; it fails with fewer than four visible
+    cards).  First the cards' index, name and power limit, ``nvidia-smi
+    topo -m`` and the ``can_device_access_peer`` matrix; then, on the
+    float32 cone:
+    a. on every card, K1's canvas round and a K2 round (2048²), and K1's
+       ring and subset rounds at every shard shape that b-f run (8192²,
+       4096×16384, 12288², 4096², 1024² windows of a mid-solve state of
+       the 16384² cone, with the flag ring the sharded rounds pass and,
+       where the subset forms run, without) against their plain versions
+       bit for bit; timed at b's shard and c's band;
+    b. ``run_sharded(uca_solver="blocked")`` on the 16384² cone over the
+       four cards: ``mag``, ``direction``, ``flats``, ``uca``, ``twi`` and
+       the rounds equal to one card's ``terrain_step(blocked)`` bit for
+       bit (sha256 of NaN masks and values); both wall times, median of 3
+       with every rep; each card's peak memory; the solve alone with the
+       split and the serial round forced, bitwise equal, timed; the
+       four-card exchange / relax / full round and overlap fraction of
+       ``measure_halo_overlap`` (host clock, every card synchronised);
+    c. four processes (spawned), one NCCL rank a card,
+       ``multihost.run_global(blocked)`` on the same cone in (4, 1) row
+       bands: bitwise equal to b's one card, rounds equal, wall by rank;
+    d. the 2048² hard terrain's planes and pit links through ``sharded_uca``
+       over the four cards (the solver's round) bitwise equal to
+       ``accumulate_blocked_pits_gs`` on one card;
+    e. ``OutOfCoreEngine(superblock=2048)`` over the four cards against the
+       same engine over four shards on ``cuda:0``, fused both, bitwise, at
+       8192²; then at 24576², where one card's budget refuses the fused pass
+       and the four cards' admit it (``outofcore.fits_device_resident``):
+       the fused pass, each card's peak under its budget, stage seconds and
+       rounds, ``uca`` and ``twi`` within the cone gate of ``run_sharded``
+       over the same cards (a ~22 GB store in a temporary directory);
+    f. ``ProcessManager(mesh=the four cards)`` as 11d, and
+       ``dryrun_multichip(4)`` with one shard a card.
+    Then the kernel JSON line with every kernel's launches in the runs of
+    b-f, by card, and the last line with ``"count"`` the visible cards.
 
 Then a JSON line with the kernel table (K1's canvas, ring and subset forms
 and K2, each with its launches on the main paths), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
 exit and no result line.  The port imports neither JAX nor the JAX package.
 """
+import collections
 import gc
+import hashlib
 import json
 import os
 import re
@@ -183,7 +222,7 @@ from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
                                            compact_from_dense, gs_round,
                                            gs_round_plain, gs_round_ring,
                                            gs_round_ring_plain,
-                                           kernel_smem_bytes)
+                                           kernel_smem_bytes, launch_count)
 from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
 from pydem_tpu_torch.ops.uca_block import gs_round_subset, subset_blocks
 from pydem_tpu_torch.parallel import sharded
@@ -290,6 +329,25 @@ def log(phase, msg):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+# the kernel wrappers by the name of the kernel each launches
+WRAPPERS = (("uca_gs_round", gs_round), ("uca_gs_round_ring", gs_round_ring),
+            ("uca_gs_round_subset", gs_round_subset),
+            ("uca_block_round", block_round))
+
+
+def reset_counts():
+    """Every kernel wrapper's launch counts to 0."""
+    for _name, fn in WRAPPERS:
+        fn.launches_on.clear()
+
+
+def counts_by_card():
+    """Every wrapper's launches since :func:`reset_counts`, by card:
+    ``{kernel: {"cuda:k": launches}}``."""
+    return {name: {str(d): c for d, c in fn.launches_on.items()}
+            for name, fn in WRAPPERS}
 
 
 def cuda_median_ms(fn, reps=3, warmup=1):
@@ -454,11 +512,12 @@ def phase_main_path(device):
     elevs = {k: torch.from_numpy(v).to(device) for k, v in terrains.items()}
     args = spacing(N_MAIN, torch.float32, device)
 
-    gs_round.launches = gs_solve.host_reads = 0
+    gs_round.launches_on.clear()
+    gs_solve.host_reads = 0
     blocked = {k: terrain_step(e, *args, uca_solver="blocked")
                for k, e in elevs.items()}
     torch.cuda.synchronize()
-    launches = gs_round.launches
+    launches = launch_count(gs_round)
     check(launches > 0, "the main path launched the UCA kernel no time")
     rounds = sum(b["uca_sweeps"] for b in blocked.values())
     check(rounds <= launches <= rounds + 3 * len(blocked),
@@ -555,10 +614,10 @@ def phase_hard_chain(device):
     """DEMProcessor's device chain (blocked, K1 with the pit fold) on the
     2048² hard terrain, gated against jacobi and repeated."""
     elev = make_hard_terrain(N_MAIN)
-    gs_round.launches = 0
+    gs_round.launches_on.clear()
     dp, twi = run_chain(elev, "blocked", device)
     torch.cuda.synchronize()
-    launches = gs_round.launches
+    launches = launch_count(gs_round)
     check(dp.uca_sweeps <= launches <= dp.uca_sweeps + 3,
           "the hard chain launched K1 %d times for %d rounds"
           % (launches, dp.uca_sweeps))
@@ -600,11 +659,11 @@ def phase_k2_path(device):
     W, base, links = state
     worst_k2 = k2_rounds_vs_plain("conditioned hard", W, base)
 
-    block_round.launches = 0
+    block_round.launches_on.clear()
     ak, rk = accumulate_blocked(base, W)
     pk, prk = accumulate_blocked_pits(base, W, *links)
     torch.cuda.synchronize()
-    launches = block_round.launches
+    launches = launch_count(block_round)
     check(launches == rk + prk > 0,
           "K2's path launched K2 %d times for %d + %d rounds"
           % (launches, rk, prk))
@@ -799,10 +858,10 @@ def time_k1_solve(base, W, B, card):
     sums = []
     for rep in range(4):  # rep 0 warms up
         del spans[:]
-        launches, reads = gs_round.launches, gs_solve.host_reads
+        launches, reads = launch_count(gs_round), gs_solve.host_reads
         _x, r = accumulate_blocked_gs(base, W, B=B, round_fn=timed_round)
         torch.cuda.synchronize()
-        launches = gs_round.launches - launches
+        launches = launch_count(gs_round) - launches
         reads = gs_solve.host_reads - reads
         check(r == rounds and launches == len(spans),
               "timed K1 solve: %d rounds, %d launches" % (r, launches))
@@ -1043,9 +1102,9 @@ def check_host_backends(device, work):
         tag = name.replace(" ", "_")
         tiles = os.path.join(work, "tiles_%s" % tag)
         write_tiles(elev, tiles)
-        gs_round.launches = 0
+        gs_round.launches_on.clear()
         card_pm, _t, _w, _s = manager_run(tiles, work, tag + "_card")
-        launches = gs_round.launches
+        launches = launch_count(gs_round)
         cpu_pm, _t, _w, _s = manager_run(tiles, work, tag + "_cpu",
                                          device="cpu")
         check(card_pm._dp.device.type == "cuda" and launches > 0
@@ -1090,10 +1149,10 @@ def _phase_manager(device, card, work):
     tiles = os.path.join(work, "tiles")
     check(write_tiles(hard, tiles) == 4, "expected a 2x2 tile grid")
 
-    gs_round.launches = 0
+    gs_round.launches_on.clear()
     pm, twi, written, times0 = manager_run(tiles, work, "run0",
                                            dem_proc_kwargs=MANAGER_KW)
-    launches = gs_round.launches
+    launches = launch_count(gs_round)
     check(pm._dp.device.type == device.type == "cuda",
           "the manager ran on %s" % pm._dp.device)
     store = check_manager_store(pm, hard, launches)
@@ -1196,17 +1255,19 @@ def _phase_manager(device, card, work):
 OOC_FREE_BYTES = 8 << 30  # room the two 8192² stores need, with slack
 
 
-def ring_window(x, K, W1, base, i0, j0, S):
-    """The (S+2)² window at (i0, j0) of a canvas's planes, cut as the
-    out-of-core engine reads it: beyond the canvas x is 0 (a sanitised NaN),
-    K is "no edge" and W1 is 0; ``base`` covers the S² region."""
+def ring_window(x, K, W1, base, i0, j0, S, w=None):
+    """The (S+2)² window at (i0, j0) of a canvas's planes (``w``: S+2 rows
+    by w+2 columns), cut as the out-of-core engine reads it: beyond the
+    canvas x is 0 (a sanitised NaN), K is "no edge" and W1 is 0; ``base``
+    covers the S² (S × w) region."""
     pad = torch.nn.functional.pad
-    sl = (slice(i0, i0 + S + 2), slice(j0, j0 + S + 2))
+    w = S if w is None else w
+    sl = (slice(i0, i0 + S + 2), slice(j0, j0 + w + 2))
     x_win = torch.nan_to_num(pad(x, (1, 1, 1, 1), value=float("nan"))[sl])
     return (x_win.contiguous(),
             pad(K, (1, 1, 1, 1), value=255)[sl].contiguous(),
             pad(W1, (1, 1, 1, 1))[sl].contiguous(),
-            base[i0: i0 + S, j0: j0 + S].contiguous())
+            base[i0: i0 + S, j0: j0 + w].contiguous())
 
 
 def phase_ring_round(device, card, k1_ms):
@@ -1298,19 +1359,26 @@ class CountingStore(ArrayStore):
                   * np.dtype(meta["dtype"]).itemsize, t0)
 
 
-def ooc_run(work, tag, elev, S, budget, time_kernel=False, **opts):
-    """``elev`` into a fresh store by S² windows, then one
-    ``OutOfCoreEngine(...).run()`` on the default device with unit pixels.
-    Returns the store, the engine and what the run took."""
+def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
+            **opts):
+    """``elev`` (a numpy array, or a tensor written window by window) into
+    a fresh store by S² windows, then one ``OutOfCoreEngine(...).run()`` on
+    the default device (over ``mesh``, if given) with unit pixels.  Returns
+    the store, the engine and what the run took (``fused``: whether the
+    device-resident pass ran; ``peak_on``: each card's peak)."""
     n, m = elev.shape
     store = CountingStore(os.path.join(work, tag + ".zarr"))
     store.create("elev_src", elev.shape, "float64", chunks=(S, S),
                  fill=np.nan, overwrite=True, compress=False)
     for i0 in range(0, n, S):
         for j0 in range(0, m, S):
-            store.write_window("elev_src", elev[i0: i0 + S, j0: j0 + S]
-                               .astype("float64"), (i0, j0))
+            w = elev[i0: i0 + S, j0: j0 + S]
+            if isinstance(w, torch.Tensor):
+                w = w.cpu().numpy()
+            store.write_window("elev_src", w.astype("float64"), (i0, j0))
     store.io.update(read_bytes=0, read_s=0.0, write_bytes=0, write_s=0.0)
+    cards = ([torch.device("cuda", 0)] if mesh is None
+             else [d for d, _ks in mesh.devices_of()])
     timer = StageTimer()
     spans = []
 
@@ -1328,27 +1396,40 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, **opts):
         eng = OutOfCoreEngine(store, elev.shape, np.ones(n - 1),
                               np.ones(n - 1), np.ones(n), np.ones(n),
                               dem_proc_kwargs=opts, superblock=S,
-                              device_cache_bytes=budget, timer=timer)
+                              device_cache_bytes=budget, timer=timer,
+                              mesh=mesh)
         check(eng.device.type == "cuda" and eng._work_dtype == "float32",
               "the engine runs on %s in %s" % (eng.device, eng._work_dtype))
+        fused = []
+        run_fused = eng._run_fused_device
+        eng._run_fused_device = lambda: fused.append(1) or run_fused()
         gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()  # what earlier phases keep
-        gs_round.launches = gs_round_ring.launches = 0
+        held = {}
+        for d in cards:  # what earlier phases keep
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+            held[d] = torch.cuda.memory_allocated(d)
+        reset_counts()
         if time_kernel:
             outofcore.gs_round_ring = timed_ring
         try:
             t0 = time.perf_counter()
             eng.run()
-            torch.cuda.synchronize()
+            for d in cards:
+                torch.cuda.synchronize(d)
             total = time.perf_counter() - t0
         finally:
             outofcore.gs_round_ring = gs_round_ring
+    peak_on = {d: torch.cuda.max_memory_allocated(d) - held[d] for d in cards}
     res = dict(total=total, stages=timer.report(), rounds=eng.uca_rounds,
                visits=eng.uca_visits, skipped=eng.uca_skipped,
-               launches=gs_round.launches, ring_launches=gs_round_ring.launches,
-               peak=torch.cuda.max_memory_allocated() - held,
+               launches=launch_count(gs_round),
+               ring_launches=launch_count(gs_round_ring),
+               subset_launches=launch_count(gs_round_subset),
+               ring_on=dict(gs_round_ring.launches_on),
+               subset_on=dict(gs_round_subset.launches_on),
+               counts=counts_by_card(),
+               peak=peak_on[cards[0]], peak_on=peak_on, fused=bool(fused),
                io=dict(store.io),
                kernel_s=sum(a.elapsed_time(b) for a, b in spans) / 1e3)
     return store, eng, res
@@ -1480,7 +1561,8 @@ def _phase_ooc_hard(device, card, work):
     check(write_tiles(hard, tiles) == 4, "expected a 2x2 tile grid")
     kw = dict(in_path=tiles, out_path=os.path.join(work, "ooc.zarr"),
               out_of_core=True, superblock=S)
-    gs_round.launches = gs_round_ring.launches = 0
+    gs_round.launches_on.clear()
+    gs_round_ring.launches_on.clear()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         t0 = time.perf_counter()
@@ -1492,10 +1574,10 @@ def _phase_ooc_hard(device, card, work):
         written = pm.save_non_overlap_data_geotiff(
             os.path.join(work, "ooc_geotiff"))
         export_s = time.perf_counter() - t0
-    launches, ring_first = gs_round.launches, gs_round_ring.launches
+    launches, ring_first = launch_count(gs_round), launch_count(gs_round_ring)
     eng = pm._ooc
     check(eng.device.type == "cuda" and eng._fits_device_resident()
-          and gs_round.launches > 0,
+          and launch_count(gs_round) > 0,
           "the out-of-core manager did not run on the card")
     check(pm.grid_shape == (N_MAIN, N_MAIN) and store is pm.out_file,
           "out-of-core manager: grid %s" % (pm.grid_shape,))
@@ -1520,14 +1602,15 @@ def _phase_ooc_hard(device, card, work):
            eng.uca_rounds, launches + ring_first, n_links, export_s, card))
 
     uca_dev, twi_dev = store["uca"], store["twi"]
-    gs_round.launches = gs_round_ring.launches = 0
+    gs_round.launches_on.clear()
+    gs_round_ring.launches_on.clear()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         pm2 = ProcessManager(resume=True, **kw)
         t0 = time.perf_counter()
         pm2.process_twi()
         resume_s = time.perf_counter() - t0
-    check(gs_round.launches + gs_round_ring.launches == 0
+    check(launch_count(gs_round) + launch_count(gs_round_ring) == 0
           and sorted(pm2.timer.report()) == ["ingest"]
           and pm2._ooc.uca_rounds == eng.uca_rounds,
           "the resumed out-of-core run computed again: %s"
@@ -1541,15 +1624,15 @@ def _phase_ooc_hard(device, card, work):
     # the uca stage again on the same store, streamed
     eng.device_cache_bytes = 0
     check(not eng._fits_device_resident(), "budget 0 still fits")
-    gs_round_ring.launches = 0
+    gs_round_ring.launches_on.clear()
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         eng.uca()
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    ring_launches = gs_round_ring.launches
-    check(ring_launches > 0 and gs_round.launches == 0,
+    ring_launches = launch_count(gs_round_ring)
+    check(ring_launches > 0 and launch_count(gs_round) == 0,
           "the streamed uca stage launched no ring round")
     uca_str = np.where(store["flats"], np.nan, store["uca_state"])
     err, bitwise = gate_equal("10c streamed vs device-resident uca", uca_str,
@@ -1628,23 +1711,24 @@ N_MESH = 8192  # the sharded canvas: four 4096² shards on one card
 
 def subset_bound(blocks, B, S, ring):
     """The least time, in ms, of a K1 round over ``blocks`` (flat indices on
-    an (S/B)² grid) of an S² region with a 1-px ring, by bytes: the x, K and
-    W1 pixels their (B+2)² windows read (each once), their base, their
-    output blocks and, on the rim, the ring they copy, their flags and the
-    flags they test, the list; and the byte count."""
-    nb = S // B
-    listed = torch.zeros(nb * nb, dtype=torch.bool)
+    an (S/B)² grid) of an S² region (``S``: or an (h, w) pair) with a 1-px
+    ring, by bytes: the x, K and W1 pixels their (B+2)² windows read (each
+    once), their base, their output blocks and, on the rim, the ring they
+    copy, their flags and the flags they test, the list; and the byte
+    count."""
+    h, w = (S, S) if isinstance(S, int) else S
+    listed = torch.zeros((h // B) * (w // B), dtype=torch.bool)
     listed[blocks.cpu().long()] = True
     own = torch.nn.functional.pad(
-        listed.view(nb, nb).repeat_interleave(B, 0).repeat_interleave(B, 1),
-        (1, 1, 1, 1))
+        listed.view(h // B, w // B).repeat_interleave(B, 0)
+        .repeat_interleave(B, 1), (1, 1, 1, 1))
     near = own.clone()
     for di, dj in ((0, 1), (1, 0), (0, -1), (-1, 0), (1, 1), (1, -1),
                    (-1, 1), (-1, -1)):
         near |= torch.roll(own, (di, dj), (0, 1))
     window = int(near.sum())
     ring_px = int((near & ~torch.nn.functional.pad(
-        torch.ones(S, S, dtype=torch.bool), (1, 1, 1, 1))).sum()) if ring \
+        torch.ones(h, w, dtype=torch.bool), (1, 1, 1, 1))).sum()) if ring \
         else 0
     nbytes = (window * (4 + 1 + 4) + int(own.sum()) * (4 + 4) + ring_px * 4
               + int(listed.sum()) * (4 + 4 + 9 * 4))
@@ -1748,11 +1832,18 @@ def phase_subset_rounds(device, card):
     return times, worst
 
 
+def sync_all():
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
 def synced_seconds(fn):
-    torch.cuda.synchronize()
+    """``fn()`` and its host-clock seconds, every visible card
+    synchronised before and after."""
+    sync_all()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all()
     return out, time.perf_counter() - t0
 
 
@@ -1801,12 +1892,15 @@ def phase_sharded(device, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    gs_round.launches = gs_round_ring.launches = gs_round_subset.launches = 0
+    gs_round.launches_on.clear()
+    gs_round_ring.launches_on.clear()
+    gs_round_subset.launches_on.clear()
     reads = sharded._blocked_shards.host_reads
     out, split_s = synced_seconds(lambda: run_sharded(
         elev, *args, mesh=mesh, uca_solver="blocked"))
-    launches = dict(canvas=gs_round.launches, ring=gs_round_ring.launches,
-                    subset=gs_round_subset.launches)
+    launches = dict(canvas=launch_count(gs_round),
+                    ring=launch_count(gs_round_ring),
+                    subset=launch_count(gs_round_subset))
     reads = sharded._blocked_shards.host_reads - reads
     peak = torch.cuda.max_memory_allocated() - held
     check(sharded._blocked_shards.last_split and launches["subset"] > 0
@@ -1895,61 +1989,715 @@ def phase_sharded_pits(device, card, state):
         "on one device, as PitLinks does)" % (N_MAIN, len(links[0]), rw))
 
 
-def phase_mesh_manager(device, card):
-    """11d: ProcessManager(mesh=2x2 on the card) over the 2048² cone's four
-    tiles, process_twi and the GeoTIFF export, against the in-memory
-    manager on the same tiles; then dryrun_multichip(4)."""
+def phase_mesh_manager(device, card, mesh=None, phase="11d"):
+    """11d: ProcessManager(mesh=2x2 on the card, or ``mesh``) over the
+    2048² cone's four tiles, process_twi and the GeoTIFF export, against
+    the in-memory manager on the same tiles; then dryrun_multichip(4).
+    Returns the mesh run's launches by kernel and card."""
+    mesh = mesh_of(device, (2, 2)) if mesh is None else mesh
     work = tempfile.mkdtemp(prefix="pydem_smoke_mesh_")
     try:
         tiles = os.path.join(work, "tiles")
         cone = make_cone(N_MAIN)
         check(write_tiles(cone, tiles) == 4, "expected a 2x2 tile grid")
         runs = {}
-        for tag, mesh in (("in-memory", None),
-                          ("mesh", mesh_of(device, (2, 2)))):
+        for tag, m in (("in-memory", None), ("mesh", mesh)):
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                gs_round.launches = gs_round_subset.launches = 0
+                reset_counts()
                 t0 = time.perf_counter()
-                pm = ProcessManager(in_path=tiles, mesh=mesh,
+                pm = ProcessManager(in_path=tiles, mesh=m,
                                     out_path=os.path.join(work, tag + ".zarr"),
                                     superblock=N_MAIN // 2)
                 twi = pm.process_twi()
-                torch.cuda.synchronize()
+                for d in {d for d in mesh.devices.flat}:
+                    torch.cuda.synchronize(d)
                 run_s = time.perf_counter() - t0
                 written, export_s = None, 0.0
-                if mesh is not None:
+                if m is not None:
                     t0 = time.perf_counter()
                     written = pm.save_non_overlap_data_geotiff(
                         os.path.join(work, "mesh_geotiff"))
                     export_s = time.perf_counter() - t0
-            runs[tag] = (pm, twi, run_s, export_s, gs_round.launches,
-                         gs_round_subset.launches)
+            runs[tag] = (pm, twi, run_s, export_s, launch_count(gs_round),
+                         launch_count(gs_round_ring),
+                         launch_count(gs_round_subset), counts_by_card())
             if written is not None:
                 check_manager_exports(pm, pm.out_file, written)
-        pm0, twi0, s0, _e0, l0, _sub0 = runs["in-memory"]
-        pm1, twi1, s1, e1, l1, sub1 = runs["mesh"]
+        pm0, twi0, s0, _e0, _l0, _r0, _sub0, _c0 = runs["in-memory"]
+        pm1, twi1, s1, e1, l1, ring1, sub1, counts = runs["mesh"]
         check(pm1._ooc is not None and pm1._ooc.mesh is not None
-              and sub1 > 0 and l1 == 0,
-              "11d: the mesh manager did not solve over the mesh (%d subset, "
-              "%d canvas launches)" % (sub1, l1))
+              and ring1 + sub1 > 0 and l1 == 0,
+              "%s: the mesh manager did not solve over the mesh (%d ring, %d "
+              "subset, %d canvas launches)" % (phase, ring1, sub1, l1))
         errs = {}
         for key in ("elev", "slope", "aspect", "uca", "twi"):
             errs[key], _bitwise = gate_equal(
-                "11d %s" % key, pm1.out_file[key], pm0.out_file[key],
+                "%s %s" % (phase, key), pm1.out_file[key], pm0.out_file[key],
                 GATE_TOL["cone"])
-        log("mesh", "11d ProcessManager(mesh=2x2 on %s) on the %d² cone's 4 "
-            "tiles: process_twi %.1f s (in memory %.1f s), export %.1f s, "
-            "stage seconds %s; elev, slope, aspect, uca, twi against the "
-            "in-memory manager: NaN patterns equal, max abs %s within %s; "
+        log("mesh", "%s ProcessManager(mesh=%r) on the %d² cone's 4 tiles: "
+            "process_twi %.1f s (in memory %.1f s), export %.1f s, stage "
+            "seconds %s; elev, slope, aspect, uca, twi against the in-memory "
+            "manager: NaN patterns equal, max abs %s within %s; %d ring and "
             "%d subset launches, %d rounds [%s]"
-            % (device, N_MAIN, s1, s0, e1,
+            % (phase, mesh, N_MAIN, s1, s0, e1,
                {k: round(v, 3) for k, v in pm1.timer.report().items()},
-               errs, GATE_TOL["cone"], sub1, pm1._ooc.uca_rounds, card))
+               errs, GATE_TOL["cone"], ring1, sub1, pm1._ooc.uca_rounds,
+               card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     res, dry_s = synced_seconds(lambda: dryrun_multichip(4))
-    log("mesh", "11d dryrun_multichip(4): %s, %.1f s" % (res, dry_s))
+    log("mesh", "%s dryrun_multichip(4), %d visible cards: %s, %.1f s"
+        % (phase, torch.cuda.device_count(), res, dry_s))
+    return counts
+
+
+# -- phase 12: the mesh over four cards (--multicard) ------------------------
+
+N_CARDS = 4
+N_MULTI = 16384  # 12b, 12c: four 8192² shards, one a card
+N_WIDE = 24576   # 12e: a canvas one card's budget refuses, four cards hold
+WIDE_FREE_BYTES = 40 << 30  # room 12e's two stores need, with slack
+KEYS = ("mag", "direction", "flats", "uca", "twi")
+
+
+def phase_cards():
+    """12: fail unless four cards are visible; print them, their topology
+    and which pairs reach each other's memory.  Returns the cards and the
+    tag printed beside every number ("name, power limit" of each)."""
+    count = torch.cuda.device_count()
+    check(count >= N_CARDS, "--multicard needs %d visible cards, found %d"
+          % (N_CARDS, count))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    for line in smi:
+        log("cards", line.strip())
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    for line in topo.stdout.rstrip().splitlines():
+        log("cards", "topo: " + line.rstrip())
+    cards = [torch.device("cuda", k) for k in range(N_CARDS)]
+    peer = [[int(i == j or torch.cuda.can_device_access_peer(i, j))
+             for j in range(N_CARDS)] for i in range(N_CARDS)]
+    log("cards", "can_device_access_peer (row reads column): %s" % peer)
+    names = [", ".join(p.strip() for p in line.split(",")[1:])
+             for line in smi[:N_CARDS]]
+    tag = ("%d x %s" % (N_CARDS, names[0]) if len(set(names)) == 1
+           else "; ".join("cuda:%d %s" % kv for kv in enumerate(names)))
+    return cards, tag
+
+
+def cone_rows(n, r0, r1, device):
+    """Rows r0..r1 of an n² cone (float32), computed in float64 on the
+    card, element by element: every band of rows equals the same rows of
+    the whole canvas bit for bit, on whichever card."""
+    step = 2.0 / (n - 1)
+    x = torch.arange(r0, r1, dtype=torch.float64, device=device) * step - 1
+    y = torch.arange(n, dtype=torch.float64, device=device) * step - 1
+    r = torch.sqrt(x[:, None] * x[:, None] + y[None, :] * y[None, :])
+    root2 = torch.tensor(np.sqrt(2.0), dtype=torch.float64, device=device)
+    return (1.05 - r / root2).float()
+
+
+def digests(out):
+    """sha256 of each output's NaN mask and values (NaN as 0)."""
+    res = {}
+    for key in KEYS:
+        t = out[key]
+        h = hashlib.sha256()
+        if t.is_floating_point():
+            h.update(torch.isnan(t).cpu().numpy().tobytes())
+            t = torch.nan_to_num(t)
+        h.update(t.cpu().numpy().tobytes())
+        res[key] = h.hexdigest()
+    return res
+
+
+def phase_card_rounds(cards, tag):
+    """12a: on every card, K1's canvas, ring and subset rounds and a K2
+    round against their plain versions, bit for bit: the canvas rounds on
+    a 2048² cone, the ring and subset rounds at every shard shape of
+    12b-12e, with the flag ring the sharded rounds pass and without; timed
+    at 12b's shard and 12c's band.  Returns {kernel: {card: times}} and the
+    largest difference."""
+    times = {k: {} for k in ("canvas", "k2", "ring", "subset", "band")}
+    worst = 0.0
+    for dev in cards:
+        with torch.cuda.device(dev):
+            t, err = _card_rounds(dev, tag)
+        worst = max(worst, err)
+        for k, v in t.items():
+            times[k][str(dev)] = v
+    return times, worst
+
+
+def _card_rounds(dev, tag):
+    times, worst = {}, 0.0
+    n, B = N_MAIN, 64
+    kw = dict(B=B, inner_max=2 * B + 4)
+    W, base = weights_and_base(cone_rows(n, 0, n, dev))
+    K, W1 = compact_from_dense(W)
+    ones = torch.ones((n // B,) * 2, dtype=torch.int32, device=dev)
+    t, err = time_round("12a K1 canvas round, %d² on %s" % (n, dev),
+                        (("kernel", gs_round), ("plain", gs_round_plain)),
+                        ((base, K, W1, base, ones), kw), tag)
+    worst = max(worst, err)
+    t["bound"], t["bound_by"] = round_bound(
+        [base, K, W1, base, ones], [base, ones], W)
+    times["canvas"] = t
+    Wc = W.contiguous()
+    t, err = time_round("12a K2 round, %d² on %s" % (n, dev),
+                        (("kernel", block_round), ("plain", block_round_plain)),
+                        ((base, Wc, base), kw), tag)
+    worst = max(worst, err)
+    t["bound"], t["bound_by"] = round_bound([base, Wc, base], [base, ones], W)
+    times["k2"] = t
+    del W, Wc, K, W1, base, ones
+
+    # K1's ring and subset rounds at the shapes the four-card path gives
+    # them, windows of a mid-solve state of the 16384² cone
+    n = N_MULTI
+    W, base = weights_and_base(cone_rows(n, 0, n, dev))
+    K, W1 = compact_from_dense(W)
+    del W
+    x, flags = base, torch.ones((n // B,) * 2, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        x, flags = gs_round(x, K, W1, base, flags, **kw)
+    flags = torch.nn.functional.pad(flags, (1, 1, 1, 1))  # none off the canvas
+
+    def window(i0, j0, h, w, flag_ring):
+        """A shard's planes and flags: with a flag ring, its neighbours'
+        flags around its own, as the sharded rounds exchange them."""
+        bi, bj, nh, nw = i0 // B, j0 // B, h // B, w // B
+        prev = (flags[bi: bi + nh + 2, bj: bj + nw + 2] if flag_ring
+                else flags[bi + 1: bi + 1 + nh, bj + 1: bj + 1 + nw])
+        return ring_window(x, K, W1, base, i0, j0, h, w) + (
+            prev.contiguous(),)
+
+    def same(what, got, want):
+        torch.cuda.synchronize(dev)
+        e = nan_equal_max_err(got[0], want[0])
+        check(e <= KERNEL_TOL and torch.equal(got[1], want[1]),
+              "12a %s on %s: kernel != plain (max err %g)" % (what, dev, e))
+        return e
+
+    def forms(what, args, subsets):
+        """The ring round, and with ``subsets`` the interior and boundary
+        rounds and the two in turn, against the plain versions."""
+        e = 0.0
+        nh, nw = args[3].shape[0] // B, args[3].shape[1] // B
+        full = gs_round_ring(*args, **kw)
+        e = max(e, same(what + " ring round", full,
+                        gs_round_ring_plain(*args, **kw)))
+        if not subsets:
+            return e
+        out = (torch.full_like(args[0], -1.0),
+               torch.full((nh, nw), -1, dtype=torch.int32, device=dev))
+        for subset in ("interior", "boundary"):
+            e = max(e, same(
+                "%s %s round" % (what, subset),
+                gs_round_subset(*args, subset=subset, **kw),
+                gs_round_ring_plain(*args, **kw, blocks=subset_blocks(
+                    nh, nw, subset, dev))))
+            gs_round_subset(*args, subset=subset, out=out, **kw)
+        check(torch.equal(out[0], full[0]) and torch.equal(out[1], full[1]),
+              "12a %s on %s: interior then boundary != one ring round"
+              % (what, dev))
+        return e
+
+    def timed(what, args, subset):
+        h, w = args[3].shape
+        blocks = (None if subset == "full"
+                  else subset_blocks(h // B, w // B, subset, dev))
+        bufs = [(args[0].clone(), torch.zeros((h // B, w // B),
+                                              dtype=torch.int32, device=dev))
+                for _ in range(2)]
+
+        def kern(*a, out=bufs[0], **k):
+            if subset == "full":
+                return gs_round_ring(*a, out=out, **k)
+            return gs_round_subset(*a, subset=subset, out=out, **k)
+
+        def plain(*a, out=bufs[1], **k):
+            return gs_round_ring_plain(*a, blocks=blocks, out=out, **k)
+
+        t, e = time_round("12a K1 %s round, %s on %s" % (subset, what, dev),
+                          (("kernel", kern), ("plain", plain)), (args, kw),
+                          tag)
+        t["bound"], t["bytes"] = subset_bound(
+            torch.arange((h // B) * (w // B)) if blocks is None else blocks,
+            B, (h, w), subset != "interior")
+        return t, e
+
+    S = n // 2
+    shapes = (  # (what, (i0, j0, h, w), the subset forms too)
+        ("12b's %d² shard" % S, (0, 0, S, S), True),
+        ("12c's %dx%d band" % (n // 4, n), (0, 0, n // 4, n), False),
+        ("12e's %d² shard" % (N_WIDE // 2), (0, 0, N_WIDE // 2, N_WIDE // 2),
+         False),
+        ("12e's %d² shard on one card" % (N_OOC // 2),
+         (N_OOC // 2, N_OOC // 2, N_OOC // 2, N_OOC // 2), True),
+        ("12d's %d² shard" % (N_MAIN // 2), (S, S, N_MAIN // 2, N_MAIN // 2),
+         True))
+    for what, (i0, j0, h, w), subsets in shapes:
+        for flag_ring in ((False, True) if subsets else (True,)):
+            args = window(i0, j0, h, w, flag_ring)
+            worst = max(worst, forms(
+                "%s, %s flag ring" % (what, "with a" if flag_ring else "no"),
+                args, subsets))
+            del args
+    log("cards", "12a %s: K1 canvas round (2048²), K2 round (2048²), and, on "
+        "windows of a mid-solve state of the %d² cone, the ring round at %s "
+        "and the interior and boundary subset rounds at %s, with and without "
+        "a flag ring where the path runs both: kernel == plain bitwise; "
+        "interior then boundary == the ring round"
+        % (dev, n, [w for w, _s, _f in shapes],
+           [w for w, _s, f in shapes if f]))
+    # the times: 12b's shard (the ring round is the four-card solver's,
+    # interior + boundary the forced split's), 12c's band, flag ring both
+    rnd = {}
+    args = window(0, 0, S, S, True)
+    for subset in ("full", "interior", "boundary"):
+        rnd[subset], e = timed(shapes[0][0], args, subset)
+        worst = max(worst, e)
+    args = window(0, 0, n // 4, n, True)
+    times["band"], e = timed(shapes[1][0], args, "full")
+    worst = max(worst, e)
+    del args
+    times["ring"] = rnd["full"]
+    times["subset"] = {k: rnd["interior"][k] + rnd["boundary"][k]
+                       for k in ("kernel", "plain", "bound")}
+    times["subset"].update(interior=rnd["interior"]["kernel"],
+                           boundary=rnd["boundary"]["kernel"])
+    return times, worst
+
+
+def card_peaks(cards):
+    return {str(d): torch.cuda.max_memory_allocated(d) for d in cards}
+
+
+def reset_peaks(cards):
+    gc.collect()
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def fmt_reps(reps):
+    return "median %.3f s, reps %s s" % (statistics.median(reps),
+                                         ["%.3f" % r for r in reps])
+
+
+def phase_cards_sharded(cards, tag):
+    """12b: run_sharded(blocked) on the 16384² cone over a 2x2 mesh of the
+    four cards against one card's terrain_step(blocked), bitwise; the solve
+    alone with the split and the serial round forced; times, each card's
+    peak memory, the overlap.  Returns the single-card digests and rounds,
+    and the four-card run's launches."""
+    n, dev0 = N_MULTI, cards[0]
+    elev = cone_rows(n, 0, n, dev0)
+    args = spacing(n, torch.float32, dev0)
+    mesh = make_mesh(cards, (2, 2))
+    log("cards", "12b mesh %r: shard (iy, ix) -> %s" % (mesh, {
+        c: str(mesh.devices[c]) for c in mesh.local_shards()}))
+    one_reps, four_reps = [], []
+    for rep in range(3):  # in turns: one card, four cards
+        reset_peaks(cards)
+        single, t = synced_seconds(
+            lambda: terrain_step(elev, *args, uca_solver="blocked"))
+        one_reps.append(t)
+        if rep == 0:
+            one_peak = card_peaks(cards)[str(dev0)]
+            want, rounds = digests(single), single["uca_sweeps"]
+        del single
+        reset_peaks(cards)
+        reset_counts()
+        reads = sharded._blocked_shards.host_reads
+        out, t = synced_seconds(lambda: run_sharded(
+            elev, *args, mesh=mesh, uca_solver="blocked"))
+        four_reps.append(t)
+        if rep == 0:
+            launches = counts_by_card()
+            reads = sharded._blocked_shards.host_reads - reads
+            peaks = card_peaks(cards)
+            split = sharded._blocked_shards.last_split
+            check(digests(out) == want and out["uca_sweeps"] == rounds,
+                  "12b: four cards differ from one card (rounds %d vs %d)"
+                  % (out["uca_sweeps"], rounds))
+        del out
+    nb = (n // 2 // 64,) * 2
+    used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
+    check(split == sharded._use_split(mesh, nb)
+          and not launches["uca_gs_round"]
+          and all(used.get(str(d), 0) > 0 for d in cards),
+          "12b: the run did not take the solver's round on every card: %s"
+          % launches)
+    log("cards", "12b run_sharded(blocked), %d² cone over 2x2 = four %d² "
+        "shards on %s: mag, direction, flats, uca, twi bitwise equal to one "
+        "card's terrain_step(blocked) on %s (sha256 of NaN masks and "
+        "values), %d rounds both; split round %s; launches by kernel and "
+        "card %s; %d host reads [%s]"
+        % (n, n // 2, [str(d) for d in cards], dev0, rounds, split,
+           launches, reads, tag))
+    log("cards", "12b wall: one card %s; four cards %s (host clock, every "
+        "card synchronised) [%s]" % (fmt_reps(one_reps), fmt_reps(four_reps),
+                                     tag))
+    log("cards", "12b peak device memory: one card's step %.3f GB = %.1f "
+        "planes of the canvas; the four-card run by card %s GB (a shard is "
+        "%.3f GB a plane) [%s]"
+        % (one_peak / 1e9, one_peak / (n * n * 4.0),
+           {k: round(v / 1e9, 3) for k, v in peaks.items()},
+           n * n / 4 * 4 / 1e9, tag))
+    _mag, _dir, _flats, W, base = terrain_pre(elev, *args)
+    del elev, _mag, _dir, _flats
+    solves = {True: [], False: []}
+    areas = {}
+    for rep in range(3):  # in turns
+        for split_ in ((True, False) if rep % 2 == 0 else (False, True)):
+            (a, r), t = synced_seconds(
+                lambda: forced_solve(base, W, mesh, split_))
+            check(r == rounds, "12b forced %s: %d rounds, one card %d"
+                  % ("split" if split_ else "serial", r, rounds))
+            solves[split_].append(t)
+            if rep == 0:
+                areas[split_] = a
+            del a
+    check(torch.equal(areas[True], areas[False]),
+          "12b: split and serial areas differ")
+    want_area, _r = accumulate_blocked_gs(base, W, B=64)
+    check(torch.equal(torch.nan_to_num(areas[True]),
+                      torch.nan_to_num(want_area)),
+          "12b: the four-card area differs from one card's solve")
+    del areas, want_area
+    log("cards", "12b the solve alone on the same planes over the four "
+        "cards, both rounds forced, areas bitwise equal to each other and to "
+        "one card's accumulate_blocked_gs, %d rounds: split %s; serial %s "
+        "[%s]" % (rounds, fmt_reps(solves[True]), fmt_reps(solves[False]),
+                  tag))
+    ov = measure_halo_overlap(base, W, mesh)
+    log("cards", "12b overlap over four cards, %d² 2x2: exchange %.3f ms, "
+        "relax %.3f ms, full (split %s) %.3f ms a round (%s, every block "
+        "visited, best of 3); overlap fraction %s [%s]"
+        % (n, 1e3 * ov["t_exchange_per_round"],
+           1e3 * ov["t_relax_per_round"], ov["split_round"],
+           1e3 * ov["t_full_per_round"], ov["timer"], ov["overlap_fraction"],
+           tag))
+    del W, base
+    return want, rounds, launches, dict(
+        split=split, solve_split=statistics.median(solves[True]),
+        solve_serial=statistics.median(solves[False]), overlap=ov)
+
+
+def _nccl_rank(rank, world, url, n, work):
+    """One rank of 12c: its row band of the cone on its card, run_global
+    over NCCL; writes its counts and times, rank 0 the digests."""
+    import torch.distributed as dist
+
+    from pydem_tpu_torch.parallel import multihost
+
+    multihost.initialize(url, world, rank, backend="nccl")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    band = n // world
+    rows = cone_rows(n, rank * band, (rank + 1) * band, dev)
+    ones = np.ones(n)
+    res = dict(rank=rank, device=str(dev), walls=[])
+    for rep in range(2):
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = multihost.run_global(rows, ones[1:], ones[1:], ones, ones,
+                                   uca_solver="blocked")
+        torch.cuda.synchronize(dev)
+        res["walls"].append(time.perf_counter() - t0)
+        if rep == 0:
+            res.update(rounds=out["uca_sweeps"], counts=counts_by_card(),
+                       ring=launch_count(gs_round_ring),
+                       canvas=launch_count(gs_round),
+                       peak=torch.cuda.max_memory_allocated(dev))
+            if rank == 0:
+                res["digests"] = digests(out)
+        del out
+    with open(os.path.join(work, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+NCCL_TIMEOUT_S = 300
+
+
+def phase_cards_nccl(cards, tag, want, want_rounds):
+    """12c: four processes, one NCCL rank a card, run_global(blocked) on
+    the 16384² cone in (4, 1) row bands: bitwise equal to one card's
+    terrain_step (12b's digests), rounds equal.  Returns each rank's
+    launches by kernel and card."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(prefix="pydem_smoke_nccl_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            url = "tcp://127.0.0.1:%d" % sock.getsockname()[1]
+        gc.collect()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_nccl_rank, args=(N_CARDS, url, N_MULTI,
+                                                   work),
+                                 nprocs=N_CARDS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + NCCL_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline, "12c: the ranks did not "
+                      "end within %d s" % NCCL_TIMEOUT_S)
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(N_CARDS):
+            with open(os.path.join(work, "rank%d.json" % r)) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(ranks[0]["digests"] == want, "12c: NCCL ranks differ from one card")
+    check(all(r["rounds"] == want_rounds for r in ranks),
+          "12c: rounds %s, one card %d" % ([r["rounds"] for r in ranks],
+                                           want_rounds))
+    check(sorted(r["device"] for r in ranks) == [str(d) for d in cards]
+          and all(r["ring"] > 0 and r["canvas"] == 0 for r in ranks),
+          "12c: not one rank a card, or no ring launches: %s" % ranks)
+    log("cards", "12c four NCCL ranks (spawned, one a card: %s), "
+        "run_global(blocked) on the %d² cone in (4, 1) row bands: mag, "
+        "direction, flats, uca, twi bitwise equal to one card's "
+        "terrain_step (sha256), %d rounds; wall by rank (host clock, first "
+        "run with the communicators' set-up, then a second) %s s; ring "
+        "launches by rank %s; peak device memory by rank %s GB; the whole "
+        "phase %.1f s with process start [%s]"
+        % ([r["device"] for r in ranks], N_MULTI, want_rounds,
+           [["%.3f" % w for w in r["walls"]] for r in ranks],
+           [r["ring"] for r in ranks],
+           [round(r["peak"] / 1e9, 3) for r in ranks], spawn_s, tag))
+    return [r["counts"] for r in ranks]
+
+
+def phase_cards_pits(cards, tag):
+    """12d: the hard terrain's planes and pit links (2048², chain_state)
+    through sharded_uca over the four cards, the solver's round, against
+    accumulate_blocked_pits_gs on one card.  Returns the
+    solver's run's launches by kernel and card."""
+    dev0 = cards[0]
+    W, base, links = chain_state(make_hard_terrain(N_MAIN), dev0)
+    want, rw = accumulate_blocked_pits_gs(base, W, *links)
+    mesh = make_mesh(cards, (2, 2))
+    reset_counts()
+    got, rg = sharded_uca(base, W, mesh, pit_links=links)
+    launches = counts_by_card()
+    split = sharded._blocked_shards.last_split
+    err = nan_equal_max_err(got, want)
+    check(err == 0.0 and rg == rw, "12d: differs from one card (max err %g, "
+          "rounds %d vs %d)" % (err, rg, rw))
+    used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
+    check(not launches["uca_gs_round"]
+          and all(used.get(str(d), 0) > 0 for d in cards),
+          "12d: the run did not take the solver's round on every card: %s"
+          % launches)
+    log("cards", "12d %d² hard terrain, %d pit links, 2x2 over the four "
+        "cards: sharded_uca(pit_links=...) bitwise equal to "
+        "accumulate_blocked_pits_gs on %s, the solver's round (split %s), "
+        "%d rounds; launches by kernel and card %s"
+        % (N_MAIN, len(links[0]), dev0, split, rw, launches))
+    return launches
+
+
+def phase_cards_engine(cards, tag):
+    """12e: the out-of-core engine with its canvases per shard on each
+    shard's card.  8192²: a 2x2 mesh over the four cards == a 2x2 mesh on
+    cuda:0, fused both, bitwise.  24576²: the fit test refuses one card's
+    budget and takes the four cards'; the fused pass over the four cards,
+    each card's peak under its budget, uca/twi within the cone gate of
+    run_sharded on the same canvas over the same cards.  Returns the
+    launches by kernel and card of each four-card run."""
+    work = tempfile.mkdtemp(prefix="pydem_smoke_cards_ooc_")
+    launches = []
+    try:
+        free = shutil.disk_usage(work).free
+        check(free >= WIDE_FREE_BYTES, "12e needs %.0f GB free in %s, has "
+              "%.1f GB" % (WIDE_FREE_BYTES / 1e9, work, free / 1e9))
+        n, S = N_OOC, S_OOC
+        elev = cone_rows(n, 0, n, cards[0]).cpu().numpy()
+        runs = {}
+        for where, mesh in (("one card", mesh_of(cards[0], (2, 2))),
+                            ("four cards", make_mesh(cards, (2, 2)))):
+            store, eng, res = ooc_run(work, where.replace(" ", "_"), elev, S,
+                                      None, mesh=mesh, **OOC_OPTS)
+            check(res["fused"] and res["ring_launches"]
+                  + res["subset_launches"] > 0 and res["launches"] == 0,
+                  "12e %d² %s: not the fused per-shard pass: %s"
+                  % (n, where, res))
+            runs[where] = (store, eng, res)
+            log("cards", "12e %d² S=%d, 2x2 mesh on %s: fused, total %.3f s, "
+                "stage seconds %s, %d rounds, peak by card %s GB, launches "
+                "by card ring %s subset %s [%s]"
+                % (n, S, where, res["total"],
+                   {k: round(v, 3) for k, v in res["stages"].items()},
+                   res["rounds"], {str(k): round(v / 1e9, 3)
+                                   for k, v in res["peak_on"].items()},
+                   res["ring_on"], res["subset_on"], tag))
+        launches.append(runs["four cards"][2]["counts"])
+        (s1, e1, r1), (s4, e4, r4) = runs["one card"], runs["four cards"]
+        for key in ("slope", "aspect", "flats", "uca", "twi"):
+            a, b = s1[key], s4[key]
+            check(a.shape == (n, n) and a.dtype == b.dtype
+                  and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
+                  "12e %d²: %s over four cards != over one card" % (n, key))
+        check(r1["rounds"] == r4["rounds"], "12e: rounds differ")
+        log("cards", "12e %d²: slope, aspect, flats, uca, twi of the engine "
+            "over four cards bitwise equal to the engine over four shards "
+            "on %s, %d rounds both" % (n, cards[0], r4["rounds"]))
+        del runs, s1, s4, e1, e4, elev
+        shutil.rmtree(os.path.join(work, "one_card.zarr"))
+        shutil.rmtree(os.path.join(work, "four_cards.zarr"))
+        launches.append(_wide_engine(cards, tag, work)["counts"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def _wide_engine(cards, tag, work):
+    n, S = N_WIDE, S_OOC
+    mesh = make_mesh(cards, (2, 2))
+    budget = min(outofcore._default_device_cache(d) for d in cards)
+    one = outofcore.fits_device_resident((n, n), 4, budget)
+    four = outofcore.fits_device_resident((n, n), 4, budget, mesh)
+    log("cards", "12e %d²: fits_device_resident with a card's budget of "
+        "%.1f GB: mesh=None %s (needs %.1f GB), 2x2 over four cards %s "
+        "(%.1f GB a card) [%s]"
+        % (n, budget / 1e9, one,
+           outofcore._DEVICE_RESIDENT_PLANES * n * n * 4 / 1e9, four,
+           outofcore._DEVICE_RESIDENT_PLANES * n * n * 4 / 4 / 1e9, tag))
+    check(not one and four, "12e: the fit test at %d² is not (False, True)"
+          % n)
+    elev = cone_rows(n, 0, n, cards[0])
+    store, eng, res = ooc_run(work, "wide", elev, S, None, mesh=mesh,
+                              **OOC_OPTS)
+    check(res["fused"] and res["launches"] == 0,
+          "12e %d²: the engine did not take the fused per-shard pass" % n)
+    for d, peak in res["peak_on"].items():
+        check(peak <= eng.device_cache_bytes, "12e: %s peaked at %.1f GB, "
+              "over its %.1f GB budget" % (d, peak / 1e9,
+                                            eng.device_cache_bytes / 1e9))
+    ooc_report("12e fused over four cards", n, S, res, tag)
+    log("cards", "12e %d² S=%d over the four cards: fused, %d rounds, peak "
+        "by card %s GB against a budget of %.1f GB a card, launches by card "
+        "ring %s subset %s [%s]"
+        % (n, S, res["rounds"],
+           {str(k): round(v / 1e9, 3) for k, v in res["peak_on"].items()},
+           eng.device_cache_bytes / 1e9, res["ring_on"], res["subset_on"],
+           tag))
+    store_gb = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _dn, fs in os.walk(store.root) for f in fs) / 1e9
+    del eng
+    gc.collect()
+    reset_peaks(cards)
+    ref, ref_s = synced_seconds(lambda: run_sharded(
+        elev, *spacing(n, torch.float32, cards[0]), mesh=mesh,
+        uca_solver="blocked"))
+    del elev
+    errs = {}
+    for key in ("uca", "twi"):
+        tol = GATE_TOL["cone"]
+        worst = 0.0
+        for i0 in range(0, n, S):
+            for j0 in range(0, n, S):
+                a = store.read_window(key, (i0, i0 + S), (j0, j0 + S))
+                b = ref[key][i0: i0 + S, j0: j0 + S].cpu().numpy()
+                check(np.array_equal(np.isnan(a), np.isnan(b)),
+                      "12e %s: NaN patterns differ at (%d, %d)"
+                      % (key, i0, j0))
+                fa, fb = np.nan_to_num(a), np.nan_to_num(b)
+                check(np.all(np.abs(fa - fb) <= tol["atol"]
+                             + tol["rtol"] * np.abs(fb)),
+                      "12e %s outside the cone gate at (%d, %d)"
+                      % (key, i0, j0))
+                worst = max(worst, float(np.abs(fa - fb).max()))
+        errs[key] = worst
+    log("cards", "12e %d²: engine uca, twi against run_sharded(blocked) on "
+        "the same canvas over the same cards (%.3f s, %d rounds): NaN "
+        "patterns equal, max abs %s within %s; the store %.1f GB on disk "
+        "[%s]" % (n, ref_s, ref["uca_sweeps"], errs, GATE_TOL["cone"],
+                  store_gb, tag))
+    del ref
+    return res
+
+
+def main_multicard():
+    """Phases 1, 2 and 12 (``--multicard``): the mesh over four cards."""
+    card = phase_device()
+    cards, tag = phase_cards()
+    t0 = time.perf_counter()
+    phase_build()
+    rounds_ms, err = phase_card_rounds(cards, tag)
+    want, want_rounds, l12b, split = phase_cards_sharded(cards, tag)
+    l12c = phase_cards_nccl(cards, tag, want, want_rounds)
+    l12d = phase_cards_pits(cards, tag)
+    l12e = phase_cards_engine(cards, tag)
+    l12f = phase_mesh_manager(cards[0], tag, make_mesh(cards, (2, 2)), "12f")
+    log("done", "phases 1, 2 and 12 passed in %.1f s" % (
+        time.perf_counter() - t0))
+    # the launches of the main-path runs of 12b-12f, by kernel and card
+    on = {name: collections.Counter() for name, _fn in WRAPPERS}
+    for part in [l12b, *l12c, l12d, *l12e, l12f]:
+        for name, by_card in part.items():
+            on[name].update(by_card)
+    for d in cards:
+        check(on["uca_gs_round_ring"][str(d)]
+              + on["uca_gs_round_subset"][str(d)] > 0,
+              "no K1 launch on %s on the four-card path" % d)
+    log("cards", "launches of the runs of 12b-12f by kernel and card: %s"
+        % {k: dict(v) for k, v in on.items()})
+    src = "pydem_tpu_torch/ops/csrc/uca_block.cu"
+
+    def entry(name, kind, replaces):
+        per = rounds_ms[kind]
+        med = {k: statistics.median(t[k] for t in per.values())
+               for k in ("kernel", "plain", "bound")}
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": sum(on[name].values()),
+                "max_abs_err": err, "ms": med["kernel"],
+                "plain_ms": med["plain"], "bound_ms": med["bound"],
+                "bound_by": next(iter(per.values())).get("bound_by", "bytes"),
+                "library_ms": None,
+                "ms_by_card": {k: t["kernel"] for k, t in per.items()},
+                "launches_by_card": dict(on[name])}
+
+    ring = entry("uca_gs_round_ring", "ring",
+                 "pydem_tpu/ops/uca_block.py:256")
+    band = rounds_ms["band"]  # 12c's row band, the ring form
+    ring.update({"band_" + k: statistics.median(t[k] for t in band.values())
+                 for k in ("kernel", "plain", "bound")})
+    print(json.dumps({"kernels": [
+        entry("uca_gs_round", "canvas", "pydem_tpu/ops/uca_block.py:256"),
+        ring,
+        entry("uca_gs_round_subset", "subset",
+              "pydem_tpu/ops/uca_block.py:242 (_subset_grid; subset "
+              "branches of _gs_kernel :279-303)"),
+        entry("uca_block_round", "k2", "pydem_tpu/ops/uca_block.py:42"),
+    ], "split_round_over_cards": split["split"]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 def main():
@@ -2052,4 +2800,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--multicard"]:
+        main_multicard()
+    elif sys.argv[1:]:
+        raise SystemExit("usage: python3 chip_smoke.py [--multicard]")
+    else:
+        main()

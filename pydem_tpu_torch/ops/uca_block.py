@@ -52,6 +52,7 @@ list (``gs_round_ring_plain(..., blocks=)``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -335,6 +336,17 @@ def _check_kernel_args(x, B, named):
             raise ValueError("%s must be contiguous" % name)
 
 
+def _count(wrapper, device):
+    """One launch of ``wrapper``'s kernel on ``device``."""
+    wrapper.launches_on[device] += 1
+
+
+def launch_count(wrapper):
+    """The kernel launches of ``wrapper`` on every device (its
+    ``launches_on`` summed)."""
+    return sum(wrapper.launches_on.values())
+
+
 def _launch(entry, *args):
     """Call a C entry of ``csrc/uca_block.cu`` on the current stream of the
     first tensor's device: tensors become pointers, ints stay ints."""
@@ -352,7 +364,8 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
     """One K1 round: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors.  See :func:`gs_round_plain` for the contract.
 
-    ``gs_round.launches`` counts kernel launches (never plain runs).
+    ``gs_round.launches_on`` counts kernel launches by device (never
+    plain runs).
     """
     if x.device.type == "cpu":
         return gs_round_plain(x, K, W1, base, prev, B=B, inner_max=inner_max)
@@ -366,11 +379,11 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
     chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
     _launch("uca_gs_round_f32", x, K, W1, base, prev, out, chg, n, m, B,
             inner_max)
-    gs_round.launches += 1
+    _count(gs_round, x.device)
     return out, chg
 
 
-gs_round.launches = 0
+gs_round.launches_on = collections.Counter()
 
 
 def _ring_launch(name, x, K, W1, base, prev, B, inner_max, blocks, out):
@@ -414,18 +427,19 @@ def gs_round_ring(x, K, W1, base, prev, *, B, inner_max, out=None):
     contract (``prev`` may carry a flag ring; ``out`` an ``(x, flags)`` pair
     to write into).
 
-    ``gs_round_ring.launches`` counts kernel launches (never plain runs).
+    ``gs_round_ring.launches_on`` counts kernel launches by device (never
+    plain runs).
     """
     if x.device.type == "cpu":
         return gs_round_ring_plain(x, K, W1, base, prev, B=B,
                                    inner_max=inner_max, out=out)
     res = _ring_launch("gs_round_ring", x, K, W1, base, prev, B, inner_max,
                        None, out)
-    gs_round_ring.launches += 1
+    _count(gs_round_ring, x.device)
     return res
 
 
-gs_round_ring.launches = 0
+gs_round_ring.launches_on = collections.Counter()
 
 
 def gs_round_subset(x, K, W1, base, prev, *, B, inner_max, subset, out=None):
@@ -438,7 +452,8 @@ def gs_round_subset(x, K, W1, base, prev, *, B, inner_max, subset, out=None):
     make one :func:`gs_round_ring`, bit for bit.  Raises ``ValueError`` for
     a block grid under 3×3.
 
-    ``gs_round_subset.launches`` counts kernel launches (never plain runs).
+    ``gs_round_subset.launches_on`` counts kernel launches by device (never
+    plain runs).
     """
     n, m = base.shape
     _check_canvas(base, B)
@@ -449,18 +464,19 @@ def gs_round_subset(x, K, W1, base, prev, *, B, inner_max, subset, out=None):
                                    out=out)
     res = _ring_launch("gs_round_subset", x, K, W1, base, prev, B, inner_max,
                        blocks, out)
-    gs_round_subset.launches += 1
+    _count(gs_round_subset, x.device)
     return res
 
 
-gs_round_subset.launches = 0
+gs_round_subset.launches_on = collections.Counter()
 
 
 def block_round(x, W, base, *, B, inner_max):
     """One K2 round: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors.  See :func:`block_round_plain` for the contract.
 
-    ``block_round.launches`` counts kernel launches (never plain runs).
+    ``block_round.launches_on`` counts kernel launches by device (never
+    plain runs).
     """
     if x.device.type == "cpu":
         return block_round_plain(x, W, base, B=B, inner_max=inner_max)
@@ -472,11 +488,11 @@ def block_round(x, W, base, *, B, inner_max):
     out = torch.empty_like(x)
     chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
     _launch("uca_block_round_f32", x, W, base, out, chg, n, m, B, inner_max)
-    block_round.launches += 1
+    _count(block_round, x.device)
     return out, chg
 
 
-block_round.launches = 0
+block_round.launches_on = collections.Counter()
 
 # C entries of csrc/uca_block.cu that launch: (pointer arguments, int
 # arguments), then the stream

@@ -41,16 +41,23 @@ Differences from the JAX module, by design:
   kept.  Round counts may differ from the JAX engine's; fixed points do not.
 - No padding buckets and no jitted closures: eager PyTorch compiles nothing,
   so pit links keep their exact size and ``links=None`` means no links.
-- ``mesh`` (a :class:`~pydem_tpu_torch.parallel.mesh.Mesh`): the
-  device-resident UCA stage solves through
-  :func:`~pydem_tpu_torch.parallel.sharded.sharded_uca` over the mesh, on a
-  canvas padded to a multiple of the mesh with NaN elevation (the canvas
-  edge's pruning) and zero base.  The gathered canvases and the weight
-  planes sit on the engine's device and only the solver's shards spread
-  over the mesh, so the budget stays one device's (the JAX engine's counts
-  every device of the mesh: its canvases shard under GSPMD).  The fused
-  pass runs only when the mesh divides the canvas: its slope program would
-  see a padded canvas's edge elsewhere.
+- ``mesh`` (a :class:`~pydem_tpu_torch.parallel.mesh.Mesh` whose shards are
+  all in this process): the device-resident stages hold the canvas as the
+  mesh's shards, each on its cell's device (one card, or one card a shard),
+  padded to a multiple of the mesh with NaN elevation (the canvas edge's
+  pruning) and zero base.  Store windows stream into and out of the shards
+  they cover; section, proportion and the receiver weights are computed per
+  shard with the elevation halo from the mesh's exchange; the solve is the
+  sharded K1 solver (``parallel.sharded._blocked_shards``) on those shards,
+  or, where they are not whole K1 blocks, on shards of a canvas padded
+  further to whole blocks (the compact weights re-cut between the cards'
+  pieces), with no whole canvas on any device.  So the budget is per
+  device, as in the JAX engine ("state per chip = canvas / n_devices"): the
+  planes of the shards a device holds against its budget
+  (:func:`fits_device_resident`); four cards hold four times the canvas,
+  four shards on one card what one card holds.  The fused pass runs only
+  when the mesh divides the canvas: its slope program would see a padded
+  canvas's edge elsewhere.
 """
 from __future__ import annotations
 
@@ -68,7 +75,7 @@ from .core import conditioning as cond
 from .core.receivers import receiver_weights, section_proportion
 from .core.twi import twi as twi_fn
 from .ops.uca_block import _gs_solve, compact_from_dense, gs_round_ring
-from .parallel.mesh import check_mesh
+from .parallel.mesh import check_mesh, shard_dims
 
 # super-block visit corner orders per outer round
 _SWEEP_FLIPS = ((False, False), (True, True), (False, True), (True, False))
@@ -90,6 +97,55 @@ def _default_device_cache(device="cuda"):
         _free, total = torch.cuda.mem_get_info(device)
         return int(total * 0.6)
     return 4 << 30
+
+
+def fits_device_resident(shape, itemsize, budget, mesh=None):
+    """Whether the fused device-resident pass fits: its peak,
+    ``_DEVICE_RESIDENT_PLANES`` planes of what a device holds, against
+    ``budget`` bytes a device.  ``shape``: the canvas as the devices hold it
+    (padded); without a mesh one device holds it all, with one each device
+    holds the shards of this process that name it.  The CPU's devices are
+    one memory, so a mesh of CPU cells holds what the CPU holds."""
+    n, m = shape
+    held = n * m
+    if mesh is not None:
+        n_l, m_l = shard_dims(shape, mesh)
+        per = {}
+        for cell in mesh.local_shards():
+            dev = mesh.devices[cell]
+            key = dev if dev.type == "cuda" else dev.type
+            per[key] = per.get(key, 0) + 1
+        held = max(per.values()) * n_l * m_l
+    return _DEVICE_RESIDENT_PLANES * held * itemsize <= budget
+
+
+def _cut(block, piece):
+    """Where an S² block window ``((i0, i1), (j0, j1))`` and a device piece
+    ``(row0, col0, h, w)`` of the canvas overlap: the slices into the block
+    and into the piece, or None."""
+    (i0, i1), (j0, j1) = block
+    r0, c0, h, w = piece
+    a0, a1 = max(i0, r0), min(i1, r0 + h)
+    b0, b1 = max(j0, c0), min(j1, c0 + w)
+    if a0 >= a1 or b0 >= b1:
+        return None
+    return ((slice(a0 - i0, a1 - i0), slice(b0 - j0, b1 - j0)),
+            (slice(a0 - r0, a1 - r0), slice(b0 - c0, b1 - c0)))
+
+
+def _retile(tensors, src, dst, fill):
+    """A canvas held as ``tensors`` on the pieces ``src`` (``[(device,
+    (row0, col0, h, w)), ...]``) cut anew to the pieces ``dst``, each on its
+    device; ``fill`` where no source piece reaches."""
+    out = []
+    for dev, piece in dst:
+        t = torch.full(piece[2:], fill, dtype=tensors[0].dtype, device=dev)
+        for a, (_dev, (r0, c0, h, w)) in zip(tensors, src):
+            cut = _cut(((r0, r0 + h), (c0, c0 + w)), piece)
+            if cut is not None:
+                t[cut[1]].copy_(a[cut[0]])
+        out.append(t)
+    return out
 
 
 def _sb_weights(elev_win, dir_win, flats_win, theta_win):
@@ -148,6 +204,10 @@ class OutOfCoreEngine:
                                **(dem_proc_kwargs or {}))
         self.device = self.dp.device
         check_mesh(mesh, self.device)
+        if mesh is not None and mesh.distributed:
+            raise ValueError("the out-of-core engine's mesh must hold every "
+                             "shard in this process: ranks of a distributed "
+                             "mesh would each write the shared store")
         self.mesh = mesh
         if self.dp.drain_flats or self.dp.drain_pits_spill:
             raise NotImplementedError(
@@ -156,9 +216,12 @@ class OutOfCoreEngine:
         self.margin = int(margin if margin is not None
                           else max(64, 2 * self.dp.drain_pits_max_dist))
         self.resume = resume
-        self.device_cache_bytes = int(
-            device_cache_bytes if device_cache_bytes is not None
-            else _default_device_cache(self.device))
+        # a device's budget: with a mesh the smallest of its devices'
+        if device_cache_bytes is None:
+            device_cache_bytes = min(_default_device_cache(d) for d in (
+                [self.device] if mesh is None
+                else [d for d, _ks in mesh.devices_of()]))
+        self.device_cache_bytes = int(device_cache_bytes)
         n, m = self.shape
         self.nbi = -(-n // self.S)
         self.nbj = -(-m // self.S)
@@ -199,13 +262,13 @@ class OutOfCoreEngine:
         float64 for float32 numerics would double the IO volume."""
         return str(default_dtype(self.device)).replace("torch.", "")
 
-    def _to_dev(self, a):
-        """A host array on the engine's device: floats in the work dtype,
-        bool and integer planes as they are."""
+    def _to_dev(self, a, device=None):
+        """A host array on the engine's device (or ``device``): floats in
+        the work dtype, bool and integer planes as they are."""
         a = np.ascontiguousarray(a)
         return torch.as_tensor(
             a, dtype=default_dtype(self.device) if a.dtype.kind == "f"
-            else None, device=self.device)
+            else None, device=self.device if device is None else device)
 
     def _create(self, name, dtype="float64", fill=np.nan):
         # sub-chunking below the super-block: a ±1-ring window read then
@@ -395,40 +458,59 @@ class OutOfCoreEngine:
 
     def _fits_device_resident(self):
         """Whether the fused device-resident pass fits the device budget:
-        the host stays O(S²), the card holds the canvases, and the UCA stage
-        collapses into one global blocked solve with no per-round host IO.
+        the host stays O(S²), the devices hold the canvases, and the UCA
+        stage collapses into one global blocked solve with no per-round
+        host IO.
 
         The pass is eager PyTorch, which allocates a plane per
         intermediate; its peak is the slope program's.  Measured with
         ``torch.cuda.max_memory_allocated`` by ``chip_smoke.py`` (phase 10b
         and its memory probe; the numbers are in PERF.md), it stays under
         ``_DEVICE_RESIDENT_PLANES`` planes of the canvas at the work dtype.
-        With a mesh the canvas is the padded one, and the budget is still
-        the engine's device's alone: every canvas of the pass is gathered
-        whole on that device, whatever devices the solver's shards use.
+        With a mesh each device holds its shards of the padded canvas and
+        is held to its own budget (:func:`fits_device_resident`).
         """
-        np_, mp_, _mesh = self._padded_dims()
-        isz = np.dtype(self._work_dtype).itemsize
-        return (_DEVICE_RESIDENT_PLANES * np_ * mp_ * isz
-                <= self.device_cache_bytes)
+        np_, mp_, mesh = self._padded_dims()
+        return fits_device_resident(
+            (np_, mp_), np.dtype(self._work_dtype).itemsize,
+            self.device_cache_bytes, mesh)
 
-    def _padded_dims(self):
-        """(np_, mp_, mesh): the canvas dims as the device holds them, a
-        multiple of the mesh's when there is one."""
+    def _padded_dims(self, solve=False):
+        """(np_, mp_, mesh): the canvas dims as the devices hold it, a
+        multiple of the mesh's when there is one.  ``solve``: the dims of
+        the sharded solve's canvas, a multiple of the mesh's shape times
+        the K1 block size, so that every shard is a whole number of blocks
+        (the ring rounds need it).  Both pads are exact: NaN elevation,
+        zero base, no weight."""
         n, m = self.shape
         if self.mesh is None:
             return n, m, None
         gy, gx = self.mesh.shape
-        return n + (-n) % gy, m + (-m) % gx, self.mesh
+        qy, qx = (gy * self.B, gx * self.B) if solve else (gy, gx)
+        return n + (-n) % qy, m + (-m) % qx, self.mesh
+
+    def _pieces(self, solve=False):
+        """Where the devices hold the padded canvas (``solve``: the solve's,
+        :meth:`_padded_dims`): ``[(device, (row0, col0, h, w)), ...]``, the
+        whole canvas on the engine's device, or the mesh's shards in
+        :meth:`Mesh.local_shards` order, each on its cell's device."""
+        np_, mp_, mesh = self._padded_dims(solve)
+        if mesh is None:
+            return [(self.device, (0, 0, np_, mp_))]
+        n_l, m_l = shard_dims((np_, mp_), mesh)
+        return [(mesh.devices[iy, ix], (iy * n_l, ix * m_l, n_l, m_l))
+                for iy, ix in mesh.local_shards()]
 
     def _gather_canvas(self, name, dtype, fill=0):
-        """Stream store windows up into a device canvas: the host never
-        holds more than two S² windows (the next window is read from the
-        store on a thread while the current one is copied into its slice of
-        the canvas; the copy from pageable memory returns when the host
-        buffer is free again)."""
-        np_, mp_, _sharding = self._padded_dims()
-        c = torch.full((np_, mp_), fill, dtype=dtype, device=self.device)
+        """Stream store windows up into the device pieces of the canvas
+        (:meth:`_pieces`; returns one tensor a piece): the host never holds
+        more than two S² windows (the next window is read from the store on
+        a thread while the current one is copied into the pieces it covers;
+        the copy from pageable memory returns when the host buffer is free
+        again)."""
+        pieces = self._pieces()
+        out = [torch.full(piece[2:], fill, dtype=dtype, device=dev)
+               for dev, piece in pieces]
         blocks = list(self._blocks())
         np_dtype = np.dtype(str(dtype).replace("torch.", ""))
 
@@ -439,23 +521,40 @@ class OutOfCoreEngine:
 
         with ThreadPoolExecutor(max_workers=1) as ex:
             nxt = ex.submit(read, blocks[0])
-            for k, (bi, bj) in enumerate(blocks):
+            for k, b in enumerate(blocks):
                 w = nxt.result()
                 if k + 1 < len(blocks):
                     nxt = ex.submit(read, blocks[k + 1])
-                (i0, i1), (j0, j1) = self._interior(bi, bj)
-                c[i0:i1, j0:j1].copy_(torch.from_numpy(w))
-        return c
+                for c, (_dev, piece) in zip(out, pieces):
+                    cut = _cut(self._interior(*b), piece)
+                    if cut is not None:
+                        c[cut[1]].copy_(torch.from_numpy(w[cut[0]]))
+        return out
 
-    def _scatter_canvas(self, name, dev, dtype=None, fill=np.nan):
-        """Stream a device canvas down into store windows (the previous
-        window's store write runs on a thread while the next downloads)."""
+    def _scatter_canvas(self, name, pieces, dtype=None, fill=np.nan):
+        """Stream the device pieces of a canvas (:meth:`_pieces`) down into
+        store windows, each window's parts from the devices that hold them
+        (the previous window's store write runs on a thread while the next
+        downloads)."""
         self._create(name, dtype or self._work_dtype, fill=fill)
+        where = [piece for _dev, piece in self._pieces()]
         with ThreadPoolExecutor(max_workers=1) as ex:
             pending = None
             for bi, bj in self._blocks():
-                (i0, i1), (j0, j1) = self._interior(bi, bj)
-                w = dev[i0:i1, j0:j1].cpu().numpy()
+                block = self._interior(bi, bj)
+                (i0, i1), (j0, j1) = block
+                w = None
+                for t, piece in zip(pieces, where):
+                    cut = _cut(block, piece)
+                    if cut is None:
+                        continue
+                    part = t[cut[1]].cpu().numpy()
+                    if part.shape == (i1 - i0, j1 - j0):
+                        w = part
+                        break
+                    if w is None:
+                        w = np.empty((i1 - i0, j1 - j0), part.dtype)
+                    w[cut[0]] = part
                 if pending is not None:
                     pending.result()
                 pending = ex.submit(self.store.write_window, name, w,
@@ -465,15 +564,21 @@ class OutOfCoreEngine:
 
     def _uca_device_resident(self, state_fn, elev=None, direction=None,
                              flats=None):
-        """Device-resident UCA: stream the static canvases to the device
+        """Device-resident UCA: stream the static canvases to the devices
         once (or take them already there from the fused pipeline), run the
         global blocked solve (the solver of the in-core pipeline,
-        ``api._solve_uca``, or with a mesh ``parallel.sharded.sharded_uca``),
-        stream the state back.  Exact: the streaming path's per-window
-        weights reproduce the global receiver_weights (see ``_sb_weights``),
-        and here they ARE the global weights.  Pit links fold in the work
-        dtype here and in float64 on the host when streaming, so with links
-        the two regimes agree to rounding only."""
+        ``api._solve_uca``, or with a mesh the sharded K1 solver on the
+        shards), stream the state back.  ``direction``, ``flats``: the
+        pieces of :meth:`_pieces`; ``elev`` too, or with a mesh the shards'
+        elevation windows (``parallel.sharded._elev_windows``).  Exact: the
+        streaming path's per-window weights reproduce the global
+        receiver_weights (see ``_sb_weights``), and here they ARE the global
+        weights.  Pit links fold in the work dtype here and in float64 on
+        the host when streaming, so with links the two regimes agree to
+        rounding only.  Returns ``(rounds, state pieces)``."""
+        from .parallel.sharded import (_blocked_shards, _elev_windows,
+                                       _links_of, _weights_shards)
+
         n, m = self.shape
         np_, mp_, mesh = self._padded_dims()
         wd = default_dtype(self.device)
@@ -481,38 +586,57 @@ class OutOfCoreEngine:
         # of receiver_weights, so the mesh's pad does not blur the edge
         if elev is None:
             elev = self._gather_canvas("elev", wd, fill=np.nan)
+            if mesh is not None:
+                elev = _elev_windows(elev, mesh)
         if direction is None:
             direction = self._gather_canvas("aspect", wd)
         if flats is None:
             flats = self._gather_canvas("flats", torch.bool, fill=False)
-        base = self._to_dev(np.pad(np.nan_to_num(self.dX2 * self.dY2),
-                                   (0, np_ - n)))[:, None].expand(np_, mp_)
+        base_rows = np.pad(np.nan_to_num(self.dX2 * self.dY2), (0, np_ - n))
         theta = np.pad(self.theta, (0, np_ - n), mode="edge")
 
         src, dst, w = self._links if self._links is not None \
             else self.pit_links()
-        # flat link indices into the padded canvas
-        src, dst = (src // m) * mp_ + src % m, (dst // m) * mp_ + dst % m
 
-        section, proportion = section_proportion(
-            direction, flats, theta=self._to_dev(theta))
-        W = receiver_weights(section, proportion, elev)
-        del section, proportion
         if mesh is not None:
-            from .parallel.sharded import sharded_uca
-
-            links = ((self._to_dev(src), self._to_dev(dst), self._to_dev(w))
-                     if len(src) else None)
-            x, rounds = sharded_uca(base, W, mesh, pit_links=links,
-                                    uca_solver="blocked", B=self.B)
+            pieces, solve = self._pieces(), self._pieces(solve=True)
+            theta_s = [self._to_dev(theta[r0: r0 + h], dev)
+                       for dev, (r0, _c0, h, _w) in pieces]
+            KW = [compact_from_dense(W) for W in _weights_shards(
+                direction, flats, elev, theta_s)]
+            # shards that are not whole K1 blocks: the solve's are
+            nq, mq, _mesh = self._padded_dims(solve=True)
+            if solve != pieces:
+                k0, w0 = compact_from_dense(torch.zeros((8, 1, 1), dtype=wd))
+                KW = list(zip(
+                    _retile([k for k, _ in KW], pieces, solve, int(k0)),
+                    _retile([w for _, w in KW], pieces, solve, float(w0))))
+            base_rows = np.pad(base_rows, (0, nq - np_))
+            base_s = [self._to_dev(base_rows[r0: r0 + h], dev)[:, None]
+                      .expand(h, wd_) for dev, (r0, _c0, h, wd_) in solve]
+            src, dst = ((src // m) * mq + src % m,
+                        (dst // m) * mq + dst % m)
+            links = _links_of((src, dst, w), mesh,
+                              *shard_dims((nq, mq), mesh), wd)
+            x, rounds = _blocked_shards(base_s, KW, mesh, self.B,
+                                        links=links)
+            del KW
+            if solve != pieces:
+                x = _retile(x, solve, pieces, 0.0)
         else:
+            base = self._to_dev(base_rows)[:, None].expand(np_, mp_)
+            section, proportion = section_proportion(
+                direction[0], flats[0], theta=self._to_dev(theta))
+            W = receiver_weights(section, proportion, elev[0])
+            del section, proportion
             links = (None, None, None)
-            if len(src):
+            if len(src):  # the canvas is not padded without a mesh
                 links = (self._to_dev(src), self._to_dev(dst),
                          self._to_dev(w))
             x, rounds = _solve_uca(base, W, (n, m), *links, 0, 0, "blocked",
                                    self.B)
-        del W
+            x = [x]
+            del W
 
         self._scatter_canvas("uca_state", x, fill=0.0)
         rounds = int(rounds)
@@ -729,15 +853,40 @@ class OutOfCoreEngine:
         S = self.S
         return (((S + 2) ** 2 - S * S) / float(S * S))
 
+    def _drain_pieces(self, mag, flats, idx, vals):
+        """The pit-link stage's flats/mag mutations (flat indices ``idx``
+        into the canvas, ``vals`` the new mag) applied to the device
+        pieces, as a tiny scatter on each."""
+        m = self.shape[1]
+        i, j = idx // m, idx % m
+        out_mag, out_flats = [], []
+        for mg, fl, (dev, (r0, c0, h, w)) in zip(mag, flats, self._pieces()):
+            sel = (i >= r0) & (i < r0 + h) & (j >= c0) & (j < c0 + w)
+            if sel.any():
+                loc = self._to_dev((i[sel] - r0) * w + j[sel] - c0, dev)
+                fl = fl.reshape(-1).clone()
+                fl[loc] = False
+                fl = fl.view(h, w)
+                mg = mg.reshape(-1).clone()
+                mg[loc] = self._to_dev(vals[sel], dev)
+                mg = mg.view(h, w)
+            out_mag.append(mg)
+            out_flats.append(fl)
+        return out_mag, out_flats
+
     def _run_fused_device(self):
         """Whole post-conditioning pipeline device-resident: one elev
-        upload, slope/flats/UCA/TWI computed on the card, outputs streamed
-        down once.  Halves the host↔device traffic of the staged path (no
-        aspect/flats re-upload for UCA, no uca_state/flats/slope re-upload
-        for finalize); the pit-link stage's flats/slope mutations come back
-        as a tiny index scatter instead of canvases.  Bit-identical to the
-        staged path where there are no pit links (the same functions on the
-        same values, pixel by pixel)."""
+        upload, slope/flats/UCA/TWI computed on the devices, outputs
+        streamed down once.  Halves the host↔device traffic of the staged
+        path (no aspect/flats re-upload for UCA, no uca_state/flats/slope
+        re-upload for finalize); the pit-link stage's flats/slope mutations
+        come back as a tiny index scatter instead of canvases.  With a mesh
+        every stage runs per shard (the slope program through
+        ``parallel.sharded._slope_shards``).  Bit-identical to the staged
+        path where there are no pit links (the same functions on the same
+        values, pixel by pixel)."""
+        from .parallel.sharded import _slope_shards
+
         wd = default_dtype(self.device)
         state_fn = os.path.join(self.store.root, "_oocore_uca.json")
 
@@ -746,8 +895,12 @@ class OutOfCoreEngine:
 
         with self._stage("slope_direction"):
             elev = self._gather_canvas("elev", wd, fill=np.nan)
-            mag, direction, flats = _slope_program(
-                elev, self._to_dev(self.dX), self._to_dev(self.dY))
+            if self.mesh is None:
+                mag, direction, flats = ([t] for t in _slope_program(
+                    elev[0], self._to_dev(self.dX), self._to_dev(self.dY)))
+            else:  # elev becomes the shards' elevation windows
+                mag, direction, flats, elev = _slope_shards(
+                    elev, self.dX, self.dY, self.mesh)
             self._scatter_canvas("slope", mag)
             self._scatter_canvas("aspect", direction)
             self._scatter_canvas("flats", flats, dtype="bool", fill=False)
@@ -756,16 +909,10 @@ class OutOfCoreEngine:
             self.pit_links()
         dri, drm = self._drained if self._drained is not None else (
             np.zeros(0, "int64"), np.zeros(0, "float64"))
-        # apply the pit-link flats/mag mutations on the device (the store
+        # apply the pit-link flats/mag mutations on the devices (the store
         # copies were updated by pit_links on the host)
         if dri.size:
-            idx = self._to_dev(dri)
-            flats = flats.reshape(-1).clone()
-            flats[idx] = False
-            flats = flats.view(self.shape)
-            mag = mag.reshape(-1).clone()
-            mag[idx] = self._to_dev(drm)
-            mag = mag.view(self.shape)
+            mag, flats = self._drain_pieces(mag, flats, dri, drm)
 
         with self._stage("uca"):
             rounds, x = self._uca_device_resident(
@@ -773,7 +920,8 @@ class OutOfCoreEngine:
         del elev, direction
 
         with self._stage("finalize"):
-            uca, twi = self._finalize_program(x, flats, mag)
+            uca, twi = zip(*(self._finalize_program(*a)
+                             for a in zip(x, flats, mag)))
             self._scatter_canvas("uca", uca)
             self._scatter_canvas("twi", twi)
         return rounds

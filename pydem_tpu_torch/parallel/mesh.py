@@ -22,10 +22,19 @@ that crosses a shard's edge goes through an *exchange*:
 Two back ends implement it.  :class:`LocalExchange` (here) holds every shard
 in this process: a mesh cell is a ``torch.device``, several cells may name
 the same device (a 2×2 mesh on one GPU is four shards on ``cuda:0``, as the
-JAX tests put eight virtual devices on one CPU), a ring is a slice copy and
-the reduction a sum of the per-shard values on the first device.  The
-``torch.distributed`` back end, one shard per rank, is
+JAX tests put eight virtual devices on one CPU) or each its own card (a 2×2
+mesh over ``cuda:0..3``), a ring is a slice copy and the reduction a sum of
+the per-shard values on the first device.  The ``torch.distributed`` back
+end, one shard per rank, is
 :class:`pydem_tpu_torch.parallel.multihost.DistExchange`.
+
+Between two cards a ring is a cross-device ``copy_``.  PyTorch runs it on
+the source card's current stream behind a two-way barrier with the
+destination card's current stream, so it is ordered against the work of
+both cards' current streams; a strided (column) ring goes through PyTorch's
+peer copy kernel or a contiguous temporary, the same bytes either way.
+Callers that move work to other streams make those streams current on each
+card around the exchange (the split round of :mod:`.sharded` does).
 """
 from __future__ import annotations
 
@@ -78,6 +87,15 @@ class Mesh:
     def distinct_devices(self):
         """The number of different devices the cells name."""
         return len(set(self.devices.flat))
+
+    def devices_of(self):
+        """The distinct devices of this process's shards, in order of first
+        appearance, each with the positions (in :meth:`local_shards` order)
+        of the shards it holds: ``[(device, [k, ...]), ...]``."""
+        out = {}
+        for k, cell in enumerate(self.local_shards()):
+            out.setdefault(self.devices[cell], []).append(k)
+        return list(out.items())
 
     def local_shards(self):
         """The (iy, ix) cells this process owns, in row-major order."""
@@ -225,7 +243,8 @@ class LocalExchange:
 
     def reduce(self, values, op="sum"):
         """``op`` ("sum", "min" or "max") over one value (tensor) per shard,
-        on the first cell's device."""
+        on the first cell's device (a value on another card is copied after
+        the work its card's current stream holds)."""
         dev = self.mesh.devices.flat[0]
         v = torch.stack([torch.as_tensor(t).to(dev) for t in values])
         return {"sum": v.sum, "min": v.amin, "max": v.amax}[op](0)

@@ -12,11 +12,17 @@ The sharded solvers of :mod:`.sharded` run on it unchanged.  A run is:
     multihost.initialize("tcp://host:port", num_processes, process_id)
     out = multihost.run_global(this_ranks_row_band, dX, dY, dX2, dY2)
 
-Gloo carries it on CPU tensors.  On GPUs the process group would be NCCL
-with one GPU per rank; that has not been run (NCCL takes no two ranks on one
-GPU, and no machine of this project has more than one).
+Gloo carries it on CPU tensors; NCCL on GPUs, one rank per card:
+``initialize(..., backend="nccl")`` makes the rank's card (``LOCAL_RANK``,
+or the rank modulo the visible cards) the current device before the group
+comes up, so each rank's communicator and tensors are on its own card, and
+the rings travel as batched point-to-point pairs (``batch_isend_irecv``),
+which NCCL runs as one group and which cannot deadlock on two ranks sending
+first.  NCCL takes no two ranks on one card.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.distributed as dist
@@ -29,9 +35,13 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     """Join the default process group (no-op for one process or when it is
     already up).  ``coordinator_address``: ``host:port`` of rank 0 (or any
     ``init_method`` URL); ``backend``: ``"gloo"`` (CPU tensors) or
-    ``"nccl"``."""
+    ``"nccl"`` (one rank per card: the rank's card becomes the current
+    device first)."""
     if num_processes in (None, 1) or dist.is_initialized():
         return
+    if backend == "nccl":
+        torch.cuda.set_device(int(os.environ.get(
+            "LOCAL_RANK", process_id % torch.cuda.device_count())))
     url = coordinator_address
     if url is not None and "://" not in url:
         url = "tcp://" + url
@@ -43,15 +53,16 @@ def global_mesh(shape=None, device=None):
     """The mesh of every rank, one shard each, rank ``iy * gx + ix``:
     ``(world, 1)`` row bands by default, so each process owns contiguous
     canvas rows.  ``device``: this rank's device (default: the CPU under
-    gloo, ``cuda:<rank mod GPUs>`` under NCCL)."""
+    gloo, the current card under NCCL, which :func:`initialize` set).  Each
+    rank's mesh names its own device in every cell: a rank reads only its
+    own cell's."""
     world = dist.get_world_size()
     shape = (world, 1) if shape is None else tuple(shape)
     if shape[0] * shape[1] != world:
         raise ValueError("a %dx%d mesh needs %d ranks, the group has %d"
                          % (shape + (shape[0] * shape[1], world)))
     if device is None:
-        device = (torch.device("cuda", dist.get_rank()
-                               % torch.cuda.device_count())
+        device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
     return Mesh([torch.device(device)] * world, shape, distributed=True)
 
@@ -73,14 +84,17 @@ class DistExchange:
 
     def _trade(self, pairs):
         """``pairs``: (peer rank, tensor to send, tensor to receive into).
-        All sends and receives are posted, then waited for."""
-        reqs, bufs = [], []
+        All sends and receives are posted as one batch, then waited for."""
+        if not pairs:
+            return
+        ops, bufs = [], []
         for peer, send, recv in pairs:
-            buf = torch.empty_like(recv)
-            reqs.append(dist.isend(send.contiguous(), peer))
-            reqs.append(dist.irecv(buf, peer))
+            buf = torch.empty(recv.shape, dtype=recv.dtype,
+                              device=recv.device)
+            ops.append(dist.P2POp(dist.isend, send.contiguous(), peer))
+            ops.append(dist.P2POp(dist.irecv, buf, peer))
             bufs.append((recv, buf))
-        for r in reqs:
+        for r in dist.batch_isend_irecv(ops):
             r.wait()
         for recv, buf in bufs:
             recv.copy_(buf)
@@ -112,7 +126,8 @@ class DistExchange:
     def reduce(self, values, op="sum"):
         """``op`` ("sum", "min" or "max") over this rank's values and every
         other rank's, on this rank's device."""
-        v = torch.stack([torch.as_tensor(t) for t in values])
+        dev = self.mesh.devices[self.iy, self.ix]
+        v = torch.stack([torch.as_tensor(t).to(dev) for t in values])
         v = {"sum": v.sum, "min": v.amin, "max": v.amax}[op](0)
         dist.all_reduce(v, {"sum": dist.ReduceOp.SUM,
                             "min": dist.ReduceOp.MIN,

@@ -6,8 +6,8 @@ over a :class:`~pydem_tpu_torch.parallel.mesh.Mesh`: the canvas is a list of
 shards, one per mesh cell, and everything that crosses a shard's edge goes
 through the mesh's exchange (``halo`` for the 1-px rings the JAX version
 moves with ``ppermute``, ``reduce`` for its ``psum``), in this process
-(every shard here, several may share one GPU) or over ``torch.distributed``
-(one shard per rank, :mod:`.multihost`).
+(every shard here, one GPU a shard or several on one) or over
+``torch.distributed`` (one shard per rank, :mod:`.multihost`).
 
 - :func:`label_flood_sharded`: local components first, then outer halo
   rounds of ``(id + 1, rep)`` rings adopted at component granularity by one
@@ -34,19 +34,20 @@ moves with ``ppermute``, ``reduce`` for its ``psum``), in this process
   the compact receivers are exchanged once.
 - The *split round*: a shard's interior blocks (``gs_round_subset(...,
   "interior")``, which never read the ring) relax on the shard's own CUDA
-  stream while the rings are copied on another, then its frame
-  (``"boundary"``) against the landed ring.  Interior then boundary is the
-  serial round bit for bit.  Used on CUDA when every shard holds at least
-  3×3 blocks and the shards share one card (the JAX solver splits only on a
-  TPU); the choice is the solver's, no caller's.  Shards on several cards
-  take the serial round: the split round would need a stream per device.
+  stream, on the shard's card, while each card's copy stream lands the
+  rings, then its frame (``"boundary"``) against the landed ring.  Interior
+  then boundary is the serial round bit for bit.  The choice is the
+  solver's, no caller's (:func:`_use_split`: shards of one card; the JAX
+  solver splits only on a TPU).
 - :func:`measure_halo_overlap` times exchange-only, relax-only and full
-  rounds (CUDA events on a GPU, the host clock on the CPU) and reports the
+  rounds (CUDA events on one card, the host clock around a synchronise of
+  every card over several, the host clock on the CPU) and reports the
   share of the cheaper phase hidden behind the other.  On shards that share
   one card that is a one-card figure, not an interconnect's.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -284,38 +285,55 @@ def _window(iy, ix, mesh, halo):
             halo if ix > 0 else 0, halo if ix < gx - 1 else 0)
 
 
-def _pre_shards(elev_s, dX, dY, dX2, dY2, mesh, halo=PRE_HALO):
-    """``terrain_pre`` on shards: a dict of per-shard lists ``mag``,
-    ``direction``, ``flats``, ``W``, ``base``.  ``dX``/``dY`` (n-1) and
-    ``dX2``/``dY2`` (n) are the whole canvas's row vectors.  ``halo``: the
-    elevation halo (``PRE_HALO``; less is wrong at the shards' edges)."""
+def _vector(cache, name, a, dt, dev):
+    """A row vector of the canvas on ``dev`` in ``dt``, made once per
+    ``cache``."""
+    key = (name, dev)
+    if key not in cache:
+        cache[key] = torch.as_tensor(a, dtype=dt).to(dev)
+    return cache[key]
+
+
+def _elev_windows(elev_s, mesh, halo=PRE_HALO):
+    """Each shard's elevation window: the shard with ``halo`` px of its
+    neighbours' elevation (exchanged), none on a side where the canvas
+    ends.  Returns ``[(E, (top, bottom, left, right)), ...]``, the halo on
+    each side beside the window."""
+    n_l, m_l = elev_s[0].shape
+    er = _ringed(elev_s, float("nan"), halo) if halo else list(elev_s)
+    if halo:
+        mesh.exchange().halo(er, halo)
+    wins = []
+    for (iy, ix), e in zip(mesh.local_shards(), er):
+        top, bot, left, right = _window(iy, ix, mesh, halo)
+        wins.append((e[halo - top: halo + n_l + bot,
+                       halo - left: halo + m_l + right],
+                     (top, bot, left, right)))
+    return wins
+
+
+def _slope_shards(elev_s, dX, dY, mesh, halo=PRE_HALO, vec=None):
+    """Slope, direction and the extended flats per shard, as
+    ``api._slope_program`` gives them on the whole canvas: the facet sweep
+    on each shard's elevation window, the flat extension on exchanged label
+    and representative rings.  ``dX``/``dY``: the canvas's (n-1) row
+    vectors.  Returns ``(mag_s, dir_s, flats_s, wins)``, ``wins`` those of
+    :func:`_elev_windows`."""
     ex = mesh.exchange()
     gy, _gx = mesh.shape
     n_l, m_l = elev_s[0].shape
-    n = n_l * gy
     dt = elev_s[0].dtype
-    vec = {}
-
-    def rows(name, a, dev):  # a row vector of the canvas, on dev, once
-        key = (name, dev)
-        if key not in vec:
-            vec[key] = torch.as_tensor(a, dtype=dt).to(dev)
-        return vec[key]
-
-    er = _ringed(elev_s, float("nan"), halo) if halo else list(elev_s)
-    if halo:
-        ex.halo(er, halo)
-    out = {k: [] for k in ("mag", "direction", "flats", "W", "base")}
-    wins, mag_s, dir_s = [], [], []
-    for (iy, ix), e in zip(mesh.local_shards(), er):
-        dev = e.device
-        top, bot, left, right = _window(iy, ix, mesh, halo)
-        E = e[halo - top: halo + n_l + bot, halo - left: halo + m_l + right]
+    vec = {} if vec is None else vec
+    wins = _elev_windows(elev_s, mesh, halo)
+    mag_s, dir_s = [], []
+    for (iy, _ix), (E, (top, bot, left, _right)) in zip(mesh.local_shards(),
+                                                        wins):
+        dev = E.device
         r0, r1 = iy * n_l - top, (iy + 1) * n_l + bot
-        mag, direction = slopes_directions(E, rows("dX", dX, dev)[r0: r1 - 1],
-                                           rows("dY", dY, dev)[r0: r1 - 1])
+        mag, direction = slopes_directions(
+            E, _vector(vec, "dX", dX, dt, dev)[r0: r1 - 1],
+            _vector(vec, "dY", dY, dt, dev)[r0: r1 - 1])
         crop = (slice(top, top + n_l), slice(left, left + m_l))
-        wins.append((E, (top, bot, left, right)))
         mag_s.append(mag[crop])
         dir_s.append(direction[crop])
     flat_s = [mg == FLAT_ID_INT for mg in mag_s]
@@ -326,11 +344,9 @@ def _pre_shards(elev_s, dX, dY, dX2, dY2, mesh, halo=PRE_HALO):
     rr = _ringed(rep_s, float("nan"))
     ex.halo(lr)
     ex.halo(rr)
-    theta_c = {}
-    for k, (iy, _ix) in enumerate(mesh.local_shards()):
-        E, (top, bot, left, right) = wins[k]
-        dev = E.device
-        flat, e = flat_s[k], elev_s[k]
+    out_mag, out_dir, out_flats = [], [], []
+    for k, (flat, e) in enumerate(zip(flat_s, elev_s)):
+        dev = e.device
         best_lbl = torch.full((n_l, m_l), -1, dtype=torch.int32, device=dev)
         best_rep = torch.full_like(e, float("nan"))
         for di, dj in NEIGHBOR_OFFSETS:
@@ -340,25 +356,56 @@ def _pre_shards(elev_s, dX, dY, dX2, dY2, mesh, halo=PRE_HALO):
             best_lbl = torch.where(better, nl, best_lbl)
             best_rep = torch.where(better, nr, best_rep)
         flats = torch.where(best_lbl >= 0, e == best_rep, flat)
-        direction = torch.where(flats, FLAT_ID_INT, dir_s[k])
-        mag = torch.where(flats, FLAT_ID_INT, mag_s[k])
-        if dev not in theta_c:
-            theta_c[dev] = section_theta(rows("dX", dX, dev),
-                                         rows("dY", dY, dev), n)[:, 0]
-        i0 = iy * n_l
-        section, proportion = section_proportion(
-            direction, flats, theta=theta_c[dev][i0: i0 + n_l])
+        out_dir.append(torch.where(flats, FLAT_ID_INT, dir_s[k]))
+        out_mag.append(torch.where(flats, FLAT_ID_INT, mag_s[k]))
+        out_flats.append(flats)
+    return out_mag, out_dir, out_flats, wins
+
+
+def _weights_shards(dir_s, flats_s, wins, theta_s):
+    """The dense receiver weights of each shard: its section and proportion
+    (``theta_s``: the facet angle of each of its rows), padded with a flat's
+    over the window's halo, against the elevation window (``wins`` of
+    :func:`_elev_windows`); every weight is that of the whole canvas."""
+    W_s = []
+    for direction, flats, (E, (top, bot, left, right)), theta in zip(
+            dir_s, flats_s, wins, theta_s):
+        n_l, m_l = direction.shape
+        section, proportion = section_proportion(direction, flats,
+                                                 theta=theta)
         pad = (left, right, top, bot)
         W = receiver_weights(F.pad(section, pad, value=FLAT_ID_INT),
                              F.pad(proportion, pad, value=float("nan")), E)
-        out["W"].append(W[:, top: top + n_l, left: left + m_l].contiguous())
-        out["base"].append(base_area(rows("dX2", dX2, dev)[i0: i0 + n_l],
-                                     rows("dY2", dY2, dev)[i0: i0 + n_l],
-                                     (n_l, m_l), dt))
-        out["mag"].append(mag)
-        out["direction"].append(direction)
-        out["flats"].append(flats)
-    return out
+        W_s.append(W[:, top: top + n_l, left: left + m_l].contiguous())
+    return W_s
+
+
+def _pre_shards(elev_s, dX, dY, dX2, dY2, mesh, halo=PRE_HALO):
+    """``terrain_pre`` on shards: a dict of per-shard lists ``mag``,
+    ``direction``, ``flats``, ``W``, ``base``.  ``dX``/``dY`` (n-1) and
+    ``dX2``/``dY2`` (n) are the whole canvas's row vectors.  ``halo``: the
+    elevation halo (``PRE_HALO``; less is wrong at the shards' edges)."""
+    gy, _gx = mesh.shape
+    n_l, m_l = elev_s[0].shape
+    n = n_l * gy
+    dt = elev_s[0].dtype
+    vec = {}
+    mag_s, dir_s, flats_s, wins = _slope_shards(elev_s, dX, dY, mesh, halo,
+                                                vec)
+    theta_c, theta_s, base_s = {}, [], []
+    for (iy, _ix), (E, _pads) in zip(mesh.local_shards(), wins):
+        dev = E.device
+        if dev not in theta_c:
+            theta_c[dev] = section_theta(_vector(vec, "dX", dX, dt, dev),
+                                         _vector(vec, "dY", dY, dt, dev),
+                                         n)[:, 0]
+        i0 = iy * n_l
+        theta_s.append(theta_c[dev][i0: i0 + n_l])
+        dx2, dy2 = (_vector(vec, k, a, dt, dev)[i0: i0 + n_l]
+                    for k, a in (("dX2", dX2), ("dY2", dY2)))
+        base_s.append(base_area(dx2, dy2, (n_l, m_l), dt))
+    return dict(mag=mag_s, direction=dir_s, flats=flats_s,
+                W=_weights_shards(dir_s, flats_s, wins, theta_s), base=base_s)
 
 
 # -- the sharded UCA solvers ------------------------------------------------
@@ -451,10 +498,13 @@ class _ShardRounds:
     """The per-shard state of K1 ring rounds over a mesh: each shard's
     canvas with its 1-px ring (two buffers), its compact receivers with the
     neighbours' (exchanged once), its flags inside a flag ring, and, for the
-    split round, a CUDA stream per shard and one for the ring copies."""
+    split round on CUDA, a stream per shard on the shard's card, a copy
+    stream per card, the subset block lists on every card, and the events
+    that order them: each card's round start, each card's landed rings,
+    each shard's end."""
 
     def __init__(self, mesh, base_s, K_s, W1_s, B, inner_max, split):
-        from ..ops.uca_block import subset_blocks
+        from ..ops.uca_block import SUBSETS, subset_blocks
 
         self.mesh, self.ex, self.B, self.inner_max = (
             mesh, mesh.exchange(), B, inner_max)
@@ -472,13 +522,20 @@ class _ShardRounds:
         self.set_flags(1)
         self.split = split
         if split and mesh.device_type == "cuda":
-            dev = mesh.devices.flat[0]
-            for subset in ("interior", "boundary"):
-                subset_blocks(*self.nb, subset, dev)  # built before streams
-            self.streams = [torch.cuda.Stream(dev) for _ in base_s]
-            self.copy_stream = torch.cuda.Stream(dev)
-            self.events = [torch.cuda.Event() for _ in range(len(base_s) + 2)]
-            torch.cuda.current_stream(dev).synchronize()
+            self.cards = mesh.devices_of()
+            for dev, _ks in self.cards:
+                for subset in SUBSETS:  # built before the streams use them
+                    subset_blocks(*self.nb, subset, dev)
+            self.streams = [torch.cuda.Stream(mesh.devices[cell])
+                            for cell in mesh.local_shards()]
+            self.copy_streams = {dev: torch.cuda.Stream(dev)
+                                 for dev, _ks in self.cards}
+            # an event belongs to the card whose stream first records it
+            self.done = [torch.cuda.Event() for _ in base_s]
+            self.start = {dev: torch.cuda.Event() for dev, _ks in self.cards}
+            self.landed = {dev: torch.cuda.Event() for dev, _ks in self.cards}
+            for dev, _ks in self.cards:
+                torch.cuda.current_stream(dev).synchronize()
 
     def set_flags(self, value):
         """Every block's flag (the frontier then relaxes everything)."""
@@ -523,9 +580,22 @@ class _ShardRounds:
         return self.ex.reduce([c.sum() for c in self.chg])
 
     def _split_round(self, b_s, mode):
-        """Interior blocks on each shard's stream while the copy stream
-        lands the rings; then each shard's frame.  The canvas is read from
-        ``x`` and written to ``xn`` (block-Jacobi), so the two never race."""
+        """Interior blocks on each shard's stream while each card's copy
+        stream lands the rings; then each shard's frame.
+
+        The canvas is read from ``x`` and written to ``xn`` (block-Jacobi):
+        the interiors read ``x``, write ``xn`` and touch no ring, and the
+        copies write only ``x``'s ring, so the two never race.  On CUDA,
+        per card: the round starts with an event on the card's current
+        stream (after the previous round, its flag update and the fold);
+        the copy streams of every card wait for every card's start (a ring
+        copy reads one card and writes another) and are made current on
+        their cards for the exchange, so each cross-card ``copy_`` is
+        ordered between two copy streams; a card's rings have landed when
+        its copy stream has passed them (it waits for the copies into the
+        card).  A shard's boundary waits for its card's landed rings, and
+        each card's current stream waits for its shards before the change
+        counts are summed."""
         if self.mesh.device_type != "cuda":  # in order, on the host
             for k, b in enumerate(b_s):
                 self._relax(k, b, "interior" if mode == "full" else None)
@@ -534,42 +604,56 @@ class _ShardRounds:
                 for k, b in enumerate(b_s):
                     self._relax(k, b, "boundary")
             return
-        main = torch.cuda.current_stream(self.mesh.devices.flat[0])
-        start, ring = self.events[-2], self.events[-1]
-        start.record(main)
+        for dev, _ks in self.cards:
+            self.start[dev].record(torch.cuda.current_stream(dev))
         if mode == "full":
-            with torch.cuda.stream(self.copy_stream):
-                self.copy_stream.wait_event(start)
+            with contextlib.ExitStack() as current:
+                for dev, _ks in self.cards:
+                    cs = self.copy_streams[dev]
+                    for ev in self.start.values():
+                        cs.wait_event(ev)
+                    current.enter_context(torch.cuda.stream(cs))
                 self.exchange()
-                ring.record(self.copy_stream)
-        for k, b in enumerate(b_s):
-            s = self.streams[k]
-            with torch.cuda.stream(s):
-                s.wait_event(start)
-                if mode == "full":
-                    self._relax(k, b, "interior")
-                    s.wait_event(ring)
-                    self._relax(k, b, "boundary")
-                else:
-                    self._relax(k, b)
-                self.events[k].record(s)
-        for ev in self.events[:len(b_s)]:
-            main.wait_event(ev)
+                for dev, _ks in self.cards:
+                    self.landed[dev].record(self.copy_streams[dev])
+        for dev, ks in self.cards:
+            for k in ks:
+                s = self.streams[k]
+                with torch.cuda.stream(s):
+                    s.wait_event(self.start[dev])
+                    if mode == "full":
+                        self._relax(k, b_s[k], "interior")
+                        s.wait_event(self.landed[dev])
+                        self._relax(k, b_s[k], "boundary")
+                    else:
+                        self._relax(k, b_s[k])
+                    self.done[k].record(s)
+        for dev, ks in self.cards:
+            main = torch.cuda.current_stream(dev)
+            for k in ks:
+                main.wait_event(self.done[k])
 
 
 def _use_split(mesh, nb, force=None):
-    """Whether the rounds split: on one card with shards of at least 3×3
-    blocks ``nb``.  ``force`` (tests only) picks a branch; the split round
-    then needs the 3×3 blocks and the CPU or one card."""
+    """Whether the rounds split: with every shard on one card and at least
+    3×3 blocks ``nb`` a shard.  Shards on several cards take the serial
+    round: there the split round was measured slower than the serial one
+    (``chip_smoke.py --multicard``, 12b: its per-card streams wait on every
+    card's round start, and the launches double, which costs more than the
+    cross-card exchange it hides).  The split round over several cards is
+    kept all the same, bitwise equal to the serial one, as the start of
+    making it pay there (ROADMAP); only ``force`` reaches it.  ``force``
+    (tests and ``chip_smoke.py`` only) picks a branch; the split round then
+    needs the 3×3 blocks and the CPU or the cards of one process."""
     big = nb[0] >= 3 and nb[1] >= 3
     if force is None:
         return big and _one_card(mesh)
     if force and not big:
         raise ValueError("split rounds need shards of at least 3x3 blocks, "
                          "got %dx%d" % nb)
-    if force and not (mesh.device_type == "cpu" or _one_card(mesh)):
-        raise ValueError("split rounds run on the CPU or with every shard "
-                         "on one card")
+    if force and mesh.distributed:
+        raise ValueError("split rounds run on the CPU or on the cards of "
+                         "one process")
     return bool(force)
 
 
@@ -701,7 +785,7 @@ def accumulate_sharded(base, W, mesh, B=None, inner_max=None,
     docstring): ``base`` (n, m) and ``W`` (8, n, m) on any device, the mesh
     dividing the canvas into shards that are multiples of ``B`` (default:
     64 or 16, the largest that fits, :func:`_shard_block_size`); the split
-    round runs on one card with shards of at least 3×3 blocks.  Returns
+    round runs where :func:`_use_split` picks it.  Returns
     ``(area, rounds)``, the area assembled on ``base``'s device; both equal
     ``accumulate_blocked_gs(base, W, B=B)`` on one device bit for bit."""
     n_l, m_l = shard_dims(base.shape, mesh)
@@ -865,10 +949,13 @@ def measure_halo_overlap(base, W, mesh, rounds=8, B=None):
     else the serial one).  ``overlap_fraction = (t_exchange + t_relax -
     t_full) / min(t_exchange, t_relax)``: the share of the cheaper phase
     hidden behind the other (None when that phase is under 5% of the full
-    round: noise over noise).  Timed with CUDA events on a GPU and the host
-    clock on the CPU (``"timer"``), best of 3 after a warm-up.
-    ``"one_card"``: every shard was on one GPU, so the exchange is a copy
-    on that card, not a link between cards."""
+    round: noise over noise).  Timed (``"timer"``) with CUDA events when
+    every shard is on one GPU, with the host clock around a synchronise of
+    every card when the shards are on several (a card's events time only
+    its own streams), and with the host clock on the CPU; best of 3 after a
+    warm-up.  ``"one_card"``: every shard was on one GPU, so the exchange is
+    a copy on that card, not a link between cards; ``"cards"``: the
+    distinct devices."""
     n, m = base.shape
     gy, gx = mesh.shape
     B = _block_size(n, m) if B is None else B
@@ -881,24 +968,32 @@ def measure_halo_overlap(base, W, mesh, rounds=8, B=None):
     st = _ShardRounds(mesh, base_s, [k for k, _ in KW], [w for _, w in KW],
                       B, 2 * B + 4, _use_split(mesh, nb))
     x0 = [x.clone() for x in st.x]
-    cuda = mesh.device_type == "cuda"
+    events = _one_card(mesh)
     dev = mesh.devices.flat[0]
+    cards = [d for d, _ks in mesh.devices_of()]
+
+    def sync():
+        if mesh.device_type == "cuda":
+            for d in cards:
+                torch.cuda.synchronize(d)
 
     def run(mode):
         for a, b in zip(st.x, x0):
             a.copy_(b)
-        if cuda:
+        if events:
             t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
-            t0.record()
+            t0.record(torch.cuda.current_stream(dev))
         else:
+            sync()
             t = time.perf_counter()
         for _ in range(rounds):
             st.set_flags(1)
             st.round(base_s, mode)
-        if cuda:
-            t1.record()
+        if events:
+            t1.record(torch.cuda.current_stream(dev))
             t1.synchronize()
             return t0.elapsed_time(t1) / 1e3
+        sync()
         return time.perf_counter() - t
 
     out = {}
@@ -912,8 +1007,10 @@ def measure_halo_overlap(base, W, mesh, rounds=8, B=None):
     out["overlap_fraction"] = (None if denom < 0.05 * tf
                                else max(0.0, min(1.0, (te + tr - tf) / denom)))
     out.update(overlap_rounds_timed=rounds, split_round=st.split,
-               timer="cuda events" if cuda else "host clock",
-               one_card=_one_card(mesh), block_size=B,
+               timer="cuda events" if events else (
+                   "host clock, every card synchronised"
+                   if mesh.device_type == "cuda" else "host clock"),
+               one_card=_one_card(mesh), cards=len(cards), block_size=B,
                device=str(dev))
     return out
 

@@ -101,21 +101,21 @@ def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
 
 def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     W, base = _state(cuda)
-    before = ub.gs_round.launches
+    before = ub.launch_count(ub.gs_round)
     reads = ub._gs_solve.host_reads
     ak, rounds = ub.accumulate_blocked_gs(base, W, B=64)
-    launches = ub.gs_round.launches - before
+    launches = ub.launch_count(ub.gs_round) - before
     # the flags are read once per 4 rounds, so up to 3 still rounds follow
     assert rounds <= launches <= rounds + 3
     assert ub._gs_solve.host_reads - reads == -(-rounds // 4)
     ap, rp = ub.accumulate_blocked_gs(base, W, B=64,
                                       round_fn=ub.gs_round_plain)
-    assert ub.gs_round.launches - before == launches
+    assert ub.launch_count(ub.gs_round) - before == launches
     assert rp == rounds
     assert torch.equal(ak, ap)
     capped, r3 = ub.accumulate_blocked_gs(base, W, B=64, max_rounds=3)
     assert r3 == min(3, rounds)
-    assert ub.gs_round.launches - before == launches + r3
+    assert ub.launch_count(ub.gs_round) - before == launches + r3
 
 
 def test_kernel_wrapper_rejects_what_it_cannot_run(cuda):
@@ -173,9 +173,9 @@ def _pit_links(device, n=N, m=M, count=300, seed=5):
 def test_k1_with_fold_solve_equals_plain(cuda):
     W, base = _state(cuda)
     links = _pit_links(cuda)
-    before = ub.gs_round.launches
+    before = ub.launch_count(ub.gs_round)
     ak, rk = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
-    assert rk <= ub.gs_round.launches - before <= rk + 3
+    assert rk <= ub.launch_count(ub.gs_round) - before <= rk + 3
     ap, rp = ub.accumulate_blocked_pits_gs(base, W, *links, B=64,
                                            round_fn=ub.gs_round_plain)
     assert rp == rk
@@ -187,9 +187,9 @@ def test_k1_with_fold_solve_equals_plain(cuda):
 def test_k2_with_pits_solve_equals_plain(cuda):
     W, base = _state(cuda)
     links = _pit_links(cuda)
-    before = ub.block_round.launches
+    before = ub.launch_count(ub.block_round)
     ak, rk = ub.accumulate_blocked_pits(base, W, *links, B=16)
-    assert ub.block_round.launches - before == rk
+    assert ub.launch_count(ub.block_round) - before == rk
     ap, rp = ub.accumulate_blocked_pits(base, W, *links, B=16,
                                         round_fn=ub.block_round_plain)
     assert rp == rk
@@ -206,12 +206,12 @@ def test_demprocessor_blocked_matches_jacobi(cuda):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         for solver in ("blocked", "jacobi", "blocked"):
-            before = ub.gs_round.launches
+            before = ub.launch_count(ub.gs_round)
             dp = DEMProcessor(elev=elev.copy(), uca_solver=solver, **kw)
             assert dp.device.type == "cuda"
             dp.calc_twi()
             if solver == "blocked":
-                assert ub.gs_round.launches > before
+                assert ub.launch_count(ub.gs_round) > before
             runs.setdefault(solver, []).append(dp.uca)
     b, j = runs["blocked"][0], runs["jacobi"][0]
     np.testing.assert_array_equal(np.isnan(b), np.isnan(j))
@@ -265,13 +265,13 @@ def test_manager_on_the_card_by_default(cuda, tmp_path):
 
     tiles = str(tmp_path / "tiles")
     assert write_tiles(make_noisy_cone(256), tiles) == 4
-    ub.gs_round.launches = 0
+    ub.gs_round.launches_on.clear()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         pm = ProcessManager(in_path=tiles)
         twi = pm.process_twi()
     assert pm._dp.device.type == "cuda" and pm.device.type == "cuda"
-    assert ub.gs_round.launches > 0
+    assert ub.launch_count(ub.gs_round) > 0
     assert twi.shape == (256, 256) and pm.out_file["success"].all()
     assert pm.out_file["edge_done"].dtype == bool
     with warnings.catch_warnings():
@@ -358,12 +358,15 @@ def test_out_of_core_engine_on_the_card(cuda, tmp_path):
             assert eng.device.type == "cuda" and eng.B == 64
             assert eng._work_dtype == "float32"
             assert eng._fits_device_resident() == (budget is None)
-            ub.gs_round.launches = ub.gs_round_ring.launches = 0
+            ub.gs_round.launches_on.clear()
+            ub.gs_round_ring.launches_on.clear()
             eng.run()
         if budget == 0:
-            assert ub.gs_round_ring.launches > 0 == ub.gs_round.launches
+            assert (ub.launch_count(ub.gs_round_ring) > 0
+                    == ub.launch_count(ub.gs_round))
         else:
-            assert ub.gs_round.launches > 0 == ub.gs_round_ring.launches
+            assert (ub.launch_count(ub.gs_round) > 0
+                    == ub.launch_count(ub.gs_round_ring))
         stores[tag] = (store, eng)
     (a, ea), (b, eb) = stores["streamed"], stores["fused"]
     for key in ("elev", "slope", "aspect", "flats"):
@@ -405,7 +408,7 @@ def test_subset_kernel_equals_plain(cuda, B, flag_ring):
     out = (torch.full_like(xw, -1.0),
            torch.full((nb, nb), -1, dtype=torch.int32, device=cuda))
     outp = tuple(t.clone() for t in out)
-    before = ub.gs_round_subset.launches
+    before = ub.launch_count(ub.gs_round_subset)
     for subset in ub.SUBSETS:
         ub.gs_round_subset(xw, Kw, W1w, bw, prev, subset=subset, out=out,
                            **kw)
@@ -413,7 +416,7 @@ def test_subset_kernel_equals_plain(cuda, B, flag_ring):
         ub.gs_round_ring_plain(xw, Kw, W1w, bw, prev, blocks=blocks,
                                out=outp, **kw)
         assert torch.equal(out[0], outp[0]) and torch.equal(out[1], outp[1])
-    assert ub.gs_round_subset.launches - before == 2
+    assert ub.launch_count(ub.gs_round_subset) - before == 2
     assert torch.equal(out[0], full) and torch.equal(out[1], full_chg)
     ring = torch.ones_like(xw, dtype=torch.bool)
     ring[1:-1, 1:-1] = False
@@ -454,13 +457,13 @@ def test_sharded_equals_single_device_on_the_card(cuda, shape):
         torch.ones(n, device=cuda),) * 2
     single = terrain_step(elev, *rows, uca_solver="blocked")
     splits = shape != (2, 4)
-    before = ub.gs_round_subset.launches
+    before = ub.launch_count(ub.gs_round_subset)
     out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
     for key in ("mag", "direction", "flats", "uca", "twi"):
         assert torch.equal(torch.nan_to_num(out[key].double()),
                            torch.nan_to_num(single[key].double())), key
     assert out["uca_sweeps"] == single["uca_sweeps"]
-    assert (ub.gs_round_subset.launches > before) == splits
+    assert (ub.launch_count(ub.gs_round_subset) > before) == splits
     assert sharded._blocked_shards.last_split == splits
     W, base = _state(cuda, n, n)
     if splits:
@@ -474,3 +477,81 @@ def test_sharded_equals_single_device_on_the_card(cuda, shape):
     want, rw = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
     got, rg = accumulate_sharded_pits(base, W, mesh, *links, B=64)
     assert rg == rw and torch.equal(got, want)
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    return [torch.device("cuda", k) for k in range(4)]
+
+
+@pytest.mark.parametrize("force", [None, True, False])
+def test_sharded_over_four_cards_equals_one_card(four_cards, force):
+    """A 2x2 mesh with one shard a card at 512²: the sharded K1 solve (the
+    solver's round, the split round and the serial round) and, unforced,
+    the whole ``run_sharded`` bitwise equal to one card's, rounds equal;
+    every card launched the kernel; with pit links the fold over the cards
+    equals ``accumulate_blocked_pits_gs``."""
+    from pydem_tpu_torch.parallel import sharded
+    from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, split
+    from pydem_tpu_torch.parallel.sharded import run_sharded, terrain_step
+
+    n, dev0 = 512, four_cards[0]
+    mesh = make_mesh(four_cards, (2, 2))
+    elev = torch.from_numpy(make_hard_terrain(n, "float32")).to(dev0)
+    rows = (torch.ones(n - 1, device=dev0),) * 2 + (
+        torch.ones(n, device=dev0),) * 2
+    if force is None:
+        single = terrain_step(elev, *rows, uca_solver="blocked")
+        out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
+        for key in ("mag", "direction", "flats", "uca", "twi"):
+            assert torch.equal(torch.nan_to_num(out[key].double()),
+                               torch.nan_to_num(single[key].double())), key
+        assert out["uca_sweeps"] == single["uca_sweeps"]
+    W, base = _state(dev0, n, n)
+    want, rw = ub.accumulate_blocked_gs(base, W, B=64)
+    for fn in (ub.gs_round_ring, ub.gs_round_subset):
+        fn.launches_on.clear()
+    area, rounds = sharded._blocked_shards(split(base, mesh), split(W, mesh),
+                                           mesh, 64, _force_split=force)
+    assert rounds == rw and torch.equal(assemble(area, mesh), want)
+    split_ = sharded._blocked_shards.last_split
+    used = (ub.gs_round_subset if split_ else ub.gs_round_ring).launches_on
+    assert all(used[d] > 0 for d in four_cards), dict(used)
+    links = _pit_links(dev0, n, n)
+    want, rw = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
+    area, rounds = sharded._blocked_shards(
+        split(base, mesh), split(W, mesh), mesh, 64,
+        links=sharded._links_of(links, mesh, n // 2, n // 2, base.dtype),
+        _force_split=force)
+    assert rounds == rw and torch.equal(assemble(area, mesh), want)
+
+
+def test_engine_over_four_cards_equals_one_card(four_cards, tmp_path):
+    """The out-of-core engine's fused pass with its canvases per shard on a
+    2x2 mesh of four cards equals the same mesh on one card, bitwise."""
+    from pydem_tpu_torch.io.store import ArrayStore
+    from pydem_tpu_torch.outofcore import OutOfCoreEngine
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    n, S = 256, 64
+    elev = make_hard_terrain(n)
+    stores = []
+    for tag, cells in (("one", [four_cards[0]] * 4), ("four", four_cards)):
+        store = ArrayStore(str(tmp_path / tag))
+        store.create("elev_src", elev.shape, "float64", chunks=(S, S),
+                     fill=np.nan, overwrite=True)
+        store.write_window("elev_src", elev, (0, 0))
+        eng = OutOfCoreEngine(store, elev.shape, np.ones(n - 1),
+                              np.ones(n - 1), np.ones(n), np.ones(n),
+                              superblock=S, mesh=make_mesh(cells, (2, 2)))
+        assert eng._fits_device_resident()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            eng.run()
+        stores.append((store, eng.uca_rounds))
+    (a, ra), (b, rb) = stores
+    assert ra == rb
+    for key in ("slope", "aspect", "flats", "uca", "twi"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)

@@ -105,3 +105,118 @@ def test_two_process_run_global(tmp_path, solver):
             *(torch.from_numpy(links[k]) for k in ("src", "dst", "w")), B=8)
         np.testing.assert_array_equal(got["pits_area"], area.numpy())
         assert int(got["pits_rounds"]) == rounds
+
+
+# -- four processes, a 2x2 mesh: DistExchange against LocalExchange ----------
+
+_FOUR_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pydem_tpu_torch.parallel import multihost, sharded
+from pydem_tpu_torch.parallel.mesh import split
+
+url, pid, out_fn = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+multihost.initialize(url, num_processes=4, process_id=pid)
+mesh = multihost.global_mesh(shape=(2, 2))
+z = np.load(out_fn + ".in.npz")
+res = {}
+for d in (1, 2):
+    for name in ("f", "i"):
+        plane = split(torch.from_numpy(z[name]), mesh, ring=d, fill=-7)
+        res["halo%d_%s" % (d, name)] = mesh.exchange().halo(plane, d)[0]
+vals = [torch.tensor(float(z["vals"][pid]), dtype=torch.float64)]
+for op in ("sum", "min", "max"):
+    res["reduce_" + op] = mesh.exchange().reduce(vals, op)
+res["gather"] = mesh.exchange().gather(split(torch.from_numpy(z["f"]),
+                                             mesh)[0])
+area, rounds = sharded.accumulate_sharded(
+    torch.from_numpy(z["base"]), torch.from_numpy(z["W"]), mesh, B=8)
+res["area"], res["rounds"] = area, torch.tensor(rounds)
+np.savez(out_fn + ".%d.npz" % pid, **{k: v.numpy() for k, v in res.items()})
+"""
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """Four gloo processes on a 2x2 global mesh: each rank's ringed planes
+    after ``halo`` (depth 1 and 2, float64 and int32), the three
+    reductions, the gathered canvas and the sharded K1 solve."""
+    from pydem_tpu_torch import fixtures
+
+    tmp = tmp_path_factory.mktemp("four")
+    rng = np.random.RandomState(11)
+    n = 32
+    elev, _a, _u = fixtures.get_test_case(13, n)
+    ones = torch.ones(n, dtype=torch.float64)
+    _m, _d, _f, W, base = sharded.terrain_pre(
+        torch.from_numpy(np.ascontiguousarray(elev, "float64")), ones[1:],
+        ones[1:], ones, ones)
+    inputs = dict(f=rng.rand(n, n), i=rng.randint(0, 99, (n, n)).astype(
+        np.int32), vals=rng.rand(4), base=base.contiguous().numpy(),
+        W=W.numpy())
+    out_fn = str(tmp / "out")
+    np.savez(out_fn + ".in.npz", **inputs)
+    script = tmp / "rank.py"
+    script.write_text(_FOUR_SCRIPT)
+    url = "tcp://127.0.0.1:%d" % _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), url, str(pid), out_fn],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=REPO)
+        for pid in range(4)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (_so, se) in zip(procs, outs):
+        assert p.returncode == 0, se.decode()[-3000:]
+    return inputs, [dict(np.load(out_fn + ".%d.npz" % pid))
+                    for pid in range(4)]
+
+
+def _local_mesh():
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device("cpu")] * 4, (2, 2))
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("name", ["f", "i"])
+def test_four_rank_halo_equals_local(four_ranks, depth, name):
+    """Each rank's rings (rows, then whole columns, corners through the
+    y-neighbour) equal LocalExchange's for the same shard, bit for bit."""
+    from pydem_tpu_torch.parallel.mesh import split
+
+    inputs, ranks = four_ranks
+    mesh = _local_mesh()
+    want = mesh.exchange().halo(
+        split(torch.from_numpy(inputs[name]), mesh, ring=depth, fill=-7),
+        depth)
+    for pid in range(4):
+        np.testing.assert_array_equal(ranks[pid]["halo%d_%s" % (depth, name)],
+                                      want[pid].numpy())
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_four_rank_reduce_equals_local(four_ranks, op):
+    inputs, ranks = four_ranks
+    want = _local_mesh().exchange().reduce(
+        [torch.tensor(float(v), dtype=torch.float64)
+         for v in inputs["vals"]], op)
+    for pid in range(4):
+        assert float(ranks[pid]["reduce_" + op]) == float(want)
+
+
+def test_four_rank_gather_and_solve_equal_local(four_ranks):
+    """The gathered canvas is the input on every rank; the sharded K1
+    solve over the four ranks equals the in-process 2x2 solve and one
+    device's, values and rounds."""
+    inputs, ranks = four_ranks
+    base, W = torch.from_numpy(inputs["base"]), torch.from_numpy(inputs["W"])
+    area, rounds = sharded.accumulate_sharded(base, W, _local_mesh(), B=8)
+    one, one_rounds = ub.accumulate_blocked_gs(base, W, B=8)
+    assert rounds == one_rounds and torch.equal(area, one)
+    for pid in range(4):
+        np.testing.assert_array_equal(ranks[pid]["gather"], inputs["f"])
+        np.testing.assert_array_equal(ranks[pid]["area"], area.numpy())
+        assert int(ranks[pid]["rounds"]) == rounds

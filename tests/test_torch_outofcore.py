@@ -324,10 +324,10 @@ def test_port_imports_no_jax():
                                   "pit_links_cross_blocks"])
 def test_engine_mesh_route_equals_single_device(tmp_path, name, shape):
     """OutOfCoreEngine(mesh=...) on CPU shards == the engine on one device,
-    bitwise, rounds equal: the device-resident UCA stage solves through
-    sharded_uca.  A canvas the mesh divides takes the fused pass; the
-    others (40×48 over 2×4, 48² over 2×4 is divided) pad to the mesh with
-    NaN elevation and take the staged stages."""
+    bitwise, rounds equal: the device-resident UCA stage solves on the
+    shards.  A canvas the mesh divides takes the fused pass (40×48 over 2×2
+    and 2×4, shards that are not whole K1 blocks); the others (48×45) pad
+    to the mesh with NaN elevation and take the staged stages."""
     from pydem_tpu_torch.parallel.mesh import make_mesh
 
     _num, _size, _rows, S, margin, opts, _budget = CASES[name]
@@ -348,7 +348,11 @@ def test_engine_mesh_route_equals_single_device(tmp_path, name, shape):
     np_, mp_, got_mesh = e1._padded_dims()
     assert got_mesh is mesh and np_ % shape[0] == 0 and mp_ % shape[1] == 0
     assert e1._fits_device_resident()  # one distinct device: its budget
+    calls = []
+    fused = e1._run_fused_device
+    e1._run_fused_device = lambda: calls.append(1) or fused()
     e1.run()
+    assert calls == ([1] if (np_, mp_) == elev.shape else [])
     assert e1.uca_rounds == e0.uca_rounds
     assert len(e1._links[0]) == len(e0._links[0])
     for key in ("slope", "aspect", "flats", "uca", "twi"):
@@ -357,10 +361,10 @@ def test_engine_mesh_route_equals_single_device(tmp_path, name, shape):
 
 @pytest.mark.parametrize("shape", [(2, 2), (3, 2)])
 def test_mesh_does_not_enlarge_the_device_budget(tmp_path, shape):
-    """The device-resident pass gathers every canvas whole on the engine's
-    device, so a mesh whose cells name distinct devices admits no larger
-    canvas than that device alone; the canvas counted is the one padded to
-    the mesh (40×48 over 3×2 is 42×48)."""
+    """The CPU's devices are one memory, so a mesh whose cells name
+    distinct CPU devices admits no larger canvas than the CPU alone; the
+    canvas counted is the one padded to the mesh (40×48 over 3×2 is
+    42×48)."""
     from pydem_tpu_torch.parallel.mesh import make_mesh
 
     elev = _case_elev("cone_partial_blocks")
@@ -379,3 +383,187 @@ def test_mesh_does_not_enlarge_the_device_budget(tmp_path, shape):
                               device="cpu")
         assert eng._padded_dims()[:2] == (np_, mp_)
         assert eng._fits_device_resident() == fits, budget
+
+
+# -- the per-shard device-resident path -------------------------------------
+
+def _mesh_engine(path, elev, mesh, S=16, margin=64, **opts):
+    store = ArrayStore(str(path))
+    store.create("elev_src", elev.shape, "float64", chunks=(S, S),
+                 fill=np.nan, overwrite=True)
+    store.write_window("elev_src", elev, (0, 0))
+    n = elev.shape[0]
+    eng = OutOfCoreEngine(store, elev.shape, np.ones(n - 1), np.ones(n - 1),
+                          np.ones(n), np.ones(n), dem_proc_kwargs=opts,
+                          superblock=S, margin=margin, mesh=mesh,
+                          device="cpu")
+    return store, eng
+
+
+# fixture, options: a pit-free cone, and terrain with pit links
+PER_SHARD = {"cone": (33, {}), "pit_links": (13, NO_COND)}
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("name", sorted(PER_SHARD))
+def test_engine_per_shard_fused_equals_meshless(tmp_path, name, shape):
+    """A 64² canvas over 1×2 and 2×2 CPU shards of whole K1 blocks takes
+    the fused pass shard by shard (slope, weights, the sharded solve,
+    finalize per shard) and equals the mesh-less fused pass bitwise, rounds
+    and links included."""
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    num, opts = PER_SHARD[name]
+    elev, _a, _u = fixtures.get_test_case(num, 64)
+    s0, e0 = _t_engine(tmp_path / "one.zarr", elev, **opts)
+    e0.run()
+    mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
+    store, eng = _mesh_engine(tmp_path / "mesh.zarr", elev, mesh, **opts)
+    assert eng._padded_dims()[:2] == elev.shape  # no pad: the fused pass
+    assert eng._fits_device_resident()
+    calls = []
+    fused = eng._run_fused_device
+    eng._run_fused_device = lambda: calls.append(1) or fused()
+    eng.run()
+    assert calls == [1]
+    assert eng.uca_rounds == e0.uca_rounds
+    assert len(eng._links[0]) == len(e0._links[0])
+    if name == "pit_links":
+        assert len(eng._links[0]) > 0
+    for key in ("slope", "aspect", "flats", "uca_state", "uca", "twi"):
+        np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("name", sorted(PER_SHARD))
+def test_engine_divided_unaligned_canvas_takes_fused_pass(tmp_path, name,
+                                                          shape):
+    """A 48×40 canvas over 1×2 and 2×2 CPU shards (48×20, 24×20: the mesh
+    divides it, K1's 16² blocks do not) keeps the fused pass; its solve
+    runs on shards of the canvas padded to whole blocks, and the result
+    equals the mesh-less fused pass bitwise, rounds and links included."""
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    num, opts = PER_SHARD[name]
+    elev, _a, _u = fixtures.get_test_case(num, 64)
+    elev = np.ascontiguousarray(elev[:48, :40])
+    s0, e0 = _t_engine(tmp_path / "one.zarr", elev, **opts)
+    e0.run()
+    mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
+    store, eng = _mesh_engine(tmp_path / "mesh.zarr", elev, mesh, **opts)
+    assert eng._padded_dims()[:2] == elev.shape
+    assert eng._padded_dims(solve=True)[:2] == (64 if shape[0] == 2 else 48,
+                                                 64)
+    calls = []
+    fused = eng._run_fused_device
+    eng._run_fused_device = lambda: calls.append(1) or fused()
+    eng.run()
+    assert calls == [1]
+    assert eng.uca_rounds == e0.uca_rounds
+    assert len(eng._links[0]) == len(e0._links[0])
+    for key in ("slope", "aspect", "flats", "uca_state", "uca", "twi"):
+        np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_runs(tmp_path_factory):
+    """The JAX engine over a 2×4 mesh of the virtual CPU devices, one run
+    per case of PER_SHARD at 64², S = 16.  Its fused slope program runs op
+    by op (``jax.disable_jit()``): jitted on the CPU, XLA contracts an FMA
+    in the facet sweep and flips two near-tie facets of fixture 33 here
+    (ROADMAP queue 3)."""
+    import jax
+
+    from pydem_tpu import outofcore as j_outofcore
+    from pydem_tpu.parallel.sharded import make_mesh as j_make_mesh
+
+    runs = {}
+    jitted = j_outofcore._slope_program
+
+    def op_by_op(*args):
+        with jax.disable_jit():
+            return jitted(*args)
+
+    def get(name):
+        if name not in runs:
+            num, opts = PER_SHARD[name]
+            elev, _a, _u = j_fixtures.get_test_case(num, 64)
+            store, eng = _engine(JEngine, JArrayStore,
+                                 tmp_path_factory.mktemp("jm_" + name)
+                                 / "ooc.zarr", elev, **opts)
+            eng.mesh = j_make_mesh(jax.devices()[:8], shape=(2, 4))
+            j_outofcore._slope_program = op_by_op
+            try:
+                eng.run()
+            finally:
+                j_outofcore._slope_program = jitted
+            runs[name] = store
+        return runs[name]
+
+    return get
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("name", sorted(PER_SHARD))
+def test_engine_per_shard_matches_jax_mesh(tmp_path, jax_mesh_runs, name,
+                                           shape):
+    """The port's engine over CPU shards against the JAX engine over the
+    8-virtual-device mesh (its canvases sharded under GSPMD), with and
+    without pit links, within this file's tolerances."""
+    import jax
+
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8-device virtual mesh of tests/conftest.py")
+    num, opts = PER_SHARD[name]
+    elev, _a, _u = fixtures.get_test_case(num, 64)
+    mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
+    store, eng = _mesh_engine(tmp_path / "mesh.zarr", elev, mesh, **opts)
+    eng.run()
+    j_store = jax_mesh_runs(name)
+    _assert_fields(store, j_store, FIELDS, "JAX engine over a mesh")
+    np.testing.assert_array_equal(store["flats"], j_store["flats"])
+
+
+def _cards(k, shape):
+    """A mesh of descriptor-only CUDA devices: cell c on card c % k."""
+    from pydem_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([torch.device("cuda", c % k)
+                 for c in range(shape[0] * shape[1])], shape)
+
+
+@pytest.mark.parametrize("mesh, holds", [
+    (None, 1), ("four cards", 4), ("four shards on one card", 1),
+    ("two cards, two shards each", 2), ("four CPU cells", 1),
+    ("eight shards on four cards", 4)])
+def test_fits_device_resident_per_card(mesh, holds):
+    """The fit rule counts the planes of the shards each device holds
+    against that device's budget: four cards hold four times what one card
+    holds, four shards on one card what one card holds, the CPU what it
+    holds."""
+    from pydem_tpu_torch.parallel.mesh import Mesh
+
+    mesh = {None: None, "four cards": _cards(4, (2, 2)),
+            "four shards on one card": _cards(1, (2, 2)),
+            "two cards, two shards each": _cards(2, (2, 2)),
+            "four CPU cells": Mesh([torch.device("cpu", c)
+                                    for c in range(4)], (2, 2)),
+            "eight shards on four cards": _cards(4, (2, 4))}[mesh]
+    budget = outofcore._DEVICE_RESIDENT_PLANES * 4096 * 4096 * 4
+    side = int(4096 * np.sqrt(holds))  # the largest square canvas that fits
+    for shape, fits in (((4096, 4096), True), ((side, side), True),
+                        ((side, side + 128), False)):
+        assert outofcore.fits_device_resident(shape, 4, budget,
+                                              mesh) == fits, (shape, fits)
+
+
+def test_engine_refuses_a_distributed_mesh(tmp_path):
+    """Ranks of a distributed mesh would each write the shared store."""
+    from pydem_tpu_torch.parallel.mesh import Mesh
+
+    elev = _case_elev("cone_partial_blocks")
+    mesh = Mesh([torch.device("cpu")] * 2, (2, 1), distributed=True)
+    with pytest.raises(ValueError, match="this process"):
+        _mesh_engine(tmp_path / "a.zarr", elev, mesh)

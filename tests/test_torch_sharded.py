@@ -347,9 +347,18 @@ def test_split_round_arguments():
     with pytest.raises(ValueError, match="at least 3x3"):
         sharded._blocked_shards(split(base, mesh), split(W, mesh), mesh, 8,
                                 _force_split=True)
-    with pytest.raises(ValueError, match="one card"):
-        sharded._use_split(Mesh(["cuda:0", "cuda:1"], (1, 2)), (4, 4), True)
-    assert not sharded._use_split(Mesh(["cuda:0", "cuda:1"], (1, 2)), (4, 4))
+    with pytest.raises(ValueError, match="one process"):
+        sharded._use_split(Mesh(["cuda:0", "cuda:1"], (1, 2),
+                                distributed=True), (4, 4), True)
+    assert not sharded._use_split(Mesh(["cuda:0", "cuda:1"], (1, 2),
+                                       distributed=True), (4, 4))
+    # several cards of this process: the rule picks the serial round (the
+    # split one measured slower there) and refuses nothing; forced, it splits
+    cards = Mesh(["cuda:%d" % k for k in range(4)], (2, 2))
+    assert sharded._use_split(cards, (4, 4), True)
+    assert not sharded._use_split(cards, (4, 4), False)
+    assert not sharded._use_split(cards, (4, 4))
+    assert not sharded._use_split(cards, (2, 4))
     assert sharded._use_split(Mesh(["cuda:0"] * 2, (1, 2)), (3, 3))
     assert not sharded._use_split(Mesh(["cuda:0"] * 2, (1, 2)), (2, 4))
     with pytest.raises(ValueError, match="too small"):
@@ -359,3 +368,19 @@ def test_split_round_arguments():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert sharded._use_split(_mesh((2, 2)), (4, 4)) is False
+
+
+@pytest.mark.parametrize("cells, want", [
+    (["cuda:0"] * 4, [("cuda:0", [0, 1, 2, 3])]),
+    (["cuda:%d" % k for k in range(4)],
+     [("cuda:%d" % k, [k]) for k in range(4)]),
+    (["cuda:0", "cuda:1"] * 4, [("cuda:0", [0, 2, 4, 6]),
+                                ("cuda:1", [1, 3, 5, 7])]),
+    (["cpu"] * 2, [("cpu", [0, 1])])])
+def test_devices_of(cells, want):
+    """The distinct devices of a mesh, each with the shards it holds (in
+    local_shards order): what the split round and the engine's per-card
+    budget group by.  Descriptor-only CUDA devices need no card."""
+    shape = (2, len(cells) // 2) if len(cells) > 2 else (1, 2)
+    got = Mesh(cells, shape).devices_of()
+    assert [(str(d), ks) for d, ks in got] == want

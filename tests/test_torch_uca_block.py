@@ -194,7 +194,7 @@ def test_ring_round_equals_full_canvas_round(B, n, S, where, prev_kind):
     xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
     pw = prev[bi: bi + S // B, bj: bj + S // B].contiguous()
     got, chg = t_ub.gs_round_ring(xw, Kw, W1w, bw, pw, **kw)
-    assert t_ub.gs_round_ring.launches == 0  # the plain version ran
+    assert t_ub.launch_count(t_ub.gs_round_ring) == 0  # the plain version ran
     ring = torch.ones_like(xw, dtype=torch.bool)
     ring[1:-1, 1:-1] = False
     assert torch.equal(got[ring], xw[ring])
@@ -265,9 +265,9 @@ def test_cpu_round_runs_plain_and_counts_no_launch():
     W, base = _jax_state(33)
     s = state_from_numpy(dict(W=np.asarray(W), base=np.asarray(base)), "cpu",
                          torch.float64)
-    before = t_ub.gs_round.launches
+    before = t_ub.launch_count(t_ub.gs_round)
     t_ub.accumulate_blocked_gs(s["base"], s["W"], B=8)
-    assert t_ub.gs_round.launches == before == 0
+    assert t_ub.launch_count(t_ub.gs_round) == before == 0
 
 
 def test_round_rejects_bad_arguments():
@@ -326,7 +326,8 @@ def test_block_round_plain_matches_per_block_reference(dtype, inner_max):
                       torch.from_numpy(base), B=B, inner_max=inner_max)
         np.testing.assert_array_equal(got.numpy(), want)
         np.testing.assert_array_equal(chg.numpy(), want_chg)
-    assert t_ub.block_round.launches == 0  # the CPU runs the plain round
+    # the CPU runs the plain round
+    assert t_ub.launch_count(t_ub.block_round) == 0
 
 
 def _pit_inputs(case, n=32):
@@ -717,7 +718,8 @@ def test_subset_rounds_make_one_ring_round(B, n, flag_ring):
     alone, chg = t_ub.gs_round_subset(xw, Kw, W1w, bw, prev,
                                       subset="boundary", **kw)
     assert torch.equal(alone[px], xw[px]) and not chg[interior].any()
-    assert t_ub.gs_round_subset.launches == 0  # the plain version ran
+    # the plain version ran
+    assert t_ub.launch_count(t_ub.gs_round_subset) == 0
 
 
 def test_flag_ring_is_the_canvas_frontier():
