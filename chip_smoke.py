@@ -149,18 +149,29 @@ Phases, each reported on its own lines:
        4096×16384, 12288², 4096², 1024² windows of a mid-solve state of
        the 16384² cone, with the flag ring the sharded rounds pass and,
        where the subset forms run, without) against their plain versions
-       bit for bit; timed at b's shard and c's band;
+       bit for bit; timed at b's shard and c's band; and the ring round,
+       with and without a flag ring, at g's 24576² shard (a mid-solve
+       state of g's canvas, tiled from one ringed cone's) against the
+       plain round bit for bit, timed;
     b. ``run_sharded(uca_solver="blocked")`` on the 16384² cone over the
-       four cards: ``mag``, ``direction``, ``flats``, ``uca``, ``twi`` and
-       the rounds equal to one card's ``terrain_step(blocked)`` bit for
-       bit (sha256 of NaN masks and values); both wall times, median of 3
-       with every rep; each card's peak memory; the solve alone with the
-       split and the serial round forced, bitwise equal, timed; the
-       four-card exchange / relax / full round and overlap fraction of
-       ``measure_halo_overlap`` (host clock, every card synchronised);
+       four cards, the cone built shard by shard on each card (a
+       ``ShardedCanvas``, as a user of four cards hands it over): every
+       output shard on its card; ``mag``, ``direction``, ``flats``,
+       ``uca``, ``twi`` and the rounds equal to one card's
+       ``terrain_step(blocked)`` bit for bit (sha256 of NaN masks and
+       values in 1024-row chunks, hashed from the shards after the timed
+       region); both wall times, median of 3 with every rep; each card's
+       peak memory, ``cuda:0``'s within 10% of the others'; the solve
+       alone with the split and the serial round forced, bitwise equal,
+       timed; the four-card exchange / relax / full round and overlap
+       fraction of ``measure_halo_overlap`` (host clock, every card
+       synchronised);
     c. four processes (spawned), one NCCL rank a card,
        ``multihost.run_global(blocked)`` on the same cone in (4, 1) row
-       bands: bitwise equal to b's one card, rounds equal, wall by rank;
+       bands, each output left on its rank as its band: each rank hashes
+       its band after the timing, then all join one gather of ``uca``;
+       bitwise equal to b's one card, rounds equal, wall and peak by rank
+       (each under 8.5 GB);
     d. the 2048² hard terrain's planes and pit links through ``sharded_uca``
        over the four cards (the solver's round) bitwise equal to
        ``accumulate_blocked_pits_gs`` on one card;
@@ -170,11 +181,23 @@ Phases, each reported on its own lines:
        and the four cards' admit it (``outofcore.fits_device_resident``):
        the fused pass, each card's peak under its budget, stage seconds and
        rounds, ``uca`` and ``twi`` within the cone gate of ``run_sharded``
-       over the same cards (a ~22 GB store in a temporary directory);
+       over the same cards, shard by shard (a ~22 GB store in a temporary
+       directory);
     f. ``ProcessManager(mesh=the four cards)`` as 11d, and
-       ``dryrun_multichip(4)`` with one shard a card.
+       ``dryrun_multichip(4)`` with one shard a card;
+    g. a canvas that no card could assemble: 3×3 copies of b's cone, each
+       with its outer 1-px ring NaN (no flow crosses between copies), a
+       49152² float32 canvas over 2×2 (four 24576² shards, which the copies
+       straddle), built shard by shard on each card;
+       ``run_sharded(blocked)`` on it, every copy's five planes bitwise
+       equal (NaN equal) to one card's ``terrain_step(blocked)`` on one
+       ringed copy, compared a copy at a time; wall time (median of 3
+       where the phase's budget allows), the rounds of both, each card's
+       peak.  It runs with the allocator's expandable segments (set just
+       before it; b-f run under the default allocator) and fails on an
+       out-of-memory error.
     Then the kernel JSON line with every kernel's launches in the runs of
-    b-f, by card, and the last line with ``"count"`` the visible cards.
+    b-g, by card, and the last line with ``"count"`` the visible cards.
 
 Then a JSON line with the kernel table (K1's canvas, ring and subset forms
 and K2, each with its launches on the main paths), and as the last line
@@ -227,7 +250,8 @@ from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
 from pydem_tpu_torch.ops.uca_block import gs_round_subset, subset_blocks
 from pydem_tpu_torch.parallel import sharded
 from pydem_tpu_torch.parallel.dryrun import dryrun_multichip
-from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, shard_dims
+from pydem_tpu_torch.parallel.mesh import (ShardedCanvas, make_mesh, pieces,
+                                           shard_dims)
 from pydem_tpu_torch.parallel.mesh import split as mesh_split
 from pydem_tpu_torch.parallel.sharded import (_block_size,
                                               measure_halo_overlap,
@@ -1847,12 +1871,40 @@ def synced_seconds(fn):
     return out, time.perf_counter() - t0
 
 
+def canvas_equal(canvas, want):
+    """A ShardedCanvas against a whole tensor, shard by shard (each shard's
+    part of ``want`` copied to the shard's card): NaN patterns and values
+    bitwise equal."""
+    if tuple(canvas.shape) != tuple(want.shape):
+        return False
+    return all(tensors_equal(view, want[..., r0: r0 + h, c0: c0 + w]
+                             .to(view.device))
+               for view, (r0, c0, h, w) in canvas.views())
+
+
+def tensors_equal(a, b):
+    """Bitwise, NaN equal to NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def canvas_max_err(canvas, want):
+    """The largest difference of a ShardedCanvas from a whole tensor, shard
+    by shard (inf where the NaN patterns differ)."""
+    return max(nan_equal_max_err(view, want[..., r0: r0 + h, c0: c0 + w]
+                                 .to(view.device))
+               for view, (r0, c0, h, w) in canvas.views())
+
+
 def check_step_equal(tag, got, want):
     for key in ("mag", "direction", "flats", "uca", "twi"):
-        a, b = got[key], want[key]
-        check(tuple(a.shape) == tuple(b.shape) and torch.equal(
-            torch.nan_to_num(a.double()), torch.nan_to_num(b.double())),
-            "%s: %s differs from one device's" % (tag, key))
+        check(isinstance(got[key], ShardedCanvas)
+              and canvas_equal(got[key], want[key]),
+              "%s: %s differs from one device's" % (tag, key))
     check(got["uca_sweeps"] == want["uca_sweeps"], "%s: %d rounds, one "
           "device %d" % (tag, got["uca_sweeps"], want["uca_sweeps"]))
 
@@ -1864,7 +1916,7 @@ def mesh_of(device, shape):
 def forced_solve(base, W, mesh, split, links=None):
     """The sharded K1 solve of ``base``/``W`` (and pit links) with the
     split (True) or the serial (False) round forced, through the solver's
-    private switch.  Returns (area, rounds)."""
+    private switch.  Returns (area as a ShardedCanvas, rounds)."""
     n_l, m_l = shard_dims(base.shape, mesh)
     area_s, rounds = sharded._blocked_shards(
         mesh_split(base, mesh), mesh_split(W, mesh), mesh,
@@ -1873,7 +1925,13 @@ def forced_solve(base, W, mesh, split, links=None):
         _force_split=split)
     check(sharded._blocked_shards.last_split == split,
           "the solver did not take the forced round")
-    return assemble(area_s, mesh), rounds
+    return ShardedCanvas(area_s, mesh), rounds
+
+
+def shards_equal(a, b):
+    """Two ShardedCanvases of one layout, shard by shard, bitwise."""
+    return all(torch.equal(x, y)
+               for x, y in zip(a.local_shards(), b.local_shards()))
 
 
 def phase_sharded(device, card):
@@ -1926,7 +1984,7 @@ def phase_sharded(device, card):
         lambda: forced_solve(base, W, mesh, True))
     (a_serial, r_serial), serial_s = synced_seconds(
         lambda: forced_solve(base, W, mesh, False))
-    check(r_split == r_serial == rounds and torch.equal(a_split, a_serial),
+    check(r_split == r_serial == rounds and shards_equal(a_split, a_serial),
           "11b: serial rounds differ from split rounds (%d, %d rounds)"
           % (r_serial, r_split))
     log("mesh", "11b the solve alone on the same planes, both rounds forced: "
@@ -1978,7 +2036,7 @@ def phase_sharded_pits(device, card, state):
     for split, (got, rg) in ((True, (got, rg)),
                              (False, forced_solve(base, W, mesh, False,
                                                   links))):
-        err = nan_equal_max_err(got, want)
+        err = canvas_max_err(got, want)
         check(err == 0.0 and rg == rw, "11c: sharded pit solve (split %s) "
               "differs from one device: max err %g, rounds %d vs %d"
               % (split, err, rg, rw))
@@ -2089,30 +2147,100 @@ def phase_cards():
     return cards, tag
 
 
-def cone_rows(n, r0, r1, device):
-    """Rows r0..r1 of an n² cone (float32), computed in float64 on the
-    card, element by element: every band of rows equals the same rows of
-    the whole canvas bit for bit, on whichever card."""
+def cone_window(n, rows, cols, device, ring=0):
+    """The pixels (rows × cols, index tensors) of an n² cone (float32),
+    computed in float64 on the card, element by element: every window
+    equals the same pixels of the whole canvas bit for bit, on whichever
+    card.  ``ring``: that many pixels at the cone's edges are NaN."""
+    rows, cols = rows.to(device), cols.to(device)
     step = 2.0 / (n - 1)
-    x = torch.arange(r0, r1, dtype=torch.float64, device=device) * step - 1
-    y = torch.arange(n, dtype=torch.float64, device=device) * step - 1
+    x = rows.double() * step - 1
+    y = cols.double() * step - 1
     r = torch.sqrt(x[:, None] * x[:, None] + y[None, :] * y[None, :])
     root2 = torch.tensor(np.sqrt(2.0), dtype=torch.float64, device=device)
-    return (1.05 - r / root2).float()
+    out = (1.05 - r / root2).float()
+    if ring:
+        out[(rows < ring) | (rows >= n - ring), :] = float("nan")
+        out[:, (cols < ring) | (cols >= n - ring)] = float("nan")
+    return out
+
+
+def cone_rows(n, r0, r1, device):
+    """Rows r0..r1 of an n² cone (float32), bitwise those rows of the
+    whole canvas on any card (:func:`cone_window`)."""
+    return cone_window(n, torch.arange(r0, r1), torch.arange(n), device)
+
+
+CONE_BAND = 4096  # rows of a shard built at a time (float64 temporaries)
+
+
+def cone_canvas(n, mesh, copies=1, ring=0):
+    """A (copies·n)² canvas of copies × copies n² cones (each with ``ring``
+    px of NaN at its edges) over ``mesh``, built shard by shard on each
+    shard's card in bands of rows: no device holds more than its own
+    shards, and every pixel equals the same pixel of one cone on any
+    card.  A ShardedCanvas."""
+    N = copies * n
+    shards = []
+    for dev, (r0, c0, h, w) in pieces(mesh, (N, N)):
+        t = torch.empty((h, w), dtype=torch.float32, device=dev)
+        cols = torch.arange(c0, c0 + w) % n
+        for a in range(0, h, CONE_BAND):
+            b = min(h, a + CONE_BAND)
+            t[a:b] = cone_window(n, torch.arange(r0 + a, r0 + b) % n, cols,
+                                 dev, ring)
+        shards.append(t)
+    return ShardedCanvas(shards, mesh)
+
+
+DIGEST_ROWS = 1024  # rows a digest chunk; divides every shard height hashed
+
+
+def chunk_digests(canvas):
+    """sha256 of each DIGEST_ROWS-row chunk of a canvas (its NaN mask, then
+    its values with NaN as 0), keyed by the chunk's first row: of a whole
+    tensor, or of the local shards of a ShardedCanvas (which must cover
+    whole rows), a chunk at a time through the host, so no card gathers
+    another's rows.  The same canvas gives the same chunks in any
+    layout."""
+    n, m = canvas.shape[-2:]
+    if isinstance(canvas, ShardedCanvas):
+        bands = {}
+        for view, (r0, c0, h, w) in canvas.views():
+            bands.setdefault((r0, h), []).append((c0, view))
+    else:
+        bands = {(0, n): [(0, canvas)]}
+    out = {}
+    for (r0, h), parts in sorted(bands.items()):
+        parts.sort(key=lambda p: p[0])
+        check(sum(v.shape[-1] for _c, v in parts) == m
+              and r0 % DIGEST_ROWS == 0
+              and (h % DIGEST_ROWS == 0 or r0 + h == n),
+              "chunk digests need bands of whole chunks and rows")
+        for a in range(0, h, DIGEST_ROWS):
+            chunk = np.concatenate([v[a: a + DIGEST_ROWS].cpu().numpy()
+                                    for _c, v in parts], axis=-1)
+            d = hashlib.sha256()
+            if chunk.dtype.kind == "f":
+                d.update(np.isnan(chunk).tobytes())
+                chunk = np.nan_to_num(chunk)
+            d.update(chunk.tobytes())
+            out[r0 + a] = d.hexdigest()
+    return out
+
+
+def combine_digests(chunks):
+    """One sha256 over the chunk digests in row order."""
+    d = hashlib.sha256()
+    for r in sorted(chunks):
+        d.update(chunks[r].encode())
+    return d.hexdigest()
 
 
 def digests(out):
-    """sha256 of each output's NaN mask and values (NaN as 0)."""
-    res = {}
-    for key in KEYS:
-        t = out[key]
-        h = hashlib.sha256()
-        if t.is_floating_point():
-            h.update(torch.isnan(t).cpu().numpy().tobytes())
-            t = torch.nan_to_num(t)
-        h.update(t.cpu().numpy().tobytes())
-        res[key] = h.hexdigest()
-    return res
+    """Each output's digest (:func:`chunk_digests` combined): the same for a
+    whole tensor on one card and for its shards over the cards."""
+    return {key: combine_digests(chunk_digests(out[key])) for key in KEYS}
 
 
 def phase_card_rounds(cards, tag):
@@ -2120,9 +2248,11 @@ def phase_card_rounds(cards, tag):
     round against their plain versions, bit for bit: the canvas rounds on
     a 2048² cone, the ring and subset rounds at every shard shape of
     12b-12e, with the flag ring the sharded rounds pass and without; timed
-    at 12b's shard and 12c's band.  Returns {kernel: {card: times}} and the
+    at 12b's shard and 12c's band; the ring round at 12g's shard
+    (:func:`giant_shard_rounds`).  Returns {kernel: {card: times}} and the
     largest difference."""
-    times = {k: {} for k in ("canvas", "k2", "ring", "subset", "band")}
+    times = {k: {} for k in ("canvas", "k2", "ring", "subset", "band",
+                             "giant")}
     worst = 0.0
     for dev in cards:
         with torch.cuda.device(dev):
@@ -2271,7 +2401,96 @@ def _card_rounds(dev, tag):
                        for k in ("kernel", "plain", "bound")}
     times["subset"].update(interior=rnd["interior"]["kernel"],
                            boundary=rnd["boundary"]["kernel"])
-    return times, worst
+    del x, K, W1, base, flags
+    times["giant"], e = giant_shard_rounds(dev, tag, B)
+    return times, max(worst, e)
+
+
+def tile_window(t, period, rows, cols, total, fill):
+    """Rows ``rows`` and columns ``cols`` (ranges, which may reach one
+    past the edges) of the total² canvas that tiles the period² plane
+    ``t``; ``fill`` beyond the canvas."""
+    r = torch.arange(rows.start, rows.stop, device=t.device)
+    c = torch.arange(cols.start, cols.stop, device=t.device)
+    out = t.index_select(0, r % period).index_select(1, c % period)
+    out[(r < 0) | (r >= total)] = fill
+    out[:, (c < 0) | (c >= total)] = fill
+    return out
+
+
+def ring_round_plain_banded(x, K, W1, base, prev, *, B, inner_max,
+                            rows=4096):
+    """gs_round_ring_plain over a shard, ``rows`` rows of blocks at a time,
+    each band with its 1-px ring and its blocks' flag ring cut from the
+    shard's (zeros beyond it, as the round reads a shard without one).
+    Each block relaxes from the same inputs as in one call, and a block at
+    its fixed point sweeps on as a bitwise no-op, so the result is the
+    plain round's bit for bit, in a band's share of its dense planes."""
+    h, w = base.shape
+    ring = prev if prev.shape[0] == h // B + 2 else torch.nn.functional.pad(
+        prev, (1, 1, 1, 1))
+    x_out = x.clone()
+    chg = torch.empty((h // B, w // B), dtype=torch.int32, device=x.device)
+    for a in range(0, h, rows):
+        b = min(h, a + rows)
+        xb, cb = gs_round_ring_plain(
+            x[a: b + 2], K[a: b + 2], W1[a: b + 2], base[a: b],
+            ring[a // B: b // B + 2].contiguous(), B=B, inner_max=inner_max)
+        x_out[a + 1: b + 1] = xb[1:-1]
+        chg[a // B: b // B] = cb
+    return x_out, chg
+
+
+def giant_shard_rounds(dev, tag, B):
+    """12a at 12g's shard: the ring round on the top-left 24576² shard of
+    12g's canvas (3x3 copies of the 16384² cone, each ringed with NaN),
+    with and without a flag ring, against the plain round bit for bit; the
+    kernel timed.  The planes are a mid-solve state: one ringed cone's
+    compact state after two rounds, tiled.  The NaN rings keep the copies
+    apart and every spacing is 1, so these are the planes of the whole
+    canvas after two rounds, cut as :func:`ring_window` cuts them, built
+    without the canvas's dense weights.  Returns (times, max error)."""
+    n, N = GIANT_CONE, GIANT_COPIES * GIANT_CONE
+    S, nb = N // 2, GIANT_CONE // B
+    kw = dict(B=B, inner_max=2 * B + 4)
+    W, base = weights_and_base(cone_window(n, torch.arange(n),
+                                           torch.arange(n), dev, ring=1))
+    K, W1 = compact_from_dense(W)
+    del W
+    x, flags = base, torch.ones((nb, nb), dtype=torch.int32, device=dev)
+    for _ in range(2):
+        x, flags = gs_round(x, K, W1, base, flags, **kw)
+    ringed = range(-1, S + 1)
+    planes = (torch.nan_to_num(tile_window(x, n, ringed, ringed, N, 0.0)),
+              tile_window(K, n, ringed, ringed, N, 255),
+              tile_window(W1, n, ringed, ringed, N, 0.0),
+              tile_window(base, n, range(S), range(S), N, 0.0))
+    blocks = range(-1, S // B + 1)
+    ring = tile_window(flags, nb, blocks, blocks, N // B, 0)
+    del x, K, W1, base, flags
+    worst = 0.0
+    for prev in (ring[1:-1, 1:-1].contiguous(), ring):
+        got = gs_round_ring(*planes, prev, **kw)
+        want = ring_round_plain_banded(*planes, prev, **kw)
+        torch.cuda.synchronize(dev)
+        e = nan_equal_max_err(got[0], want[0])
+        check(e <= KERNEL_TOL and torch.equal(got[1], want[1]),
+              "12a ring round at 12g's %d² shard on %s, %s flag ring: kernel "
+              "!= plain (max err %g)" % (S, dev, "a" if prev is ring else
+                                         "no", e))
+        worst = max(worst, e)
+        del got, want
+    out = (torch.empty_like(planes[0]),
+           torch.empty((S // B,) * 2, dtype=torch.int32, device=dev))
+    ms, reps = cuda_median_ms(
+        lambda: gs_round_ring(*planes, ring, out=out, **kw), reps=5)
+    bound, nbytes = subset_bound(torch.arange((S // B) ** 2), B, S, True)
+    log("time", "12a K1 ring round at 12g's %d² shard (a mid-solve state of "
+        "the 3x3 ringed copies of the %d² cone) on %s, with and without a "
+        "flag ring: kernel == plain bitwise; the kernel with the flag ring: "
+        "median %.3f ms, reps %s ms; bound %.3f ms (%d bytes) [%s]"
+        % (S, n, dev, ms, ["%.3f" % t for t in reps], bound, nbytes, tag))
+    return {"kernel": ms, "bound": bound}, worst
 
 
 def card_peaks(cards):
@@ -2298,13 +2517,15 @@ def phase_cards_sharded(cards, tag):
     peak memory, the overlap.  Returns the single-card digests and rounds,
     and the four-card run's launches."""
     n, dev0 = N_MULTI, cards[0]
-    elev = cone_rows(n, 0, n, dev0)
     args = spacing(n, torch.float32, dev0)
     mesh = make_mesh(cards, (2, 2))
     log("cards", "12b mesh %r: shard (iy, ix) -> %s" % (mesh, {
         c: str(mesh.devices[c]) for c in mesh.local_shards()}))
     one_reps, four_reps = [], []
     for rep in range(3):  # in turns: one card, four cards
+        # the one card's canvas whole on it; the four cards' built shard by
+        # shard on each card, as a user of four cards hands it over
+        elev = cone_rows(n, 0, n, dev0)
         reset_peaks(cards)
         single, t = synced_seconds(
             lambda: terrain_step(elev, *args, uca_solver="blocked"))
@@ -2312,22 +2533,28 @@ def phase_cards_sharded(cards, tag):
         if rep == 0:
             one_peak = card_peaks(cards)[str(dev0)]
             want, rounds = digests(single), single["uca_sweeps"]
-        del single
+        del single, elev
+        elev4 = cone_canvas(n, mesh)
         reset_peaks(cards)
         reset_counts()
         reads = sharded._blocked_shards.host_reads
         out, t = synced_seconds(lambda: run_sharded(
-            elev, *args, mesh=mesh, uca_solver="blocked"))
+            elev4, *args, mesh=mesh, uca_solver="blocked"))
         four_reps.append(t)
         if rep == 0:
             launches = counts_by_card()
             reads = sharded._blocked_shards.host_reads - reads
             peaks = card_peaks(cards)
             split = sharded._blocked_shards.last_split
-            check(digests(out) == want and out["uca_sweeps"] == rounds,
+            check(all(s.device == mesh.devices[c] for key in KEYS
+                      for c, s in zip(mesh.local_shards(),
+                                      out[key].local_shards())),
+                  "12b: an output shard is not on its cell's card")
+            got = digests(out)  # from the shards, after the timed region
+            check(got == want and out["uca_sweeps"] == rounds,
                   "12b: four cards differ from one card (rounds %d vs %d)"
                   % (out["uca_sweeps"], rounds))
-        del out
+        del out, elev4
     nb = (n // 2 // 64,) * 2
     used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
     check(split == sharded._use_split(mesh, nb)
@@ -2347,10 +2574,15 @@ def phase_cards_sharded(cards, tag):
                                      tag))
     log("cards", "12b peak device memory: one card's step %.3f GB = %.1f "
         "planes of the canvas; the four-card run by card %s GB (a shard is "
-        "%.3f GB a plane) [%s]"
+        "%.3f GB a plane; input and outputs stay on their shards) [%s]"
         % (one_peak / 1e9, one_peak / (n * n * 4.0),
            {k: round(v / 1e9, 3) for k, v in peaks.items()},
            n * n / 4 * 4 / 1e9, tag))
+    others = max(peaks[str(d)] for d in cards[1:])
+    check(peaks[str(dev0)] <= 1.10 * others, "12b: %s peaked at %.3f GB, "
+          "over 110%% of the other cards' largest, %.3f GB"
+          % (dev0, peaks[str(dev0)] / 1e9, others / 1e9))
+    elev = cone_rows(n, 0, n, dev0)
     _mag, _dir, _flats, W, base = terrain_pre(elev, *args)
     del elev, _mag, _dir, _flats
     solves = {True: [], False: []}
@@ -2365,11 +2597,10 @@ def phase_cards_sharded(cards, tag):
             if rep == 0:
                 areas[split_] = a
             del a
-    check(torch.equal(areas[True], areas[False]),
+    check(shards_equal(areas[True], areas[False]),
           "12b: split and serial areas differ")
     want_area, _r = accumulate_blocked_gs(base, W, B=64)
-    check(torch.equal(torch.nan_to_num(areas[True]),
-                      torch.nan_to_num(want_area)),
+    check(canvas_equal(areas[True], want_area),
           "12b: the four-card area differs from one card's solve")
     del areas, want_area
     log("cards", "12b the solve alone on the same planes over the four "
@@ -2418,9 +2649,15 @@ def _nccl_rank(rank, world, url, n, work):
             res.update(rounds=out["uca_sweeps"], counts=counts_by_card(),
                        ring=launch_count(gs_round_ring),
                        canvas=launch_count(gs_round),
-                       peak=torch.cuda.max_memory_allocated(dev))
+                       peak=torch.cuda.max_memory_allocated(dev),
+                       shards=len(out["uca"].local_shards()))
+            # after the timing: this rank hashes its own band; then every
+            # rank joins one gather, which rank 0 hashes
+            res["chunks"] = {k: chunk_digests(out[k]) for k in KEYS}
+            whole = out["uca"].assemble()
             if rank == 0:
-                res["digests"] = digests(out)
+                res["gathered_uca"] = combine_digests(chunk_digests(whole))
+            del whole
         del out
     with open(os.path.join(work, "rank%d.json" % rank), "w") as f:
         json.dump(res, f)
@@ -2429,6 +2666,7 @@ def _nccl_rank(rank, world, url, n, work):
 
 
 NCCL_TIMEOUT_S = 300
+NCCL_PEAK_BYTES = 8.5e9  # a rank holds its band's planes, not the canvas
 
 
 def phase_cards_nccl(cards, tag, want, want_rounds):
@@ -2471,17 +2709,27 @@ def phase_cards_nccl(cards, tag, want, want_rounds):
                 ranks.append(json.load(f))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    check(ranks[0]["digests"] == want, "12c: NCCL ranks differ from one card")
+    bands = {key: combine_digests({int(r): d for rk in ranks
+                                   for r, d in rk["chunks"][key].items()})
+             for key in KEYS}
+    check(bands == want and ranks[0]["gathered_uca"] == want["uca"]
+          and all(r["shards"] == 1 for r in ranks),
+          "12c: NCCL ranks differ from one card")
     check(all(r["rounds"] == want_rounds for r in ranks),
           "12c: rounds %s, one card %d" % ([r["rounds"] for r in ranks],
                                            want_rounds))
     check(sorted(r["device"] for r in ranks) == [str(d) for d in cards]
           and all(r["ring"] > 0 and r["canvas"] == 0 for r in ranks),
           "12c: not one rank a card, or no ring launches: %s" % ranks)
+    peaks = [r["peak"] for r in ranks]
+    check(max(peaks) < NCCL_PEAK_BYTES, "12c: a rank peaked at %.3f GB"
+          % (max(peaks) / 1e9))
     log("cards", "12c four NCCL ranks (spawned, one a card: %s), "
-        "run_global(blocked) on the %d² cone in (4, 1) row bands: mag, "
-        "direction, flats, uca, twi bitwise equal to one card's "
-        "terrain_step (sha256), %d rounds; wall by rank (host clock, first "
+        "run_global(blocked) on the %d² cone in (4, 1) row bands, each "
+        "output left on its rank as its band: mag, direction, flats, uca, "
+        "twi, hashed band by band on the ranks, bitwise equal to one card's "
+        "terrain_step (sha256), the uca gathered after the timing too; %d "
+        "rounds; wall by rank (host clock, first "
         "run with the communicators' set-up, then a second) %s s; ring "
         "launches by rank %s; peak device memory by rank %s GB; the whole "
         "phase %.1f s with process start [%s]"
@@ -2505,7 +2753,7 @@ def phase_cards_pits(cards, tag):
     got, rg = sharded_uca(base, W, mesh, pit_links=links)
     launches = counts_by_card()
     split = sharded._blocked_shards.last_split
-    err = nan_equal_max_err(got, want)
+    err = canvas_max_err(got, want)
     check(err == 0.0 and rg == rw, "12d: differs from one card (max err %g, "
           "rounds %d vs %d)" % (err, rg, rw))
     used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
@@ -2608,38 +2856,145 @@ def _wide_engine(cards, tag, work):
            tag))
     store_gb = sum(os.path.getsize(os.path.join(dp, f))
                    for dp, _dn, fs in os.walk(store.root) for f in fs) / 1e9
-    del eng
+    del eng, elev
     gc.collect()
+    elev4 = cone_canvas(n, mesh)
     reset_peaks(cards)
     ref, ref_s = synced_seconds(lambda: run_sharded(
-        elev, *spacing(n, torch.float32, cards[0]), mesh=mesh,
+        elev4, *spacing(n, torch.float32, cards[0]), mesh=mesh,
         uca_solver="blocked"))
-    del elev
+    del elev4
     errs = {}
-    for key in ("uca", "twi"):
+    for key in ("uca", "twi"):  # shard by shard against the store
         tol = GATE_TOL["cone"]
         worst = 0.0
-        for i0 in range(0, n, S):
-            for j0 in range(0, n, S):
-                a = store.read_window(key, (i0, i0 + S), (j0, j0 + S))
-                b = ref[key][i0: i0 + S, j0: j0 + S].cpu().numpy()
-                check(np.array_equal(np.isnan(a), np.isnan(b)),
-                      "12e %s: NaN patterns differ at (%d, %d)"
-                      % (key, i0, j0))
-                fa, fb = np.nan_to_num(a), np.nan_to_num(b)
-                check(np.all(np.abs(fa - fb) <= tol["atol"]
-                             + tol["rtol"] * np.abs(fb)),
-                      "12e %s outside the cone gate at (%d, %d)"
-                      % (key, i0, j0))
-                worst = max(worst, float(np.abs(fa - fb).max()))
+        for view, (i0, j0, h, w) in ref[key].views():
+            a = store.read_window(key, (i0, i0 + h), (j0, j0 + w))
+            b = view.cpu().numpy()
+            check(np.array_equal(np.isnan(a), np.isnan(b)),
+                  "12e %s: NaN patterns differ in the shard at (%d, %d)"
+                  % (key, i0, j0))
+            fa, fb = np.nan_to_num(a), np.nan_to_num(b)
+            check(np.all(np.abs(fa - fb) <= tol["atol"]
+                         + tol["rtol"] * np.abs(fb)),
+                  "12e %s outside the cone gate in the shard at (%d, %d)"
+                  % (key, i0, j0))
+            worst = max(worst, float(np.abs(fa - fb).max()))
+            del a, b, fa, fb
         errs[key] = worst
     log("cards", "12e %d²: engine uca, twi against run_sharded(blocked) on "
-        "the same canvas over the same cards (%.3f s, %d rounds): NaN "
-        "patterns equal, max abs %s within %s; the store %.1f GB on disk "
-        "[%s]" % (n, ref_s, ref["uca_sweeps"], errs, GATE_TOL["cone"],
-                  store_gb, tag))
+        "the same canvas over the same cards (%.3f s, %d rounds), shard by "
+        "shard: NaN patterns equal, max abs %s within %s; the store %.1f GB "
+        "on disk [%s]" % (n, ref_s, ref["uca_sweeps"], errs,
+                          GATE_TOL["cone"], store_gb, tag))
     del ref
     return res
+
+
+# 12g: 3x3 copies of 12b's cone, a 49152² canvas in four 24576² shards
+GIANT_COPIES = 3
+GIANT_CONE = N_MULTI
+GIANT_BUDGET_S = 300  # more reps only while the phase stays inside this
+GIANT_ALLOC = "expandable_segments:True"
+
+
+def phase_cards_giant(cards, tag):
+    """12g: a canvas the assembling path could not hold on cuda:0.
+    GIANT_COPIES² copies of 12b's n² cone, each with its outer 1-px ring
+    NaN (so no flow crosses between copies), over a 2x2 mesh of the four
+    cards, built shard by shard on each card; the copies straddle the
+    shard edges.  run_sharded(blocked) on it; every copy's five planes,
+    gathered one copy at a time, bitwise equal (NaN equal) to one card's
+    terrain_step(blocked) on one ringed copy.  Wall time (median of 3 if
+    the phase's budget allows, else fewer, said so), rounds of both, each
+    card's peak.  Returns the first run's launches by kernel and card.
+
+    A 24576² shard asks for 18 GiB blocks (its eight weight planes) after
+    the label flood has freed its int64 tables: the default allocator
+    found 20.8 GiB free on a card but no block that long.  So the phase
+    turns on the allocator's expandable segments, which map such a block
+    into one range, after the earlier phases' cached blocks are released;
+    an out-of-memory error fails it."""
+    reset_peaks(cards)  # empties every card's cache
+    with warnings.catch_warnings():  # deprecated in later releases
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(GIANT_ALLOC)
+    t_phase = time.perf_counter()
+    n = GIANT_CONE
+    dev0, N = cards[0], GIANT_COPIES * n
+    mesh = make_mesh(cards, (2, 2))
+    elev = cone_window(n, torch.arange(n), torch.arange(n), dev0, ring=1)
+    single, one_s = synced_seconds(lambda: terrain_step(
+        elev, *spacing(n, torch.float32, dev0), uca_solver="blocked"))
+    ref = {k: single[k].cpu() for k in KEYS}  # kept on the host
+    one_rounds = single["uca_sweeps"]
+    del elev, single
+    args = spacing(N, torch.float32, dev0)
+    walls, peaks, launches, rounds = [], None, None, None
+    for rep in range(3):
+        elev = cone_canvas(n, mesh, GIANT_COPIES, ring=1)
+        reset_peaks(cards)
+        reset_counts()
+        out, t = synced_seconds(lambda: run_sharded(
+            elev, *args, mesh=mesh, uca_solver="blocked"))
+        walls.append(t)
+        del elev
+        if rep == 0:
+            launches, peaks = counts_by_card(), card_peaks(cards)
+            rounds, split = out["uca_sweeps"], sharded._blocked_shards.last_split
+            expandable = collections.Counter(
+                "cuda:%d" % seg["device"]
+                for seg in torch.cuda.memory_snapshot()
+                if seg.get("is_expandable"))
+            _giant_check(out, ref, mesh, n)
+        check(out["uca_sweeps"] == rounds, "12g: rounds differ between reps")
+        del out
+        gc.collect()
+        spent = time.perf_counter() - t_phase
+        if spent + 1.5 * max(walls) > GIANT_BUDGET_S:
+            break
+    used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
+    check(all(used.get(str(d), 0) > 0 for d in cards)
+          and not launches["uca_gs_round"],
+          "12g: the run did not take the solver's round on every card: %s"
+          % launches)
+    log("cards", "12g %d² float32 = %dx%d copies of the %d² cone, each "
+        "ringed with NaN, over 2x2 = four %d² shards on %s, built shard by "
+        "shard on each card: run_sharded(blocked) %d rounds, one card's "
+        "terrain_step on one ringed copy %d rounds (%.3f s); every copy's "
+        "mag, direction, flats, uca, twi bitwise equal to it (NaN equal), "
+        "gathered a copy at a time [%s]"
+        % (N, GIANT_COPIES, GIANT_COPIES, n, N // 2,
+           [str(d) for d in cards], rounds, one_rounds, one_s, tag))
+    log("cards", "12g wall (host clock, every card synchronised): %s of "
+        "%d run%s%s; peak device memory by card %s GB (a shard is %.3f GB "
+        "a plane; allocator %s, expandable segments by card %s); launches "
+        "by kernel and card %s [%s]"
+        % (fmt_reps(walls), len(walls), "s" if len(walls) > 1 else "",
+           "" if len(walls) == 3 else " (the phase's %d s budget allowed "
+           "no more)" % GIANT_BUDGET_S,
+           {k: round(v / 1e9, 3) for k, v in peaks.items()},
+           (N // 2) ** 2 * 4 / 1e9, GIANT_ALLOC, dict(expandable), launches, tag))
+    return launches
+
+
+def _giant_check(out, ref, mesh, n):
+    """Each copy of ``out`` (gathered onto the card of its top-left shard,
+    one copy's plane at a time) against the one-copy planes ``ref``."""
+    half = out["uca"].shape[-1] // 2
+    for key in KEYS:
+        on = {}
+        for i in range(GIANT_COPIES):
+            for j in range(GIANT_COPIES):
+                dev = mesh.devices[(i * n) // half, (j * n) // half]
+                if dev not in on:
+                    on[dev] = ref[key].to(dev)
+                got = out[key].window((i * n, (i + 1) * n),
+                                      (j * n, (j + 1) * n), device=dev)
+                check(tensors_equal(got, on[dev]), "12g: copy (%d, %d) %s "
+                      "differs from one card's ringed copy" % (i, j, key))
+                del got
+        del on
 
 
 def main_multicard():
@@ -2654,18 +3009,19 @@ def main_multicard():
     l12d = phase_cards_pits(cards, tag)
     l12e = phase_cards_engine(cards, tag)
     l12f = phase_mesh_manager(cards[0], tag, make_mesh(cards, (2, 2)), "12f")
+    l12g = phase_cards_giant(cards, tag)
     log("done", "phases 1, 2 and 12 passed in %.1f s" % (
         time.perf_counter() - t0))
-    # the launches of the main-path runs of 12b-12f, by kernel and card
+    # the launches of the main-path runs of 12b-12g, by kernel and card
     on = {name: collections.Counter() for name, _fn in WRAPPERS}
-    for part in [l12b, *l12c, l12d, *l12e, l12f]:
+    for part in [l12b, *l12c, l12d, *l12e, l12f, l12g]:
         for name, by_card in part.items():
             on[name].update(by_card)
     for d in cards:
         check(on["uca_gs_round_ring"][str(d)]
               + on["uca_gs_round_subset"][str(d)] > 0,
               "no K1 launch on %s on the four-card path" % d)
-    log("cards", "launches of the runs of 12b-12f by kernel and card: %s"
+    log("cards", "launches of the runs of 12b-12g by kernel and card: %s"
         % {k: dict(v) for k, v in on.items()})
     src = "pydem_tpu_torch/ops/csrc/uca_block.cu"
 
@@ -2687,6 +3043,9 @@ def main_multicard():
     band = rounds_ms["band"]  # 12c's row band, the ring form
     ring.update({"band_" + k: statistics.median(t[k] for t in band.values())
                  for k in ("kernel", "plain", "bound")})
+    giant = rounds_ms["giant"]  # 12g's 24576² shard, the ring form
+    ring.update({"giant_shard_" + k: statistics.median(
+        t[k] for t in giant.values()) for k in ("kernel", "bound")})
     print(json.dumps({"kernels": [
         entry("uca_gs_round", "canvas", "pydem_tpu/ops/uca_block.py:256"),
         ring,

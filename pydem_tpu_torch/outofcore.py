@@ -76,6 +76,8 @@ from .core.receivers import receiver_weights, section_proportion
 from .core.twi import twi as twi_fn
 from .ops.uca_block import _gs_solve, compact_from_dense, gs_round_ring
 from .parallel.mesh import check_mesh, shard_dims
+from .parallel.mesh import cut as _cut
+from .parallel.mesh import pieces as _mesh_pieces
 
 # super-block visit corner orders per outer round
 _SWEEP_FLIPS = ((False, False), (True, True), (False, True), (True, False))
@@ -117,35 +119,6 @@ def fits_device_resident(shape, itemsize, budget, mesh=None):
             per[key] = per.get(key, 0) + 1
         held = max(per.values()) * n_l * m_l
     return _DEVICE_RESIDENT_PLANES * held * itemsize <= budget
-
-
-def _cut(block, piece):
-    """Where an S² block window ``((i0, i1), (j0, j1))`` and a device piece
-    ``(row0, col0, h, w)`` of the canvas overlap: the slices into the block
-    and into the piece, or None."""
-    (i0, i1), (j0, j1) = block
-    r0, c0, h, w = piece
-    a0, a1 = max(i0, r0), min(i1, r0 + h)
-    b0, b1 = max(j0, c0), min(j1, c0 + w)
-    if a0 >= a1 or b0 >= b1:
-        return None
-    return ((slice(a0 - i0, a1 - i0), slice(b0 - j0, b1 - j0)),
-            (slice(a0 - r0, a1 - r0), slice(b0 - c0, b1 - c0)))
-
-
-def _retile(tensors, src, dst, fill):
-    """A canvas held as ``tensors`` on the pieces ``src`` (``[(device,
-    (row0, col0, h, w)), ...]``) cut anew to the pieces ``dst``, each on its
-    device; ``fill`` where no source piece reaches."""
-    out = []
-    for dev, piece in dst:
-        t = torch.full(piece[2:], fill, dtype=tensors[0].dtype, device=dev)
-        for a, (_dev, (r0, c0, h, w)) in zip(tensors, src):
-            cut = _cut(((r0, r0 + h), (c0, c0 + w)), piece)
-            if cut is not None:
-                t[cut[1]].copy_(a[cut[0]])
-        out.append(t)
-    return out
 
 
 def _sb_weights(elev_win, dir_win, flats_win, theta_win):
@@ -480,8 +453,9 @@ class OutOfCoreEngine:
         multiple of the mesh's when there is one.  ``solve``: the dims of
         the sharded solve's canvas, a multiple of the mesh's shape times
         the K1 block size, so that every shard is a whole number of blocks
-        (the ring rounds need it).  Both pads are exact: NaN elevation,
-        zero base, no weight."""
+        (the ring rounds need it; ``sharded._solve_shards`` re-cuts the
+        shards onto it).  Both pads are exact: NaN elevation, zero base,
+        no weight."""
         n, m = self.shape
         if self.mesh is None:
             return n, m, None
@@ -489,17 +463,15 @@ class OutOfCoreEngine:
         qy, qx = (gy * self.B, gx * self.B) if solve else (gy, gx)
         return n + (-n) % qy, m + (-m) % qx, self.mesh
 
-    def _pieces(self, solve=False):
-        """Where the devices hold the padded canvas (``solve``: the solve's,
-        :meth:`_padded_dims`): ``[(device, (row0, col0, h, w)), ...]``, the
-        whole canvas on the engine's device, or the mesh's shards in
-        :meth:`Mesh.local_shards` order, each on its cell's device."""
-        np_, mp_, mesh = self._padded_dims(solve)
+    def _pieces(self):
+        """Where the devices hold the padded canvas (:meth:`_padded_dims`):
+        ``[(device, (row0, col0, h, w)), ...]``, the whole canvas on the
+        engine's device, or the mesh's shards in :meth:`Mesh.local_shards`
+        order, each on its cell's device."""
+        np_, mp_, mesh = self._padded_dims()
         if mesh is None:
             return [(self.device, (0, 0, np_, mp_))]
-        n_l, m_l = shard_dims((np_, mp_), mesh)
-        return [(mesh.devices[iy, ix], (iy * n_l, ix * m_l, n_l, m_l))
-                for iy, ix in mesh.local_shards()]
+        return _mesh_pieces(mesh, (np_, mp_))
 
     def _gather_canvas(self, name, dtype, fill=0):
         """Stream store windows up into the device pieces of the canvas
@@ -576,8 +548,8 @@ class OutOfCoreEngine:
         weights.  Pit links fold in the work dtype here and in float64 on
         the host when streaming, so with links the two regimes agree to
         rounding only.  Returns ``(rounds, state pieces)``."""
-        from .parallel.sharded import (_blocked_shards, _elev_windows,
-                                       _links_of, _weights_shards)
+        from .parallel.sharded import (_elev_windows, _solve_shards,
+                                       _weights_shards)
 
         n, m = self.shape
         np_, mp_, mesh = self._padded_dims()
@@ -599,30 +571,19 @@ class OutOfCoreEngine:
             else self.pit_links()
 
         if mesh is not None:
-            pieces, solve = self._pieces(), self._pieces(solve=True)
+            pieces = self._pieces()
             theta_s = [self._to_dev(theta[r0: r0 + h], dev)
                        for dev, (r0, _c0, h, _w) in pieces]
             KW = [compact_from_dense(W) for W in _weights_shards(
                 direction, flats, elev, theta_s)]
-            # shards that are not whole K1 blocks: the solve's are
-            nq, mq, _mesh = self._padded_dims(solve=True)
-            if solve != pieces:
-                k0, w0 = compact_from_dense(torch.zeros((8, 1, 1), dtype=wd))
-                KW = list(zip(
-                    _retile([k for k, _ in KW], pieces, solve, int(k0)),
-                    _retile([w for _, w in KW], pieces, solve, float(w0))))
-            base_rows = np.pad(base_rows, (0, nq - np_))
             base_s = [self._to_dev(base_rows[r0: r0 + h], dev)[:, None]
-                      .expand(h, wd_) for dev, (r0, _c0, h, wd_) in solve]
-            src, dst = ((src // m) * mq + src % m,
-                        (dst // m) * mq + dst % m)
-            links = _links_of((src, dst, w), mesh,
-                              *shard_dims((nq, mq), mesh), wd)
-            x, rounds = _blocked_shards(base_s, KW, mesh, self.B,
-                                        links=links)
+                      .expand(h, w_) for dev, (r0, _c0, h, w_) in pieces]
+            # the sharded solve re-cuts shards that are not whole K1
+            # blocks onto the canvas padded to whole blocks, and back
+            x, rounds = _solve_shards(
+                base_s, KW, mesh, ((src // m) * mp_ + src % m,
+                                   (dst // m) * mp_ + dst % m, w), B=self.B)
             del KW
-            if solve != pieces:
-                x = _retile(x, solve, pieces, 0.0)
         else:
             base = self._to_dev(base_rows)[:, None].expand(np_, mp_)
             section, proportion = section_proportion(

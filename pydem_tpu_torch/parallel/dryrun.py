@@ -52,19 +52,21 @@ def dryrun_multichip(n_devices, device="cuda"):
         torch.ones(n, dtype=dt, device=dev),) * 2
 
     out = run_sharded(elev, *rows, mesh=mesh, n_sweeps=8)
-    uca = out["uca"]
-    if uca.shape != (n, m) or not torch.isfinite(uca[1:-1, 1:-1]).any():
-        raise AssertionError("sharded sweeps: uca %s" % (tuple(uca.shape),))
+    uca = np.asarray(out["uca"])  # the shards, each into its host slice
+    if uca.shape != (n, m) or not np.isfinite(uca[1:-1, 1:-1]).any():
+        raise AssertionError("sharded sweeps: uca %s" % (uca.shape,))
 
-    # the blocked solver over the mesh against the same step on one device
+    # the blocked solver over the mesh against the same step on one device,
+    # shard by shard
     out_b = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
     single = terrain_step(elev, *rows, uca_solver="blocked")
     for key in ("mag", "direction", "flats", "uca", "twi"):
-        a, b = out_b[key], single[key]
-        if not torch.equal(torch.nan_to_num(a.double()),
-                           torch.nan_to_num(b.double())):
-            raise AssertionError("sharded blocked step: %s differs from one "
-                                 "device" % key)
+        b = torch.nan_to_num(single[key].double())
+        for view, (r0, c0, h, w) in out_b[key].views():
+            if not torch.equal(torch.nan_to_num(view.double()),
+                               b[r0: r0 + h, c0: c0 + w].to(view.device)):
+                raise AssertionError("sharded blocked step: %s differs from "
+                                     "one device" % key)
     if out_b["uca_sweeps"] != single["uca_sweeps"]:
         raise AssertionError("sharded blocked step: %d rounds, one device %d"
                              % (out_b["uca_sweeps"], single["uca_sweeps"]))
@@ -89,7 +91,7 @@ def dryrun_multichip(n_devices, device="cuda"):
                                          % tag)
                 twis[tag] = int(np.isfinite(twi).sum())
     res = dict(mesh=list(mesh.shape), canvas=[n, m],
-               uca_sum=float(torch.nansum(uca)),
+               uca_sum=float(np.nansum(uca)),
                blocked_rounds=out_b["uca_sweeps"],
                manager_twi_finite=twis["manager"],
                ooc_mesh_twi_finite=twis["out_of_core"])

@@ -17,7 +17,15 @@ that crosses a shard's edge goes through an *exchange*:
   neighbour and the ring keeps what the caller put there (the JAX
   ``ppermute`` delivers zeros; callers pad with the value they need);
 - ``reduce(values, op)``: one value per owned shard in, the sum, minimum
-  or maximum over the whole mesh out (the ``psum``).
+  or maximum over the whole mesh out (the ``psum``);
+- ``recut(tensors, src, dst, fill)``: the owned shards of a canvas laid out
+  as ``src`` cut anew to the layout ``dst`` (:func:`layout`), e.g. onto
+  shards that are whole K1 blocks.
+
+The mesh functions return their canvases as a :class:`ShardedCanvas`: the
+shards, each on its cell's device, with the logical shape, as the JAX
+functions return arrays laid over the mesh; a caller assembles only when
+it asks for the whole canvas.
 
 Two back ends implement it.  :class:`LocalExchange` (here) holds every shard
 in this process: a mesh cell is a ``torch.device``, several cells may name
@@ -168,16 +176,34 @@ def shard_dims(shape, mesh):
     return n // gy, m // gx
 
 
-def split(canvas, mesh, ring=0, fill=0):
-    """The shards this process owns of ``canvas`` (``(..., n, m)``), each a
-    contiguous copy on its cell's device; with ``ring`` > 0 each comes
-    inside a ring of that many pixels set to ``fill``, for
-    :meth:`LocalExchange.halo` to overwrite."""
-    n_l, m_l = shard_dims(canvas.shape, mesh)
+def split(canvas, mesh, ring=0, fill=0, shape=None, pad=0):
+    """The shards this process owns of ``canvas`` (``(..., n, m)``: a
+    tensor on any device, or a host array), each a contiguous copy on its
+    cell's device, copied there shard by shard (no device stages the
+    whole canvas).  ``shape``: the (rows, columns) the mesh divides, at
+    least the canvas's own (default); pixels beyond the canvas are ``pad``.
+    With ``ring`` > 0 each shard comes inside a ring of that many pixels
+    set to ``fill``, for :meth:`LocalExchange.halo` to overwrite."""
+    if not isinstance(canvas, torch.Tensor):
+        canvas = torch.as_tensor(np.asarray(canvas))
+    n, m = canvas.shape[-2:]
+    shape = (n, m) if shape is None else tuple(shape)
+    if shape[0] < n or shape[1] < m:
+        raise ValueError("a %dx%d canvas does not fit %dx%d"
+                         % ((n, m) + shape))
+    n_l, m_l = shard_dims(shape, mesh)
+    lead = tuple(canvas.shape[:-2])
     out = []
     for iy, ix in mesh.local_shards():
-        s = canvas[..., iy * n_l: (iy + 1) * n_l, ix * m_l: (ix + 1) * m_l]
-        s = s.to(mesh.devices[iy, ix])
+        r0, c0 = iy * n_l, ix * m_l
+        s = canvas[..., r0: r0 + n_l, c0: c0 + m_l]
+        dev = mesh.devices[iy, ix]
+        if tuple(s.shape[-2:]) == (n_l, m_l):
+            s = s.to(dev)
+        else:
+            t = torch.full(lead + (n_l, m_l), pad, dtype=s.dtype, device=dev)
+            t[..., : s.shape[-2], : s.shape[-1]].copy_(s)
+            s = t
         if ring:
             s = torch.nn.functional.pad(s, (ring,) * 4, value=fill)
         out.append(s.contiguous())
@@ -198,6 +224,218 @@ def assemble(shards, mesh, ring=0, device=None):
     rows = [torch.cat([shards[iy * gx + ix].to(device) for ix in range(gx)],
                       dim=-1) for iy in range(gy)]
     return torch.cat(rows, dim=-2)
+
+
+# -- re-cutting a canvas between two layouts of pieces ----------------------
+
+def layout(mesh, shape):
+    """Where the shards of an (n, m) canvas (``shape``'s last two; the mesh
+    must divide them) lie: ``[(device, (row0, col0, h, w)), ...]`` for every
+    cell of the mesh, row-major."""
+    n_l, m_l = shard_dims(shape, mesh)
+    gy, gx = mesh.shape
+    return [(mesh.devices[iy, ix], (iy * n_l, ix * m_l, n_l, m_l))
+            for iy in range(gy) for ix in range(gx)]
+
+
+def pieces(mesh, shape):
+    """:func:`layout` of the cells this process owns, in
+    :meth:`Mesh.local_shards` order."""
+    cells, gx = layout(mesh, shape), mesh.shape[1]
+    return [cells[iy * gx + ix] for iy, ix in mesh.local_shards()]
+
+
+def cut(block, piece):
+    """Where a window ``((i0, i1), (j0, j1))`` of the canvas and a piece
+    ``(row0, col0, h, w)`` of it overlap: the slices into the window and
+    into the piece, or None."""
+    (i0, i1), (j0, j1) = block
+    r0, c0, h, w = piece
+    a0, a1 = max(i0, r0), min(i1, r0 + h)
+    b0, b1 = max(j0, c0), min(j1, c0 + w)
+    if a0 >= a1 or b0 >= b1:
+        return None
+    return ((slice(a0 - i0, a1 - i0), slice(b0 - j0, b1 - j0)),
+            (slice(a0 - r0, a1 - r0), slice(b0 - c0, b1 - c0)))
+
+
+def _window_of(piece):
+    r0, c0, h, w = piece
+    return (r0, r0 + h), (c0, c0 + w)
+
+
+def retile(tensors, src, dst, fill):
+    """A canvas held in this process as ``tensors`` (``(..., h, w)``) on the
+    pieces ``src`` (``[(device, (row0, col0, h, w)), ...]``) cut anew to the
+    pieces ``dst``, each on its device; ``fill`` where no source piece
+    reaches."""
+    lead = tuple(tensors[0].shape[:-2])
+    out = []
+    for dev, piece in dst:
+        t = torch.full(lead + tuple(piece[2:]), fill,
+                       dtype=tensors[0].dtype, device=dev)
+        for a, (_dev, sp) in zip(tensors, src):
+            c = cut(_window_of(sp), piece)
+            if c is not None:
+                t[(Ellipsis,) + c[1]].copy_(a[(Ellipsis,) + c[0]])
+        out.append(t)
+    return out
+
+
+def same_mesh(a, b):
+    """Whether two meshes name the same devices in the same cells."""
+    return a is b or (a.shape == b.shape and a.distributed == b.distributed
+                      and all(x == y for x, y in zip(a.devices.flat,
+                                                     b.devices.flat)))
+
+
+class ShardedCanvas:
+    """A canvas laid over a mesh, one shard a cell, each on its cell's
+    device: the port's counterpart of a ``jax.Array`` under
+    ``NamedSharding(mesh, P("y", "x"))``, which the JAX mesh functions
+    return.
+
+    ``shards``: one tensor ``(..., n_l, m_l)`` for each cell this process
+    owns, in :meth:`Mesh.local_shards` order (every cell in one process;
+    this rank's alone on a ``distributed=True`` mesh).  ``shape``: the
+    logical canvas, at most the shards' padded one (default): a canvas
+    padded to the mesh keeps its padded shards and is cropped in
+    ``shape``, as the JAX ``v[:n, :m]``.
+
+    Nothing here moves the whole canvas to one device unless asked:
+    :meth:`assemble` does (a collective on a distributed mesh);
+    :meth:`numpy` copies each shard into its slice of one host array;
+    :meth:`window` gathers a window of the canvas from the shards that
+    cover it.  ``np.asarray(canvas)`` is :meth:`numpy`.
+    """
+
+    def __init__(self, shards, mesh, shape=None):
+        shards = list(shards)
+        cells = mesh.local_shards()
+        if len(shards) != len(cells):
+            raise ValueError("%d shards for the %d cells of %r this process "
+                             "owns" % (len(shards), len(cells), mesh))
+        first = tuple(shards[0].shape)
+        for s, cell in zip(shards, cells):
+            if tuple(s.shape) != first:
+                raise ValueError("shards of shapes %s and %s"
+                                 % (first, tuple(s.shape)))
+            want = mesh.devices[cell]
+            if s.device.type != want.type or (
+                    want.index is not None and s.device.index != want.index):
+                raise ValueError("shard %s is on %s, its cell on %s"
+                                 % (cell, s.device, want))
+        gy, gx = mesh.shape
+        self.padded_shape = first[:-2] + (first[-2] * gy, first[-1] * gx)
+        shape = self.padded_shape if shape is None else tuple(
+            int(v) for v in shape)
+        if len(shape) != len(first) or shape[:-2] != first[:-2] or any(
+                a > b for a, b in zip(shape[-2:], self.padded_shape[-2:])):
+            raise ValueError("a %s canvas in shards of a %s one"
+                             % (shape, self.padded_shape))
+        self.mesh, self.shape, self._shards = mesh, shape, shards
+
+    @property
+    def dtype(self):
+        return self._shards[0].dtype
+
+    def local_shards(self):
+        """This process's shards, in :meth:`Mesh.local_shards` order (on a
+        distributed mesh: this rank's one)."""
+        return list(self._shards)
+
+    def shard(self, iy, ix):
+        """The shard of cell (iy, ix), padding included; a cell of another
+        rank is an error."""
+        cells = self.mesh.local_shards()
+        if (iy, ix) not in cells:
+            raise ValueError("cell (%d, %d) is not held by this process"
+                             % (iy, ix))
+        return self._shards[cells.index((iy, ix))]
+
+    def pieces(self):
+        """Where this process's shards lie in the padded canvas
+        (:func:`pieces`)."""
+        return pieces(self.mesh, self.padded_shape)
+
+    def views(self):
+        """Each local shard cropped to the logical canvas, with where it
+        lies: ``[(view, (row0, col0, h, w)), ...]`` (``h`` or ``w`` 0 for a
+        shard wholly in the padding)."""
+        n, m = self.shape[-2:]
+        out = []
+        for s, (_dev, (r0, c0, h, w)) in zip(self._shards, self.pieces()):
+            h, w = max(0, min(h, n - r0)), max(0, min(w, m - c0))
+            out.append((s[..., :h, :w], (r0, c0, h, w)))
+        return out
+
+    def filled(self, value):
+        """The local shards with every pixel beyond ``shape`` set to
+        ``value`` (new tensors for the shards that reach past it, the
+        shards themselves otherwise)."""
+        out = []
+        for s, (view, _piece) in zip(self._shards, self.views()):
+            if view.shape != s.shape:
+                h, w = view.shape[-2:]
+                s = s.clone()
+                s[..., h:, :] = value
+                s[..., :, w:] = value
+            out.append(s)
+        return out
+
+    def window(self, rows, cols, device=None):
+        """Rows ``rows[0]:rows[1]`` and columns ``cols[0]:cols[1]`` of the
+        canvas, gathered from the local shards that cover them onto
+        ``device`` (default: the first of those shards' device)."""
+        (i0, i1), (j0, j1) = rows, cols
+        n, m = self.shape[-2:]
+        if not (0 <= i0 < i1 <= n and 0 <= j0 < j1 <= m):
+            raise ValueError("window %s x %s outside a %dx%d canvas"
+                             % (rows, cols, n, m))
+        parts = [(s, c) for s, (_d, p) in zip(self._shards, self.pieces())
+                 for c in [cut((rows, cols), p)] if c is not None]
+        covered = sum((c[0][0].stop - c[0][0].start)
+                      * (c[0][1].stop - c[0][1].start) for _s, c in parts)
+        if covered != (i1 - i0) * (j1 - j0):
+            raise ValueError("window %s x %s reaches shards of other ranks"
+                             % (rows, cols))
+        device = parts[0][0].device if device is None else device
+        out = torch.empty(self.shape[:-2] + (i1 - i0, j1 - j0),
+                          dtype=self.dtype, device=device)
+        for s, (to, frm) in parts:
+            out[(Ellipsis,) + to].copy_(s[(Ellipsis,) + frm])
+        return out
+
+    def assemble(self, device=None):
+        """The whole canvas on ``device`` (default: the first cell's).  On a
+        distributed mesh a collective: every rank must call it, and each
+        receives the whole canvas (on its own device by default)."""
+        n, m = self.shape[-2:]
+        return assemble(self._shards, self.mesh, device=device)[..., :n, :m]
+
+    def numpy(self):
+        """The canvas as one host array, each shard copied into its slice
+        (no device holds more than its own shards).  Not on a distributed
+        mesh, whose other shards live in other processes: there
+        :meth:`assemble` (a collective) or :meth:`local_shards`."""
+        if self.mesh.distributed:
+            raise ValueError("the canvas spans other ranks: assemble() it "
+                             "(a collective) or read local_shards()")
+        out = None
+        for view, (r0, c0, h, w) in self.views():
+            part = view.cpu().numpy()
+            if out is None:
+                out = np.empty(self.shape, dtype=part.dtype)
+            out[..., r0: r0 + h, c0: c0 + w] = part
+        return out
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype, copy=False)
+
+    def __repr__(self):
+        return "ShardedCanvas(%s, %s, %r)" % (self.shape, self.dtype,
+                                             self.mesh)
 
 
 class LocalExchange:
@@ -240,6 +478,12 @@ class LocalExchange:
                 rt = planes[self._index(iy, ix + 1)]
                 p[..., :, m_l + d:].copy_(rt[..., :, d:2 * d])
         return planes
+
+    def recut(self, tensors, src, dst, fill):
+        """The canvas held as ``tensors`` (one per cell) on the layout
+        ``src`` cut anew to the layout ``dst`` (:func:`layout`);
+        ``fill`` where ``src`` does not reach."""
+        return retile(tensors, src, dst, fill)
 
     def reduce(self, values, op="sum"):
         """``op`` ("sum", "min" or "max") over one value (tensor) per shard,

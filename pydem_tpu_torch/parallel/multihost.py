@@ -22,6 +22,7 @@ first.  NCCL takes no two ranks on one card.
 """
 from __future__ import annotations
 
+import atexit
 import os
 
 import torch
@@ -36,7 +37,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     already up).  ``coordinator_address``: ``host:port`` of rank 0 (or any
     ``init_method`` URL); ``backend``: ``"gloo"`` (CPU tensors) or
     ``"nccl"`` (one rank per card: the rank's card becomes the current
-    device first)."""
+    device first).  The group is torn down at exit, as
+    ``jax.distributed`` shuts down, so no rank exits with the back end's
+    threads alive."""
     if num_processes in (None, 1) or dist.is_initialized():
         return
     if backend == "nccl":
@@ -47,6 +50,13 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         url = "tcp://" + url
     dist.init_process_group(backend, init_method=url,
                             world_size=num_processes, rank=process_id)
+    atexit.register(shutdown)
+
+
+def shutdown():
+    """Leave the default process group (no-op when it is not up)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def global_mesh(shape=None, device=None):
@@ -134,13 +144,53 @@ class DistExchange:
                             "max": dist.ReduceOp.MAX}[op])
         return v
 
+    def recut(self, tensors, src, dst, fill):
+        """As :meth:`LocalExchange.recut`, for this rank's one tensor: the
+        parts of its ``src`` piece that other ranks' ``dst`` pieces cover
+        are sent to them, the parts of its ``dst`` piece that other ranks
+        hold are received, all as one batch of point-to-point pairs."""
+        from .mesh import cut
+
+        me, t = self.rank, tensors[0]
+        lead = tuple(t.shape[:-2])
+        dev, (d0, e0, dh, dw) = dst[me]
+        out = torch.full(lead + (dh, dw), fill, dtype=t.dtype, device=dev)
+        r0, c0, h, w = src[me][1]
+        ops, recvs = [], []
+        for peer, (_d, piece) in enumerate(dst):
+            c = cut(((r0, r0 + h), (c0, c0 + w)), piece)
+            if c is None:
+                continue
+            part = t[(Ellipsis,) + c[0]]
+            if peer == me:
+                out[(Ellipsis,) + c[1]].copy_(part)
+            else:
+                ops.append(dist.P2POp(dist.isend, part.contiguous(), peer))
+        for peer, (_d, (s0, t0, sh, sw)) in enumerate(src):
+            c = cut(((s0, s0 + sh), (t0, t0 + sw)), (d0, e0, dh, dw))
+            if peer == me or c is None:
+                continue
+            to = c[1]
+            buf = torch.empty(lead + (to[0].stop - to[0].start,
+                                      to[1].stop - to[1].start),
+                              dtype=t.dtype, device=dev)
+            ops.append(dist.P2POp(dist.irecv, buf, peer))
+            recvs.append((to, buf))
+        if ops:
+            for r in dist.batch_isend_irecv(ops):
+                r.wait()
+        for to, buf in recvs:
+            out[(Ellipsis,) + to].copy_(buf)
+        return [out]
+
     def sum_(self, t):
         """Sum ``t`` over the ranks, in place."""
         dist.all_reduce(t, dist.ReduceOp.SUM)
         return t
 
     def gather(self, shard, device=None):
-        """The whole canvas from every rank's shard, on every rank."""
+        """The whole canvas from every rank's shard, on every rank (what
+        :meth:`ShardedCanvas.assemble` runs on a distributed mesh)."""
         gy, gx = self.mesh.shape
         kind = shard.dtype
         if kind == torch.bool:  # sent as bytes
@@ -172,10 +222,14 @@ def run_global(local_rows, dX, dY, dX2=None, dY2=None, mesh=None,
     ``uca_solver="blocked"`` runs the sharded K1 solver with the rings sent
     between ranks; the per-round change count is the one ``all_reduce``
     that every rank joins.  Returns the dict of
-    :func:`~pydem_tpu_torch.parallel.sharded.run_sharded`, the canvases
-    assembled on every rank."""
+    :func:`~pydem_tpu_torch.parallel.sharded.run_sharded` with sharded
+    outputs, as the JAX version returns them: each canvas a
+    :class:`~pydem_tpu_torch.parallel.mesh.ShardedCanvas` whose
+    ``local_shards()`` is this rank's band.  Slice out your own rows for
+    export, or gather the whole canvas with ``.assemble()`` (a collective
+    that every rank joins)."""
     from . import sharded
-    from .mesh import assemble
+    from .mesh import ShardedCanvas
 
     if mesh is None:
         mesh = global_mesh()
@@ -185,15 +239,18 @@ def run_global(local_rows, dX, dY, dX2=None, dY2=None, mesh=None,
     dev, dt = shard.device, shard.dtype
     args = sharded._row_vectors(n, dt, dev, dX, dY, dX2, dY2)
     pre = sharded._pre_shards([shard], *args, mesh)
+    del shard
+    W_s = pre.pop("W")
     if n_sweeps is not None:
-        area_s, rounds = sharded._jacobi_shards(pre["base"], pre["W"], mesh,
+        area_s, rounds = sharded._jacobi_shards(pre["base"], W_s, mesh,
                                                 n_sweeps=n_sweeps)
     else:
-        area_s, rounds = sharded._solve_shards(pre["base"], pre["W"], mesh,
+        area_s, rounds = sharded._solve_shards(pre["base"], W_s, mesh,
                                                uca_solver=uca_solver)
+    del W_s
     uca_s, twi_s = sharded._post_shards(area_s, pre["flats"], pre["mag"],
-                                        pre["base"], mesh)
-    out = {k: assemble(v, mesh)
+                                        ShardedCanvas(pre["base"], mesh))
+    out = {k: ShardedCanvas(v, mesh)
            for k, v in (("mag", pre["mag"]), ("direction", pre["direction"]),
                         ("flats", pre["flats"]), ("uca", uca_s),
                         ("twi", twi_s))}

@@ -39,6 +39,18 @@ moves with ``ppermute``, ``reduce`` for its ``psum``), in this process
   then boundary is the serial round bit for bit.  The choice is the
   solver's, no caller's (:func:`_use_split`: shards of one card; the JAX
   solver splits only on a TPU).
+- Results stay on their shards: every mesh function returns its canvases
+  as :class:`~pydem_tpu_torch.parallel.mesh.ShardedCanvas`es (the shards
+  on their cells' devices, the logical shape beside them), as the JAX
+  functions return arrays laid over the mesh, and takes a whole canvas (on
+  any device or the host, copied shard by shard to the cells) or a
+  ``ShardedCanvas``.  None assembles a canvas on one device; the caller
+  does, if it wants one (``.assemble()``, ``.numpy()``,
+  ``np.asarray``).  Where the blocked solver needs shards of whole K1
+  blocks and the mesh's are not, base and receivers are re-cut onto the
+  shards of the canvas zero-padded to whole blocks through the mesh's
+  exchange (``recut``), as the engine's solve re-cuts them, and the area
+  cut back.
 - :func:`measure_halo_overlap` times exchange-only, relax-only and full
   rounds (CUDA events on one card, the host clock around a synchronise of
   every card over several, the host clock on the CPU) and reports the
@@ -63,10 +75,12 @@ from ..core.slope_direction import (find_flats_edges, label_flood,
 from ..core.stencil import NEIGHBOR_OFFSETS
 from ..core.twi import twi as twi_fn
 from ..core.uca import accumulate, base_area, finalize_uca, flow_sweep
-from .mesh import Mesh, assemble, make_mesh, shard_dims
+from .mesh import (Mesh, ShardedCanvas, layout, make_mesh, same_mesh,
+                   shard_dims)
 from .mesh import split as _split
 
-__all__ = ["Mesh", "make_mesh", "label_flood_sharded", "terrain_pre",
+__all__ = ["Mesh", "ShardedCanvas", "make_mesh", "label_flood_sharded",
+           "terrain_pre",
            "terrain_post", "terrain_step", "accumulate_sharded",
            "accumulate_sharded_pits", "sharded_uca", "ShardedPipeline",
            "measure_halo_overlap", "run_sharded"]
@@ -85,6 +99,36 @@ def _nanmin(a):
     return torch.where(torch.isnan(a), torch.inf, a).min()
 
 
+def _check_on(canvas, mesh):
+    if not same_mesh(canvas.mesh, mesh):
+        raise ValueError("the canvas is laid over %r, not over %r"
+                         % (canvas.mesh, mesh))
+
+
+def _canvas_shards(canvas, mesh):
+    """The shards this process owns of ``canvas`` over ``mesh``: a
+    :class:`ShardedCanvas`'s own, or a whole canvas (on any device or the
+    host) split.  The mesh must divide the canvas."""
+    if isinstance(canvas, ShardedCanvas):
+        _check_on(canvas, mesh)
+        if canvas.shape != canvas.padded_shape:
+            raise ValueError("a %s canvas in shards of a %s one: the mesh "
+                             "must divide the canvas"
+                             % (canvas.shape, canvas.padded_shape))
+        return canvas.local_shards()
+    return _split(canvas, mesh)
+
+
+def _min_area(base):
+    """The smallest base area of the canvas ``base`` (a
+    :class:`ShardedCanvas`, its padding left out) over the mesh, NaN
+    ignored: a device scalar on the first device."""
+    vals = [_nanmin(v) if v.numel() else
+            torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
+            for v, _piece in base.views()]
+    return base.mesh.exchange().reduce(vals, "min")
+
+
 def terrain_pre(elev, dX, dY, dX2, dY2, fill_flats=False, mesh=None):
     """The stencil first half of the terrain step: slope/direction, flat
     extension, flow splitting, receiver weights, base area, on the device of
@@ -92,19 +136,27 @@ def terrain_pre(elev, dX, dY, dX2, dY2, fill_flats=False, mesh=None):
     :func:`~pydem_tpu_torch.core.flats_device.fill_flats_device`.  Returns
     ``(mag, direction, flats, W, base)``.
 
-    ``mesh``: the stencils run per shard (see the module docstring) and the
-    flat regions are labelled by :func:`label_flood_sharded`; the outputs
-    are assembled on ``elev``'s device and equal the unsharded ones bit for
-    bit.  Flat filling is a global flood and runs on the whole canvas
-    first.  The mesh must divide the canvas (``run_sharded`` pads)."""
+    ``mesh``: ``elev`` is a whole canvas (on any device or the host) or a
+    :class:`ShardedCanvas` over ``mesh``; the stencils run per shard (see
+    the module docstring) and the flat regions are labelled by
+    :func:`label_flood_sharded`.  The outputs are ``ShardedCanvas``es
+    over the mesh (``W``: ``(8, n, m)``), equal to the unsharded ones bit
+    for bit.  Flat filling is a global flood and runs on the whole canvas
+    first, so it needs ``elev`` whole.  The mesh must divide the canvas
+    (``run_sharded`` pads)."""
+    if mesh is not None:
+        if fill_flats:
+            if isinstance(elev, ShardedCanvas):
+                raise ValueError("fill_flats over a mesh fills the whole "
+                                 "canvas first: pass elev whole")
+            elev = fill_flats_device(torch.as_tensor(elev))
+        pre = _pre_shards(_canvas_shards(elev, mesh), dX, dY, dX2, dY2, mesh)
+        return tuple(ShardedCanvas(pre[k], mesh)
+                     for k in ("mag", "direction", "flats", "W", "base"))
     dX, dY, dX2, dY2 = (torch.as_tensor(a, dtype=elev.dtype, device=elev.device)
                         for a in (dX, dY, dX2, dY2))
     if fill_flats:
         elev = fill_flats_device(elev)
-    if mesh is not None:
-        pre = _pre_shards(_split(elev, mesh), dX, dY, dX2, dY2, mesh)
-        return tuple(assemble(pre[k], mesh, device=elev.device)
-                     for k in ("mag", "direction", "flats", "W", "base"))
     mag, direction = slopes_directions(elev, dX, dY)
     flats = find_flats_edges(elev, mag)
     direction = torch.where(flats, FLAT_ID_INT, direction)
@@ -117,7 +169,19 @@ def terrain_pre(elev, dX, dY, dX2, dY2, fill_flats=False, mesh=None):
 
 def terrain_post(area, flats, mag, base):
     """``(uca, twi)`` from the solved area: NaN at flats, and the TWI with
-    the smallest base area."""
+    the smallest base area.  On :class:`ShardedCanvas`es of one mesh and
+    layout: per shard, the smallest base area over the mesh (the canvas's,
+    its padding left out), two ``ShardedCanvas``es back."""
+    if isinstance(area, ShardedCanvas):
+        for c in (flats, mag, base):
+            _check_on(c, area.mesh)
+            if c.padded_shape[-2:] != area.padded_shape[-2:]:
+                raise ValueError("canvases in shards of %s and %s"
+                                 % (area.padded_shape, c.padded_shape))
+        uca_s, twi_s = _post_shards(area.local_shards(), flats.local_shards(),
+                                    mag.local_shards(), base)
+        return (ShardedCanvas(uca_s, area.mesh, area.shape),
+                ShardedCanvas(twi_s, area.mesh, area.shape))
     uca = finalize_uca(area, flats)
     return uca, twi_fn(uca, mag, _nanmin(base))
 
@@ -169,6 +233,12 @@ def _ringed(shards, fill, depth=1):
     return [F.pad(s, (depth,) * 4, value=fill) for s in shards]
 
 
+def _label_dtype(pixels):
+    """The labels' dtype for a canvas of ``pixels``: int32, or int64 from
+    2^31 pixels on (the JAX version's choice; a label is a flat index)."""
+    return torch.int32 if pixels < 2 ** 31 else torch.int64
+
+
 def _flood_shards(mask_s, pay_s, mesh):
     """:func:`label_flood_sharded` on shards."""
     ex = mesh.exchange()
@@ -176,9 +246,7 @@ def _flood_shards(mask_s, pay_s, mesh):
     n_l, m_l = mask_s[0].shape
     n, m = n_l * gy, m_l * gx
     N, NL = n * m, n_l * m_l
-    if N >= 2 ** 31:
-        raise ValueError("label_flood_sharded: canvas has %d pixels >= 2^31; "
-                         "int32 labels would overflow" % N)
+    idt = _label_dtype(N)
     BIG = N
     state = []
     for (iy, ix), mask, pay in zip(mesh.local_shards(), mask_s, pay_s):
@@ -238,7 +306,7 @@ def _flood_shards(mask_s, pay_s, mesh):
     lbl_s, rep_s = [], []
     for mask, loc, gid_t, rep_t in state:
         lbl_s.append(torch.where(mask, gid_t[loc].view(n_l, m_l), BIG)
-                     .to(torch.int32))
+                     .to(idt))
         rep_s.append(torch.where(mask, rep_t[loc].view(n_l, m_l),
                                  float("nan")))
     return lbl_s, rep_s
@@ -247,9 +315,10 @@ def _flood_shards(mask_s, pay_s, mesh):
 def label_flood_sharded(mask, payload, mesh):
     """Connected-component min-index labels and the representative payload,
     as :func:`~pydem_tpu_torch.core.slope_direction.label_flood` gives them
-    (label = the region's smallest global flat index, int32, ``n*m`` off the
-    mask; rep = the payload there, NaN off the mask), computed over
-    ``mesh`` without a global scatter or gather:
+    (label = the region's smallest global flat index, int32 (int64 on a
+    canvas of 2^31 pixels or more), ``n*m`` off the mask; rep = the payload
+    there, NaN off the mask), computed over ``mesh`` without a global
+    scatter or gather:
 
     1. each shard labels its local components with ``label_flood``;
     2. per-component ``(global id, rep)`` tables then converge through outer
@@ -259,12 +328,13 @@ def label_flood_sharded(mask, payload, mesh):
        whether another round runs.
 
     Outer rounds scale with the shard-graph diameter of the largest region,
-    not its pixel diameter.  The mesh must divide the canvas.  Returns the
-    assembled ``(labels, rep)`` on ``mask``'s device."""
-    lbl_s, rep_s = _flood_shards(_split(mask, mesh),
-                                 _split(payload, mesh), mesh)
-    return (assemble(lbl_s, mesh, device=mask.device),
-            assemble(rep_s, mesh, device=mask.device))
+    not its pixel diameter.  ``mask``, ``payload``: whole canvases (on any
+    device or the host) or :class:`ShardedCanvas`es over ``mesh``, which
+    must divide the canvas.  Returns ``(labels, rep)`` as
+    ``ShardedCanvas``es."""
+    lbl_s, rep_s = _flood_shards(_canvas_shards(mask, mesh),
+                                 _canvas_shards(payload, mesh), mesh)
+    return ShardedCanvas(lbl_s, mesh), ShardedCanvas(rep_s, mesh)
 
 
 # -- the pre-stencils per shard ---------------------------------------------
@@ -754,48 +824,84 @@ def _links_of(pit_links, mesh, n_l, m_l, dtype):
     return _ShardedLinks(*pit_links, mesh, n_l, m_l, dtype)
 
 
+def _recut_blocked(base_s, W_s, mesh, B):
+    """``base`` and the compact receivers of ``W`` (dense planes or ``(K,
+    W1)`` pairs) on the shards of their canvas, cut anew onto the shards of
+    the canvas zero-padded to whole ``B``-blocks a shard (exact: pad pixels
+    carry no base area and no weight), as the engine re-cuts its solve;
+    the parts that change shard go through the mesh's exchange.  Returns
+    ``(base shards, (K, W1) shards, the two layouts)``."""
+    from ..ops.uca_block import compact_from_dense
+
+    gy, gx = mesh.shape
+    n_l, m_l = base_s[0].shape
+    n, m = n_l * gy, m_l * gx
+    src = layout(mesh, (n, m))
+    dst = layout(mesh, (n + (-n) % (B * gy), m + (-m) % (B * gx)))
+    ex = mesh.exchange()
+    KW = [w if isinstance(w, tuple) else compact_from_dense(w) for w in W_s]
+    k0, w0 = compact_from_dense(torch.zeros((8, 1, 1),
+                                            dtype=base_s[0].dtype))
+    K = ex.recut([k for k, _ in KW], src, dst, int(k0))
+    W1 = ex.recut([w for _, w in KW], src, dst, float(w0))
+    del KW
+    base_q = ex.recut([b.contiguous() for b in base_s], src, dst, 0.0)
+    return base_q, list(zip(K, W1)), src, dst
+
+
 def _solve_shards(base_s, W_s, mesh, pit_links=None, uca_solver="blocked",
                   B=None):
     """The UCA fixed point on the shards of an (n, m) canvas (``pit_links``
     index it).  The blocked solver's block size ``B`` defaults to one
     device's for the whole canvas (:func:`_block_size`), so that the solve
     equals that device's round for round; it needs shards that are
-    multiples of ``B``: others are assembled, zero-padded (exact: pad pixels
-    carry no weight and no base area) and split again.  Returns ``(area
-    shards, rounds)``."""
+    multiples of ``B``: others are re-cut onto whole blocks
+    (:func:`_recut_blocked`) and the area cut back.  Nothing is assembled.
+    Returns ``(area shards, rounds)``."""
     _check_solver(uca_solver)
     n_l, m_l = base_s[0].shape
     dt = base_s[0].dtype
     if uca_solver == "jacobi":
         return _jacobi_shards(base_s, W_s, mesh,
                               _links_of(pit_links, mesh, n_l, m_l, dt))
+    gy, gx = mesh.shape
+    m = m_l * gx
     if B is None:
-        B = _block_size(n_l * mesh.shape[0], m_l * mesh.shape[1])
+        B = _block_size(n_l * gy, m)
     if n_l % B == 0 and m_l % B == 0:
         return _blocked_shards(base_s, W_s, mesh, B,
                                links=_links_of(pit_links, mesh, n_l, m_l, dt))
-    area, rounds = sharded_uca(assemble(base_s, mesh), assemble(W_s, mesh),
-                               mesh, pit_links=pit_links, B=B)
-    return _split(area, mesh), rounds
+    base_q, KW, src, dst = _recut_blocked(base_s, W_s, mesh, B)
+    nq_l, mq_l = base_q[0].shape
+    if pit_links is not None and len(pit_links[0]):
+        s_, d_, w = (torch.as_tensor(v) for v in pit_links)
+        mq = mq_l * gx  # flat indices into the padded canvas
+        pit_links = ((s_ // m) * mq + s_ % m, (d_ // m) * mq + d_ % m, w)
+    area_q, rounds = _blocked_shards(
+        base_q, KW, mesh, B, links=_links_of(pit_links, mesh, nq_l, mq_l, dt))
+    del base_q, KW
+    return mesh.exchange().recut(area_q, dst, src, 0.0), rounds
 
 
 def accumulate_sharded(base, W, mesh, B=None, inner_max=None,
                        max_rounds=100_000):
     """The UCA fixed point by K1 ring rounds over ``mesh`` (see the module
-    docstring): ``base`` (n, m) and ``W`` (8, n, m) on any device, the mesh
-    dividing the canvas into shards that are multiples of ``B`` (default:
-    64 or 16, the largest that fits, :func:`_shard_block_size`); the split
-    round runs where :func:`_use_split` picks it.  Returns
-    ``(area, rounds)``, the area assembled on ``base``'s device; both equal
-    ``accumulate_blocked_gs(base, W, B=B)`` on one device bit for bit."""
-    n_l, m_l = shard_dims(base.shape, mesh)
+    docstring): ``base`` (n, m) and ``W`` (8, n, m), whole (on any device
+    or the host) or :class:`ShardedCanvas`es, the mesh dividing the
+    canvas into shards that are multiples of ``B`` (default: 64 or 16, the
+    largest that fits, :func:`_shard_block_size`); the split round runs
+    where :func:`_use_split` picks it.  Returns ``(area, rounds)``, the
+    area a ``ShardedCanvas``; both equal ``accumulate_blocked_gs(base, W,
+    B=B)`` on one device bit for bit."""
+    base_s, W_s = _canvas_shards(base, mesh), _canvas_shards(W, mesh)
+    n_l, m_l = base_s[0].shape
     B = _shard_block_size(n_l, m_l) if B is None else B
     if B is None:
         raise ValueError("shard %dx%d too small for the blocked solver"
                          % (n_l, m_l))
-    area_s, rounds = _blocked_shards(_split(base, mesh), _split(W, mesh),
-                                     mesh, B, inner_max, max_rounds)
-    return assemble(area_s, mesh, device=base.device), rounds
+    area_s, rounds = _blocked_shards(base_s, W_s, mesh, B, inner_max,
+                                     max_rounds)
+    return ShardedCanvas(area_s, mesh), rounds
 
 
 def accumulate_sharded_pits(base, W, mesh, pit_src, pit_dst, pit_w, B=None,
@@ -806,40 +912,57 @@ def accumulate_sharded_pits(base, W, mesh, pit_src, pit_dst, pit_w, B=None,
     ``accumulate_blocked_pits_gs`` folds them on one canvas (blocks whose
     folded base moved join the frontier).  The compact receivers are
     exchanged once.  Equal to ``accumulate_blocked_pits_gs`` on one device
-    bit for bit, values and rounds."""
-    n_l, m_l = shard_dims(base.shape, mesh)
+    bit for bit, values and rounds; the area a :class:`ShardedCanvas`."""
+    base_s, W_s = _canvas_shards(base, mesh), _canvas_shards(W, mesh)
+    n_l, m_l = base_s[0].shape
     B = _shard_block_size(n_l, m_l) if B is None else B
     if B is None:
         raise ValueError("shard %dx%d too small for the blocked solver"
                          % (n_l, m_l))
-    links = _links_of((pit_src, pit_dst, pit_w), mesh, n_l, m_l, base.dtype)
-    area_s, rounds = _blocked_shards(_split(base, mesh), _split(W, mesh),
-                                     mesh, B, inner_max, max_rounds,
-                                     links=links)
-    return assemble(area_s, mesh, device=base.device), rounds
+    links = _links_of((pit_src, pit_dst, pit_w), mesh, n_l, m_l,
+                      base_s[0].dtype)
+    area_s, rounds = _blocked_shards(base_s, W_s, mesh, B, inner_max,
+                                     max_rounds, links=links)
+    return ShardedCanvas(area_s, mesh), rounds
 
 
-def _pad_to(a, n, m):
-    return F.pad(a, (0, m - a.shape[-1], 0, n - a.shape[-2]))
+def _padded_shards(base, W, mesh, q):
+    """``base`` and ``W`` as the shards of their (n, m) canvas zero-padded
+    to a multiple of ``q`` times the mesh's shape: split so from whole
+    canvases; a :class:`ShardedCanvas`'s own shards, its padding zeroed
+    (the re-cut of :func:`_solve_shards` takes them onto whole blocks where
+    they are not).  Returns ``(base shards, W shards, padded columns)``."""
+    n, m = base.shape[-2:]
+    if isinstance(base, ShardedCanvas):
+        for c in (base, W):
+            _check_on(c, mesh)
+        if not isinstance(W, ShardedCanvas) or W.shape[-2:] != (n, m) \
+                or W.padded_shape[-2:] != base.padded_shape[-2:]:
+            raise ValueError("base and W must be laid out alike")
+        return base.filled(0.0), W.filled(0.0), base.padded_shape[-1]
+    gy, gx = mesh.shape
+    shape = (n + (-n) % (q * gy), m + (-m) % (q * gx))
+    return (_split(base, mesh, shape=shape), _split(W, mesh, shape=shape),
+            shape[1])
 
 
 def sharded_uca(base, W, mesh, pit_links=None, uca_solver="blocked", B=None):
     """The UCA fixed point over ``mesh`` from unpadded ``base`` (n, m) and
-    ``W`` (8, n, m).  The canvas is zero-padded to a multiple of the mesh
-    (and, for ``"blocked"``, of ``B`` on every shard; ``B`` defaults to one
-    device's for the canvas, :func:`_block_size`, so the rounds are that
-    device's) — exact, since pad pixels carry no base area and no weight —
-    and the result cut back.  ``pit_links``: optional ``(src, dst,
-    w)`` flat indices into the unpadded canvas.  ``"jacobi"``: sharded
-    sweeps, equal to ``core.uca.accumulate`` bit for bit.  Returns
-    ``(area, rounds)`` with the area on ``base``'s device."""
+    ``W`` (8, n, m): whole canvases (on any device or the host), which the
+    mesh need not divide, or :class:`ShardedCanvas`es of that logical
+    shape.  The canvas is zero-padded to a multiple of the mesh (and, for
+    ``"blocked"``, of ``B`` on every shard; ``B`` defaults to one device's
+    for the canvas, :func:`_block_size`, so the rounds are that device's)
+    — exact, since pad pixels carry no base area and no weight.
+    ``pit_links``: optional ``(src, dst, w)`` flat indices into the
+    unpadded canvas.  ``"jacobi"``: sharded sweeps, equal to
+    ``core.uca.accumulate`` bit for bit.  Returns ``(area, rounds)``, the
+    area a ``ShardedCanvas`` of shape (n, m) in the padded shards."""
     _check_solver(uca_solver)
-    n, m = base.shape
-    gy, gx = mesh.shape
+    n, m = base.shape[-2:]
     if uca_solver == "blocked" and B is None:
         B = _block_size(n, m)
-    q = (B or 1)
-    np_, mp_ = n + (-n) % (q * gy), m + (-m) % (q * gx)
+    base_s, W_s, mp_ = _padded_shards(base, W, mesh, B or 1)
     if pit_links is not None and len(pit_links[0]):
         src, dst, w = (torch.as_tensor(v) for v in pit_links)
         # flat indices into the padded canvas
@@ -847,16 +970,15 @@ def sharded_uca(base, W, mesh, pit_links=None, uca_solver="blocked", B=None):
                      w)
     else:
         pit_links = None
-    base_s = _split(_pad_to(base, np_, mp_), mesh)
-    W_s = _split(_pad_to(W, np_, mp_), mesh)
     area_s, rounds = _solve_shards(base_s, W_s, mesh, pit_links, uca_solver,
                                    B)
-    return assemble(area_s, mesh, device=base.device)[:n, :m], rounds
+    return ShardedCanvas(area_s, mesh, (n, m)), rounds
 
 
-def _post_shards(area_s, flats_s, mag_s, base_s, mesh):
-    """uca and twi per shard, with the smallest base area of the mesh."""
-    min_area = mesh.exchange().reduce([_nanmin(b) for b in base_s], "min")
+def _post_shards(area_s, flats_s, mag_s, base):
+    """uca and twi per shard, with the smallest base area of the canvas
+    ``base`` (a :class:`ShardedCanvas`) over the mesh."""
+    min_area = _min_area(base)
     uca_s = [finalize_uca(a, f) for a, f in zip(area_s, flats_s)]
     twi_s = [twi_fn(u, mg, min_area.to(u.device))
              for u, mg in zip(uca_s, mag_s)]
@@ -885,15 +1007,20 @@ class ShardedPipeline:
     :meth:`uca` then solves the accumulation fixed point over the mesh with
     the host's pit links.  The engine behind
     ``ProcessManager(mesh=...).process_aspect_slope`` / ``process_uca``.
-    The mesh must divide the canvas."""
+    The mesh must divide the canvas; the elevation (a host array or a
+    tensor) is copied to the cells shard by shard, and the host arrays are
+    filled shard by shard (:meth:`ShardedCanvas.numpy`)."""
 
     def __init__(self, elev, dX, dY, dX2, dY2, mesh, uca_solver="blocked"):
         _check_solver(uca_solver)
         self.mesh = mesh
         self.uca_solver = uca_solver
-        dev = mesh.devices.flat[0]
+        dev = mesh.devices[mesh.local_shards()[0]]
         self.dtype = default_dtype(dev)
-        elev = torch.as_tensor(np.asarray(elev), dtype=self.dtype).to(dev)
+        if isinstance(elev, torch.Tensor):
+            elev = elev.to(self.dtype)
+        else:
+            elev = torch.as_tensor(np.asarray(elev), dtype=self.dtype)
         shard_dims(elev.shape, mesh)
         self.shape = tuple(elev.shape)
         self.elev_s = _split(elev, mesh)
@@ -902,12 +1029,14 @@ class ShardedPipeline:
         self._pre = None
         self.uca_rounds = -1
 
+    def _canvas(self, shards):
+        return ShardedCanvas(shards, self.mesh)
+
     def pre(self):
         """Slope/direction/flats over the mesh; returns host arrays."""
         self._pre = _pre_shards(self.elev_s, *self.args, self.mesh)
-        self.min_area = float(self.mesh.exchange().reduce(
-            [_nanmin(b) for b in self._pre["base"]], "min"))
-        return tuple(assemble(self._pre[k], self.mesh).cpu().numpy()
+        self.min_area = float(_min_area(self._canvas(self._pre["base"])))
+        return tuple(self._canvas(self._pre[k]).numpy()
                      for k in ("mag", "direction", "flats"))
 
     def uca(self, pit_links=None):
@@ -917,7 +1046,7 @@ class ShardedPipeline:
         area_s, rounds = _solve_shards(self._pre["base"], self._pre["W"],
                                        self.mesh, pit_links, self.uca_solver)
         self.uca_rounds = int(rounds)
-        return assemble(area_s, self.mesh).cpu().numpy(), self.uca_rounds
+        return self._canvas(area_s).numpy(), self.uca_rounds
 
     def halo_metrics(self, measure=False):
         """The per-round ring geometry of the decomposition (pixels and
@@ -934,9 +1063,9 @@ class ShardedPipeline:
                "mesh_shape": [int(gy), int(gx)],
                "uca_rounds": self.uca_rounds}
         if measure and self._pre is not None:
-            out.update(measure_halo_overlap(
-                assemble(self._pre["base"], self.mesh),
-                assemble(self._pre["W"], self.mesh), self.mesh))
+            out.update(measure_halo_overlap(self._canvas(self._pre["base"]),
+                                            self._canvas(self._pre["W"]),
+                                            self.mesh))
         return out
 
 
@@ -955,16 +1084,20 @@ def measure_halo_overlap(base, W, mesh, rounds=8, B=None):
     its own streams), and with the host clock on the CPU; best of 3 after a
     warm-up.  ``"one_card"``: every shard was on one GPU, so the exchange is
     a copy on that card, not a link between cards; ``"cards"``: the
-    distinct devices."""
-    n, m = base.shape
-    gy, gx = mesh.shape
-    B = _block_size(n, m) if B is None else B
-    np_, mp_ = n + (-n) % (B * gy), m + (-m) % (B * gx)
-    base_s = _split(_pad_to(base, np_, mp_), mesh)
+    distinct devices.  ``base``, ``W``: as :func:`sharded_uca` takes them
+    (the canvas zero-padded to whole blocks a shard)."""
     from ..ops.uca_block import compact_from_dense
 
-    KW = [compact_from_dense(w) for w in _split(_pad_to(W, np_, mp_), mesh)]
-    nb = (np_ // gy // B, mp_ // gx // B)
+    n, m = base.shape[-2:]
+    B = _block_size(n, m) if B is None else B
+    base_s, W_s, _mp = _padded_shards(base, W, mesh, B)
+    if base_s[0].shape[0] % B or base_s[0].shape[1] % B:
+        base_s, KW, _src, _dst = _recut_blocked(base_s, W_s, mesh, B)
+    else:
+        KW = [compact_from_dense(w) for w in W_s]
+    del W_s
+    base_s = [b.contiguous() for b in base_s]
+    nb = (base_s[0].shape[0] // B, base_s[0].shape[1] // B)
     st = _ShardRounds(mesh, base_s, [k for k, _ in KW], [w for _, w in KW],
                       B, 2 * B + 4, _use_split(mesh, nb))
     x0 = [x.clone() for x in st.x]
@@ -1018,41 +1151,53 @@ def measure_halo_overlap(base, W, mesh, rounds=8, B=None):
 def run_sharded(elev, dX, dY, dX2=None, dY2=None, mesh=None, n_sweeps=None,
                 uca_solver="jacobi"):
     """The terrain step over ``mesh`` (default: :func:`make_mesh`, every
-    visible GPU).  The canvas (a numpy array or tensor, its dtype kept) is
-    split over the mesh; a canvas the mesh does not divide is extended with
-    NaN (no-data) rows and columns first — the padded canvas is then the
-    computed domain, as in the JAX version — and the outputs cut back.
+    visible GPU).  ``elev``: a whole canvas (a numpy array or a tensor on
+    any device, its dtype kept), copied to the cells shard by shard, or a
+    :class:`ShardedCanvas` over ``mesh``, built shard by shard on the
+    cells.  A canvas the mesh does not divide is extended with NaN
+    (no-data) rows and columns — the padded canvas is then the computed
+    domain, as in the JAX version — and the outputs are cropped to it.
 
     ``n_sweeps``: that many Jacobi sweeps; else ``uca_solver``: ``"jacobi"``
     (sweeps over the shards to the fixed point) or ``"blocked"`` (the
     sharded K1 solver, :func:`accumulate_sharded`).
-    Returns the dict of :func:`terrain_step`, its canvases assembled on the
-    first mesh device: equal to ``terrain_step`` on the same (padded) canvas
-    bit for bit, ``uca_sweeps`` included."""
+    Returns the dict of :func:`terrain_step`, its canvases
+    ``ShardedCanvas``es left on their shards (as the JAX version leaves
+    them sharded; ``.assemble()`` or ``np.asarray`` for a whole one): equal
+    to ``terrain_step`` on the same (padded) canvas bit for bit,
+    ``uca_sweeps`` included."""
     if mesh is None:
         mesh = make_mesh()
     _check_solver(uca_solver)
-    dev = mesh.devices.flat[0]
-    elev = torch.as_tensor(elev).to(dev)
-    n_, m_ = elev.shape
-    dt = elev.dtype
-    dX, dY, dX2, dY2 = _row_vectors(n_, dt, dev, dX, dY, dX2, dY2)
     gy, gx = mesh.shape
-    pad_n, pad_m = (-n_) % gy, (-m_) % gx
-    if pad_n or pad_m:
-        elev = F.pad(elev, (0, pad_m, 0, pad_n), value=float("nan"))
-        dX, dY, dX2, dY2 = (_extend_rows(v, pad_n) for v in (dX, dY, dX2,
-                                                              dY2))
-    pre = _pre_shards(_split(elev, mesh), dX, dY, dX2, dY2, mesh)
+    if isinstance(elev, ShardedCanvas):
+        _check_on(elev, mesh)
+        n_, m_ = elev.shape
+        n = elev.padded_shape[0]
+        elev_s = elev.filled(float("nan"))
+    else:
+        if not isinstance(elev, torch.Tensor):
+            elev = torch.as_tensor(np.asarray(elev))
+        n_, m_ = elev.shape
+        n = n_ + (-n_) % gy
+        elev_s = _split(elev, mesh, shape=(n, m_ + (-m_) % gx),
+                        pad=float("nan"))
+    dev = mesh.devices[mesh.local_shards()[0]]
+    dX, dY, dX2, dY2 = (_extend_rows(v, n - n_) for v in _row_vectors(
+        n_, elev_s[0].dtype, dev, dX, dY, dX2, dY2))
+    pre = _pre_shards(elev_s, dX, dY, dX2, dY2, mesh)
+    del elev_s
+    W_s = pre.pop("W")
     if n_sweeps is not None:
-        area_s, rounds = _jacobi_shards(pre["base"], pre["W"], mesh,
+        area_s, rounds = _jacobi_shards(pre["base"], W_s, mesh,
                                         n_sweeps=n_sweeps)
     else:
-        area_s, rounds = _solve_shards(pre["base"], pre["W"], mesh,
+        area_s, rounds = _solve_shards(pre["base"], W_s, mesh,
                                        uca_solver=uca_solver)
+    del W_s
     uca_s, twi_s = _post_shards(area_s, pre["flats"], pre["mag"],
-                                pre["base"], mesh)
-    out = {k: assemble(v, mesh)[:n_, :m_]
+                                ShardedCanvas(pre["base"], mesh, (n_, m_)))
+    out = {k: ShardedCanvas(v, mesh, (n_, m_))
            for k, v in (("mag", pre["mag"]), ("direction", pre["direction"]),
                         ("flats", pre["flats"]), ("uca", uca_s),
                         ("twi", twi_s))}

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import make_hard_terrain, ring_window
+from chip_smoke import make_cone, make_hard_terrain, ring_window
 from pydem_tpu_torch.api import DEMProcessor
 from pydem_tpu_torch.ops import uca_block as ub
 from pydem_tpu_torch.parallel.sharded import terrain_pre
@@ -460,7 +460,7 @@ def test_sharded_equals_single_device_on_the_card(cuda, shape):
     before = ub.launch_count(ub.gs_round_subset)
     out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
     for key in ("mag", "direction", "flats", "uca", "twi"):
-        assert torch.equal(torch.nan_to_num(out[key].double()),
+        assert torch.equal(torch.nan_to_num(out[key].assemble().double()),
                            torch.nan_to_num(single[key].double())), key
     assert out["uca_sweeps"] == single["uca_sweeps"]
     assert (ub.launch_count(ub.gs_round_subset) > before) == splits
@@ -476,7 +476,7 @@ def test_sharded_equals_single_device_on_the_card(cuda, shape):
     links = _pit_links(cuda, n, n)
     want, rw = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
     got, rg = accumulate_sharded_pits(base, W, mesh, *links, B=64)
-    assert rg == rw and torch.equal(got, want)
+    assert rg == rw and torch.equal(got.assemble(), want)
 
 
 @pytest.fixture
@@ -506,8 +506,9 @@ def test_sharded_over_four_cards_equals_one_card(four_cards, force):
         single = terrain_step(elev, *rows, uca_solver="blocked")
         out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
         for key in ("mag", "direction", "flats", "uca", "twi"):
-            assert torch.equal(torch.nan_to_num(out[key].double()),
-                               torch.nan_to_num(single[key].double())), key
+            assert torch.equal(
+                torch.nan_to_num(out[key].assemble(dev0).double()),
+                torch.nan_to_num(single[key].double())), key
         assert out["uca_sweeps"] == single["uca_sweeps"]
     W, base = _state(dev0, n, n)
     want, rw = ub.accumulate_blocked_gs(base, W, B=64)
@@ -515,7 +516,8 @@ def test_sharded_over_four_cards_equals_one_card(four_cards, force):
         fn.launches_on.clear()
     area, rounds = sharded._blocked_shards(split(base, mesh), split(W, mesh),
                                            mesh, 64, _force_split=force)
-    assert rounds == rw and torch.equal(assemble(area, mesh), want)
+    assert rounds == rw and torch.equal(assemble(area, mesh, device=dev0),
+                                        want)
     split_ = sharded._blocked_shards.last_split
     used = (ub.gs_round_subset if split_ else ub.gs_round_ring).launches_on
     assert all(used[d] > 0 for d in four_cards), dict(used)
@@ -525,7 +527,62 @@ def test_sharded_over_four_cards_equals_one_card(four_cards, force):
         split(base, mesh), split(W, mesh), mesh, 64,
         links=sharded._links_of(links, mesh, n // 2, n // 2, base.dtype),
         _force_split=force)
-    assert rounds == rw and torch.equal(assemble(area, mesh), want)
+    assert rounds == rw and torch.equal(assemble(area, mesh, device=dev0),
+                                        want)
+
+
+def test_sharded_outputs_stay_on_their_cards(four_cards):
+    """run_sharded over a 2x2 mesh of the four cards, its canvas given from
+    the host: every output shard lies on its cell's card, and the host
+    copies equal one card's terrain_step bitwise."""
+    from pydem_tpu_torch.parallel.mesh import ShardedCanvas, make_mesh
+    from pydem_tpu_torch.parallel.sharded import run_sharded, terrain_step
+
+    n = 1024
+    mesh = make_mesh(four_cards, (2, 2))
+    elev = make_hard_terrain(n, "float32")
+    rows = (np.ones(n - 1), np.ones(n - 1), np.ones(n), np.ones(n))
+    out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
+    single = terrain_step(torch.from_numpy(elev).to(four_cards[0]),
+                          *(torch.from_numpy(v).float().to(four_cards[0])
+                            for v in rows), uca_solver="blocked")
+    assert out["uca_sweeps"] == single["uca_sweeps"]
+    for key in ("mag", "direction", "flats", "uca", "twi"):
+        c = out[key]
+        assert isinstance(c, ShardedCanvas) and c.shape == (n, n), key
+        for cell, s in zip(mesh.local_shards(), c.local_shards()):
+            assert s.device == mesh.devices[cell], (key, cell, s.device)
+        a, b = np.asarray(c), single[key].cpu().numpy()
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), key
+
+
+def test_first_card_holds_no_more_than_the_others(four_cards):
+    """With the canvas given from the host, no card stages the whole
+    canvas or another card's outputs: after a run, cuda:0's peak is within
+    10% of the largest of the other cards'."""
+    import gc
+
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+    from pydem_tpu_torch.parallel.sharded import run_sharded
+
+    n = 2048
+    mesh = make_mesh(four_cards, (2, 2))
+    elev = make_cone(n)  # the four shards mirror each other
+    rows = (np.ones(n - 1), np.ones(n - 1), np.ones(n), np.ones(n))
+    run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")  # warm-up
+    gc.collect()
+    for d in four_cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    held = {d: torch.cuda.memory_allocated(d) for d in four_cards}
+    out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
+    for d in four_cards:
+        torch.cuda.synchronize(d)
+    peak = {d: torch.cuda.max_memory_allocated(d) - held[d]
+            for d in four_cards}
+    others = max(peak[d] for d in four_cards[1:])
+    assert peak[four_cards[0]] <= 1.10 * others, peak
+    del out
 
 
 def test_engine_over_four_cards_equals_one_card(four_cards, tmp_path):

@@ -35,7 +35,8 @@ elev = np.round((1 - np.sqrt(x ** 2 + y ** 2) / np.sqrt(2.0)) * 40) / 40 + 0.05
 band = elev[pid * (n // 2): (pid + 1) * (n // 2)]
 out = multihost.run_global(band, np.ones(n - 1), np.ones(n - 1), np.ones(n),
                            np.ones(n), uca_solver=solver)
-res = {k: out[k].numpy() for k in ("mag", "direction", "flats", "uca", "twi")}
+res = {k: out[k].assemble().numpy()
+       for k in ("mag", "direction", "flats", "uca", "twi")}
 res["rounds"] = out["uca_sweeps"]
 if solver == "blocked":
     ones = torch.ones(n, dtype=torch.float64)
@@ -45,7 +46,7 @@ if solver == "blocked":
              for k in ("src", "dst", "w")]
     area, rounds = sharded.accumulate_sharded_pits(
         base.contiguous(), W, multihost.global_mesh(), *links, B=8)
-    res["pits_area"], res["pits_rounds"] = area.numpy(), rounds
+    res["pits_area"], res["pits_rounds"] = area.assemble().numpy(), rounds
 if pid == 0:
     np.savez(out_fn, **res)
 """ % N
@@ -133,7 +134,25 @@ res["gather"] = mesh.exchange().gather(split(torch.from_numpy(z["f"]),
                                              mesh)[0])
 area, rounds = sharded.accumulate_sharded(
     torch.from_numpy(z["base"]), torch.from_numpy(z["W"]), mesh, B=8)
-res["area"], res["rounds"] = area, torch.tensor(rounds)
+res["area"], res["rounds"] = area.assemble(), torch.tensor(rounds)
+# run_global on (4, 1) row bands that are not whole K1 blocks (re-cut
+# between the ranks): each rank's outputs stay its band
+canvas = z["canvas"]
+band = canvas.shape[0] // 4
+n = canvas.shape[0]
+ones = np.ones(n)
+out = multihost.run_global(canvas[pid * band: (pid + 1) * band], ones[1:],
+                           ones[1:], ones, ones, uca_solver="blocked")
+for k in ("mag", "direction", "flats", "uca", "twi"):
+    res["rg_band_" + k] = out[k].local_shards()[0]
+    res["rg_whole_" + k] = out[k].assemble()
+res["rg_shards"] = torch.tensor(len(out["uca"].local_shards()))
+res["rg_rounds"] = torch.tensor(out["uca_sweeps"])
+try:
+    np.asarray(out["uca"])
+    res["rg_numpy_refused"] = torch.tensor(0)
+except ValueError:
+    res["rg_numpy_refused"] = torch.tensor(1)
 np.savez(out_fn + ".%d.npz" % pid, **{k: v.numpy() for k, v in res.items()})
 """
 
@@ -142,7 +161,8 @@ np.savez(out_fn + ".%d.npz" % pid, **{k: v.numpy() for k, v in res.items()})
 def four_ranks(tmp_path_factory):
     """Four gloo processes on a 2x2 global mesh: each rank's ringed planes
     after ``halo`` (depth 1 and 2, float64 and int32), the three
-    reductions, the gathered canvas and the sharded K1 solve."""
+    reductions, the gathered canvas and the sharded K1 solve; then
+    ``run_global(blocked)`` on the default (4, 1) mesh of row bands."""
     from pydem_tpu_torch import fixtures
 
     tmp = tmp_path_factory.mktemp("four")
@@ -153,9 +173,11 @@ def four_ranks(tmp_path_factory):
     _m, _d, _f, W, base = sharded.terrain_pre(
         torch.from_numpy(np.ascontiguousarray(elev, "float64")), ones[1:],
         ones[1:], ones, ones)
+    canvas, _a, _u = fixtures.get_test_case(5, RG_SHAPE[0])
     inputs = dict(f=rng.rand(n, n), i=rng.randint(0, 99, (n, n)).astype(
         np.int32), vals=rng.rand(4), base=base.contiguous().numpy(),
-        W=W.numpy())
+        W=W.numpy(), canvas=np.ascontiguousarray(
+            canvas[:, : RG_SHAPE[1]], "float64"))
     out_fn = str(tmp / "out")
     np.savez(out_fn + ".in.npz", **inputs)
     script = tmp / "rank.py"
@@ -172,6 +194,12 @@ def four_ranks(tmp_path_factory):
         assert p.returncode == 0, se.decode()[-3000:]
     return inputs, [dict(np.load(out_fn + ".%d.npz" % pid))
                     for pid in range(4)]
+
+
+# run_global's canvas: 10-row bands, not whole 16-blocks, so the solve
+# re-cuts them between the ranks
+RG_SHAPE = (40, 24)
+RG_KEYS = ("mag", "direction", "flats", "uca", "twi")
 
 
 def _local_mesh():
@@ -214,9 +242,65 @@ def test_four_rank_gather_and_solve_equal_local(four_ranks):
     inputs, ranks = four_ranks
     base, W = torch.from_numpy(inputs["base"]), torch.from_numpy(inputs["W"])
     area, rounds = sharded.accumulate_sharded(base, W, _local_mesh(), B=8)
+    area = area.assemble()
     one, one_rounds = ub.accumulate_blocked_gs(base, W, B=8)
     assert rounds == one_rounds and torch.equal(area, one)
     for pid in range(4):
         np.testing.assert_array_equal(ranks[pid]["gather"], inputs["f"])
         np.testing.assert_array_equal(ranks[pid]["area"], area.numpy())
         assert int(ranks[pid]["rounds"]) == rounds
+
+
+def test_four_rank_run_global_holds_only_its_band(four_ranks):
+    """run_global leaves each output on its rank: one shard, the rank's
+    10-row band, equal to those rows of the gathered canvas; np.asarray of
+    a canvas that spans other ranks is refused (assemble() gathers)."""
+    _inputs, ranks = four_ranks
+    band = RG_SHAPE[0] // 4
+    for pid in range(4):
+        r = ranks[pid]
+        assert int(r["rg_shards"]) == 1 and int(r["rg_numpy_refused"]) == 1
+        for key in RG_KEYS:
+            local, whole = r["rg_band_" + key], r["rg_whole_" + key]
+            assert local.shape == (band, RG_SHAPE[1]), key
+            np.testing.assert_array_equal(
+                local, whole[pid * band: (pid + 1) * band], err_msg=key)
+            np.testing.assert_array_equal(whole, ranks[0]["rg_whole_" + key],
+                                          err_msg=key)
+
+
+def test_four_rank_run_global_equals_run_sharded_and_jax(four_ranks):
+    """The gathered bands equal run_sharded(blocked) on a local (4, 1) mesh
+    bit for bit, rounds too, and the JAX run_sharded on a JAX (4, 1) mesh
+    (NaN patterns equal, values to decimal=10)."""
+    from functools import partial
+
+    import jax
+
+    from pydem_tpu.parallel import sharded as j_sharded
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    inputs, ranks = four_ranks
+    canvas = inputs["canvas"]
+    n = canvas.shape[0]
+    rows = (np.ones(n - 1), np.ones(n - 1), np.ones(n), np.ones(n))
+    mesh = make_mesh([torch.device("cpu")] * 4, (4, 1))
+    want = sharded.run_sharded(canvas, *rows, mesh=mesh, uca_solver="blocked")
+    jmesh = j_sharded.make_mesh(jax.devices()[:4], shape=(4, 1))
+    jax_out = jax.jit(partial(j_sharded.run_sharded, mesh=jmesh,
+                              uca_solver="jacobi"))(canvas, *rows)
+    got = ranks[0]
+    assert int(got["rg_rounds"]) == want["uca_sweeps"]
+    for key in RG_KEYS:
+        g = got["rg_whole_" + key]
+        w = np.asarray(want[key])
+        assert g.dtype == w.dtype and np.array_equal(
+            g, w, equal_nan=g.dtype.kind == "f"), key
+        j = np.asarray(jax_out[key])
+        if g.dtype.kind == "f":
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(j),
+                                          err_msg=key)
+            np.testing.assert_array_almost_equal(
+                np.nan_to_num(g), np.nan_to_num(j), decimal=10, err_msg=key)
+        else:
+            np.testing.assert_array_equal(g, j, err_msg=key)

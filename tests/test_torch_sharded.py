@@ -103,9 +103,10 @@ def _sharded_solve(base, W, mesh, split_round, links=None):
     """The public solver where it takes the serial round (on the CPU it
     always does); the split round through the solver's private switch."""
     if not split_round:
-        got = (sharded.accumulate_sharded(base, W, mesh, B=8)
-               if links is None else
-               sharded.accumulate_sharded_pits(base, W, mesh, *links, B=8))
+        area, rounds = (
+            sharded.accumulate_sharded(base, W, mesh, B=8) if links is None
+            else sharded.accumulate_sharded_pits(base, W, mesh, *links, B=8))
+        got = (area.assemble(), rounds)
     else:
         n_l, m_l = shard_dims(base.shape, mesh)
         area_s, rounds = sharded._blocked_shards(
@@ -168,6 +169,7 @@ def test_sharded_uca_pads_and_equals_one_device(solver):
     links = _links(45, 70, count=40)
     got, rg = sharded.sharded_uca(base, W, _mesh((2, 4)), pit_links=links,
                                   uca_solver=solver, B=16)
+    got = got.assemble()
     if solver == "jacobi":
         want, rw = accumulate(base, W, *links)
     else:
@@ -194,6 +196,7 @@ def test_label_flood_sharded_matches_label_flood(shape):
     e = torch.from_numpy(elev)
     lbl, rep = label_flood(mask, e)
     lbl_s, rep_s = sharded.label_flood_sharded(mask, e, _mesh(shape))
+    lbl_s, rep_s = lbl_s.assemble(), rep_s.assemble()
     assert lbl_s.dtype == lbl.dtype == torch.int32
     assert torch.equal(lbl_s, lbl)
     assert torch.equal(torch.nan_to_num(rep_s), torch.nan_to_num(rep))
@@ -211,6 +214,7 @@ def test_terrain_pre_mesh_equals_unsharded(case):
     elev = torch.from_numpy(np.asarray(elev, "float64"))
     want = sharded.terrain_pre(elev, *_ones(n))
     got = sharded.terrain_pre(elev, *_ones(n), mesh=_mesh((3, 3)))
+    got = [c.assemble() for c in got]
     for a, b, name in zip(want, got, ("mag", "dir", "flats", "W", "base")):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         if a.is_floating_point():
@@ -278,7 +282,7 @@ def test_run_sharded_matches_jax_terrain_step(case, solver):
     _assert_step(got, want)
     one = sharded.terrain_step(t_elev, *_ones(n), uca_solver=solver)
     for key in ("mag", "direction", "flats", "uca", "twi"):
-        assert torch.equal(torch.nan_to_num(got[key].double()),
+        assert torch.equal(torch.nan_to_num(got[key].assemble().double()),
                            torch.nan_to_num(one[key].double())), key
     assert got["uca_sweeps"] == one["uca_sweeps"]
 
@@ -307,7 +311,7 @@ def test_run_sharded_fixed_sweeps_equal_one_device():
     got = sharded.run_sharded(t, *_ones(n), mesh=_mesh((2, 2)), n_sweeps=6)
     one = sharded.terrain_step(t, *_ones(n), n_sweeps=6)
     assert got["uca_sweeps"] == 6
-    assert torch.equal(torch.nan_to_num(got["uca"]),
+    assert torch.equal(torch.nan_to_num(got["uca"].assemble()),
                        torch.nan_to_num(one["uca"]))
 
 
