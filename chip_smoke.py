@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py              # phases 1-11, one card
+    python3 chip_smoke.py              # phases 1-11 and 13, one card
     python3 chip_smoke.py --multicard  # phases 1, 2 and 12, four cards
 
 Phases, each reported on its own lines:
@@ -41,8 +41,9 @@ Phases, each reported on its own lines:
    flats, NaN pattern and link sets, values equal to relative 1e-9, and the
    ``edge_done`` flood (``_edge_flood_program``) an equal mask;
 8. times with CUDA events, median of 3 after a warm-up, per-rep times too:
-   the terrain step at 2048², the hard chain at 2048² with its stage
-   table, one K1 and one K2 round beside their plain rounds at 2048², one
+   the terrain step at 2048², the hard chain at 2048² through
+   ``tools/hard_breakdown.py`` (5 reps, each the chain cut into stages
+   with a synchronisation at each, then uncut), one K1 and one K2 round beside their plain rounds at 2048², one
    K1 cone solve (its time, its rounds, launches and host reads, and the
    kernel time summed over its launches), and the full pit solves (K1 with
    the fold, K2, jacobi).  Each kernel's bound is computed beside its time:
@@ -198,6 +199,30 @@ Phases, each reported on its own lines:
        out-of-memory error.
     Then the kernel JSON line with every kernel's launches in the runs of
     b-g, by card, and the last line with ``"count"`` the visible cards.
+13. the deployment periphery (``pydem_tpu_torch/deploy``, ``examples``,
+    ``tools``), after phase 11, on the card:
+    a. two regions, each a 2×2 grid of ~1024² GeoTIFF tiles (2048²
+       mosaics: phase 9's hard terrain and the cone), through ``python -m
+       pydem_tpu_torch.deploy.submit --local-workers 2 --device cuda
+       --export-root`` with the device backends: both jobs done, none
+       failed, each job's K1 launches (its worker's counters) above 0; each
+       region's store ``uca`` and ``twi`` and its five exported GeoTIFFs
+       bitwise equal to an in-process ``ProcessManager`` run of the same
+       tiles on the card.  Printed: the wall time, each job's seconds and
+       px/s, and each worker's start-up seconds (``import torch``, the CUDA
+       context, the pipeline's imports, loading the built library);
+    b. preemption: a job claimed here runs its ``elevation`` stage in this
+       process; its lease is expired, a worker steals and finishes it; its
+       store and GeoTIFFs bitwise equal to a's job of the same region;
+    c. ``golden_check --device cuda`` passes (the float32 envelope of
+       ``tests/test_parity_f32.py`` against ``deploy/goldens``); its
+       figures printed;
+    d. both examples on the card; ``hard_breakdown``'s command at 2048²,
+       its stage sum within 20% of its uncut chain (the median of the
+       ratios, rep by rep; phase 8's figures printed beside them);
+       ``mesh_scaling`` at 4096², every shape's rounds equal to one
+       device's.
+    K1's launches in the in-process runs of a and b join the kernel line.
 
 Then a JSON line with the kernel table (K1's canvas, ring and subset forms
 and K2, each with its launches on the main paths), and as the last line
@@ -223,13 +248,16 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from pydem_tpu_torch import api, default_dtype, native, outofcore
+from pydem_tpu_torch import default_dtype, fixtures, native, outofcore
 from pydem_tpu_torch.api import (DEMProcessor, _edge_flood_program,
                                  _pre_program, _uca_chain_program)
 from pydem_tpu_torch.core.conditioning import drain_pit_paths
 from pydem_tpu_torch.core.flats_device import fill_flats_device
 from pydem_tpu_torch.core.receivers import receiver_weights
 from pydem_tpu_torch.core.uca import accumulate, base_area, reachability
+from pydem_tpu_torch.deploy import golden_check, jobqueue
+from pydem_tpu_torch.deploy.submit import job_name
+from pydem_tpu_torch.examples import process_array, process_manager_directory
 from pydem_tpu_torch.geometry import mk_transform
 from pydem_tpu_torch.io import read_geotiff, write_geotiff
 from pydem_tpu_torch.io.store import ArrayStore
@@ -258,9 +286,14 @@ from pydem_tpu_torch.parallel.sharded import (_block_size,
                                               run_sharded, sharded_uca,
                                               terrain_pre, terrain_step)
 from pydem_tpu_torch.profiling import StageTimer
+from pydem_tpu_torch.tools import hard_breakdown, mesh_scaling
+from pydem_tpu_torch.tools.hard_breakdown import make_hard_terrain, run_chain
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN = 2048   # the bench headline canvas
+# hard_breakdown's reps (single chain runs spread widely on a shared host),
+# and how far a stage sum may be from its uncut chain, rep by rep
+BREAKDOWN_REPS, BREAKDOWN_TOL = 5, 0.2
 N_CHECK = 512   # a second kernel-vs-plain canvas, few blocks per side
 N_OOC, S_OOC = 8192, 2048  # the out-of-core canvas and its super-block
 # Kernel vs plain: both sum base + w_0*x_0 + ... + w_7*x_7 in the same order
@@ -285,18 +318,6 @@ def make_cone(n, dtype="float32"):
     x, y = np.mgrid[-1:1:complex(0, n), -1:1:complex(0, n)]
     elev = 1 - np.sqrt(x**2 + y**2) / np.sqrt(2.0)
     return (elev - elev.min() + 0.05).astype(dtype)
-
-
-def make_hard_terrain(n, dtype="float64"):
-    """Quantized noisy cone: flats + pits from quantization, plus a masked
-    below-sea region."""
-    rng = np.random.RandomState(7)
-    x, y = np.mgrid[-1:1:complex(0, n), -1:1:complex(0, n)]
-    elev = 1 - np.sqrt(x**2 + y**2) / np.sqrt(2.0) + rng.randn(n, n) * 0.002
-    elev = np.round(elev * 150) / 150  # quantization flats/pits
-    elev = elev - elev.min() + 0.05
-    elev[(x > 0.8) & (np.abs(y) < 0.1)] = 0.0  # sea notch
-    return elev.astype(dtype)
 
 
 def make_noisy_cone(n, noise=0.003, seed=3):
@@ -604,17 +625,6 @@ def phase_main_path(device):
     return launches
 
 
-def run_chain(elev, solver, device):
-    """The hard chain through the user's entry point; returns the processor
-    and calc_twi's result."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # "pits had no place to drain"
-        dp = DEMProcessor(elev=elev.copy(), uca_solver=solver, device=device,
-                          **CHAIN)
-        twi = dp.calc_twi()
-    return dp, twi
-
-
 def chain_state(elev, device):
     """The hard chain's receiver planes, base and pit links at its solve, as
     ``DEMProcessor._calc_uca_device`` builds them."""
@@ -639,7 +649,7 @@ def phase_hard_chain(device):
     2048² hard terrain, gated against jacobi and repeated."""
     elev = make_hard_terrain(N_MAIN)
     gs_round.launches_on.clear()
-    dp, twi = run_chain(elev, "blocked", device)
+    dp, twi = run_chain(elev, device)
     torch.cuda.synchronize()
     launches = launch_count(gs_round)
     check(dp.uca_sweeps <= launches <= dp.uca_sweeps + 3,
@@ -656,12 +666,12 @@ def phase_hard_chain(device):
         "rounds, %d flat px" % (N_MAIN, launches, dp.uca_sweeps,
                                 int(dp._dev("flats").sum())))
 
-    dj, _twi = run_chain(elev, "jacobi", device)
+    dj, _twi = run_chain(elev, device, uca_solver="jacobi")
     err = nan_equal_max_err(uca, dj._dev("uca"))
     check(torch.allclose(torch.nan_to_num(uca),
                          torch.nan_to_num(dj._dev("uca")), **GATE_TOL["hard"]),
           "hard chain: blocked vs jacobi uca differ (max %g)" % err)
-    again, twi2 = run_chain(elev, "blocked", device)
+    again, twi2 = run_chain(elev, device)
     for key in ("uca", "mag", "flats", "twi"):
         check(torch.equal(torch.nan_to_num(again._dev(key)),
                           torch.nan_to_num(dp._dev(key))),
@@ -780,48 +790,23 @@ def phase_f64_chain(device, n=256):
            worst))
 
 
-def time_chain_stages(device, card):
-    """The 2048² hard chain, CUDA events at each stage boundary (the API's
-    stage probe), median of 3 after a warm-up."""
-    stages = (("fill_flats", "fill_flats_device"),
-              ("pit gate + carve", "carve_delta_upload"),
-              ("pre-program", "pre_program"), ("pit links", "pit_links"),
-              ("solve", "uca_solve"), ("twi", "twi_download"))
-    elev = make_hard_terrain(N_MAIN)
-    reps = []
-    for rep in range(4):
-        events = {}
-
-        def probe(name, _val):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events[name] = ev
-
-        api._stage_probe = probe
-        try:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-            dp, _twi = run_chain(elev, "blocked", device)
-        finally:
-            api._stage_probe = None
-        torch.cuda.synchronize()
-        check("carve_delta_upload" in events, "the hard chain carved nothing")
-        times, prev = {}, start
-        for label, name in stages:
-            times[label] = prev.elapsed_time(events[name])
-            prev = events[name]
-        times["total"] = start.elapsed_time(prev)
-        if rep:  # rep 0 warms up
-            reps.append(times)
-    table = {k: statistics.median(r[k] for r in reps) for k in reps[0]}
-    for k in reps[0]:
-        log("time", "hard chain %d² stage %-16s median %.3f ms, reps %s ms "
-            "[%s]"
-            % (N_MAIN, k, table[k], ["%.3f" % r[k] for r in reps], card))
-    log("time", "hard chain %d²: %.4g px/s, %d blocked rounds [%s]"
-        % (N_MAIN, N_MAIN * N_MAIN / (table["total"] / 1e3), dp.uca_sweeps,
-           card))
-    return table
+def time_chain(device, card):
+    """``hard_breakdown`` at N_MAIN² on the card: each rep the hard chain
+    cut into stages (a synchronisation at each) and then uncut."""
+    hb = hard_breakdown.breakdown(N_MAIN, BREAKDOWN_REPS, str(device))
+    for label, st in hb["stages"].items():
+        log("time", "hard chain %d² stage %-36s %-6s median %.3f ms, reps %s "
+            "ms [%s]" % (N_MAIN, label, st["clock"], st["median"],
+                         ["%.3f" % t for t in st["reps"]], card))
+    log("time", "hard chain %d²: uncut median %.3f ms (reps %s), %.4g px/s; "
+        "stage sum median %.3f ms; sum / uncut rep by rep %s; %d blocked "
+        "rounds [%s]" % (
+            N_MAIN, hb["chain"]["median"],
+            ["%.3f" % t for t in hb["chain"]["reps"]],
+            N_MAIN * N_MAIN / (hb["chain"]["median"] / 1e3),
+            hb["sum"]["median"], ["%.3f" % r for r in hb["ratio"]["reps"]],
+            hb["uca_rounds"], card))
+    return hb
 
 
 def time_round(name, fns, args, card):
@@ -920,7 +905,7 @@ def phase_times(device, card, state):
                 px / (ms / 1e3), out["uca_sweeps"],
                 "rounds" if solver == "blocked" else "sweeps", card))
 
-    time_chain_stages(device, card)
+    chain = time_chain(device, card)
 
     W, base = weights_and_base(elev)
     K, W1 = compact_from_dense(W)
@@ -959,7 +944,7 @@ def phase_times(device, card, state):
             "ms, %d rounds or sweeps [%s]" % (N_MAIN, name, ms,
                                               ["%.3f" % t for t in reps],
                                               out[-1][1], card))
-    return k1, k2, k1_err, k2_err
+    return k1, k2, k1_err, k2_err, chain
 
 
 MANAGER_KW = dict(conditioning_backend="device", pit_backend="device",
@@ -2110,6 +2095,242 @@ def phase_mesh_manager(device, card, mesh=None, phase="11d"):
     return counts
 
 
+# -- phase 13: the deployment periphery -------------------------------------
+
+N_DEPLOY = 2048  # a region's mosaic: 2x2 GeoTIFF tiles of ~1024²
+DEPLOY_WORKERS = 2
+N_SCALING = 4096  # mesh_scaling's cone
+STARTUP_LINE = re.compile(r"\[worker (\S+)\] start-up on (\S+): (\{.*\})$")
+JOB_LINE = re.compile(r"\[worker (\S+)\] job (\S+) done in ([0-9.]+) s, "
+                      r"kernel launches (\{.*?\}): (\{.*\})$")
+
+
+def deploy_regions(work, n):
+    """Phase 9's hard terrain and the cone, each as 2x2 GeoTIFF tiles."""
+    regions = {}
+    for name, elev in (("hard", make_hard_terrain(n, "float32")),
+                       ("cone", make_cone(n))):
+        regions[name] = os.path.join(work, "regions", name)
+        check(write_tiles(elev, regions[name]) == 4,
+              "expected a 2x2 tile grid")
+    return regions
+
+
+def worker_lines(stdout):
+    """The workers' start-up seconds, and each job's seconds, kernel
+    launches and result, from their printed lines."""
+    startups, jobs = [], {}
+    for line in stdout.splitlines():
+        m = STARTUP_LINE.search(line)
+        if m:
+            startups.append((m.group(1), m.group(2), json.loads(m.group(3))))
+        m = JOB_LINE.search(line)
+        if m:
+            jobs[m.group(2)] = {"worker": m.group(1),
+                                "seconds": float(m.group(3)),
+                                "launches": json.loads(m.group(4)),
+                                "result": json.loads(m.group(5))}
+    return startups, jobs
+
+
+def deploy_job(tiles, out_path, export, device):
+    """A job's work in this process, as the worker runs it."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "pits had no place to drain"
+        pm = ProcessManager(in_path=tiles, out_path=out_path, resume=True,
+                            dem_proc_kwargs=MANAGER_KW, device=device)
+        pm.process_twi()
+        pm.save_non_overlap_data_geotiff(export)
+    return pm
+
+
+def check_same_job(what, store_path, export, want_store, want_export):
+    """A job's store ``uca``/``twi`` and its five GeoTIFFs bitwise equal to
+    another run's."""
+    got, want = ArrayStore(store_path), ArrayStore(want_store)
+    for key in ("uca", "twi"):
+        a, b = got[key], want[key]
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and a.tobytes() == b.tobytes(),
+              "%s: store %s differs (max abs %g)" % (
+                  what, key, float(np.nanmax(np.abs(a - b)))))
+    for key in EXPORT_KEYS:
+        with open(os.path.join(export, key + ".tif"), "rb") as f, \
+                open(os.path.join(want_export, key + ".tif"), "rb") as g:
+            check(f.read() == g.read(), "%s: %s.tif differs" % (what, key))
+
+
+def phase_deploy(device, card, chain):
+    """Phase 13: the cloud-burst queue, submit and worker on the card, the
+    golden check, the examples and the two measuring tools."""
+    work = tempfile.mkdtemp(prefix="pydem_deploy_")
+    try:
+        return _phase_deploy(device, card, chain, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase_deploy(device, card, chain, work, n=N_DEPLOY):
+    dev_arg = "cuda" if device.type == "cuda" else "cpu"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    regions = deploy_regions(work, n)
+
+    # 13a: submit enqueues the regions, two workers drain them
+    queue = os.path.join(work, "queue")
+    exports = os.path.join(work, "exports")
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "pydem_tpu_torch.deploy.submit", "--queue",
+         queue, *regions.values(), "--local-workers", str(DEPLOY_WORKERS),
+         "--device", dev_arg, "--export-root", exports, "--dem-proc-kwargs",
+         json.dumps(MANAGER_KW)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    check(sub.returncode == 0, "submit exited with %d: %s%s" % (
+        sub.returncode, sub.stdout[-3000:], sub.stderr[-3000:]))
+    names = {k: job_name(r) for k, r in regions.items()}
+    st = jobqueue.status(queue)
+    check(sorted(st["done"]) == sorted(names.values()) and not st["failed"]
+          and not st["pending"] and not st["claimed"],
+          "queue after submit: %s" % st)
+    startups, jobs = worker_lines(sub.stdout)
+    check(len(startups) == DEPLOY_WORKERS and sorted(jobs)
+          == sorted(names.values()), "workers printed %d start-ups and jobs "
+          "%s" % (len(startups), sorted(jobs)))
+    log("deploy", "13a submit --local-workers %d --device %s: %d regions of "
+        "2x2 tiles (%d² mosaics: hard terrain, cone) done, none failed, "
+        "%.1f s wall [%s]" % (DEPLOY_WORKERS, dev_arg, len(regions), n,
+                              wall, card))
+    for wid, wdev, secs in startups:
+        log("deploy", "13a worker %s on %s start-up: %s s [%s]" % (
+            wid, wdev, {k: round(v, 3) for k, v in secs.items()}, card))
+    for key, name in names.items():
+        job = jobs[name]
+        check(job["result"]["canvas_shape"] == [n, n]
+              and job["result"]["n_tiles"] == 4, "job %s: %s" % (name, job))
+        # (on the CPU the wrappers run their plain versions and count none)
+        check(job["launches"]["uca_gs_round"] > 0 or device.type == "cpu",
+              "job %s launched no K1 round: %s" % (name, job))
+        log("deploy", "13a job %s (%s): %.3f s, %.4g px/s, %d rounds, "
+            "kernel launches %s [%s]" % (
+                name, key, job["seconds"], n * n / job["seconds"],
+                job["result"]["uca_rounds"], job["launches"], card))
+
+    reset_counts()
+    for key, name in names.items():
+        deploy_job(regions[key], os.path.join(work, name + ".zarr"),
+                   os.path.join(work, name + "_tif"), device)
+    launches = counts_by_card()
+    check(launch_count(gs_round) > 0 or device.type == "cpu",
+          "13a: the in-process runs launched no K1 round")
+    for key, name in names.items():
+        check_same_job("13a job %s" % name,
+                       os.path.join(regions[key], "results.zarr"),
+                       os.path.join(exports, name),
+                       os.path.join(work, name + ".zarr"),
+                       os.path.join(work, name + "_tif"))
+    log("deploy", "13a each job's store uca/twi and five GeoTIFFs bitwise "
+        "equal to an in-process ProcessManager run of the same tiles on %s; "
+        "K1 launches in those runs %s" % (device, launches["uca_gs_round"]))
+
+    # 13b: a job preempted after its elevation stage, stolen and finished
+    queue2 = os.path.join(work, "queue_preempt")
+    spec = {"in_path": regions["hard"], "out_of_core": False,
+            "out_path": os.path.join(work, "preempt.zarr"),
+            "export": os.path.join(work, "preempt_tif"),
+            "dem_proc_kwargs": MANAGER_KW}
+    check(jobqueue.submit(queue2, "preempted", spec), "13b: submit")
+    name, spec, claim = jobqueue.claim_next(queue2)
+    reset_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pm = ProcessManager(in_path=spec["in_path"],
+                            out_path=spec["out_path"], resume=True,
+                            dem_proc_kwargs=spec["dem_proc_kwargs"],
+                            device=device)
+        pm.compute_grid()
+        pm._success_init()
+        pm._stage_guarded("elevation", pm.process_elevation)
+    for kernel, by_card in counts_by_card().items():
+        for d, c in by_card.items():
+            launches[kernel][d] = launches[kernel].get(d, 0) + c
+    check("elev" in pm.out_file and "uca" not in pm.out_file,
+          "13b: the claimed job's store holds %s"
+          % sorted(os.listdir(spec["out_path"])))
+    del pm
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    old = time.time() - 1e4
+    os.utime(claim, (old, old))  # the lease expires
+    t0 = time.perf_counter()
+    steal = subprocess.run(
+        [sys.executable, "-m", "pydem_tpu_torch.deploy.worker", "--queue",
+         queue2, "--drain", "--device", dev_arg],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    steal_s = time.perf_counter() - t0
+    check(steal.returncode == 0, "13b: the worker exited with %d: %s" % (
+        steal.returncode, steal.stderr[-3000:]))
+    check(jobqueue.status(queue2)["done"] == [name], "13b: queue %s"
+          % jobqueue.status(queue2))
+    _s, stolen = worker_lines(steal.stdout)
+    check_same_job("13b preempted job", spec["out_path"], spec["export"],
+                   os.path.join(regions["hard"], "results.zarr"),
+                   os.path.join(exports, names["hard"]))
+    log("deploy", "13b a job claimed here, preempted after its elevation "
+        "stage and stolen after its lease: the worker resumed it (%.3f s "
+        "of job, %.1f s with start-up; kernel launches %s), store and "
+        "GeoTIFFs bitwise equal to 13a's uninterrupted job [%s]"
+        % (stolen[name]["seconds"], steal_s, stolen[name]["launches"], card))
+
+    # 13c: the golden check on this device
+    failed, figures = golden_check.check(dev_arg)
+    check(not failed, "13c: golden check failed on %s: %s" % (failed,
+                                                            figures))
+    log("deploy", "13c golden_check --device %s passed: %s [%s]" % (
+        dev_arg, {k: "NaN masks %s, rel p99 %.3e, max %.3e%s" % (
+            "equal" if f["nan_match"] else "DIFFER", f["p99"], f["max"],
+            ", bitwise" if f["bitwise"] else "")
+            for k, f in figures.items()}, card))
+
+    # 13d: the examples and the two measuring tools
+    arrays = process_array.main(["--device", dev_arg])
+    check(all(np.isfinite(a).any() and a.shape == (256, 256)
+              for a in arrays.values()), "13d: process_array's outputs")
+    tiles = fixtures.mk_test_multifile(33, 64, os.path.join(work, "demo"),
+                                       nx_grid=2, ny_grid=2, nx_overlap=2,
+                                       ny_overlap=2)
+    _pm, written = process_manager_directory.main([tiles, "--device",
+                                                   dev_arg])
+    check(sorted(os.path.basename(f) for f in written)
+          == sorted(k + ".tif" for k in EXPORT_KEYS),
+          "13d: process_manager_directory wrote %s" % written)
+    log("deploy", "13d both examples ran on %s" % device)
+    hb = hard_breakdown.main(["--n", str(n), "--reps", str(BREAKDOWN_REPS),
+                              "--device", dev_arg])
+    ratio = hb["ratio"]["median"]
+    check(abs(ratio - 1) <= BREAKDOWN_TOL,
+          "13d: hard_breakdown's stage sum is %.3f x its uncut chain (median "
+          "of reps %s)" % (ratio, ["%.3f" % r for r in hb["ratio"]["reps"]]))
+    log("deploy", "13d hard_breakdown %d²: stage sum median %.3f ms, uncut "
+        "chain median %.3f ms, sum / uncut rep by rep %s, median %.3f; "
+        "phase 8's uncut chain %.3f ms, its median ratio %.3f [%s]" % (
+            n, hb["sum"]["median"], hb["chain"]["median"],
+            ["%.3f" % r for r in hb["ratio"]["reps"]], ratio,
+            chain["chain"]["median"], chain["ratio"]["median"], card))
+    sc = mesh_scaling.scaling(N_SCALING, dev_arg)
+    cone = torch.as_tensor(mesh_scaling.cone(N_SCALING), device=device)
+    one = terrain_step(cone, *spacing(N_SCALING, cone.dtype, device),
+                       uca_solver="blocked")["uca_sweeps"]
+    rounds = [r["rounds"] for r in sc["rows"]]
+    check(rounds == [int(one)] * len(rounds),
+          "13d: mesh_scaling rounds %s, one device %d" % (rounds, one))
+    log("deploy", "13d mesh_scaling %d²: %d shapes (%s), rounds %s equal to "
+        "one device's terrain_step [%s]" % (
+            N_SCALING, len(rounds), [r["mesh"] for r in sc["rows"]], rounds,
+            card))
+    return launches
+
+
 # -- phase 12: the mesh over four cards (--multicard) ------------------------
 
 N_CARDS = 4
@@ -3073,7 +3294,7 @@ def main():
     k2_launches, e2, e1, state = phase_k2_path(device)
     k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
     phase_f64_chain(device)
-    k1_ms, k2_ms, e1, e2 = phase_times(device, card, state)
+    k1_ms, k2_ms, e1, e2, chain = phase_times(device, card, state)
     k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
     k1_launches += phase_manager(device, card)
     ring_ms, ring_err = phase_ring_round(device, card, k1_ms)
@@ -3089,6 +3310,9 @@ def main():
     phase_sharded_pits(device, card, state)
     del state
     phase_mesh_manager(device, card)
+    deploy = phase_deploy(device, card, chain)
+    k1_launches += sum(deploy["uca_gs_round"].values())
+    ring_launches += sum(deploy["uca_gs_round_ring"].values())
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     src = "pydem_tpu_torch/ops/csrc/uca_block.cu"
     split_round = {k: subset_ms["interior"][k] + subset_ms["boundary"][k]

@@ -34,14 +34,23 @@ Deliberate improvements over the reference (documented deviations):
   instead of per-tile, so flats spanning tile seams condition consistently.
 - No subprocess pool: stage parallelism is device parallelism.
 - ``process_uca_edges`` converges in zero rounds by construction.
+
+One departure from the JAX manager: a store names the package and working
+dtype that wrote it (``producer.json``), and ``resume=True`` refuses a store
+written by another package or at another dtype.  The port runs float64 on
+the CPU and float32 on the card, so a job preempted on one kind of worker
+and stolen by another would otherwise resume from stages stored at another
+precision and match neither run.
 """
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 import torch
 
+from . import default_dtype
 from .api import DEMProcessor
 from .geometry import pixel_scales
 from .io.geotiff import write_geotiff
@@ -109,6 +118,7 @@ class ProcessManager:
             if os.path.splitext(fn)[-1].replace(".", "") in _INPUT_FILE_TYPES)
         self.timer = StageTimer()
         self.out_file = ArrayStore(self.out_path)
+        self._stamp_store()
         self.out_file_noverlap = {}
         self.index = None
         self.grid_shape = None
@@ -261,6 +271,29 @@ class ProcessManager:
                                 device=self.device, **self.dem_proc_kwargs)
         return self._dp
 
+    PRODUCER = "producer.json"
+
+    def _stamp_store(self):
+        """Name this run's package and dtype in the store; with ``resume``,
+        first refuse a store that holds arrays another writer left."""
+        want = {"package": "pydem_tpu_torch",
+                "dtype": str(default_dtype(self.device)).split(".")[-1]}
+        fn = os.path.join(self.out_path, self.PRODUCER)
+        if self.resume and self.out_file.names():
+            have = None
+            if os.path.exists(fn):
+                with open(fn) as f:
+                    have = json.load(f)
+            if have != want:
+                raise ValueError(
+                    "resume: the store %s was written by %s, this run is %s; "
+                    "resuming would mix their stages (remove the store, or "
+                    "resume on the kind of device that started it)"
+                    % (self.out_path, have or "another package (no %s)"
+                       % self.PRODUCER, want))
+        with open(fn, "w") as f:
+            json.dump(want, f)
+
     def _resume_hit(self, key):
         return self.resume and key in self.out_file
 
@@ -299,7 +332,6 @@ class ProcessManager:
         self.out_file["success"] = s
 
     def _record_error(self, stage, exc):
-        import json
         import traceback
 
         entry = {"stage": stage,
@@ -378,8 +410,6 @@ class ProcessManager:
         return dp.mag, dp.direction
 
     def process_uca(self, indices=None):
-        import json
-
         dp = self._processor()
         state_fn = os.path.join(self.out_path, "_uca_state.json")
         if self._resume_hit("uca"):
@@ -577,8 +607,6 @@ class ProcessManager:
         """Persist run observability into the store (BASELINE.md metrics:
         stage seconds, UCA iterations to convergence, halo-exchange
         fraction)."""
-        import json
-
         dp = self._dp
         metrics = {
             "stage_seconds": self.timer.report(),

@@ -315,13 +315,17 @@ def pit_links_device(flats_d, elev_d, dX, dY, max_iter=300, max_dist=32,
 
 def connectivity_pits_device(flats, elev, mag, dX, dY, max_iter=300,
                              max_dist=32, max_dist_XY=None, min_border=False,
-                             window=96, device="cpu"):
+                             window=96, device="cuda"):
     """Drop-in replacement for ``conditioning.connectivity_pits`` with the
-    growth loops and the link assembly on ``device``, in its default float
-    dtype.  Same return signature (host arrays; the flats/mag updates are
-    applied here)."""
+    growth loops and the link assembly on ``device`` (the GPU unless the
+    CPU is asked for, as the JAX function runs on the default backend), in
+    its default float dtype.  Same return signature (host arrays; the
+    flats/mag updates are applied here)."""
     from .. import default_dtype
 
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("connectivity_pits_device(device=%r): torch.cuda "
+                           "is not available" % (device,))
     flats = np.asarray(flats).copy()
     mag = np.asarray(mag).copy()
     src, dst, wgt, drained_src, drained_mean = pit_links_device(

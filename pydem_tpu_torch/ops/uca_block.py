@@ -494,6 +494,14 @@ def block_round(x, W, base, *, B, inner_max):
 
 block_round.launches_on = collections.Counter()
 
+
+def launch_counts():
+    """Every kernel wrapper's launches on every device, by kernel name."""
+    return {"uca_gs_round": launch_count(gs_round),
+            "uca_gs_round_ring": launch_count(gs_round_ring),
+            "uca_gs_round_subset": launch_count(gs_round_subset),
+            "uca_block_round": launch_count(block_round)}
+
 # C entries of csrc/uca_block.cu that launch: (pointer arguments, int
 # arguments), then the stream
 _ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_gs_round_ring_list_f32": (8, 5),

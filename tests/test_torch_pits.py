@@ -224,3 +224,16 @@ def test_pit_links_device_without_pits_and_warning():
         out = pit_links_device(torch.from_numpy(flats),
                                torch.from_numpy(bowl), d, d, max_iter=2)
     assert out[0].size == 0 and out[3].size == 0
+
+
+def test_connectivity_pits_device_defaults_to_the_card():
+    """The drop-in for the JAX function, which runs on the default backend,
+    runs on the GPU unless the CPU is asked for: without one it raises."""
+    from pydem_tpu_torch.ops.pit_growth import connectivity_pits_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    (flats, elev, dX, dY), kw = _case("fixture 13")
+    mag = np.where(flats, -1.0, 0.25)
+    with pytest.raises(RuntimeError, match="torch.cuda is not available"):
+        connectivity_pits_device(flats, elev, mag, dX, dY, **kw)
