@@ -12,17 +12,21 @@ Phases, each reported on its own lines:
    pit carve (``g++``) from the checkout, at the same time; print the
    kernels' register, spill and shared-memory lines; no kernel may spill
    or keep a stack frame, and a block stays under 48 KB of shared memory;
-3. kernels vs plain versions on the card: two K1 and two K2 rounds at every
-   block size the kernels are built for, and the full K1 solve, on a 512²
-   and on the main path's 2048² cone and hard terrain (float32), from the
-   terrain step's own receiver planes; they must agree bit for bit, with
-   equal round counts (the solve launches at most 3 rounds more than it
-   counts: its flags are read once per 4 rounds);
+3. kernels vs plain versions on the card, at every block size the kernels
+   are built for, on a 512² and on the main path's 2048² cone and hard
+   terrain (float32), from the terrain step's own receiver planes: two
+   block-Jacobi K1 rounds, one K1 round in the TPU's Gauss-Seidel order
+   (the level launches of ``gs_round_oriented``) from the base at each
+   orientation 0-3, two K2 rounds, and the full K1 solve in the TPU's
+   order; they must agree bit for bit, flags included, with equal round
+   counts and one launch a level (the solve launches at most 3 rounds
+   more than it counts: its flags are read once per 4 rounds);
 4. main path, the terrain step: ``terrain_step(uca_solver="blocked")`` on
-   the 2048² cone and hard terrain; the K1 launch counter must rise; the
-   result must match ``uca_solver="jacobi"`` (NaN pattern, and the JAX
-   package's own bench gate tolerances), repeat bit for bit, and agree with
-   the float64 CPU run on a small cone;
+   the 2048² cone and hard terrain; the level kernel's launch counter must
+   rise by the rounds' levels; the result must match
+   ``uca_solver="jacobi"`` (NaN pattern, and the JAX package's own bench
+   gate tolerances), repeat bit for bit, and agree with the float64 CPU
+   run on a small cone;
 5. main path, the hard-terrain chain: ``DEMProcessor(...,
    conditioning_backend="device", pit_backend="device",
    uca_solver="blocked", device="cuda").calc_twi()`` on the 2048² hard
@@ -32,24 +36,35 @@ Phases, each reported on its own lines:
 6. K2's path: on the chain's own receiver planes, base and pit links, two
    K2 rounds at every block size, then ``accumulate_blocked`` and
    ``accumulate_blocked_pits`` with the K2 launch counter read around them;
-   each, and K1's ``accumulate_blocked_pits_gs``, equal to its plain
-   version bit for bit with equal round counts; K2's and K1's pit solves
-   reach the same fixed point within the gate;
+   each, K1's ``accumulate_blocked_pits_gs`` (the TPU's order) and K1's
+   block-Jacobi canvas solve with the fold (``gs_round`` iterated: the
+   rounds of the mesh's solvers; its launches are the ``uca_gs_round``
+   entry's), equal to its plain version bit for bit with equal round
+   counts; K2's and the block-Jacobi pit solves reach K1's fixed point
+   within the gate;
 7. float64 on the card: the chain's functions (``fill_flats_device``,
    ``drain_pit_paths``, ``pit_links_device_packed``, ``_uca_chain_program``
    with jacobi) at 256² on CUDA against the same calls on the CPU: equal
    flats, NaN pattern and link sets, values equal to relative 1e-9, and the
    ``edge_done`` flood (``_edge_flood_program``) an equal mask;
 8. times with CUDA events, median of 3 after a warm-up, per-rep times too:
-   the terrain step at 2048², the hard chain at 2048² through
-   ``tools/hard_breakdown.py`` (5 reps, each the chain cut into stages
-   with a synchronisation at each, then uncut), one K1 and one K2 round beside their plain rounds at 2048², one
-   K1 cone solve (its time, its rounds, launches and host reads, and the
-   kernel time summed over its launches), and the full pit solves (K1 with
-   the fold, K2, jacobi).  Each kernel's bound is computed beside its time:
-   the bytes of the timed round (every input once, every output once) over
-   the card's memory rate, or, if larger, one multiply-add per nonzero
-   weight over its float32 rate;
+   the terrain step at 2048² (its rounds beside the block-Jacobi canvas
+   solve's), the hard chain at 2048² through ``tools/hard_breakdown.py``
+   (5 reps, each the chain cut into stages with a synchronisation at each,
+   then uncut), one block-Jacobi K1 and one K2 round beside their plain
+   rounds at 2048²; K1 in the TPU's order at 2048², B = 64: one round from
+   the base at each orientation beside its plain round, its launches (the
+   levels), its bound, its critical path (the round timed with a sleep
+   queued on the card first, so that the card runs the dependent levels
+   back to back and no gap left by the host counts) and each level's
+   kernel time inside the round (events around each level); one K1 cone
+   solve (its time, its rounds, launches and host reads, and the kernel
+   time summed over its rounds); the same round, critical path and solve
+   at B = 16, the kernel alone; and the full pit solves (K1 with the fold
+   at B = 64 and 16, K2, jacobi).  Each kernel's bound is computed beside
+   its time: the bytes of the timed round (every input once, every output
+   once) over the card's memory rate, or, if larger, one multiply-add per
+   nonzero weight over its float32 rate;
 9. main path, the manager: the 2048² hard terrain written as a 2×2 grid of
    overlapping float32 GeoTIFF tiles (overlap 32 rows, 16 columns, lat/lon
    transforms) into a temporary directory, then
@@ -125,16 +140,20 @@ Phases, each reported on its own lines:
        a 2×2 mesh of four shards on the card: the split round (interior on
        each shard's stream while the rings are copied, then the frame);
        ``mag``, ``direction``, ``flats``, ``uca``, ``twi`` and the round
-       count equal to one device's ``terrain_step(uca_solver="blocked")``
-       bit for bit; wall time, K1 launches by form, host reads, peak device
-       memory; the solve alone on the same planes with the split and the
-       serial round forced, bit for bit equal; the one-card overlap of
-       ``measure_halo_overlap``; the 2048² cone over 1×2 and 2×4 meshes the
-       same way;
+       count equal to the same call on a 1×1 mesh (the mesh's rounds are
+       block-Jacobi) bit for bit, and within the cone gate of one device's
+       ``terrain_step(uca_solver="blocked")`` (the TPU's order; its rounds
+       printed); wall time, K1 launches by form, host reads, peak device
+       memory; one device's ``accumulate_blocked_gs`` on the same planes
+       at B = 64 and 16 (times, rounds); the solve alone on the same
+       planes with the split and the serial round forced, bit for bit
+       equal; the one-card overlap of ``measure_halo_overlap``; the 2048²
+       cone over 1×2 and 2×4 meshes the same way;
     c. the hard chain's planes and pit links (phase 6) through
        ``sharded_uca(pit_links=...)`` on a 2×2 mesh (split), and the serial
-       round forced, bit for bit equal to ``accumulate_blocked_pits_gs`` on
-       one device;
+       round forced, bit for bit equal to the same call on a 1×1 mesh and
+       to K1's block-Jacobi canvas solve, and within the hard gate of
+       ``accumulate_blocked_pits_gs`` on one device;
     d. ``ProcessManager(mesh=2×2)`` on the 2048² cone as four tiles,
        ``process_twi()`` and the GeoTIFF export (files read back), against
        the in-memory manager on the same tiles (equal NaN patterns, values
@@ -145,7 +164,8 @@ Phases, each reported on its own lines:
     cards).  First the cards' index, name and power limit, ``nvidia-smi
     topo -m`` and the ``can_device_access_peer`` matrix; then, on the
     float32 cone:
-    a. on every card, K1's canvas round and a K2 round (2048²), and K1's
+    a. on every card, K1's canvas rounds (block-Jacobi, and one in the
+       TPU's order) and a K2 round (2048²), and K1's
        ring and subset rounds at every shard shape that b-f run (8192²,
        4096×16384, 12288², 4096², 1024² windows of a mid-solve state of
        the 16384² cone, with the flag ring the sharded rounds pass and,
@@ -158,13 +178,14 @@ Phases, each reported on its own lines:
        four cards, the cone built shard by shard on each card (a
        ``ShardedCanvas``, as a user of four cards hands it over): every
        output shard on its card; ``mag``, ``direction``, ``flats``,
-       ``uca``, ``twi`` and the rounds equal to one card's
-       ``terrain_step(blocked)`` bit for bit (sha256 of NaN masks and
-       values in 1024-row chunks, hashed from the shards after the timed
-       region); both wall times, median of 3 with every rep; each card's
-       peak memory, ``cuda:0``'s within 10% of the others'; the solve
-       alone with the split and the serial round forced, bitwise equal,
-       timed; the four-card exchange / relax / full round and overlap
+       ``uca``, ``twi`` and the rounds equal to the same call on a 1×1
+       mesh of one card bit for bit (sha256 of NaN masks and values in
+       1024-row chunks, hashed from the shards after the timed region),
+       and that within the cone gate of one card's
+       ``terrain_step(blocked)``; both wall times, median of 3 with every
+       rep; each card's peak memory, ``cuda:0``'s within 10% of the others';
+       the solve alone with the split and the serial round forced, bitwise
+       equal, timed; the four-card exchange / relax / full round and overlap
        fraction of ``measure_halo_overlap`` (host clock, every card
        synchronised);
     c. four processes (spawned), one NCCL rank a card,
@@ -174,8 +195,8 @@ Phases, each reported on its own lines:
        bitwise equal to b's one card, rounds equal, wall and peak by rank
        (each under 8.5 GB);
     d. the 2048² hard terrain's planes and pit links through ``sharded_uca``
-       over the four cards (the solver's round) bitwise equal to
-       ``accumulate_blocked_pits_gs`` on one card;
+       over the four cards (the solver's round) bitwise equal to the same
+       call on a 1×1 mesh of one card;
     e. ``OutOfCoreEngine(superblock=2048)`` over the four cards against the
        same engine over four shards on ``cuda:0``, fused both, bitwise, at
        8192²; then at 24576², where one card's budget refuses the fused pass
@@ -191,11 +212,11 @@ Phases, each reported on its own lines:
        49152² float32 canvas over 2×2 (four 24576² shards, which the copies
        straddle), built shard by shard on each card;
        ``run_sharded(blocked)`` on it, every copy's five planes bitwise
-       equal (NaN equal) to one card's ``terrain_step(blocked)`` on one
-       ringed copy, compared a copy at a time; wall time (median of 3
-       where the phase's budget allows), the rounds of both, each card's
-       peak.  It runs with the allocator's expandable segments (set just
-       before it; b-f run under the default allocator) and fails on an
+       equal (NaN equal) to ``run_sharded(blocked)`` on a 1×1 mesh of one
+       card on one ringed copy, compared a copy at a time; wall time
+       (median of 3 where the phase's budget allows), the rounds of both,
+       each card's peak.  It runs with the allocator's expandable segments (set
+       just before it; b-f run under the default allocator) and fails on an
        out-of-memory error.
     Then the kernel JSON line with every kernel's launches in the runs of
     b-g, by card, and the last line with ``"count"`` the visible cards.
@@ -220,12 +241,13 @@ Phases, each reported on its own lines:
     d. both examples on the card; ``hard_breakdown``'s command at 2048²,
        its stage sum within 20% of its uncut chain (the median of the
        ratios, rep by rep; phase 8's figures printed beside them);
-       ``mesh_scaling`` at 4096², every shape's rounds equal to one
-       device's.
+       ``mesh_scaling`` at 4096², every shape's rounds equal to the 1×1
+       mesh's (one device's ``terrain_step`` rounds printed beside).
     K1's launches in the in-process runs of a and b join the kernel line.
 
-Then a JSON line with the kernel table (K1's canvas, ring and subset forms
-and K2, each with its launches on the main paths), and as the last line
+Then a JSON line with the kernel table (K1's canvas form in the TPU's
+order, its block-Jacobi canvas, ring and subset forms, and K2, each with
+its launches on the main paths), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
 exit and no result line.  The port imports neither JAX nor the JAX package.
 """
@@ -254,7 +276,8 @@ from pydem_tpu_torch.api import (DEMProcessor, _edge_flood_program,
 from pydem_tpu_torch.core.conditioning import drain_pit_paths
 from pydem_tpu_torch.core.flats_device import fill_flats_device
 from pydem_tpu_torch.core.receivers import receiver_weights
-from pydem_tpu_torch.core.uca import accumulate, base_area, reachability
+from pydem_tpu_torch.core.uca import (PitLinks, accumulate, base_area,
+                                      reachability)
 from pydem_tpu_torch.deploy import golden_check, jobqueue
 from pydem_tpu_torch.deploy.submit import job_name
 from pydem_tpu_torch.examples import process_array, process_manager_directory
@@ -262,7 +285,7 @@ from pydem_tpu_torch.geometry import mk_transform
 from pydem_tpu_torch.io import read_geotiff, write_geotiff
 from pydem_tpu_torch.io.store import ArrayStore
 from pydem_tpu_torch.manager import ProcessManager
-from pydem_tpu_torch.ops import _build
+from pydem_tpu_torch.ops import _build, uca_block
 from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed
 from pydem_tpu_torch.outofcore import OutOfCoreEngine
 from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
@@ -271,9 +294,12 @@ from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
                                            accumulate_blocked_pits_gs,
                                            block_round, block_round_plain,
                                            compact_from_dense, gs_round,
+                                           gs_round_oriented,
+                                           gs_round_oriented_plain,
                                            gs_round_plain, gs_round_ring,
                                            gs_round_ring_plain,
-                                           kernel_smem_bytes, launch_count)
+                                           kernel_smem_bytes, launch_count,
+                                           round_levels)
 from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
 from pydem_tpu_torch.ops.uca_block import gs_round_subset, subset_blocks
 from pydem_tpu_torch.parallel import sharded
@@ -377,7 +403,9 @@ def check(cond, what):
 
 
 # the kernel wrappers by the name of the kernel each launches
-WRAPPERS = (("uca_gs_round", gs_round), ("uca_gs_round_ring", gs_round_ring),
+WRAPPERS = (("uca_gs_round", gs_round),
+            ("uca_gs_round_levels", gs_round_oriented),
+            ("uca_gs_round_ring", gs_round_ring),
             ("uca_gs_round_subset", gs_round_subset),
             ("uca_block_round", block_round))
 
@@ -508,8 +536,14 @@ def k2_rounds_vs_plain(name, W, base):
     return worst
 
 
+def levels_per_round(n, m, B):
+    """Launches of one K1 round in the TPU's order: its levels."""
+    return len(round_levels(n // B, m // B, 0))
+
+
 def phase_kernel_vs_plain(device, n):
-    """Two K1 and two K2 rounds and the full K1 solve on n² terrains, kernel
+    """Two block-Jacobi K1 rounds, one K1 round in the TPU's order at each
+    orientation, two K2 rounds and the full K1 solve on n² terrains, kernel
     beside plain, bit for bit.  Returns the largest differences (K1, K2)."""
     worst = worst_k2 = 0.0
     for name, elev in (("cone", make_cone(n)),
@@ -533,20 +567,50 @@ def phase_kernel_vs_plain(device, n):
                       "flags equal %s)" % (name, n, B, r, err,
                                            torch.equal(ck, cp)))
                 x, prev = xk, ck
-            log("kernel", "%s %d² B=%d: 2 rounds kernel == plain, %d of %d "
-                "blocks changed in round 2" % (name, n, B,
-                                               int(prev.sum()), prev.numel()))
+            log("kernel", "%s %d² B=%d: 2 block-Jacobi rounds kernel == "
+                "plain, %d of %d blocks changed in round 2"
+                % (name, n, B, int(prev.sum()), prev.numel()))
+            # the TPU's order: from the base, every block relaxed, at each
+            # orientation; the input canvas must come back unwritten
+            changed = []
+            for o in range(4):
+                before = launch_count(gs_round_oriented)
+                xk, ck = gs_round_oriented(base, K, W1, base, o, **kw)
+                launches = launch_count(gs_round_oriented) - before
+                xp, cp = gs_round_oriented_plain(base, K, W1, base, o, **kw)
+                torch.cuda.synchronize()
+                err = nan_equal_max_err(xk, xp)
+                worst = max(worst, err)
+                check(err <= KERNEL_TOL and torch.equal(ck, cp)
+                      and launches == levels_per_round(n, n, B),
+                      "%s %d² B=%d orientation %d: level kernel != plain "
+                      "(max err %g, flags equal %s, %d launches)"
+                      % (name, n, B, o, err, torch.equal(ck, cp), launches))
+                changed.append(int(ck.sum()))
+            check(torch.equal(base, weights_and_base(elev)[1]),
+                  "the level kernel wrote its input canvas")
+            log("kernel", "%s %d² B=%d: one round in the TPU's order at each "
+                "orientation 0-3 from the base, level kernel == plain, %d "
+                "launches a round, %s blocks changed"
+                % (name, n, B, levels_per_round(n, n, B), changed))
         worst_k2 = max(worst_k2, k2_rounds_vs_plain(name, W, base))
-        B = _block_size(n, n)  # the main path's block size
-        ak, rk = accumulate_blocked_gs(base, W, B=B)
-        ap, rp = accumulate_blocked_gs(base, W, B=B, round_fn=gs_round_plain)
-        err = nan_equal_max_err(ak, ap)
-        worst = max(worst, err)
-        check(err <= KERNEL_TOL and rk == rp,
-              "%s %d² full solve: kernel != plain (max err %g, rounds %d vs "
-              "%d)" % (name, n, err, rk, rp))
-        log("kernel", "%s %d² B=%d full solve: kernel == plain, %d rounds"
-            % (name, n, B, rk))
+        for B in KERNEL_BLOCKS:
+            before = launch_count(gs_round_oriented)
+            ak, rk = accumulate_blocked_gs(base, W, B=B)
+            launches = launch_count(gs_round_oriented) - before
+            ap, rp = accumulate_blocked_gs(base, W, B=B,
+                                           round_fn=gs_round_oriented_plain)
+            err = nan_equal_max_err(ak, ap)
+            worst = max(worst, err)
+            levels = levels_per_round(n, n, B)
+            check(err <= KERNEL_TOL and rk == rp
+                  and rk * levels <= launches <= (rk + 3) * levels,
+                  "%s %d² B=%d full solve: kernel != plain (max err %g, "
+                  "rounds %d vs %d, %d launches)"
+                  % (name, n, B, err, rk, rp, launches))
+            log("kernel", "%s %d² B=%d full solve in the TPU's order: kernel "
+                "== plain, %d rounds both, %d launches" % (name, n, B, rk,
+                                                           launches))
     return worst, worst_k2
 
 
@@ -557,19 +621,26 @@ def phase_main_path(device):
     elevs = {k: torch.from_numpy(v).to(device) for k, v in terrains.items()}
     args = spacing(N_MAIN, torch.float32, device)
 
-    gs_round.launches_on.clear()
+    reset_counts()
     gs_solve.host_reads = 0
     blocked = {k: terrain_step(e, *args, uca_solver="blocked")
                for k, e in elevs.items()}
     torch.cuda.synchronize()
-    launches = launch_count(gs_round)
+    launches = launch_count(gs_round_oriented)
     check(launches > 0, "the main path launched the UCA kernel no time")
+    check(launch_count(gs_round) == 0, "terrain_step launched the "
+          "block-Jacobi round")
     rounds = sum(b["uca_sweeps"] for b in blocked.values())
-    check(rounds <= launches <= rounds + 3 * len(blocked),
-          "terrain_step: %d launches for %d rounds" % (launches, rounds))
+    levels = levels_per_round(N_MAIN, N_MAIN, _block_size(N_MAIN, N_MAIN))
+    check(rounds * levels <= launches <= (rounds + 3 * len(blocked)) * levels,
+          "terrain_step: %d launches for %d rounds of %d levels"
+          % (launches, rounds, levels))
     log("main", "terrain_step(blocked) on the %d² cone and hard terrain: %d "
-        "kernel launches for %d rounds, %d host reads of the flags"
-        % (N_MAIN, launches, rounds, gs_solve.host_reads))
+        "level-kernel launches for %d rounds in the TPU's order (%d levels a "
+        "round; %s rounds), %d host reads of the flags"
+        % (N_MAIN, launches, rounds, levels,
+           {k: b["uca_sweeps"] for k, b in blocked.items()},
+           gs_solve.host_reads))
 
     for k, e in elevs.items():
         b = blocked[k]
@@ -648,13 +719,15 @@ def phase_hard_chain(device):
     """DEMProcessor's device chain (blocked, K1 with the pit fold) on the
     2048² hard terrain, gated against jacobi and repeated."""
     elev = make_hard_terrain(N_MAIN)
-    gs_round.launches_on.clear()
+    reset_counts()
     dp, twi = run_chain(elev, device)
     torch.cuda.synchronize()
-    launches = launch_count(gs_round)
-    check(dp.uca_sweeps <= launches <= dp.uca_sweeps + 3,
-          "the hard chain launched K1 %d times for %d rounds"
-          % (launches, dp.uca_sweeps))
+    launches = launch_count(gs_round_oriented)
+    levels = levels_per_round(N_MAIN, N_MAIN, _block_size(N_MAIN, N_MAIN))
+    check(dp.uca_sweeps * levels <= launches
+          <= (dp.uca_sweeps + 3) * levels and launch_count(gs_round) == 0,
+          "the hard chain launched K1 %d times for %d rounds of %d levels"
+          % (launches, dp.uca_sweeps, levels))
     uca = dp._dev("uca")
     check(tuple(uca.shape) == (N_MAIN, N_MAIN) and twi.shape == uca.shape,
           "hard chain: uca %s, twi %s" % (tuple(uca.shape), twi.shape))
@@ -686,9 +759,13 @@ def phase_hard_chain(device):
 
 def phase_k2_path(device):
     """K2 on the hard chain's own state: rounds and both solves, kernel
-    beside plain; K1's pit solve beside its plain version; K2 and K1 pit
-    solves against each other.  Returns (K2 launches, K2 worst error, K1
-    worst error, state)."""
+    beside plain; K1's pit solve beside its plain version; K1's
+    block-Jacobi canvas solve (the rounds of the mesh's solvers) with the
+    pit fold, kernel beside plain; K2's and both K1 pit solves against each
+    other.  Returns (K2 launches, K2 worst error, K1 worst error, state).
+    The block-Jacobi solve is a reference that no user path runs: its
+    launches are logged here and are not the kernel's launches on a main
+    path."""
     state = chain_state(make_hard_terrain(N_MAIN), device)
     W, base, links = state
     worst_k2 = k2_rounds_vs_plain("conditioned hard", W, base)
@@ -717,19 +794,46 @@ def phase_k2_path(device):
 
     gk, grk = accumulate_blocked_pits_gs(base, W, *links)
     gp, grp = accumulate_blocked_pits_gs(base, W, *links,
-                                         round_fn=gs_round_plain)
+                                         round_fn=gs_round_oriented_plain)
     worst_k1 = nan_equal_max_err(gk, gp)
     check(worst_k1 <= KERNEL_TOL and grk == grp,
           "accumulate_blocked_pits_gs: kernel != plain (max err %g, rounds "
           "%d vs %d)" % (worst_k1, grk, grp))
-    log("k2", "accumulate_blocked_pits_gs (K1 + fold): kernel == plain, %d "
-        "rounds" % grk)
-    err = nan_equal_max_err(pk, gk)
-    check(torch.allclose(pk, gk, **GATE_TOL["hard"]),
-          "K2 and K1 pit solves differ (max %g)" % err)
-    log("k2", "K2 and K1 pit solves agree within %s (max abs %g)"
-        % (GATE_TOL["hard"], err))
+    log("k2", "accumulate_blocked_pits_gs (K1 in the TPU's order + fold): "
+        "kernel == plain, %d rounds" % grk)
+
+    # K1's block-Jacobi canvas solve: the rounds the sharded solvers and the
+    # engine's visits take, on one canvas (the reference they are held to)
+    gs_round.launches_on.clear()
+    jk, jrk = jacobi_k1_solve(base, W, links)
+    torch.cuda.synchronize()
+    jacobi_launches = launch_count(gs_round)
+    check(jrk <= jacobi_launches <= jrk + 3,
+          "K1's block-Jacobi solve launched %d times for %d rounds"
+          % (jacobi_launches, jrk))
+    jp, jrp = jacobi_k1_solve(base, W, links, gs_round_plain)
+    err = nan_equal_max_err(jk, jp)
+    worst_k1 = max(worst_k1, err)
+    check(err <= KERNEL_TOL and jrk == jrp, "K1's block-Jacobi pit solve: "
+          "kernel != plain (max err %g, rounds %d vs %d)" % (err, jrk, jrp))
+    log("k2", "K1's block-Jacobi canvas solve + fold: kernel == plain, %d "
+        "rounds (the TPU's order: %d), %d launches" % (jrk, grk,
+                                                        jacobi_launches))
+    for what, other in (("K2", pk), ("K1 block-Jacobi", jk)):
+        err = nan_equal_max_err(other, gk)
+        check(torch.allclose(other, gk, **GATE_TOL["hard"]),
+              "%s and K1 pit solves differ (max %g)" % (what, err))
+        log("k2", "%s and K1 (the TPU's order) pit solves agree within %s "
+            "(max abs %g)" % (what, GATE_TOL["hard"], err))
     return launches, worst_k2, worst_k1, state
+
+
+def jacobi_k1_solve(base, W, links=None, round_fn=gs_round):
+    """K1's block-Jacobi canvas solve (``gs_round`` iterated, the pit links
+    folded as ``accumulate_blocked_pits_gs`` folds them) at the main path's
+    block side: the rounds of the mesh's solvers on one canvas."""
+    return gs_solve(base, W, _block_size(*base.shape), None, 100_000,
+                    round_fn, None if links is None else PitLinks(*links))
 
 
 def phase_f64_chain(device, n=256):
@@ -809,15 +913,17 @@ def time_chain(device, card):
     return hb
 
 
-def time_round(name, fns, args, card):
-    """One round of each of ``fns``, median of 5 after a warm-up; the
-    outputs must agree bit for bit.  Returns (ms per fn, max error)."""
+def time_round(name, fns, args, card, plain_reps=5):
+    """One round of each of ``fns``, median of 5 (the plain one:
+    ``plain_reps``) after a warm-up; the outputs must agree bit for bit.
+    Returns (ms per fn, max error)."""
     times, outs = {}, {}
     for label, fn in fns:
         def one_round():
             outs[label] = fn(*args[0], **args[1])
 
-        ms, reps = cuda_median_ms(one_round, reps=5)
+        ms, reps = cuda_median_ms(
+            one_round, reps=plain_reps if label == "plain" else 5)
         times[label] = ms
         log("time", "%s, %s: median %.3f ms, reps %s ms [%s]"
             % (name, label, ms, ["%.3f" % t for t in reps], card))
@@ -842,9 +948,10 @@ def round_bound(inputs, outputs, W):
 
 
 def time_k1_solve(base, W, B, card):
-    """One K1 solve of the cone: its time, and with events around every
-    launch the kernel time summed over the solve, median of 3 after a
-    warm-up; rounds, launches and host reads of one solve."""
+    """One K1 solve of the cone in the TPU's order: its time, and with
+    events around every round (one call, its levels' launches) the kernel
+    time summed over the solve, median of 3 after a warm-up; rounds,
+    launches and host reads of one solve.  Returns (median ms, rounds)."""
     out = []
     ms, reps = cuda_median_ms(
         lambda: out.append(accumulate_blocked_gs(base, W, B=B)))
@@ -859,31 +966,154 @@ def time_k1_solve(base, W, B, card):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        res = gs_round(*args, **kw)
+        res = gs_round_oriented(*args, **kw)
         end.record()
         spans.append((start, end))
         return res
 
+    levels = levels_per_round(*base.shape, B)
     sums = []
     for rep in range(4):  # rep 0 warms up
         del spans[:]
-        launches, reads = launch_count(gs_round), gs_solve.host_reads
+        launches = launch_count(gs_round_oriented)
+        reads = gs_solve.host_reads
         _x, r = accumulate_blocked_gs(base, W, B=B, round_fn=timed_round)
         torch.cuda.synchronize()
-        launches = launch_count(gs_round) - launches
+        launches = launch_count(gs_round_oriented) - launches
         reads = gs_solve.host_reads - reads
-        check(r == rounds and launches == len(spans),
+        check(r == rounds and launches == len(spans) * levels,
               "timed K1 solve: %d rounds, %d launches" % (r, launches))
         if rep:
             sums.append(sum(a.elapsed_time(b) for a, b in spans))
     per_round = ["%.3f" % a.elapsed_time(b) for a, b in spans]
-    log("time", "K1 cone solve %d² B=%d: %d rounds, %d launches, %d host "
-        "reads; kernel time summed over the launches median %.3f ms, reps %s "
-        "ms [%s]" % (N_MAIN, B, rounds, launches, reads,
-                     statistics.median(sums), ["%.3f" % t for t in sums],
-                     card))
-    log("time", "K1 cone solve, ms per launch (last rep): %s"
-        % " ".join(per_round))
+    log("time", "K1 cone solve %d² B=%d: %d rounds, %d launches (%d a "
+        "round), %d host reads; kernel time summed over the rounds median "
+        "%.3f ms, reps %s ms [%s]"
+        % (N_MAIN, B, rounds, launches, levels, reads,
+           statistics.median(sums), ["%.3f" % t for t in sums], card))
+    log("time", "K1 cone solve, ms per round (orientation r %% 4, last rep): "
+        "%s" % " ".join(per_round))
+    return ms, rounds
+
+
+def hold_card(launches):
+    """Queue a sleep on the card long enough for the host to enqueue
+    ``launches`` launches meanwhile (~0.1 ms of host time each, at up to
+    2 GHz): the card then runs them back to back, and events between them
+    read the card's time alone, never a gap left by the host."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * (0.02 + 1e-4 * launches)))
+
+
+def held_ms(fn, launches):
+    """``fn()`` between CUDA events, the card held behind the host
+    (:func:`hold_card`): the card's time for its ``launches`` launches."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    hold_card(launches)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def level_device_ms(base, K, W1, B, o=0):
+    """One K1 round in the TPU's order from the base (every block relaxed)
+    at orientation ``o``, its levels launched one at a time through the
+    level kernel's C entry with CUDA events around each, the card held
+    behind the host (:func:`hold_card`): each pair of events reads one
+    level's kernel time on the card, an event pair's own cost included.
+    The canvas and flags must equal one ``gs_round_oriented`` call's.
+    Returns the levels' ms in launch order."""
+    n, m = base.shape
+    inner_max = 2 * B + 4
+    order, offsets, n_levels = uca_block._level_lists(n // B, m // B, o,
+                                                      base.device)
+    prev = torch.ones((n // B, m // B), dtype=torch.int32,
+                      device=base.device)
+    x, chg = base.clone(), torch.empty_like(prev)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n_levels)]
+    hold_card(n_levels)
+    for t, (a, b) in enumerate(events):
+        a.record()
+        uca_block._launch("uca_gs_round_levels_f32", x, K, W1, base, prev,
+                          chg, order, offsets[t: t + 2], 1, n, m, B,
+                          inner_max)
+        b.record()
+    torch.cuda.synchronize()
+    want, want_chg = gs_round_oriented(base, K, W1, base, o, B=B,
+                                       inner_max=inner_max)
+    check(torch.equal(x, want) and torch.equal(chg, want_chg),
+          "%d² B=%d: the levels launched one at a time != the round"
+          % (n, B))
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def time_level_rounds(base, K, W1, W, card, B=64, plain=True):
+    """K1 in the TPU's order at N_MAIN², block side ``B``: one round from
+    the base (every block relaxed) at each orientation, with ``plain``
+    beside its plain version (bitwise); the round's bound; its critical
+    path, the round at orientation 0 timed with the card held behind the
+    host (its levels depend one on the next, so the card's time for them
+    back to back is the path; median of 3 after a warm-up); and each
+    level's kernel time inside the round (:func:`level_device_ms`, median
+    of 3 rounds level by level).  Returns the figures."""
+    kw = dict(B=B, inner_max=2 * B + 4)
+    levels = levels_per_round(*base.shape, B)
+    by_o, err = {}, 0.0
+    for o in range(4):
+        what = ("K1 round in the TPU's order %d² B=%d orientation %d (all "
+                "blocks visited, %d launches)" % (N_MAIN, B, o, levels))
+        if plain:
+            times, e = time_round(
+                what, (("kernel", gs_round_oriented),
+                       ("plain", gs_round_oriented_plain)),
+                ((base, K, W1, base, o), kw), card, plain_reps=1)
+            err = max(err, e)
+        else:
+            ms, reps = cuda_median_ms(
+                lambda: gs_round_oriented(base, K, W1, base, o, **kw),
+                reps=5)
+            times = dict(kernel=ms)
+            log("time", "%s, kernel: median %.3f ms, reps %s ms [%s]"
+                % (what, ms, ["%.3f" % t for t in reps], card))
+        by_o[o] = times
+    out, chg = gs_round_oriented(base, K, W1, base, 0, **kw)
+    prev = torch.ones_like(chg)
+    bound, bound_by = round_bound((base, K, W1, base, prev), (out, chg), W)
+    held = [held_ms(lambda: gs_round_oriented(base, K, W1, base, 0, **kw),
+                    levels) for _ in range(4)][1:]
+    path = statistics.median(held)
+    per_level = [level_device_ms(base, K, W1, B) for _ in range(4)][1:]
+    per_level = [statistics.median(t) for t in zip(*per_level)]
+    res = dict(
+        ms=by_o[0]["kernel"], bound=bound, bound_by=bound_by, err=err,
+        levels=levels,
+        ms_by_orientation=[by_o[o]["kernel"] for o in range(4)],
+        level_ms_median=statistics.median(per_level),
+        level_ms_max=max(per_level), levels_sum_ms=sum(per_level),
+        critical_path_ms=path)
+    if plain:
+        res.update(plain_ms=by_o[0]["plain"], plain_ms_by_orientation=[
+            by_o[o]["plain"] for o in range(4)])
+    log("time", "K1 in the TPU's order %d² B=%d: ms a round by orientation "
+        "0-3 %s%s; %d launches a round, %.4f ms a launch on average at "
+        "orientation 0; bound %.4f ms by %s (%.1f%% of the kernel's round); "
+        "critical path, the round with the card held behind the host, "
+        "median %.3f ms (reps %s) = %.1f%% of the round's %.3f ms; level "
+        "kernel times inside the round, events around each (median of 3 "
+        "rounds): median %.4f ms, max %.4f ms, first 8 %s, summed %.3f ms; "
+        "levels x the median level %.3f ms [%s]"
+        % (N_MAIN, B, ["%.3f" % t for t in res["ms_by_orientation"]],
+           " (plain %s)" % ["%.1f" % t for t in res["plain_ms_by_orientation"]]
+           if plain else "", levels, res["ms"] / levels, bound, bound_by,
+           100 * bound / res["ms"], path, ["%.3f" % t for t in held],
+           100 * path / res["ms"], res["ms"], res["level_ms_median"],
+           res["level_ms_max"], ["%.4f" % t for t in per_level[:8]],
+           res["levels_sum_ms"], levels * res["level_ms_median"], card))
+    return res
 
 
 def phase_times(device, card, state):
@@ -892,6 +1122,9 @@ def phase_times(device, card, state):
     elev = torch.from_numpy(make_cone(N_MAIN)).to(device)
     args = spacing(N_MAIN, torch.float32, device)
     px = N_MAIN * N_MAIN
+    W, base = weights_and_base(elev)
+    _x, jacobi_rounds = jacobi_k1_solve(base, W)
+    step_ms = {}
     for solver in ("blocked", "jacobi"):
         out = {}
 
@@ -899,15 +1132,18 @@ def phase_times(device, card, state):
             out.update(terrain_step(elev, *args, uca_solver=solver))
 
         ms, reps = cuda_median_ms(step)
+        step_ms[solver] = (ms, out["uca_sweeps"])
         log("time", "terrain_step(%s) %d² cone: median %.3f ms, reps %s ms, "
-            "%.4g px/s, %d %s [%s]" % (
+            "%.4g px/s, %d %s%s [%s]" % (
                 solver, N_MAIN, ms, ["%.3f" % t for t in reps],
                 px / (ms / 1e3), out["uca_sweeps"],
-                "rounds" if solver == "blocked" else "sweeps", card))
+                "rounds" if solver == "blocked" else "sweeps",
+                " in the TPU's order (the block-Jacobi canvas solve: %d)"
+                % jacobi_rounds if solver == "blocked"
+                else "", card))
 
     chain = time_chain(device, card)
 
-    W, base = weights_and_base(elev)
     K, W1 = compact_from_dense(W)
     B = 64
     prev = torch.ones((N_MAIN // B,) * 2, dtype=torch.int32, device=device)
@@ -929,22 +1165,37 @@ def phase_times(device, card, state):
             "%.3f ms" % (name, times["bound"], times["bound_by"],
                          100 * times["bound"] / times["kernel"],
                          times["kernel"]))
-    time_k1_solve(base, W, B, card)
+    levels = time_level_rounds(base, K, W1, W, card, B)
+    levels["solve_ms"], levels["solve_rounds"] = time_k1_solve(base, W, B,
+                                                                card)
+    levels["step_ms"], levels["step_rounds"] = step_ms["blocked"]
+    levels["jacobi_rounds"] = jacobi_rounds
+    # the other block side the kernel takes, B = 16: 4x the levels a round,
+    # each of at most 4x the CTAs with 1/16 the pixels (its kernel ==
+    # plain check is phase 3's)
+    small = time_level_rounds(base, K, W1, W, card, 16, plain=False)
+    small["solve_ms"], small["solve_rounds"] = time_k1_solve(base, W, 16,
+                                                              card)
+    levels["b16"] = small
 
     W, base, links = state
+    levels["pit_solve"] = {}
     for name, fn in (
             ("K1 + fold (accumulate_blocked_pits_gs)",
              lambda: accumulate_blocked_pits_gs(base, W, *links)),
+            ("K1 + fold at B=16 (accumulate_blocked_pits_gs)",
+             lambda: accumulate_blocked_pits_gs(base, W, *links, B=16)),
             ("K2 (accumulate_blocked_pits)",
              lambda: accumulate_blocked_pits(base, W, *links)),
             ("jacobi (accumulate)", lambda: accumulate(base, W, *links))):
         out = []
         ms, reps = cuda_median_ms(lambda: out.append(fn()))
+        levels["pit_solve"][name] = (ms, out[-1][1])
         log("time", "pit solve, hard chain %d², %s: median %.3f ms, reps %s "
             "ms, %d rounds or sweeps [%s]" % (N_MAIN, name, ms,
                                               ["%.3f" % t for t in reps],
                                               out[-1][1], card))
-    return k1, k2, k1_err, k2_err, chain
+    return k1, k2, k1_err, k2_err, chain, levels
 
 
 MANAGER_KW = dict(conditioning_backend="device", pit_backend="device",
@@ -1039,9 +1290,10 @@ def check_manager_store(pm, hard, launches):
     check(np.array_equal(pm._mosaic_elev(), hard.astype("float64")),
           "the mosaic of the tiles is not the unsplit array")
     rounds = pm._dp.uca_sweeps
-    check(0 < rounds <= launches <= rounds + 3,
-          "the manager path launched K1 %d times for %d rounds"
-          % (launches, rounds))
+    levels = levels_per_round(N_MAIN, N_MAIN, _block_size(N_MAIN, N_MAIN))
+    check(0 < rounds * levels <= launches <= (rounds + 3) * levels,
+          "the manager path launched K1 %d times for %d rounds of %d levels"
+          % (launches, rounds, levels))
     store = pm.out_file
     for key in STORE_KEYS:
         check(key in store, "the store lacks %r" % key)
@@ -1111,9 +1363,9 @@ def check_host_backends(device, work):
         tag = name.replace(" ", "_")
         tiles = os.path.join(work, "tiles_%s" % tag)
         write_tiles(elev, tiles)
-        gs_round.launches_on.clear()
+        reset_counts()
         card_pm, _t, _w, _s = manager_run(tiles, work, tag + "_card")
-        launches = launch_count(gs_round)
+        launches = launch_count(gs_round_oriented)
         cpu_pm, _t, _w, _s = manager_run(tiles, work, tag + "_cpu",
                                          device="cpu")
         check(card_pm._dp.device.type == "cuda" and launches > 0
@@ -1158,10 +1410,10 @@ def _phase_manager(device, card, work):
     tiles = os.path.join(work, "tiles")
     check(write_tiles(hard, tiles) == 4, "expected a 2x2 tile grid")
 
-    gs_round.launches_on.clear()
+    reset_counts()
     pm, twi, written, times0 = manager_run(tiles, work, "run0",
                                            dem_proc_kwargs=MANAGER_KW)
-    launches = launch_count(gs_round)
+    launches = launch_count(gs_round_oriented)
     check(pm._dp.device.type == device.type == "cuda",
           "the manager ran on %s" % pm._dp.device)
     store = check_manager_store(pm, hard, launches)
@@ -1432,7 +1684,7 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
     peak_on = {d: torch.cuda.max_memory_allocated(d) - held[d] for d in cards}
     res = dict(total=total, stages=timer.report(), rounds=eng.uca_rounds,
                visits=eng.uca_visits, skipped=eng.uca_skipped,
-               launches=launch_count(gs_round),
+               launches=launch_count(gs_round_oriented),
                ring_launches=launch_count(gs_round_ring),
                subset_launches=launch_count(gs_round_subset),
                ring_on=dict(gs_round_ring.launches_on),
@@ -1570,8 +1822,7 @@ def _phase_ooc_hard(device, card, work):
     check(write_tiles(hard, tiles) == 4, "expected a 2x2 tile grid")
     kw = dict(in_path=tiles, out_path=os.path.join(work, "ooc.zarr"),
               out_of_core=True, superblock=S)
-    gs_round.launches_on.clear()
-    gs_round_ring.launches_on.clear()
+    reset_counts()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         t0 = time.perf_counter()
@@ -1583,10 +1834,11 @@ def _phase_ooc_hard(device, card, work):
         written = pm.save_non_overlap_data_geotiff(
             os.path.join(work, "ooc_geotiff"))
         export_s = time.perf_counter() - t0
-    launches, ring_first = launch_count(gs_round), launch_count(gs_round_ring)
+    launches = launch_count(gs_round_oriented)
+    ring_first = launch_count(gs_round_ring)
     eng = pm._ooc
     check(eng.device.type == "cuda" and eng._fits_device_resident()
-          and launch_count(gs_round) > 0,
+          and launches > 0,
           "the out-of-core manager did not run on the card")
     check(pm.grid_shape == (N_MAIN, N_MAIN) and store is pm.out_file,
           "out-of-core manager: grid %s" % (pm.grid_shape,))
@@ -1611,15 +1863,14 @@ def _phase_ooc_hard(device, card, work):
            eng.uca_rounds, launches + ring_first, n_links, export_s, card))
 
     uca_dev, twi_dev = store["uca"], store["twi"]
-    gs_round.launches_on.clear()
-    gs_round_ring.launches_on.clear()
+    reset_counts()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         pm2 = ProcessManager(resume=True, **kw)
         t0 = time.perf_counter()
         pm2.process_twi()
         resume_s = time.perf_counter() - t0
-    check(launch_count(gs_round) + launch_count(gs_round_ring) == 0
+    check(launch_count(gs_round_oriented) + launch_count(gs_round_ring) == 0
           and sorted(pm2.timer.report()) == ["ingest"]
           and pm2._ooc.uca_rounds == eng.uca_rounds,
           "the resumed out-of-core run computed again: %s"
@@ -1641,7 +1892,7 @@ def _phase_ooc_hard(device, card, work):
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     ring_launches = launch_count(gs_round_ring)
-    check(ring_launches > 0 and launch_count(gs_round) == 0,
+    check(ring_launches > 0 and launch_count(gs_round_oriented) == 0,
           "the streamed uca stage launched no ring round")
     uca_str = np.where(store["flats"], np.nan, store["uca_state"])
     err, bitwise = gate_equal("10c streamed vs device-resident uca", uca_str,
@@ -1898,6 +2149,40 @@ def mesh_of(device, shape):
     return make_mesh([device] * (shape[0] * shape[1]), shape)
 
 
+def whole(out):
+    """A mesh run's dict with its canvases assembled on their first
+    device."""
+    return {k: v.assemble() if isinstance(v, ShardedCanvas) else v
+            for k, v in out.items()}
+
+
+def one_shard_step(elev, args, device):
+    """``run_sharded(blocked)`` on a 1×1 mesh of ``device``: the bitwise
+    reference of the mesh runs (their rounds are block-Jacobi; one
+    device's ``terrain_step`` runs the TPU's order).  Whole canvases."""
+    return whole(run_sharded(elev, *args, mesh=mesh_of(device, (1, 1)),
+                             uca_solver="blocked"))
+
+
+def check_near_step(tag, got, step, tol):
+    """A mesh run (a dict of ShardedCanvases) against one device's
+    ``terrain_step(blocked)``: mag, direction and flats bitwise, uca and
+    twi within ``tol`` with equal NaN patterns.  Returns the largest
+    difference of uca."""
+    for key in ("mag", "direction", "flats"):
+        check(canvas_equal(got[key], step[key]),
+              "%s: %s differs from one device's terrain_step" % (tag, key))
+    for key in ("uca", "twi"):
+        for view, (r0, c0, h, w) in got[key].views():
+            want = step[key][r0: r0 + h, c0: c0 + w].to(view.device)
+            check(torch.equal(torch.isnan(view), torch.isnan(want))
+                  and torch.allclose(torch.nan_to_num(view),
+                                     torch.nan_to_num(want), **tol),
+                  "%s: %s outside %s of one device's terrain_step"
+                  % (tag, key, tol))
+    return canvas_max_err(got["uca"], step["uca"])
+
+
 def forced_solve(base, W, mesh, split, links=None):
     """The sharded K1 solve of ``base``/``W`` (and pit links) with the
     split (True) or the serial (False) round forced, through the solver's
@@ -1920,28 +2205,34 @@ def shards_equal(a, b):
 
 
 def phase_sharded(device, card):
-    """11b: the 8192² cone over four shards on the card against one device,
-    split and serial rounds; 1×2 and 2×4 meshes at 2048²; the one-card
-    overlap.  Returns the launches (ring, subset) of the main run."""
+    """11b: the 8192² cone over four shards on the card against a 1×1 mesh
+    (bitwise) and one device's terrain_step (the gate), split and serial
+    rounds; 1×2 and 2×4 meshes at 2048²; the one-card overlap.  Returns the
+    launches (ring, subset) of the main run."""
     n = N_MESH
     elev = torch.from_numpy(make_cone(n)).to(device)
     args = spacing(n, torch.float32, device)
-    single, single_s = synced_seconds(
+    step, step_s = synced_seconds(
         lambda: terrain_step(elev, *args, uca_solver="blocked"))
     log("mesh", "11b terrain_step(blocked) on one device, %d² cone: %.3f s, "
-        "%d rounds [%s]" % (n, single_s, single["uca_sweeps"], card))
+        "%d rounds in the TPU's order [%s]"
+        % (n, step_s, step["uca_sweeps"], card))
+    single, single_s = synced_seconds(
+        lambda: one_shard_step(elev, args, device))
+    log("mesh", "11b run_sharded(blocked) on a 1x1 mesh, %d² cone: %.3f s, "
+        "%d block-Jacobi rounds [%s]" % (n, single_s, single["uca_sweeps"],
+                                         card))
     mesh = mesh_of(device, (2, 2))
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    gs_round.launches_on.clear()
-    gs_round_ring.launches_on.clear()
-    gs_round_subset.launches_on.clear()
+    reset_counts()
     reads = sharded._blocked_shards.host_reads
     out, split_s = synced_seconds(lambda: run_sharded(
         elev, *args, mesh=mesh, uca_solver="blocked"))
-    launches = dict(canvas=launch_count(gs_round),
+    launches = dict(canvas=launch_count(gs_round)
+                    + launch_count(gs_round_oriented),
                     ring=launch_count(gs_round_ring),
                     subset=launch_count(gs_round_subset))
     reads = sharded._blocked_shards.host_reads - reads
@@ -1953,18 +2244,32 @@ def phase_sharded(device, card):
     check(launches["subset"] >= 2 * 4 * rounds, "11b: %d subset launches for "
           "%d rounds of 4 shards" % (launches["subset"], rounds))
     check_step_equal("11b 2x2 split", out, single)
+    err = check_near_step("11b 2x2 split", out, step, GATE_TOL["cone"])
     log("mesh", "11b run_sharded(blocked) over a 2x2 mesh of four %d² shards "
-        "on %s: mag, direction, flats, uca, twi bitwise equal to one device's "
-        "terrain_step, %d rounds both; %.3f s (one device %.3f s); K1 "
-        "launches: %d subset (interior + boundary), %d ring, %d canvas; %d "
-        "host reads of the change counts; peak device memory %.3f GB = %.1f "
-        "planes of the canvas [%s]"
-        % (n // 2, device, rounds, split_s, single_s, launches["subset"],
-           launches["ring"], launches["canvas"], reads, peak / 1e9,
-           peak / (n * n * 4.0), card))
-    del out, single
+        "on %s: mag, direction, flats, uca, twi bitwise equal to a 1x1 mesh, "
+        "%d rounds both; uca and twi within %s of one device's "
+        "terrain_step(blocked) (max abs %g, %d rounds in the TPU's order); "
+        "%.3f s (1x1 mesh %.3f s, terrain_step %.3f s); K1 launches: %d "
+        "subset (interior + boundary), %d ring, %d canvas; %d host reads of "
+        "the change counts; peak device memory %.3f GB = %.1f planes of the "
+        "canvas [%s]"
+        % (n // 2, device, rounds, GATE_TOL["cone"], err, step["uca_sweeps"],
+           split_s, single_s, step_s, launches["subset"], launches["ring"],
+           launches["canvas"], reads, peak / 1e9, peak / (n * n * 4.0),
+           card))
+    del out, single, step
     _mag, _dir, _flats, W, base = terrain_pre(elev, *args)
     del elev, _mag, _dir, _flats
+    for B in (64, 16):  # the in-core solve alone, at both block sides
+        solved = []
+        ms, reps = cuda_median_ms(
+            lambda: solved.append(accumulate_blocked_gs(base, W, B=B)))
+        log("mesh", "11b accumulate_blocked_gs on the %d² cone's planes, "
+            "B=%d: median %.3f ms, reps %s ms, %d rounds in the TPU's order "
+            "of %d levels [%s]"
+            % (n, B, ms, ["%.3f" % t for t in reps], solved[-1][1],
+               levels_per_round(n, n, B), card))
+        del solved
     (a_split, r_split), split_solve_s = synced_seconds(
         lambda: forced_solve(base, W, mesh, True))
     (a_serial, r_serial), serial_s = synced_seconds(
@@ -1989,21 +2294,24 @@ def phase_sharded(device, card):
     for shape in ((1, 2), (2, 4)):
         e = torch.from_numpy(make_cone(N_MAIN)).to(device)
         a = spacing(N_MAIN, torch.float32, device)
-        one, one_s = synced_seconds(
-            lambda: terrain_step(e, *a, uca_solver="blocked"))
+        one, one_s = synced_seconds(lambda: one_shard_step(e, a, device))
         m = mesh_of(device, shape)
         got, got_s = synced_seconds(
             lambda: run_sharded(e, *a, mesh=m, uca_solver="blocked"))
         check_step_equal("11b %dx%d" % shape, got, one)
+        step = terrain_step(e, *a, uca_solver="blocked")
+        err = check_near_step("11b %dx%d" % shape, got, step,
+                              GATE_TOL["cone"])
         _mg, _dr, _fl, W2, b2 = terrain_pre(e, *a)
         ov = measure_halo_overlap(b2, W2, m)
         log("mesh", "11b %d² cone over a %dx%d mesh (split %s): bitwise equal "
-            "to one device, %d rounds; %.3f s (one device %.3f s); overlap: "
-            "exchange %.3f ms, relax %.3f ms, full %.3f ms a round, fraction "
-            "%s (one card, %s) [%s]"
+            "to a 1x1 mesh, %d rounds; within %s of terrain_step (max abs "
+            "%g, %d rounds); %.3f s (1x1 mesh %.3f s); overlap: exchange "
+            "%.3f ms, relax %.3f ms, full %.3f ms a round, fraction %s (one "
+            "card, %s) [%s]"
             % (N_MAIN, shape[0], shape[1], sharded._blocked_shards.last_split,
-               got["uca_sweeps"], got_s, one_s,
-               1e3 * ov["t_exchange_per_round"],
+               got["uca_sweeps"], GATE_TOL["cone"], err, step["uca_sweeps"],
+               got_s, one_s, 1e3 * ov["t_exchange_per_round"],
                1e3 * ov["t_relax_per_round"], 1e3 * ov["t_full_per_round"],
                ov["overlap_fraction"], ov["timer"], card))
     return launches
@@ -2011,10 +2319,17 @@ def phase_sharded(device, card):
 
 def phase_sharded_pits(device, card, state):
     """11c: the hard chain's planes and pit links through sharded_uca on a
-    2x2 mesh (which takes the split round) against
-    accumulate_blocked_pits_gs on one device; the serial round forced."""
+    2x2 mesh (which takes the split round) against the same call on a 1×1
+    mesh and K1's block-Jacobi canvas solve, bitwise, and against
+    accumulate_blocked_pits_gs (the TPU's order) within the hard gate; the
+    serial round forced."""
     W, base, links = state
-    want, rw = accumulate_blocked_pits_gs(base, W, *links)
+    want, rw = sharded_uca(base, W, mesh_of(device, (1, 1)), pit_links=links)
+    want = want.assemble()
+    canvas, rc = jacobi_k1_solve(base, W, links)
+    check(rc == rw and torch.equal(canvas, want), "11c: the 1x1 mesh and the "
+          "block-Jacobi canvas solve differ (rounds %d vs %d)" % (rw, rc))
+    gs, rgs = accumulate_blocked_pits_gs(base, W, *links)
     mesh = mesh_of(device, (2, 2))
     got, rg = sharded_uca(base, W, mesh, pit_links=links)
     check(sharded._blocked_shards.last_split, "11c: 2x2 did not split")
@@ -2023,13 +2338,19 @@ def phase_sharded_pits(device, card, state):
                                                   links))):
         err = canvas_max_err(got, want)
         check(err == 0.0 and rg == rw, "11c: sharded pit solve (split %s) "
-              "differs from one device: max err %g, rounds %d vs %d"
+              "differs from a 1x1 mesh: max err %g, rounds %d vs %d"
               % (split, err, rg, rw))
+    err = nan_equal_max_err(want, gs)
+    check(torch.allclose(want, gs, **GATE_TOL["hard"]), "11c: the sharded pit "
+          "solve is outside %s of accumulate_blocked_pits_gs (max %g)"
+          % (GATE_TOL["hard"], err))
     log("mesh", "11c %d² hard terrain, %d pit links, 2x2 mesh: "
-        "sharded_uca(pit_links=...) bitwise equal to "
-        "accumulate_blocked_pits_gs on one device, split and serial, %d "
-        "rounds both (the fold adds each destination's links in link order "
-        "on one device, as PitLinks does)" % (N_MAIN, len(links[0]), rw))
+        "sharded_uca(pit_links=...) bitwise equal to a 1x1 mesh and to K1's "
+        "block-Jacobi canvas solve, split and serial, %d rounds all (the "
+        "fold adds each destination's links in link order, as PitLinks "
+        "does); within %s of accumulate_blocked_pits_gs in the TPU's order "
+        "(max abs %g, %d rounds)" % (N_MAIN, len(links[0]), rw,
+                                    GATE_TOL["hard"], err, rgs))
 
 
 def phase_mesh_manager(device, card, mesh=None, phase="11d"):
@@ -2062,7 +2383,9 @@ def phase_mesh_manager(device, card, mesh=None, phase="11d"):
                     written = pm.save_non_overlap_data_geotiff(
                         os.path.join(work, "mesh_geotiff"))
                     export_s = time.perf_counter() - t0
-            runs[tag] = (pm, twi, run_s, export_s, launch_count(gs_round),
+            runs[tag] = (pm, twi, run_s, export_s,
+                         launch_count(gs_round)
+                         + launch_count(gs_round_oriented),
                          launch_count(gs_round_ring),
                          launch_count(gs_round_subset), counts_by_card())
             if written is not None:
@@ -2209,7 +2532,8 @@ def _phase_deploy(device, card, chain, work, n=N_DEPLOY):
         check(job["result"]["canvas_shape"] == [n, n]
               and job["result"]["n_tiles"] == 4, "job %s: %s" % (name, job))
         # (on the CPU the wrappers run their plain versions and count none)
-        check(job["launches"]["uca_gs_round"] > 0 or device.type == "cpu",
+        check(job["launches"]["uca_gs_round_levels"] > 0
+              or device.type == "cpu",
               "job %s launched no K1 round: %s" % (name, job))
         log("deploy", "13a job %s (%s): %.3f s, %.4g px/s, %d rounds, "
             "kernel launches %s [%s]" % (
@@ -2221,7 +2545,7 @@ def _phase_deploy(device, card, chain, work, n=N_DEPLOY):
         deploy_job(regions[key], os.path.join(work, name + ".zarr"),
                    os.path.join(work, name + "_tif"), device)
     launches = counts_by_card()
-    check(launch_count(gs_round) > 0 or device.type == "cpu",
+    check(launch_count(gs_round_oriented) > 0 or device.type == "cpu",
           "13a: the in-process runs launched no K1 round")
     for key, name in names.items():
         check_same_job("13a job %s" % name,
@@ -2231,7 +2555,8 @@ def _phase_deploy(device, card, chain, work, n=N_DEPLOY):
                        os.path.join(work, name + "_tif"))
     log("deploy", "13a each job's store uca/twi and five GeoTIFFs bitwise "
         "equal to an in-process ProcessManager run of the same tiles on %s; "
-        "K1 launches in those runs %s" % (device, launches["uca_gs_round"]))
+        "K1 launches in those runs %s"
+        % (device, launches["uca_gs_round_levels"]))
 
     # 13b: a job preempted after its elevation stage, stolen and finished
     queue2 = os.path.join(work, "queue_preempt")
@@ -2319,15 +2644,17 @@ def _phase_deploy(device, card, chain, work, n=N_DEPLOY):
             chain["chain"]["median"], chain["ratio"]["median"], card))
     sc = mesh_scaling.scaling(N_SCALING, dev_arg)
     cone = torch.as_tensor(mesh_scaling.cone(N_SCALING), device=device)
-    one = terrain_step(cone, *spacing(N_SCALING, cone.dtype, device),
-                       uca_solver="blocked")["uca_sweeps"]
+    gs = terrain_step(cone, *spacing(N_SCALING, cone.dtype, device),
+                      uca_solver="blocked")["uca_sweeps"]
     rounds = [r["rounds"] for r in sc["rows"]]
-    check(rounds == [int(one)] * len(rounds),
-          "13d: mesh_scaling rounds %s, one device %d" % (rounds, one))
+    check(sc["rows"][0]["shape"] == [1, 1]
+          and rounds == [rounds[0]] * len(rounds),
+          "13d: mesh_scaling rounds %s, not all the 1x1 mesh's" % rounds)
     log("deploy", "13d mesh_scaling %d²: %d shapes (%s), rounds %s equal to "
-        "one device's terrain_step [%s]" % (
+        "the 1x1 mesh's (block-Jacobi; one device's terrain_step in the "
+        "TPU's order: %d) [%s]" % (
             N_SCALING, len(rounds), [r["mesh"] for r in sc["rows"]], rounds,
-            card))
+            gs, card))
     return launches
 
 
@@ -2465,15 +2792,15 @@ def digests(out):
 
 
 def phase_card_rounds(cards, tag):
-    """12a: on every card, K1's canvas, ring and subset rounds and a K2
-    round against their plain versions, bit for bit: the canvas rounds on
-    a 2048² cone, the ring and subset rounds at every shard shape of
-    12b-12e, with the flag ring the sharded rounds pass and without; timed
-    at 12b's shard and 12c's band; the ring round at 12g's shard
-    (:func:`giant_shard_rounds`).  Returns {kernel: {card: times}} and the
-    largest difference."""
-    times = {k: {} for k in ("canvas", "k2", "ring", "subset", "band",
-                             "giant")}
+    """12a: on every card, K1's canvas (block-Jacobi, and one round in the
+    TPU's order), ring and subset rounds and a K2 round against their plain
+    versions, bit for bit: the canvas rounds on a 2048² cone, the ring and
+    subset rounds at every shard shape of 12b-12e, with the flag ring the
+    sharded rounds pass and without; timed at 12b's shard and 12c's band; the
+    ring round at 12g's shard (:func:`giant_shard_rounds`).  Returns {kernel:
+    {card: times}} and the largest difference."""
+    times = {k: {} for k in ("canvas", "levels", "k2", "ring", "subset",
+                             "band", "giant")}
     worst = 0.0
     for dev in cards:
         with torch.cuda.device(dev):
@@ -2498,6 +2825,15 @@ def _card_rounds(dev, tag):
     t["bound"], t["bound_by"] = round_bound(
         [base, K, W1, base, ones], [base, ones], W)
     times["canvas"] = t
+    t, err = time_round("12a K1 round in the TPU's order, %d² on %s"
+                        % (n, dev),
+                        (("kernel", gs_round_oriented),
+                         ("plain", gs_round_oriented_plain)),
+                        ((base, K, W1, base, 0), kw), tag, plain_reps=1)
+    worst = max(worst, err)
+    t["bound"], t["bound_by"] = times["canvas"]["bound"], times["canvas"][
+        "bound_by"]
+    times["levels"] = t
     Wc = W.contiguous()
     t, err = time_round("12a K2 round, %d² on %s" % (n, dev),
                         (("kernel", block_round), ("plain", block_round_plain)),
@@ -2733,13 +3069,15 @@ def fmt_reps(reps):
 
 def phase_cards_sharded(cards, tag):
     """12b: run_sharded(blocked) on the 16384² cone over a 2x2 mesh of the
-    four cards against one card's terrain_step(blocked), bitwise; the solve
-    alone with the split and the serial round forced; times, each card's
-    peak memory, the overlap.  Returns the single-card digests and rounds,
-    and the four-card run's launches."""
+    four cards against the same call on a 1×1 mesh of one card, bitwise,
+    and one card's terrain_step(blocked) (the TPU's order) within the cone
+    gate; the solve alone with the split and the serial round forced;
+    times, each card's peak memory, the overlap.  Returns the single-card
+    digests and rounds, and the four-card run's launches."""
     n, dev0 = N_MULTI, cards[0]
     args = spacing(n, torch.float32, dev0)
     mesh = make_mesh(cards, (2, 2))
+    one_mesh = make_mesh([dev0], (1, 1))
     log("cards", "12b mesh %r: shard (iy, ix) -> %s" % (mesh, {
         c: str(mesh.devices[c]) for c in mesh.local_shards()}))
     one_reps, four_reps = [], []
@@ -2748,12 +3086,17 @@ def phase_cards_sharded(cards, tag):
         # shard on each card, as a user of four cards hands it over
         elev = cone_rows(n, 0, n, dev0)
         reset_peaks(cards)
-        single, t = synced_seconds(
-            lambda: terrain_step(elev, *args, uca_solver="blocked"))
+        single, t = synced_seconds(lambda: run_sharded(
+            elev, *args, mesh=one_mesh, uca_solver="blocked"))
         one_reps.append(t)
         if rep == 0:
             one_peak = card_peaks(cards)[str(dev0)]
             want, rounds = digests(single), single["uca_sweeps"]
+            step = terrain_step(elev, *args, uca_solver="blocked")
+            gate_err = check_near_step("12b 1x1 mesh", single, step,
+                                       GATE_TOL["cone"])
+            step_rounds = step["uca_sweeps"]
+            del step
         del single, elev
         elev4 = cone_canvas(n, mesh)
         reset_peaks(cards)
@@ -2780,20 +3123,23 @@ def phase_cards_sharded(cards, tag):
     used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
     check(split == sharded._use_split(mesh, nb)
           and not launches["uca_gs_round"]
+          and not launches["uca_gs_round_levels"]
           and all(used.get(str(d), 0) > 0 for d in cards),
           "12b: the run did not take the solver's round on every card: %s"
           % launches)
     log("cards", "12b run_sharded(blocked), %d² cone over 2x2 = four %d² "
-        "shards on %s: mag, direction, flats, uca, twi bitwise equal to one "
-        "card's terrain_step(blocked) on %s (sha256 of NaN masks and "
-        "values), %d rounds both; split round %s; launches by kernel and "
-        "card %s; %d host reads [%s]"
-        % (n, n // 2, [str(d) for d in cards], dev0, rounds, split,
-           launches, reads, tag))
-    log("cards", "12b wall: one card %s; four cards %s (host clock, every "
-        "card synchronised) [%s]" % (fmt_reps(one_reps), fmt_reps(four_reps),
-                                     tag))
-    log("cards", "12b peak device memory: one card's step %.3f GB = %.1f "
+        "shards on %s: mag, direction, flats, uca, twi bitwise equal to the "
+        "same call on a 1x1 mesh of %s (sha256 of NaN masks and values), %d "
+        "rounds both; that within %s of one card's terrain_step(blocked) "
+        "(max abs %g, %d rounds in the TPU's order); split round %s; "
+        "launches by kernel and card %s; %d host reads [%s]"
+        % (n, n // 2, [str(d) for d in cards], dev0, rounds,
+           GATE_TOL["cone"], gate_err, step_rounds, split, launches, reads,
+           tag))
+    log("cards", "12b wall: one card (1x1 mesh) %s; four cards %s (host "
+        "clock, every card synchronised) [%s]"
+        % (fmt_reps(one_reps), fmt_reps(four_reps), tag))
+    log("cards", "12b peak device memory: one card's 1x1 mesh %.3f GB = %.1f "
         "planes of the canvas; the four-card run by card %s GB (a shard is "
         "%.3f GB a plane; input and outputs stay on their shards) [%s]"
         % (one_peak / 1e9, one_peak / (n * n * 4.0),
@@ -2820,15 +3166,15 @@ def phase_cards_sharded(cards, tag):
             del a
     check(shards_equal(areas[True], areas[False]),
           "12b: split and serial areas differ")
-    want_area, _r = accumulate_blocked_gs(base, W, B=64)
-    check(canvas_equal(areas[True], want_area),
-          "12b: the four-card area differs from one card's solve")
+    want_area, _r = sharded.accumulate_sharded(base, W, one_mesh, B=64)
+    check(canvas_equal(areas[True], want_area.assemble()),
+          "12b: the four-card area differs from one card's 1x1 mesh solve")
     del areas, want_area
     log("cards", "12b the solve alone on the same planes over the four "
         "cards, both rounds forced, areas bitwise equal to each other and to "
-        "one card's accumulate_blocked_gs, %d rounds: split %s; serial %s "
-        "[%s]" % (rounds, fmt_reps(solves[True]), fmt_reps(solves[False]),
-                  tag))
+        "one card's accumulate_sharded on a 1x1 mesh, %d rounds: split %s; "
+        "serial %s [%s]" % (rounds, fmt_reps(solves[True]),
+                            fmt_reps(solves[False]), tag))
     ov = measure_halo_overlap(base, W, mesh)
     log("cards", "12b overlap over four cards, %d² 2x2: exchange %.3f ms, "
         "relax %.3f ms, full (split %s) %.3f ms a round (%s, every block "
@@ -2869,7 +3215,8 @@ def _nccl_rank(rank, world, url, n, work):
         if rep == 0:
             res.update(rounds=out["uca_sweeps"], counts=counts_by_card(),
                        ring=launch_count(gs_round_ring),
-                       canvas=launch_count(gs_round),
+                       canvas=launch_count(gs_round)
+                       + launch_count(gs_round_oriented),
                        peak=torch.cuda.max_memory_allocated(dev),
                        shards=len(out["uca"].local_shards()))
             # after the timing: this rank hashes its own band; then every
@@ -2964,11 +3311,13 @@ def phase_cards_nccl(cards, tag, want, want_rounds):
 def phase_cards_pits(cards, tag):
     """12d: the hard terrain's planes and pit links (2048², chain_state)
     through sharded_uca over the four cards, the solver's round, against
-    accumulate_blocked_pits_gs on one card.  Returns the
-    solver's run's launches by kernel and card."""
+    the same call on a 1×1 mesh of one card.  Returns the solver's run's
+    launches by kernel and card."""
     dev0 = cards[0]
     W, base, links = chain_state(make_hard_terrain(N_MAIN), dev0)
-    want, rw = accumulate_blocked_pits_gs(base, W, *links)
+    want, rw = sharded_uca(base, W, make_mesh([dev0], (1, 1)),
+                           pit_links=links)
+    want = want.assemble()
     mesh = make_mesh(cards, (2, 2))
     reset_counts()
     got, rg = sharded_uca(base, W, mesh, pit_links=links)
@@ -2979,12 +3328,13 @@ def phase_cards_pits(cards, tag):
           "rounds %d vs %d)" % (err, rg, rw))
     used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
     check(not launches["uca_gs_round"]
+          and not launches["uca_gs_round_levels"]
           and all(used.get(str(d), 0) > 0 for d in cards),
           "12d: the run did not take the solver's round on every card: %s"
           % launches)
     log("cards", "12d %d² hard terrain, %d pit links, 2x2 over the four "
-        "cards: sharded_uca(pit_links=...) bitwise equal to "
-        "accumulate_blocked_pits_gs on %s, the solver's round (split %s), "
+        "cards: sharded_uca(pit_links=...) bitwise equal to the same call "
+        "on a 1x1 mesh of %s, the solver's round (split %s), "
         "%d rounds; launches by kernel and card %s"
         % (N_MAIN, len(links[0]), dev0, split, rw, launches))
     return launches
@@ -3125,10 +3475,11 @@ def phase_cards_giant(cards, tag):
     NaN (so no flow crosses between copies), over a 2x2 mesh of the four
     cards, built shard by shard on each card; the copies straddle the
     shard edges.  run_sharded(blocked) on it; every copy's five planes,
-    gathered one copy at a time, bitwise equal (NaN equal) to one card's
-    terrain_step(blocked) on one ringed copy.  Wall time (median of 3 if
-    the phase's budget allows, else fewer, said so), rounds of both, each
-    card's peak.  Returns the first run's launches by kernel and card.
+    gathered one copy at a time, bitwise equal (NaN equal) to
+    run_sharded(blocked) on a 1×1 mesh of one card on one ringed copy.
+    Wall time (median of 3 if the phase's budget allows, else fewer, said
+    so), rounds of both, each card's peak.  Returns the first run's launches by
+    kernel and card.
 
     A 24576² shard asks for 18 GiB blocks (its eight weight planes) after
     the label flood has freed its int64 tables: the default allocator
@@ -3145,8 +3496,8 @@ def phase_cards_giant(cards, tag):
     dev0, N = cards[0], GIANT_COPIES * n
     mesh = make_mesh(cards, (2, 2))
     elev = cone_window(n, torch.arange(n), torch.arange(n), dev0, ring=1)
-    single, one_s = synced_seconds(lambda: terrain_step(
-        elev, *spacing(n, torch.float32, dev0), uca_solver="blocked"))
+    single, one_s = synced_seconds(lambda: one_shard_step(
+        elev, spacing(n, torch.float32, dev0), dev0))
     ref = {k: single[k].cpu() for k in KEYS}  # kept on the host
     one_rounds = single["uca_sweeps"]
     del elev, single
@@ -3176,13 +3527,15 @@ def phase_cards_giant(cards, tag):
             break
     used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
     check(all(used.get(str(d), 0) > 0 for d in cards)
-          and not launches["uca_gs_round"],
+          and not launches["uca_gs_round"]
+          and not launches["uca_gs_round_levels"],
           "12g: the run did not take the solver's round on every card: %s"
           % launches)
     log("cards", "12g %d² float32 = %dx%d copies of the %d² cone, each "
         "ringed with NaN, over 2x2 = four %d² shards on %s, built shard by "
-        "shard on each card: run_sharded(blocked) %d rounds, one card's "
-        "terrain_step on one ringed copy %d rounds (%.3f s); every copy's "
+        "shard on each card: run_sharded(blocked) %d rounds, the same on a "
+        "1x1 mesh of one card on one ringed copy %d rounds (%.3f s); every "
+        "copy's "
         "mag, direction, flats, uca, twi bitwise equal to it (NaN equal), "
         "gathered a copy at a time [%s]"
         % (N, GIANT_COPIES, GIANT_COPIES, n, N // 2,
@@ -3268,7 +3621,14 @@ def main_multicard():
     ring.update({"giant_shard_" + k: statistics.median(
         t[k] for t in giant.values()) for k in ("kernel", "bound")})
     print(json.dumps({"kernels": [
-        entry("uca_gs_round", "canvas", "pydem_tpu/ops/uca_block.py:256"),
+        # the in-core solvers' round; the four-card path runs the ring and
+        # subset forms, so its launches here are 0
+        entry("uca_gs_round_levels", "levels",
+              "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid order "
+              "of gs_round_oriented :444 and _FLIPS :184)"),
+        dict(entry("uca_gs_round", "canvas",
+                   "pydem_tpu/ops/uca_block.py:256"),
+             role="reference form: only the comparisons run it"),
         ring,
         entry("uca_gs_round_subset", "subset",
               "pydem_tpu/ops/uca_block.py:242 (_subset_grid; subset "
@@ -3294,8 +3654,8 @@ def main():
     k2_launches, e2, e1, state = phase_k2_path(device)
     k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
     phase_f64_chain(device)
-    k1_ms, k2_ms, e1, e2, chain = phase_times(device, card, state)
-    k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    k1_ms, k2_ms, e1, e2, chain, levels = phase_times(device, card, state)
+    k1_err, k2_err = max(k1_err, e1, levels["err"]), max(k2_err, e2)
     k1_launches += phase_manager(device, card)
     ring_ms, ring_err = phase_ring_round(device, card, k1_ms)
     canvas, ring_launches = phase_ooc_scale(device, card)
@@ -3311,24 +3671,68 @@ def main():
     del state
     phase_mesh_manager(device, card)
     deploy = phase_deploy(device, card, chain)
-    k1_launches += sum(deploy["uca_gs_round"].values())
+    k1_launches += sum(deploy["uca_gs_round_levels"].values())
     ring_launches += sum(deploy["uca_gs_round_ring"].values())
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     src = "pydem_tpu_torch/ops/csrc/uca_block.cu"
     split_round = {k: subset_ms["interior"][k] + subset_ms["boundary"][k]
                    for k in ("kernel", "plain", "bound")}
     print(json.dumps({"kernels": [{
+        # K1's canvas form in the TPU's Gauss-Seidel order: one round at
+        # 2048², B = 64, orientation 0, from the base (every block visited),
+        # its levels' launches; the in-core solvers' round
+        "name": "uca_gs_round_levels",
+        "route": "cuda",
+        "source": src,
+        "replaces": "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid "
+                    "order of gs_round_oriented :444 and _FLIPS :184)",
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        "ms": levels["ms"],
+        "plain_ms": levels["plain_ms"],
+        "bound_ms": levels["bound"],
+        "bound_by": levels["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a relaxation round
+        "launches_per_round": levels["levels"],
+        "ms_by_orientation": levels["ms_by_orientation"],
+        "plain_ms_by_orientation": levels["plain_ms_by_orientation"],
+        # the round with the card held behind the host: its dependent
+        # levels back to back; and each level's kernel time inside it
+        "critical_path_ms": levels["critical_path_ms"],
+        "level_ms_median": levels["level_ms_median"],
+        "level_ms_max": levels["level_ms_max"],
+        "cone_solve_ms": levels["solve_ms"],
+        "cone_solve_rounds": levels["solve_rounds"],
+        "terrain_step_ms": levels["step_ms"],
+        "terrain_step_rounds": levels["step_rounds"],
+        "block_jacobi_rounds": levels["jacobi_rounds"],
+        # the same at B = 16 (the kernel alone; phase 3 holds it bitwise)
+        "b16_ms_by_orientation": levels["b16"]["ms_by_orientation"],
+        "b16_launches_per_round": levels["b16"]["levels"],
+        "b16_critical_path_ms": levels["b16"]["critical_path_ms"],
+        "b16_cone_solve_ms": levels["b16"]["solve_ms"],
+        "b16_cone_solve_rounds": levels["b16"]["solve_rounds"],
+        "hard_pit_solve_ms": levels["pit_solve"][
+            "K1 + fold (accumulate_blocked_pits_gs)"][0],
+        "b16_hard_pit_solve_ms": levels["pit_solve"][
+            "K1 + fold at B=16 (accumulate_blocked_pits_gs)"][0],
+    }, {
+        # K1's canvas form as block-Jacobi: the reference form that only the
+        # comparisons run (the in-core solvers run the TPU's order, the
+        # mesh and the engine the ring and subset forms), so no main path
+        # launches it
         "name": "uca_gs_round",
         "route": "cuda",
         "source": src,
         "replaces": "pydem_tpu/ops/uca_block.py:256",
-        "launches": k1_launches,
+        "launches": 0,
+        "role": "reference form: only the comparisons run it",
         "max_abs_err": k1_err,
         "ms": k1_ms["kernel"],
         "plain_ms": k1_ms["plain"],
         "bound_ms": k1_ms["bound"],
         "bound_by": k1_ms["bound_by"],
-        "library_ms": None,  # no PyTorch call computes a relaxation round
+        "library_ms": None,
     }, {
         # K1's ring form (uca_gs_round_ring_list_f32 over every block), one
         # round of a 2048² window

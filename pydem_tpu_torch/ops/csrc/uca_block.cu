@@ -10,22 +10,45 @@
 //    encoding (packed index plane K, slot-1 weight W1, slot-2 weight
 //    1 - W1) and a frontier skip when no block of the 3x3 neighbourhood
 //    changed last round (skipped blocks copy their values into x_out).
+//    uca_gs_level_kernel is the same block visit in place, launched one level
+//    of the TPU's visit order at a time (below); its skipped blocks copy
+//    nothing.
 //  * K2, uca_block_round_kernel, replaces _block_kernel: the 8 dense weight
 //    planes, read straight from device memory, any nonnegative weights and
 //    any number of them per pixel, every block visited.
 // Both end in relax_block, templated on where the weights come from.
 //
 // Differences from the TPU kernels, by design:
-//  * CUDA blocks run in no order, so K1 has no Gauss-Seidel grid order and
-//    no corner visit orders: every block reads the round-start canvas `x`
-//    and writes a second buffer `x_out` (block-Jacobi, which is what K2
-//    does on the TPU too).  A round therefore has one deterministic result,
-//    which the plain PyTorch versions (ops/uca_block.py::gs_round_plain,
-//    block_round_plain) reproduce bit for bit.  K1 reaches the same fixed
-//    point as the TPU's; its round counts differ.
+//  * The TPU runs K1's grid in sequence, in place: each block reads the live
+//    canvas, so it sees this round's values of every block visited before it,
+//    and the visit order cycles through four corner orientations (_FLIPS).
+//    CUDA blocks of one launch run in no order, so K1's canvas form in that
+//    order, uca_gs_round_levels_f32, launches a round level by level over one
+//    in-place canvas.  A block at oriented coordinates (p, q) (the block index
+//    after the orientation's flips) has its earlier halo neighbours in the
+//    TPU's row-major visit order at (p-1, q-1), (p-1, q), (p-1, q+1) and
+//    (p, q-1), and its later ones at (p, q+1), (p+1, q-1), (p+1, q) and
+//    (p+1, q+1).  Its level is one more than the highest level of its earlier
+//    halo neighbours (t = 2p + q on grids two or more blocks wide), so every
+//    earlier neighbour has run before its level's launch and no later one
+//    has; blocks of one level are two block columns apart and read nothing
+//    another writes.  The levels reproduce the sequential grid bit for bit:
+//    the plain version (ops/uca_block.py::gs_round_oriented_plain) and the
+//    JAX round at the same orientation compute the same canvas and flags.
+//    A round is 2(nb_i - 1) + nb_j launches with no waiting between CTAs.
+//  * The ring and subset forms (uca_gs_round_ring_list_f32) and the canvas
+//    form uca_gs_round_f32 are block-Jacobi: every block reads the
+//    round-start canvas `x` and writes a second buffer `x_out`, as K2 does
+//    on the TPU too.  They reach the same fixed point as the TPU's K1 in
+//    more rounds; each round has one deterministic result, which the plain
+//    versions (gs_round_plain, gs_round_ring_plain, block_round_plain)
+//    reproduce bit for bit.  The out-of-core engine and the sharded solver
+//    run them.
 //  * The halo is 1 px in shared memory, not the TPU's (8, 128)-aligned pads
 //    or K2's pre-exploded (B+16, B+256) tiles.  Out of the canvas, x and
 //    the weights read 0.
+//  * B is 16 or 64.  The TPU solvers' B = 256 does not fit: one 258^2
+//    float32 window is 266 KB, more than an SM's 228 KB of shared memory.
 //
 // K1 also has a ring form (uca_gs_round_ring_list_f32), for a window of a
 // larger canvas: x, K, W1 and x_out carry a 1-px ring around the n x m
@@ -206,12 +229,15 @@ struct DenseWeights {
 
 // Relax block (bi, bj) to its local fixed point with its 1-px halo frozen,
 // write it to x_out and its changed flag to chg.  Both kernels end here.
+// x and x_out are the same canvas for the in-place level launches, so neither
+// is __restrict__ here (the kernels that write a second buffer say so on
+// their own parameters).
 // RING = 1: x and x_out are (n + 2, m + 2) with the region at (1, 1), and the
 // halo of a rim block is the ring; RING = 0: (n, m), the halo reads 0 there.
 template <int B, int RING, class Weights>
 __device__ __forceinline__ void relax_block(
-    const float* __restrict__ x, const Weights& weight,
-    const float* __restrict__ base, float* __restrict__ x_out,
+    const float* x, const Weights& weight,
+    const float* __restrict__ base, float* x_out,
     int* __restrict__ chg, int n, int m, int inner_max, int bi, int bj) {
   using S = Shape<B>;
   constexpr int R = S::R, WN = S::WN, NS = S::NS;
@@ -382,6 +408,43 @@ uca_gs_round_kernel(const float* __restrict__ x,
                        inner_max, bi, bj);
 }
 
+// K1 in the TPU's Gauss-Seidel order: one level of a round, in place.  The
+// CTAs visit the listed blocks (flat indices bi * (m/B) + bj), each reading
+// and writing the live canvas x; the frontier reads the previous round's
+// flags prev, and every listed block writes its flag in chg (0 if skipped;
+// a skipped block copies nothing).  x is not __restrict__: it is read and
+// written through the one pointer, and no load of it may take the read-only
+// path.
+template <int B>
+__global__ void __launch_bounds__(Shape<B>::THREADS, 1)
+uca_gs_level_kernel(float* x,
+                    const uint8_t* __restrict__ K,
+                    const float* __restrict__ W1,
+                    const float* __restrict__ base,
+                    const int* __restrict__ prev,
+                    int* __restrict__ chg,
+                    const int* __restrict__ blocks,
+                    int n, int m, int inner_max) {
+  const int nb_i = n / B, nb_j = m / B;
+  const int b = blocks[blockIdx.x];
+  const int bi = b / nb_j, bj = b - bi * nb_j;
+  int dirty = 0;
+  for (int a = -1; a <= 1; ++a) {
+    for (int c = -1; c <= 1; ++c) {
+      const int qi = bi + a, qj = bj + c;
+      if (qi >= 0 && qi < nb_i && qj >= 0 && qj < nb_j) {
+        dirty |= prev[qi * nb_j + qj];
+      }
+    }
+  }
+  if (!dirty) {
+    if (threadIdx.x == 0 && threadIdx.y == 0) chg[b] = 0;
+    return;
+  }
+  relax_block<B, 0>(x, CompactWeights<0>{K, W1}, base, x, chg, n, m,
+                    inner_max, bi, bj);
+}
+
 // K2: one round over the dense weight planes, every block visited.
 template <int B>
 __global__ void __launch_bounds__(Shape<B>::THREADS)
@@ -436,6 +499,22 @@ int gs_round_entry(const void* x, const void* K, const void* W1,
   }
 }
 
+template <int B>
+cudaError_t gs_levels(float* x, const uint8_t* K, const float* W1,
+                      const float* base, const int* prev, int* chg,
+                      const int* order, const int* offsets, int n_levels,
+                      int n, int m, int inner_max, cudaStream_t stream) {
+  for (int l = 0; l < n_levels; ++l) {
+    const int count = offsets[l + 1] - offsets[l];
+    if (count <= 0) continue;
+    const cudaError_t err =
+        launch<B>(uca_gs_level_kernel<B>, n, m, count, stream, x, K, W1,
+                  base, prev, chg, order + offsets[l], n, m, inner_max);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // One K1 round (compact receivers, frontier).  All arrays are row-major and
@@ -450,6 +529,39 @@ extern "C" int uca_gs_round_f32(const void* x, const void* K, const void* W1,
                                 int inner_max, void* stream) {
   return gs_round_entry<0>(x, K, W1, base, prev, x_out, chg, nullptr, n, m,
                            B, inner_max, -1, 0, stream);
+}
+
+// One K1 round in the TPU's Gauss-Seidel order, in place on x: the level
+// launches of one orientation.  x, W1, base (n, m) float32 and K (n, m) uint8
+// as in uca_gs_round_f32; prev, chg (n/B, m/B) int32.  order (on the device)
+// holds every flat block index bi * (m/B) + bj once, sorted by level;
+// offsets (on the host, n_levels + 1 ints) bound each level's part of it.
+// Launches each level on `stream`, in order, and does not synchronise.
+// Returns the cudaError_t of the first failed launch (0 on success).
+extern "C" int uca_gs_round_levels_f32(void* x, const void* K, const void* W1,
+                                       const void* base, const void* prev,
+                                       void* chg, const void* order,
+                                       const void* offsets, int n_levels,
+                                       int n, int m, int B, int inner_max,
+                                       void* stream) {
+  auto* xf = static_cast<float*>(x);
+  const auto* kf = static_cast<const uint8_t*>(K);
+  const auto* wf = static_cast<const float*>(W1);
+  const auto* bf = static_cast<const float*>(base);
+  const auto* pf = static_cast<const int*>(prev);
+  auto* cf = static_cast<int*>(chg);
+  const auto* of = static_cast<const int*>(order);
+  const auto* lf = static_cast<const int*>(offsets);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (B) {
+    case 16:
+      return gs_levels<16>(xf, kf, wf, bf, pf, cf, of, lf, n_levels, n, m,
+                           inner_max, st);
+    case 64:
+      return gs_levels<64>(xf, kf, wf, bf, pf, cf, of, lf, n_levels, n, m,
+                           inner_max, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // One K1 round in the ring form: x, W1, x_out (n + 2, m + 2) float32 and K

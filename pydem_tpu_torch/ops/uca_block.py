@@ -16,16 +16,34 @@ on the host once per ``ROUNDS_PER_READ`` rounds, which changes neither the
 canvas nor the round count they return (a round after a still round is a
 no-op).
 
-On the GPU the blocks of a round run in no order, so unlike the TPU's
-Gauss-Seidel grid every K1 block reads the round-start canvas and writes a
-new one (block-Jacobi), as K2 does on the TPU too.  That reaches the same
-fixed point as :func:`pydem_tpu_torch.core.uca.accumulate`, in a different
-number of rounds from the TPU's K1, and makes each round deterministic: the
-plain rounds compute it bit for bit as the kernels do.
+K1's canvas form runs in the TPU kernel's order.  The TPU visits its grid of
+blocks in sequence, row-major, in place: each block reads the live canvas
+and so sees this round's values of every block visited before it; rounds
+cycle through four corner orientations (``_FLIPS``, round r at ``r % 4``).
+On the GPU the blocks of one launch run in no order, so
+:func:`gs_round_oriented` launches a round level by level over one in-place
+canvas (:func:`round_levels`): a block's level is one more than the highest
+level of its halo neighbours that come earlier in the visit order, so each
+level reads exactly what the sequential grid's block reads, and the round
+equals the JAX ``gs_round_oriented`` round bit for bit, flags included.  Its
+plain version :func:`gs_round_oriented_plain` relaxes each level's blocks
+together.  ``accumulate_blocked_gs`` and ``accumulate_blocked_pits_gs`` run
+these rounds and return the JAX package's round counts at the same B and
+``inner_max``.  The TPU solvers take B = 256; the kernel is built for B ∈
+{16, 64} (one 258² float32 window, 266 KB, is more than an SM's 228 KB of
+shared memory), so the callers keep ``B = 64`` or 16 and the rounds are
+JAX's at that B.
 
-:func:`gs_round` and :func:`block_round` launch their kernel
-(``csrc/uca_block.cu``) for CUDA tensors and run their plain version
-(:func:`gs_round_plain`, :func:`block_round_plain`) for CPU tensors.
+:func:`gs_round` is K1's canvas form as block-Jacobi: every block reads the
+round-start canvas and writes a new one, as K2 does on the TPU.  It reaches
+the same fixed point in more rounds, and each round is deterministic: the
+plain rounds compute it bit for bit as the kernels do.  The ring and subset
+forms below are block-Jacobi too (the engine's visits, the sharded rounds).
+
+:func:`gs_round`, :func:`gs_round_oriented` and :func:`block_round` launch
+their kernel (``csrc/uca_block.cu``) for CUDA tensors and run their plain
+version (:func:`gs_round_plain`, :func:`gs_round_oriented_plain`,
+:func:`block_round_plain`) for CPU tensors.
 
 K1 also has a *ring form*, :func:`gs_round_ring` with its plain version
 :func:`gs_round_ring_plain`, for a window of a larger canvas (the out-of-core
@@ -55,6 +73,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -265,6 +284,114 @@ def gs_round_plain(x, K, W1, base, prev, *, B, inner_max):
                          B=B, inner_max=inner_max)
 
 
+# The 4 corner visit orders of the TPU kernel's rounds (SE, NW, SW, NE):
+# (flip rows, flip columns) of the row-major block grid, round r at r % 4.
+_FLIPS = ((False, False), (True, True), (False, True), (True, False))
+
+
+def _check_orientation(o):
+    if isinstance(o, torch.Tensor):
+        o = int(o)
+    if o not in range(4):
+        raise ValueError("orientation must be 0..3, got %r" % (o,))
+    return int(o)
+
+
+@functools.cache
+def _levels(nb_i, nb_j, o):
+    """The (nb_i, nb_j) int64 level of each block in a round at orientation
+    ``o`` (see :func:`round_levels`), in block coordinates."""
+    q = torch.arange(nb_j)
+    rows = []
+    up = None
+    for _p in range(nb_i):
+        # 1 + the highest level of the earlier neighbours above, (p-1, q-1),
+        # (p-1, q) and (p-1, q+1); 0 where there is none
+        if up is None:
+            a = torch.zeros(nb_j, dtype=torch.int64)
+        else:
+            u = F.pad(up, (1, 1), value=-1)
+            a = torch.maximum(torch.maximum(u[:-2], u[1:-1]), u[2:]) + 1
+        # and the one to the left, (p, q-1): level_q = max(a_q,
+        # level_{q-1} + 1), a running maximum of a_q - q
+        level = torch.cummax(a - q, 0).values + q
+        rows.append(level)
+        up = level
+    levels = torch.stack(rows)
+    fi, fj = _FLIPS[o]
+    if fi:
+        levels = levels.flip(0)
+    if fj:
+        levels = levels.flip(1)
+    return levels
+
+
+def round_levels(nb_i, nb_j, o):
+    """The levels of a K1 round at orientation ``o`` over an ``nb_i`` ×
+    ``nb_j`` block grid: a list of int32 tensors of flat block indices
+    (``bi * nb_j + bj``), one per level, in launch order.
+
+    The TPU visits the grid row-major after the flips of ``_FLIPS[o]``, each
+    block reading the live canvas.  In those oriented coordinates (p, q) a
+    block's halo neighbours that come earlier are (p-1, q-1), (p-1, q),
+    (p-1, q+1) and (p, q-1), and its level is one more than the highest of
+    theirs (0 for none): t = 2p + q on grids two or more blocks wide, so a
+    round is 2(nb_i - 1) + nb_j levels.  Every earlier neighbour is on a
+    lower level and every later one on a higher, and the blocks of one level
+    are two block columns apart: running the levels in order over one
+    in-place canvas reads what the sequential grid reads, bit for bit.
+    """
+    levels = _levels(nb_i, nb_j, _check_orientation(o)).reshape(-1)
+    order = torch.argsort(levels, stable=True).to(torch.int32)
+    sizes = torch.bincount(levels).tolist()
+    return list(torch.split(order, sizes))
+
+
+@functools.cache
+def _level_lists(nb_i, nb_j, o, device):
+    """:func:`round_levels` for the kernel: every block index once, sorted
+    by level, on ``device``, and the (levels + 1) int32 offsets of the
+    levels' parts on the host."""
+    parts = round_levels(nb_i, nb_j, o)
+    offsets = torch.tensor([0] + [len(p) for p in parts],
+                           dtype=torch.int32).cumsum(0, dtype=torch.int32)
+    return torch.cat(parts).to(device), offsets, len(parts)
+
+
+def gs_round_oriented_plain(x, K, W1, base, o, *, B, inner_max, prev=None):
+    """One K1 round in the TPU's Gauss-Seidel order at orientation ``o``
+    (0..3), in plain PyTorch (the level kernel's twin).
+
+    The blocks of each level of :func:`round_levels` relax together (see
+    :func:`_relax_blocks`) on the live canvas, level after level, the blocks
+    whose 3×3 block neighbourhood has a nonzero ``prev`` flag (the previous
+    round's; None relaxes every block).  Equal to a loop over the blocks in
+    the grid's order that reads and writes one canvas, and to the JAX
+    ``gs_round_oriented``.  Returns ``(x_new, chg)``: a new canvas (``x``
+    is not written) and the (n/B, m/B) int32 changed flags.
+    """
+    o = _check_orientation(o)
+    n, m = base.shape
+    nb_i, nb_j = n // B, m // B
+    if prev is None:
+        prev = torch.ones((nb_i, nb_j), dtype=torch.int32, device=x.device)
+    _check_round_args(x, K, W1, base, prev, B)
+    dirty = dilate(prev != 0)
+    levels = _levels(nb_i, nb_j, o).to(x.device)
+    # a ring of zeros and "no edge" weights reads as the canvas form's pad
+    xr = F.pad(x, (1, 1, 1, 1))
+    Wr = F.pad(expand_compact(K, W1), (1, 1, 1, 1))
+    chg = torch.zeros((nb_i, nb_j), dtype=torch.int32, device=x.device)
+    for t in range(int(levels.max()) + 1):
+        level = dirty & (levels == t)
+        if not bool(level.any()):
+            continue
+        xr, chg_t = _relax_blocks(xr, Wr, base, level, B=B,
+                                  inner_max=inner_max, ring=True)
+        chg[level] = chg_t[level]
+    return xr[1:-1, 1:-1].contiguous(), chg
+
+
 def gs_round_ring_plain(x, K, W1, base, prev, *, B, inner_max, blocks=None,
                         out=None):
     """One K1 round in the ring form, in plain PyTorch (the kernel's twin).
@@ -336,9 +463,9 @@ def _check_kernel_args(x, B, named):
             raise ValueError("%s must be contiguous" % name)
 
 
-def _count(wrapper, device):
-    """One launch of ``wrapper``'s kernel on ``device``."""
-    wrapper.launches_on[device] += 1
+def _count(wrapper, device, launches=1):
+    """``launches`` launches of ``wrapper``'s kernel on ``device``."""
+    wrapper.launches_on[device] += launches
 
 
 def launch_count(wrapper):
@@ -384,6 +511,43 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
 
 
 gs_round.launches_on = collections.Counter()
+
+
+def gs_round_oriented(x, K, W1, base, o, *, B, inner_max, prev=None):
+    """One K1 round in the TPU's Gauss-Seidel order at orientation ``o``
+    (0..3; the JAX function's name and arguments): for CUDA tensors the
+    level kernel, one launch per level of :func:`round_levels` over a copy
+    of ``x`` updated in place; for CPU tensors the plain version.  See
+    :func:`gs_round_oriented_plain` for the contract.  ``prev``: the
+    previous round's (n/B, m/B) int32 flags, None for every block.
+
+    ``gs_round_oriented.launches_on`` counts kernel launches (one a level)
+    by device, never plain runs.
+    """
+    if x.device.type == "cpu":
+        return gs_round_oriented_plain(x, K, W1, base, o, B=B,
+                                       inner_max=inner_max, prev=prev)
+    if x.device.type != "cuda":
+        raise ValueError("gs_round_oriented: unsupported device %s"
+                         % x.device)
+    o = _check_orientation(o)
+    n, m = base.shape
+    if prev is None:
+        prev = torch.ones((n // B, m // B), dtype=torch.int32,
+                          device=x.device)
+    _check_round_args(x, K, W1, base, prev, B)
+    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
+                              ("prev", prev)))
+    order, offsets, n_levels = _level_lists(n // B, m // B, o, x.device)
+    out = x.clone()
+    chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
+    _launch("uca_gs_round_levels_f32", out, K, W1, base, prev, chg, order,
+            offsets, n_levels, n, m, B, inner_max)
+    _count(gs_round_oriented, x.device, n_levels)
+    return out, chg
+
+
+gs_round_oriented.launches_on = collections.Counter()
 
 
 def _ring_launch(name, x, K, W1, base, prev, B, inner_max, blocks, out):
@@ -498,6 +662,7 @@ block_round.launches_on = collections.Counter()
 def launch_counts():
     """Every kernel wrapper's launches on every device, by kernel name."""
     return {"uca_gs_round": launch_count(gs_round),
+            "uca_gs_round_levels": launch_count(gs_round_oriented),
             "uca_gs_round_ring": launch_count(gs_round_ring),
             "uca_gs_round_subset": launch_count(gs_round_subset),
             "uca_block_round": launch_count(block_round)}
@@ -505,7 +670,7 @@ def launch_counts():
 # C entries of csrc/uca_block.cu that launch: (pointer arguments, int
 # arguments), then the stream
 _ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_gs_round_ring_list_f32": (8, 5),
-            "uca_block_round_f32": (5, 4)}
+            "uca_gs_round_levels_f32": (8, 5), "uca_block_round_f32": (5, 4)}
 
 
 @functools.cache
@@ -554,11 +719,13 @@ def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None,
     round when ``links`` is given.
 
     ``W`` is the dense (8, ., .) planes or their compact ``(K, W1)`` pair.
-    The solve starts from ``base``, or from ``x0`` when given.  For the ring
-    form (``round_fn`` :func:`gs_round_ring` or its plain version) ``x0`` and
-    the weights are 2 px larger than ``base`` each way, and so is the canvas
-    returned; ``links`` index a canvas of ``base``'s shape and are not used
-    with a ring.
+    The solve starts from ``base``, or from ``x0`` when given.  Each round
+    is ``round_fn(x, K, W1, b, prev, B=, inner_max=)``, called once a round
+    in order (:func:`_in_turn` binds the TPU order's orientations to it).
+    For the ring form (``round_fn`` :func:`gs_round_ring` or its plain
+    version) ``x0`` and the weights are 2 px larger than ``base`` each way,
+    and so is the canvas returned; ``links`` index a canvas of ``base``'s
+    shape and are not used with a ring.
 
     The fold, ``base + links(x)``, is evaluated from the canvas at the start
     of every round; blocks whose folded base changed are marked dirty beside
@@ -605,28 +772,46 @@ def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None,
 _gs_solve.host_reads = 0
 
 
+def _in_turn(round_fn):
+    """``round_fn``, a round in the TPU's order (:func:`gs_round_oriented`
+    or its plain version), as :func:`_gs_solve` calls its rounds: the r-th
+    call (from 0) runs at orientation ``r % 4``, as the JAX solvers run
+    round r.  One per solve."""
+    calls = itertools.count()
+
+    def round_r(x, K, W1, b, prev, *, B, inner_max):
+        return round_fn(x, K, W1, b, next(calls) % 4, B=B,
+                        inner_max=inner_max, prev=prev)
+
+    return round_r
+
+
 def accumulate_blocked_gs(base, W, B=64, inner_max=None, max_rounds=100_000,
-                          round_fn=gs_round):
-    """Solve area = base + A·area by K1 rounds.
+                          round_fn=gs_round_oriented):
+    """Solve area = base + A·area by K1 rounds in the TPU's Gauss-Seidel
+    order, round r at orientation r % 4, as the JAX function does.
 
     ``base``: (n, m); ``W``: (8, n, m); n, m multiples of B (the caller pads
     the canvas with zeros, which is exact).  ``inner_max`` caps the sweeps
     per block visit (default 2B+4).  ``round_fn`` is the round to iterate:
-    :func:`gs_round`, or :func:`gs_round_plain` to hold the kernel against
-    its plain version on the same device.  Returns ``(area, rounds)``.
+    :func:`gs_round_oriented`, or :func:`gs_round_oriented_plain` to hold
+    the kernel against its plain version on the same device.  Returns
+    ``(area, rounds)``: the JAX function's rounds at the same ``B`` and
+    ``inner_max`` (its callers take B = 256, which the kernel does not: see
+    the module docstring).
     """
-    return _gs_solve(base, W, B, inner_max, max_rounds, round_fn)
+    return _gs_solve(base, W, B, inner_max, max_rounds, _in_turn(round_fn))
 
 
 def accumulate_blocked_pits_gs(base, W, pit_src, pit_dst, pit_w, B=64,
                                inner_max=None, max_rounds=100_000,
-                               round_fn=gs_round):
+                               round_fn=gs_round_oriented):
     """:func:`accumulate_blocked_gs` with non-adjacent pit links
     (``pit_src → pit_dst`` with weight ``pit_w``, flat indices into the
     canvas), folded into the base at the start of every round with the
     deterministic fold of :class:`PitLinks`."""
-    return _gs_solve(base, W, B, inner_max, max_rounds, round_fn,
-                      PitLinks(pit_src, pit_dst, pit_w))
+    return _gs_solve(base, W, B, inner_max, max_rounds, _in_turn(round_fn),
+                     PitLinks(pit_src, pit_dst, pit_w))
 
 
 def accumulate_blocked(base, W, B=64, inner_max=None, max_rounds=100_000,

@@ -23,15 +23,21 @@ moves with ``ppermute``, ``reduce`` for its ``psum``), in this process
 - :func:`accumulate_sharded` / :func:`accumulate_sharded_pits`: each shard
   is a K1 region with a 1-px ring (``ops.uca_block.gs_round_ring``); a round
   exchanges the rings of the canvas and of the changed flags and relaxes.
-  K1 is block-Jacobi (every block reads the previous round's canvas), so
-  where shard edges fall on block edges a sharded round reads what a round
-  on one canvas reads, and the flag ring carries the frontier across shard
-  edges: the sharded solvers equal ``accumulate_blocked_gs`` /
-  ``accumulate_blocked_pits_gs`` on one device bit for bit, values and
-  round counts, for any shard grid.  (The JAX solver relaxes every block
-  every round and threads no frontier.)  Pit links fold into each shard's
-  effective base between rounds in link order, the fold of ``PitLinks``;
-  the compact receivers are exchanged once.
+  The ring rounds are block-Jacobi (every block reads the previous round's
+  canvas), so where shard edges fall on block edges a sharded round reads
+  what a round on one canvas reads, and the flag ring carries the frontier
+  across shard edges: the sharded solvers give the same result bit for
+  bit, values and round counts, for any shard grid, a 1×1 mesh included
+  (and equal the block-Jacobi canvas round ``ops.uca_block.gs_round``
+  iterated on one device).  One device's in-core solvers
+  (``accumulate_blocked_gs``, ``accumulate_blocked_pits_gs``, and with them
+  ``terrain_step(uca_solver="blocked")``) run the TPU kernel's
+  Gauss-Seidel order instead: the same fixed point in fewer rounds, equal
+  to the mesh's within the JAX bench gate, not bit for bit.  (The JAX
+  sharded solver relaxes every block every round and threads no
+  frontier.)  Pit links fold into each shard's effective base between
+  rounds in link order, the fold of ``PitLinks``; the compact receivers
+  are exchanged once.
 - The *split round*: a shard's interior blocks (``gs_round_subset(...,
   "interior")``, which never read the ring) relax on the shard's own CUDA
   stream, on the shard's card, while each card's copy stream lands the
@@ -90,7 +96,10 @@ FLAT_ID_INT = -1
 
 def _block_size(n, m):
     """Relaxation block side: 64 (the largest the CUDA kernel takes), or 16
-    for canvases smaller than one 64-block."""
+    for canvases smaller than one 64-block.  On an H100 the in-core solve
+    in the TPU's order took longer at B = 16 than at 64 on every canvas
+    measured, 2048² to 8192² (``chip_smoke.py`` phases 8 and 11b): its
+    rounds are 4x the launches, and with pit links more rounds."""
     return 64 if min(n, m) >= 64 else 16
 
 
@@ -193,11 +202,15 @@ def terrain_step(elev, dX, dY, dX2, dY2, n_sweeps=None, uca_solver="jacobi",
 
     With ``n_sweeps`` set, runs that many UCA sweeps; otherwise iterates to
     the fixed point with ``uca_solver``: ``"jacobi"`` (global sweeps) or
-    ``"blocked"`` (block relaxation rounds, the CUDA kernel on a GPU; the
-    canvas is zero-padded to the block grid, which is exact since pad pixels
-    carry no weight and no base area).  Returns a dict with ``mag``,
-    ``direction``, ``flats``, ``uca``, ``twi`` and ``uca_sweeps`` (sweeps,
-    or rounds for the blocked solver, as an int).
+    ``"blocked"`` (K1's rounds in the TPU kernel's Gauss-Seidel order,
+    ``ops.uca_block.accumulate_blocked_gs``: the level launches of the CUDA
+    kernel on a GPU; the canvas is zero-padded to the block grid, which is
+    exact since pad pixels carry no weight and no base area).  The block
+    side is :func:`_block_size`'s, 64 (16 on small canvases), where the
+    JAX function takes 256, which an SM's shared memory cannot hold: the
+    rounds are the JAX package's at the same block side.  Returns a dict
+    with ``mag``, ``direction``, ``flats``, ``uca``, ``twi`` and
+    ``uca_sweeps`` (sweeps, or rounds for the blocked solver, as an int).
     """
     if uca_solver not in ("jacobi", "blocked"):
         raise ValueError("uca_solver must be 'jacobi' or 'blocked', got %r"
@@ -891,8 +904,10 @@ def accumulate_sharded(base, W, mesh, B=None, inner_max=None,
     canvas into shards that are multiples of ``B`` (default: 64 or 16, the
     largest that fits, :func:`_shard_block_size`); the split round runs
     where :func:`_use_split` picks it.  Returns ``(area, rounds)``, the
-    area a ``ShardedCanvas``; both equal ``accumulate_blocked_gs(base, W,
-    B=B)`` on one device bit for bit."""
+    area a ``ShardedCanvas``; both equal the same call on a 1×1 mesh (the
+    block-Jacobi ``ops.uca_block.gs_round`` iterated on one canvas) bit for
+    bit, and ``accumulate_blocked_gs(base, W, B=B)`` (the TPU's order) to
+    its fixed point in no fewer rounds."""
     base_s, W_s = _canvas_shards(base, mesh), _canvas_shards(W, mesh)
     n_l, m_l = base_s[0].shape
     B = _shard_block_size(n_l, m_l) if B is None else B
@@ -911,8 +926,9 @@ def accumulate_sharded_pits(base, W, mesh, pit_src, pit_dst, pit_w, B=None,
     into each shard's effective base at the start of every round as
     ``accumulate_blocked_pits_gs`` folds them on one canvas (blocks whose
     folded base moved join the frontier).  The compact receivers are
-    exchanged once.  Equal to ``accumulate_blocked_pits_gs`` on one device
-    bit for bit, values and rounds; the area a :class:`ShardedCanvas`."""
+    exchanged once.  Equal to the same call on a 1×1 mesh bit for bit,
+    values and rounds, and to ``accumulate_blocked_pits_gs`` on one device
+    within the JAX bench gate; the area a :class:`ShardedCanvas`."""
     base_s, W_s = _canvas_shards(base, mesh), _canvas_shards(W, mesh)
     n_l, m_l = base_s[0].shape
     B = _shard_block_size(n_l, m_l) if B is None else B

@@ -68,6 +68,31 @@ def test_device_chain_matches_jax(name):
             assert got.twi_min_area == want.twi_min_area
 
 
+@pytest.mark.parametrize("name", ["fixture 13", "fixture 16", "fixture 33"])
+def test_blocked_solver_matches_jax_blocked(name):
+    """``uca_solver="blocked"`` with ``uca_block_size=8`` against the JAX
+    ``DEMProcessor`` with the same options (its Pallas Gauss-Seidel solver in
+    interpret mode; op by op, as above): K1's rounds in the TPU's order give
+    the JAX round count, and uca and twi agree."""
+    elev = _elev(name)
+    kw = dict(CHAIN, uca_solver="blocked", uca_block_size=8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with jax.disable_jit():
+            want = JaxDEMProcessor(elev=elev.copy(), **kw)
+            want_twi = want.calc_twi()
+        got = DEMProcessor(elev=elev.copy(), device="cpu", **kw)
+        got_twi = got.calc_twi()
+    assert got._dev("uca") is not None  # the device chain ran
+    np.testing.assert_array_equal(got.flats, want.flats)
+    for key, g, w in (("uca", got.uca, want.uca), ("twi", got.twi, want.twi),
+                      ("calc_twi", got_twi, want_twi)):
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=key)
+        np.testing.assert_array_almost_equal(
+            np.nan_to_num(g), np.nan_to_num(w), decimal=8, err_msg=key)
+    assert got.uca_sweeps == int(want.uca_sweeps) >= 2
+
+
 def test_state_stays_on_the_device_until_read():
     elev = _elev("fixture 13")
     dp = DEMProcessor(elev=elev, **DEVICE)

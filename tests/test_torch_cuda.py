@@ -1,4 +1,5 @@
-"""Checks of the CUDA UCA block kernels (K1 ``gs_round``, K2
+"""Checks of the CUDA UCA block kernels (K1 ``gs_round_oriented`` in the
+TPU's Gauss-Seidel order, K1's block-Jacobi ``gs_round``, K2
 ``block_round``), the device chain, the flood and the manager that need an
 NVIDIA GPU.
 
@@ -72,7 +73,7 @@ def test_kernel_round_equals_plain(cuda, B, inner_max, shape):
 
 
 @pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("kernel", ["K1", "K1 levels", "K2"])
 @pytest.mark.parametrize("inner_max", [8, None])
 def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
     """NaNs in x inside one block travel downstream exactly as in the plain
@@ -88,6 +89,11 @@ def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
         prev = torch.ones((N // B, M // B), dtype=torch.int32, device=cuda)
         (xk, ck), (xp, cp) = (fn(x, K, W1, base, prev, **kw)
                               for fn in (ub.gs_round, ub.gs_round_plain))
+    elif kernel == "K1 levels":
+        K, W1 = ub.compact_from_dense(W)
+        (xk, ck), (xp, cp) = (
+            fn(x, K, W1, base, 1, prev=None, **kw)
+            for fn in (ub.gs_round_oriented, ub.gs_round_oriented_plain))
     else:
         W = W.contiguous()
         (xk, ck), (xp, cp) = (fn(x, W, base, **kw)
@@ -99,23 +105,64 @@ def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
     assert torch.equal(ck, cp)
 
 
+def _levels(n, m, B):
+    """Launches of one round in the TPU's order: its levels (2(nb_i - 1) +
+    nb_j on grids two or more blocks wide)."""
+    return len(ub.round_levels(n // B, m // B, 0))
+
+
 def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     W, base = _state(cuda)
-    before = ub.launch_count(ub.gs_round)
+    levels = _levels(N, M, 64)
+    before = ub.launch_count(ub.gs_round_oriented)
+    jacobi = ub.launch_count(ub.gs_round)
     reads = ub._gs_solve.host_reads
     ak, rounds = ub.accumulate_blocked_gs(base, W, B=64)
-    launches = ub.launch_count(ub.gs_round) - before
-    # the flags are read once per 4 rounds, so up to 3 still rounds follow
-    assert rounds <= launches <= rounds + 3
+    launches = ub.launch_count(ub.gs_round_oriented) - before
+    # one launch a level; the flags are read once per 4 rounds, so up to 3
+    # still rounds follow
+    assert launches % levels == 0
+    assert rounds <= launches // levels <= rounds + 3
     assert ub._gs_solve.host_reads - reads == -(-rounds // 4)
     ap, rp = ub.accumulate_blocked_gs(base, W, B=64,
-                                      round_fn=ub.gs_round_plain)
-    assert ub.launch_count(ub.gs_round) - before == launches
+                                      round_fn=ub.gs_round_oriented_plain)
+    assert ub.launch_count(ub.gs_round_oriented) - before == launches
     assert rp == rounds
     assert torch.equal(ak, ap)
     capped, r3 = ub.accumulate_blocked_gs(base, W, B=64, max_rounds=3)
     assert r3 == min(3, rounds)
-    assert ub.launch_count(ub.gs_round) - before == launches + r3
+    assert (ub.launch_count(ub.gs_round_oriented) - before
+            == launches + r3 * levels)
+    assert ub.launch_count(ub.gs_round) == jacobi  # block-Jacobi's
+
+
+@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+@pytest.mark.parametrize("o", range(4))
+@pytest.mark.parametrize("inner_max", [4, None])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_oriented_kernel_round_equals_plain(cuda, B, o, inner_max, shape):
+    """The level launches in the TPU's order against the plain level round,
+    bit for bit, flags included: a round from the base with every block
+    relaxed, then two rounds at the next orientations with the frontier of
+    the flags; one launch a level; the input canvas is not written."""
+    n, m = shape
+    W, base = _state(cuda, n, m)
+    K, W1 = ub.compact_from_dense(W)
+    kw = dict(B=B, inner_max=_inner(B, inner_max))
+    x, prev = base, None
+    for r in range(3):
+        before = ub.launch_count(ub.gs_round_oriented)
+        x_in = x.clone()
+        xk, ck = ub.gs_round_oriented(x, K, W1, base, (o + r) % 4, prev=prev,
+                                      **kw)
+        assert (ub.launch_count(ub.gs_round_oriented) - before
+                == _levels(n, m, B))
+        xp, cp = ub.gs_round_oriented_plain(x, K, W1, base, (o + r) % 4,
+                                            prev=prev, **kw)
+        assert torch.equal(x, x_in)
+        assert torch.equal(xk, xp)
+        assert torch.equal(ck, cp)
+        x, prev = xk, ck
 
 
 def test_kernel_wrapper_rejects_what_it_cannot_run(cuda):
@@ -132,6 +179,16 @@ def test_kernel_wrapper_rejects_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="built for"):
         ub.gs_round(x, K, x, x, prev.expand(16, 16).contiguous(), B=4,
                     inner_max=8)
+    with pytest.raises(TypeError, match="float32"):
+        ub.gs_round_oriented(x.double(), K, x.double(), x.double(), 0, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ub.gs_round_oriented(x.t(), K, x, x, 0, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        ub.gs_round_oriented(x, K.cpu(), x, x, 0, **kw)
+    with pytest.raises(ValueError, match="built for"):
+        ub.gs_round_oriented(x, K, x, x, 0, B=4, inner_max=8)
+    with pytest.raises(ValueError, match="orientation"):
+        ub.gs_round_oriented(x, K, x, x, 4, **kw)
 
 
 @pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
@@ -173,11 +230,13 @@ def _pit_links(device, n=N, m=M, count=300, seed=5):
 def test_k1_with_fold_solve_equals_plain(cuda):
     W, base = _state(cuda)
     links = _pit_links(cuda)
-    before = ub.launch_count(ub.gs_round)
+    levels = _levels(N, M, 64)
+    before = ub.launch_count(ub.gs_round_oriented)
     ak, rk = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
-    assert rk <= ub.launch_count(ub.gs_round) - before <= rk + 3
-    ap, rp = ub.accumulate_blocked_pits_gs(base, W, *links, B=64,
-                                           round_fn=ub.gs_round_plain)
+    launches = ub.launch_count(ub.gs_round_oriented) - before
+    assert rk * levels <= launches <= (rk + 3) * levels
+    ap, rp = ub.accumulate_blocked_pits_gs(
+        base, W, *links, B=64, round_fn=ub.gs_round_oriented_plain)
     assert rp == rk
     assert torch.equal(ak, ap)
     again, _ = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
@@ -206,12 +265,12 @@ def test_demprocessor_blocked_matches_jacobi(cuda):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         for solver in ("blocked", "jacobi", "blocked"):
-            before = ub.launch_count(ub.gs_round)
+            before = ub.launch_count(ub.gs_round_oriented)
             dp = DEMProcessor(elev=elev.copy(), uca_solver=solver, **kw)
             assert dp.device.type == "cuda"
             dp.calc_twi()
             if solver == "blocked":
-                assert ub.launch_count(ub.gs_round) > before
+                assert ub.launch_count(ub.gs_round_oriented) > before
             runs.setdefault(solver, []).append(dp.uca)
     b, j = runs["blocked"][0], runs["jacobi"][0]
     np.testing.assert_array_equal(np.isnan(b), np.isnan(j))
@@ -265,13 +324,13 @@ def test_manager_on_the_card_by_default(cuda, tmp_path):
 
     tiles = str(tmp_path / "tiles")
     assert write_tiles(make_noisy_cone(256), tiles) == 4
-    ub.gs_round.launches_on.clear()
+    ub.gs_round_oriented.launches_on.clear()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         pm = ProcessManager(in_path=tiles)
         twi = pm.process_twi()
     assert pm._dp.device.type == "cuda" and pm.device.type == "cuda"
-    assert ub.launch_count(ub.gs_round) > 0
+    assert ub.launch_count(ub.gs_round_oriented) > 0
     assert twi.shape == (256, 256) and pm.out_file["success"].all()
     assert pm.out_file["edge_done"].dtype == bool
     with warnings.catch_warnings():
@@ -335,9 +394,9 @@ def test_ring_wrapper_rejects_what_it_cannot_run(cuda):
 def test_out_of_core_engine_on_the_card(cuda, tmp_path):
     """``OutOfCoreEngine`` without ``device`` at 512², S = 128, on the noisy
     cone: the streaming regime launches the ring kernel, the fused regime
-    the whole-canvas one; ``elev``, ``slope``, ``aspect``, ``flats`` and the
-    NaN patterns agree bitwise, ``uca`` within the bench gate (bitwise where
-    the terrain has no pit links)."""
+    the whole-canvas level kernel (the TPU's order); ``elev``, ``slope``,
+    ``aspect``, ``flats`` and the NaN patterns agree bitwise, ``uca`` within
+    the bench gate (bitwise where the terrain has no pit links)."""
     from chip_smoke import make_noisy_cone
     from pydem_tpu_torch.io.store import ArrayStore
     from pydem_tpu_torch.outofcore import OutOfCoreEngine
@@ -358,14 +417,14 @@ def test_out_of_core_engine_on_the_card(cuda, tmp_path):
             assert eng.device.type == "cuda" and eng.B == 64
             assert eng._work_dtype == "float32"
             assert eng._fits_device_resident() == (budget is None)
-            ub.gs_round.launches_on.clear()
+            ub.gs_round_oriented.launches_on.clear()
             ub.gs_round_ring.launches_on.clear()
             eng.run()
         if budget == 0:
             assert (ub.launch_count(ub.gs_round_ring) > 0
-                    == ub.launch_count(ub.gs_round))
+                    == ub.launch_count(ub.gs_round_oriented))
         else:
-            assert (ub.launch_count(ub.gs_round) > 0
+            assert (ub.launch_count(ub.gs_round_oriented) > 0
                     == ub.launch_count(ub.gs_round_ring))
         stores[tag] = (store, eng)
     (a, ea), (b, eb) = stores["streamed"], stores["fused"]
@@ -436,15 +495,28 @@ def test_subset_wrapper_rejects_what_it_cannot_run(cuda):
                          out=(xw, prev.clone()))
 
 
+def _near_step(got, step):
+    """A mesh run against one device's ``terrain_step(blocked)`` (the TPU's
+    Gauss-Seidel order; the mesh rounds are block-Jacobi): the same NaN
+    pattern and fixed point within the JAX bench gate, in no fewer
+    rounds."""
+    a, b = got["uca"].numpy(), step["uca"].cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b), rtol=1e-4,
+                               atol=1e-2)
+    assert got["uca_sweeps"] >= step["uca_sweeps"]
+
+
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 4)])
 def test_sharded_equals_single_device_on_the_card(cuda, shape):
     """``run_sharded(uca_solver="blocked")`` over shards on ``cuda:0`` at
-    512²: every output bitwise equal to one device's
-    ``terrain_step(blocked)``, rounds equal; the solver takes the split
-    round, which launches the subset kernel, where the shards hold at least
-    3×3 blocks (1×2: 8×4, 2×2: 4×4; 2×4 has 4×2), and the split and the
-    serial round, both forced, agree bitwise; with pit links the sharded
-    fold equals ``accumulate_blocked_pits_gs``."""
+    512²: every output bitwise equal to the same call on a 1×1 mesh, rounds
+    equal, and within the bench gate of one device's
+    ``terrain_step(blocked)``; the solver takes the split round, which
+    launches the subset kernel, where the shards hold at least 3×3 blocks
+    (1×2: 8×4, 2×2: 4×4; 2×4 has 4×2), and the split and the serial round,
+    both forced, agree bitwise; with pit links the sharded fold equals the
+    fold on a 1×1 mesh."""
     from pydem_tpu_torch.parallel import sharded
     from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, split
     from pydem_tpu_torch.parallel.sharded import (accumulate_sharded_pits,
@@ -452,19 +524,24 @@ def test_sharded_equals_single_device_on_the_card(cuda, shape):
 
     n = 512
     mesh = make_mesh([cuda] * (shape[0] * shape[1]), shape)
+    one = make_mesh([cuda], (1, 1))
     elev = torch.from_numpy(make_hard_terrain(n, "float32")).to(cuda)
     rows = (torch.ones(n - 1, device=cuda),) * 2 + (
         torch.ones(n, device=cuda),) * 2
-    single = terrain_step(elev, *rows, uca_solver="blocked")
+    single = run_sharded(elev, *rows, mesh=one, uca_solver="blocked")
     splits = shape != (2, 4)
     before = ub.launch_count(ub.gs_round_subset)
     out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
     for key in ("mag", "direction", "flats", "uca", "twi"):
         assert torch.equal(torch.nan_to_num(out[key].assemble().double()),
-                           torch.nan_to_num(single[key].double())), key
+                           torch.nan_to_num(single[key].assemble().double())
+                           ), key
     assert out["uca_sweeps"] == single["uca_sweeps"]
     assert (ub.launch_count(ub.gs_round_subset) > before) == splits
     assert sharded._blocked_shards.last_split == splits
+    _near_step({"uca": out["uca"].assemble().cpu(),
+                "uca_sweeps": out["uca_sweeps"]},
+               terrain_step(elev, *rows, uca_solver="blocked"))
     W, base = _state(cuda, n, n)
     if splits:
         runs = [sharded._blocked_shards(split(base, mesh), split(W, mesh),
@@ -474,9 +551,9 @@ def test_sharded_equals_single_device_on_the_card(cuda, shape):
         assert r_s == r_p and torch.equal(assemble(a_s, mesh),
                                           assemble(a_p, mesh))
     links = _pit_links(cuda, n, n)
-    want, rw = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
+    want, rw = accumulate_sharded_pits(base, W, one, *links, B=64)
     got, rg = accumulate_sharded_pits(base, W, mesh, *links, B=64)
-    assert rg == rw and torch.equal(got.assemble(), want)
+    assert rg == rw and torch.equal(got.assemble(), want.assemble())
 
 
 @pytest.fixture
@@ -490,28 +567,34 @@ def four_cards():
 def test_sharded_over_four_cards_equals_one_card(four_cards, force):
     """A 2x2 mesh with one shard a card at 512²: the sharded K1 solve (the
     solver's round, the split round and the serial round) and, unforced,
-    the whole ``run_sharded`` bitwise equal to one card's, rounds equal;
-    every card launched the kernel; with pit links the fold over the cards
-    equals ``accumulate_blocked_pits_gs``."""
+    the whole ``run_sharded`` bitwise equal to one card's on a 1×1 mesh,
+    rounds equal (and within the bench gate of one card's
+    ``terrain_step(blocked)``); every card launched the kernel; with pit
+    links the fold over the cards equals the fold on a 1×1 mesh."""
     from pydem_tpu_torch.parallel import sharded
     from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, split
     from pydem_tpu_torch.parallel.sharded import run_sharded, terrain_step
 
     n, dev0 = 512, four_cards[0]
     mesh = make_mesh(four_cards, (2, 2))
+    one = make_mesh([dev0], (1, 1))
     elev = torch.from_numpy(make_hard_terrain(n, "float32")).to(dev0)
     rows = (torch.ones(n - 1, device=dev0),) * 2 + (
         torch.ones(n, device=dev0),) * 2
     if force is None:
-        single = terrain_step(elev, *rows, uca_solver="blocked")
+        single = run_sharded(elev, *rows, mesh=one, uca_solver="blocked")
         out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
         for key in ("mag", "direction", "flats", "uca", "twi"):
             assert torch.equal(
                 torch.nan_to_num(out[key].assemble(dev0).double()),
-                torch.nan_to_num(single[key].double())), key
+                torch.nan_to_num(single[key].assemble(dev0).double())), key
         assert out["uca_sweeps"] == single["uca_sweeps"]
+        _near_step({"uca": out["uca"].assemble().cpu(),
+                    "uca_sweeps": out["uca_sweeps"]},
+                   terrain_step(elev, *rows, uca_solver="blocked"))
     W, base = _state(dev0, n, n)
-    want, rw = ub.accumulate_blocked_gs(base, W, B=64)
+    want, rw = sharded.accumulate_sharded(base, W, one, B=64)
+    want = want.assemble(dev0)
     for fn in (ub.gs_round_ring, ub.gs_round_subset):
         fn.launches_on.clear()
     area, rounds = sharded._blocked_shards(split(base, mesh), split(W, mesh),
@@ -522,7 +605,8 @@ def test_sharded_over_four_cards_equals_one_card(four_cards, force):
     used = (ub.gs_round_subset if split_ else ub.gs_round_ring).launches_on
     assert all(used[d] > 0 for d in four_cards), dict(used)
     links = _pit_links(dev0, n, n)
-    want, rw = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
+    want, rw = sharded.accumulate_sharded_pits(base, W, one, *links, B=64)
+    want = want.assemble(dev0)
     area, rounds = sharded._blocked_shards(
         split(base, mesh), split(W, mesh), mesh, 64,
         links=sharded._links_of(links, mesh, n // 2, n // 2, base.dtype),
@@ -534,25 +618,24 @@ def test_sharded_over_four_cards_equals_one_card(four_cards, force):
 def test_sharded_outputs_stay_on_their_cards(four_cards):
     """run_sharded over a 2x2 mesh of the four cards, its canvas given from
     the host: every output shard lies on its cell's card, and the host
-    copies equal one card's terrain_step bitwise."""
+    copies equal the same call on one card's 1×1 mesh bitwise."""
     from pydem_tpu_torch.parallel.mesh import ShardedCanvas, make_mesh
-    from pydem_tpu_torch.parallel.sharded import run_sharded, terrain_step
+    from pydem_tpu_torch.parallel.sharded import run_sharded
 
     n = 1024
     mesh = make_mesh(four_cards, (2, 2))
     elev = make_hard_terrain(n, "float32")
     rows = (np.ones(n - 1), np.ones(n - 1), np.ones(n), np.ones(n))
     out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
-    single = terrain_step(torch.from_numpy(elev).to(four_cards[0]),
-                          *(torch.from_numpy(v).float().to(four_cards[0])
-                            for v in rows), uca_solver="blocked")
+    single = run_sharded(elev, *rows, mesh=make_mesh([four_cards[0]], (1, 1)),
+                         uca_solver="blocked")
     assert out["uca_sweeps"] == single["uca_sweeps"]
     for key in ("mag", "direction", "flats", "uca", "twi"):
         c = out[key]
         assert isinstance(c, ShardedCanvas) and c.shape == (n, n), key
         for cell, s in zip(mesh.local_shards(), c.local_shards()):
             assert s.device == mesh.devices[cell], (key, cell, s.device)
-        a, b = np.asarray(c), single[key].cpu().numpy()
+        a, b = np.asarray(c), np.asarray(single[key])
         assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), key
 
 

@@ -322,9 +322,11 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
 @pytest.mark.parametrize("name", ["cone_partial_blocks",
                                   "pit_links_cross_blocks"])
-def test_engine_mesh_route_equals_single_device(tmp_path, name, shape):
-    """OutOfCoreEngine(mesh=...) on CPU shards == the engine on one device,
-    bitwise, rounds equal: the device-resident UCA stage solves on the
+def test_engine_mesh_route_equals_single_device(tmp_path, name, shape,
+                                                monkeypatch):
+    """OutOfCoreEngine(mesh=...) on CPU shards == the engine on one device
+    over a 1×1 mesh, bitwise, rounds equal (and the mesh-less engine: see
+    :func:`_against_meshless`): the device-resident UCA stage solves on the
     shards.  A canvas the mesh divides takes the fused pass (40×48 over 2×2
     and 2×4, shards that are not whole K1 blocks); the others (48×45) pad
     to the mesh with NaN elevation and take the staged stages."""
@@ -333,8 +335,8 @@ def test_engine_mesh_route_equals_single_device(tmp_path, name, shape):
     _num, _size, _rows, S, margin, opts, _budget = CASES[name]
     elev = _case_elev(name)[:, :45 if name.startswith("pit") else None]
     mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
-    s0, e0 = _t_engine(tmp_path / "one.zarr", elev, S=S, margin=margin,
-                       **opts)
+    s0, e0 = _one_shard_engine(tmp_path / "one.zarr", elev, S=S,
+                               margin=margin, **opts)
     e0.run()
     store = ArrayStore(str(tmp_path / "mesh.zarr"))
     store.create("elev_src", elev.shape, "float64", chunks=(S, S),
@@ -357,6 +359,8 @@ def test_engine_mesh_route_equals_single_device(tmp_path, name, shape):
     assert len(e1._links[0]) == len(e0._links[0])
     for key in ("slope", "aspect", "flats", "uca", "twi"):
         np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
+    _against_meshless(tmp_path / "meshless.zarr", elev, store, e1,
+                      monkeypatch, S=S, margin=margin, **opts)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (3, 2)])
@@ -400,22 +404,73 @@ def _mesh_engine(path, elev, mesh, S=16, margin=64, **opts):
     return store, eng
 
 
+def _one_shard_engine(path, elev, S=16, margin=64, **opts):
+    """The engine over a 1×1 mesh: the bitwise reference of the mesh route.
+    Its solve runs the sharded solver's block-Jacobi rounds; the mesh-less
+    engine's in-core solve runs the TPU's Gauss-Seidel order."""
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+
+    return _mesh_engine(path, elev, make_mesh([torch.device("cpu")], (1, 1)),
+                        S=S, margin=margin, **opts)
+
+
+def _jacobi(base, W, B, links=None):
+    """One device's block-Jacobi canvas solve (the plain canvas round
+    iterated, links folded as the in-core solvers fold them): the sharded
+    solver's rounds on one canvas, apart from the sharded code."""
+    from pydem_tpu_torch.core.uca import PitLinks
+    from pydem_tpu_torch.ops import uca_block as ub
+
+    return ub._gs_solve(base.contiguous(), W, B, None, 100_000,
+                        ub.gs_round_plain,
+                        None if links is None else PitLinks(*links))
+
+
+def _against_meshless(path, elev, store, eng, monkeypatch, S=16, margin=64,
+                      **opts):
+    """A mesh run (``store``, ``eng``) against the mesh-less engine: the
+    same fixed point to this file's decimals, in no fewer rounds; and with
+    the block-Jacobi canvas solve in place of the in-core solver, bitwise
+    with equal rounds."""
+    from pydem_tpu_torch.ops import uca_block as ub
+
+    s_gs, e_gs = _t_engine(str(path) + ".gs", elev, S=S, margin=margin,
+                           **opts)
+    e_gs.run()
+    assert eng.uca_rounds >= e_gs.uca_rounds
+    np.testing.assert_array_equal(store["flats"], s_gs["flats"])
+    _assert_fields(store, s_gs, ("slope", "aspect", "uca", "twi"),
+                   "the mesh-less engine")
+    monkeypatch.setattr(ub, "accumulate_blocked_gs",
+                        lambda base, W, B: _jacobi(base, W, B))
+    monkeypatch.setattr(ub, "accumulate_blocked_pits_gs",
+                        lambda base, W, *links, B: _jacobi(base, W, B, links))
+    s_j, e_j = _t_engine(str(path) + ".jacobi", elev, S=S, margin=margin,
+                         **opts)
+    e_j.run()
+    assert eng.uca_rounds == e_j.uca_rounds
+    for key in ("slope", "aspect", "flats", "uca", "twi"):
+        np.testing.assert_array_equal(store[key], s_j[key], err_msg=key)
+
+
 # fixture, options: a pit-free cone, and terrain with pit links
 PER_SHARD = {"cone": (33, {}), "pit_links": (13, NO_COND)}
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
 @pytest.mark.parametrize("name", sorted(PER_SHARD))
-def test_engine_per_shard_fused_equals_meshless(tmp_path, name, shape):
+def test_engine_per_shard_fused_equals_meshless(tmp_path, name, shape,
+                                                 monkeypatch):
     """A 64² canvas over 1×2 and 2×2 CPU shards of whole K1 blocks takes
     the fused pass shard by shard (slope, weights, the sharded solve,
-    finalize per shard) and equals the mesh-less fused pass bitwise, rounds
-    and links included."""
+    finalize per shard) and equals the fused pass over a 1×1 mesh bitwise,
+    rounds and links included, and the mesh-less fused pass (see
+    :func:`_against_meshless`)."""
     from pydem_tpu_torch.parallel.mesh import make_mesh
 
     num, opts = PER_SHARD[name]
     elev, _a, _u = fixtures.get_test_case(num, 64)
-    s0, e0 = _t_engine(tmp_path / "one.zarr", elev, **opts)
+    s0, e0 = _one_shard_engine(tmp_path / "one.zarr", elev, **opts)
     e0.run()
     mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
     store, eng = _mesh_engine(tmp_path / "mesh.zarr", elev, mesh, **opts)
@@ -432,22 +487,25 @@ def test_engine_per_shard_fused_equals_meshless(tmp_path, name, shape):
         assert len(eng._links[0]) > 0
     for key in ("slope", "aspect", "flats", "uca_state", "uca", "twi"):
         np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
+    _against_meshless(tmp_path / "meshless.zarr", elev, store, eng,
+                      monkeypatch, **opts)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
 @pytest.mark.parametrize("name", sorted(PER_SHARD))
 def test_engine_divided_unaligned_canvas_takes_fused_pass(tmp_path, name,
-                                                          shape):
+                                                          shape, monkeypatch):
     """A 48×40 canvas over 1×2 and 2×2 CPU shards (48×20, 24×20: the mesh
     divides it, K1's 16² blocks do not) keeps the fused pass; its solve
     runs on shards of the canvas padded to whole blocks, and the result
-    equals the mesh-less fused pass bitwise, rounds and links included."""
+    equals the fused pass over a 1×1 mesh bitwise, rounds and links
+    included, and the mesh-less fused pass (see :func:`_against_meshless`)."""
     from pydem_tpu_torch.parallel.mesh import make_mesh
 
     num, opts = PER_SHARD[name]
     elev, _a, _u = fixtures.get_test_case(num, 64)
     elev = np.ascontiguousarray(elev[:48, :40])
-    s0, e0 = _t_engine(tmp_path / "one.zarr", elev, **opts)
+    s0, e0 = _one_shard_engine(tmp_path / "one.zarr", elev, **opts)
     e0.run()
     mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
     store, eng = _mesh_engine(tmp_path / "mesh.zarr", elev, mesh, **opts)
@@ -463,6 +521,8 @@ def test_engine_divided_unaligned_canvas_takes_fused_pass(tmp_path, name,
     assert len(eng._links[0]) == len(e0._links[0])
     for key in ("slope", "aspect", "flats", "uca_state", "uca", "twi"):
         np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
+    _against_meshless(tmp_path / "meshless.zarr", elev, store, eng,
+                      monkeypatch, **opts)
 
 
 @pytest.fixture(scope="module")

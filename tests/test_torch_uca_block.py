@@ -1,14 +1,17 @@
 """pydem_tpu_torch.ops.uca_block on the CPU: the compact encoding, the plain
-rounds (the CUDA kernels' twins: K1's ``gs_round_plain``, K2's
+rounds (the CUDA kernels' twins: K1's ``gs_round_oriented_plain`` in the
+TPU's Gauss-Seidel order and its block-Jacobi ``gs_round_plain``, K2's
 ``block_round_plain``) and the four blocked solvers, against the JAX package
 (its Pallas kernels in interpret mode) and against a per-block reference
 loop written the way the kernels run.
 """
+import functools
 import os
 import subprocess
 import sys
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,13 +66,13 @@ def test_compact_from_dense_matches_and_roundtrips(case):
 def test_blocked_matches_jax_blocked_and_jacobi(case):
     W, base = _jax_state(case)
     ref, _sweeps = accumulate(base, W)
-    jgot, _rounds = j_ub.accumulate_blocked_gs(base, W, B=8, inner_max=8,
+    jgot, jrounds = j_ub.accumulate_blocked_gs(base, W, B=8, inner_max=8,
                                                interpret=True)
     s = state_from_numpy(dict(W=np.asarray(W), base=np.asarray(base)), "cpu",
                          torch.float64)
     got, rounds = t_ub.accumulate_blocked_gs(s["base"], s["W"], B=8,
                                              inner_max=8)
-    assert rounds >= 1
+    assert rounds == int(jrounds) >= 1
     np.testing.assert_array_almost_equal(got.numpy(), np.asarray(jgot),
                                          decimal=10)
     np.testing.assert_array_almost_equal(got.numpy(), np.asarray(ref),
@@ -265,9 +268,10 @@ def test_cpu_round_runs_plain_and_counts_no_launch():
     W, base = _jax_state(33)
     s = state_from_numpy(dict(W=np.asarray(W), base=np.asarray(base)), "cpu",
                          torch.float64)
-    before = t_ub.launch_count(t_ub.gs_round)
+    before = t_ub.launch_count(t_ub.gs_round_oriented)
     t_ub.accumulate_blocked_gs(s["base"], s["W"], B=8)
-    assert t_ub.launch_count(t_ub.gs_round) == before == 0
+    assert t_ub.launch_count(t_ub.gs_round_oriented) == before == 0
+    assert t_ub.launch_count(t_ub.gs_round) == 0
 
 
 def test_round_rejects_bad_arguments():
@@ -361,13 +365,13 @@ def test_blocked_pits_gs_matches_jax(case):
     W, base, ps, pd, pw = _pit_inputs(case)
     assert ps.size
     links = [jnp.asarray(a) for a in (ps, pd, pw)]
-    want, _rounds = j_ub.accumulate_blocked_pits_gs(
+    want, want_rounds = j_ub.accumulate_blocked_pits_gs(
         base, W, *links, B=8, inner_max=8, interpret=True)
     ref, _sweeps = accumulate(base, W, *links)
     got, rounds = t_ub.accumulate_blocked_pits_gs(*_torch(base, W, ps, pd,
                                                           pw), B=8,
                                                   inner_max=8)
-    assert rounds >= 2
+    assert rounds == int(want_rounds) >= 2
     np.testing.assert_array_almost_equal(got.numpy(), np.asarray(want),
                                          decimal=8)
     np.testing.assert_array_almost_equal(got.numpy(), np.asarray(ref),
@@ -585,13 +589,14 @@ def test_strip_skip_protocol_is_exact(B, planes, inner_kind, start):
 
 def _solve_reading_every_round(base, W, links, B, inner_max, max_rounds):
     """The K1 solve with the changed flags read on the host after every
-    round: what the solvers must return, canvas and round count."""
+    round, round r at orientation r % 4: what the solvers must return,
+    canvas and round count."""
     n, m = base.shape
     K, W1 = t_ub.compact_from_dense(W)
     b_prev = base if links is None else links.add_to(base, base)
     prev = torch.ones((n // B, m // B), dtype=torch.int32)
-    x, chg = t_ub.gs_round_plain(base, K, W1, b_prev, prev, B=B,
-                                 inner_max=inner_max)
+    x, chg = t_ub.gs_round_oriented_plain(base, K, W1, b_prev, 0, B=B,
+                                          inner_max=inner_max, prev=prev)
     rounds = 1
     while rounds < max_rounds and int(chg.sum()) > 0:
         if links is None:
@@ -599,8 +604,8 @@ def _solve_reading_every_round(base, W, links, B, inner_max, max_rounds):
         else:
             b = links.add_to(base, x)
             prev = chg | t_ub._block_any(b != b_prev, B)
-        x, chg = t_ub.gs_round_plain(x, K, W1, b, prev, B=B,
-                                     inner_max=inner_max)
+        x, chg = t_ub.gs_round_oriented_plain(x, K, W1, b, rounds % 4, B=B,
+                                              inner_max=inner_max, prev=prev)
         b_prev = b
         rounds += 1
     return x, rounds
@@ -623,7 +628,7 @@ def _round_loop_inputs(name):
     case, B, inner_max, rounds = {
         "fixture 33, B=16": (33, 16, 36, 2),
         "fixture 33, B=8": (33, 8, 8, 4),
-        "fixture 5, B=8": (5, 8, 8, 8),
+        "fixture 5, B=8": (5, 8, 8, 3),
         "fixture 24, B=8": (24, 8, 8, 6),
         "fixture 33, B=16, 4 sweeps": (33, 16, 4, 5),
         "fixture 13 pits, B=8": (13, 8, 8, 4),
@@ -660,7 +665,7 @@ def test_round_loop_equals_reading_every_round(name, max_rounds):
 
     def counting_round(*args, **kw):
         calls.append(1)
-        return t_ub.gs_round_plain(*args, **kw)
+        return t_ub.gs_round_oriented_plain(*args, **kw)
 
     reads = t_ub._gs_solve.host_reads
     kw = dict(B=B, inner_max=inner_max, max_rounds=max_rounds,
@@ -765,3 +770,236 @@ def test_subset_blocks_partition_and_reject_small_grids():
         t_ub.gs_round_ring(xw, Kw, W1w, bw,
                            torch.ones((3, 3), dtype=torch.int32), B=16,
                            inner_max=36)
+
+
+# -- K1 in the TPU's Gauss-Seidel order -------------------------------------
+
+def _sequential_round(x, dense, base, prev, B, inner_max, o):
+    """One round as the TPU kernel runs it: block after block in row-major
+    order of the grid flipped by ``_FLIPS[o]``, each reading and writing one
+    live canvas (numpy), with the frontier of ``prev`` (None: every
+    block)."""
+    n, m = x.shape
+    nb_i, nb_j = n // B, m // B
+    fi, fj = t_ub._FLIPS[o]
+    xp = np.pad(x, 1)
+    wp = np.pad(dense, ((0, 0), (1, 1), (1, 1)))
+    chg = np.zeros((nb_i, nb_j), np.int32)
+    for p in range(nb_i):
+        for q in range(nb_j):
+            bi = nb_i - 1 - p if fi else p
+            bj = nb_j - 1 - q if fj else q
+            if prev is not None and not prev[max(bi - 1, 0): bi + 2,
+                                             max(bj - 1, 0): bj + 2].any():
+                continue
+            win = xp[bi * B: bi * B + B + 2, bj * B: bj * B + B + 2]
+            w = wp[:, bi * B: bi * B + B + 2, bj * B: bj * B + B + 2]
+            bb = base[bi * B: bi * B + B, bj * B: bj * B + B]
+            x0 = win[1:-1, 1:-1].copy()
+            it, changed = 0, True
+            while it < inner_max and changed:
+                for _ in range(4):
+                    acc = bb
+                    for k, (di, dj) in enumerate(NEIGHBOR_OFFSETS):
+                        sl = (slice(1 - di, 1 - di + B),
+                              slice(1 - dj, 1 - dj + B))
+                        acc = acc + w[k][sl] * win[sl]
+                    changed = bool((acc != win[1:-1, 1:-1]).any())
+                    win[1:-1, 1:-1] = acc  # into the live canvas
+                it += 4
+            chg[bi, bj] = int((win[1:-1, 1:-1] != x0).any())
+    return xp[1:-1, 1:-1], chg
+
+
+@pytest.mark.parametrize("nb", [(4, 5), (3, 1), (1, 4), (2, 2), (6, 6)])
+@pytest.mark.parametrize("o", range(4))
+def test_round_levels_follow_the_visit_order(o, nb):
+    """Every block is on one level; a block's halo neighbours that the TPU
+    visits before it are on lower levels and the later ones on higher; the
+    blocks of a level are no halo neighbours of each other; a round is
+    2(nb_i - 1) + nb_j levels on grids two or more blocks wide."""
+    nb_i, nb_j = nb
+    levels = t_ub.round_levels(nb_i, nb_j, o)
+    flat = torch.cat(levels).tolist()
+    assert sorted(flat) == list(range(nb_i * nb_j))
+    assert all(t.dtype == torch.int32 and len(t) for t in levels)
+    assert len(levels) == (2 * (nb_i - 1) + nb_j if nb_j > 1 else nb_i)
+    level_of = {}
+    for t, blocks in enumerate(levels):
+        for b in blocks.tolist():
+            level_of[divmod(b, nb_j)] = t
+    fi, fj = t_ub._FLIPS[o]
+
+    def visit(bi, bj):  # the position in the TPU's sequential grid
+        p = nb_i - 1 - bi if fi else bi
+        q = nb_j - 1 - bj if fj else bj
+        return p * nb_j + q
+
+    for (bi, bj), t in level_of.items():
+        for di in (-1, 0, 1):
+            for dj in (-1, 0, 1):
+                other = (bi + di, bj + dj)
+                if other == (bi, bj) or other not in level_of:
+                    continue
+                before = visit(*other) < visit(bi, bj)
+                assert (level_of[other] < t) == before, (o, (bi, bj), other)
+                assert level_of[other] != t
+
+
+@pytest.mark.parametrize("prev_kind", ["ones", "sparse", "zeros"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("o", range(4))
+def test_oriented_plain_round_matches_sequential_loop(o, dtype, prev_kind):
+    """The plain level round is bitwise the sequential per-block loop over
+    one live canvas in the grid's order at each orientation, frontier and
+    flags included, on a non-square canvas with a few sweeps a visit."""
+    B, n, m = 8, 32, 48
+    W = _terrain_planes(n, m, dtype)
+    K, W1 = t_ub.compact_from_dense(W)
+    rng = np.random.RandomState(11 + o)
+    base = rng.uniform(0.5, 1.5, (n, m)).astype(dtype)
+    x = (base + rng.uniform(0, 20, (n, m))).astype(dtype)
+    prev = {"ones": np.ones((n // B, m // B), np.int32),
+            "sparse": (rng.uniform(size=(n // B, m // B)) < 0.2)
+            .astype(np.int32),
+            "zeros": np.zeros((n // B, m // B), np.int32)}[prev_kind]
+    want, want_chg = _sequential_round(x, _dense(K.numpy(), W1.numpy()),
+                                       base, prev, B, 12, o)
+    got, chg = t_ub.gs_round_oriented(
+        torch.from_numpy(x), K, W1, torch.from_numpy(base), o, B=B,
+        inner_max=12, prev=torch.from_numpy(prev))
+    assert got.dtype == torch.from_numpy(x).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(chg.numpy(), want_chg)
+    assert t_ub.launch_count(t_ub.gs_round_oriented) == 0  # the plain one
+    if prev_kind == "ones":
+        # Gauss-Seidel: the round differs from the block-Jacobi one
+        jac, _c = t_ub.gs_round_plain(torch.from_numpy(x), K, W1,
+                                      torch.from_numpy(base),
+                                      torch.from_numpy(prev), B=B,
+                                      inner_max=12)
+        assert not torch.equal(jac, got)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_oriented_round(B, inner_max):
+    return jax.jit(lambda xp, kp, wp, base, o, prev: j_ub.gs_round_oriented(
+        xp, kp, wp, base, o, B=B, inner_max=inner_max, interpret=True,
+        prev=prev))
+
+
+@pytest.mark.parametrize("start", ["base", "mid-solve"])
+@pytest.mark.parametrize("o", range(4))
+def test_oriented_round_matches_jax(o, start):
+    """``gs_round_oriented`` == the JAX ``gs_round_oriented`` (Pallas in
+    interpret mode) at each orientation, from the base with every block
+    dirty and from a mid-solve canvas with a sparse ``prev``: flags exact,
+    values to 10 decimals (float64)."""
+    B, inner_max = 8, 8
+    W, base = _jax_state(5)
+    n, m = base.shape
+    K, W1 = j_ub.compact_from_dense(W)
+    HR, HC = j_ub.HR, j_ub.HC
+    pad = ((HR, HR), (HC, HC))
+    kp = jnp.pad(K, pad, constant_values=255)
+    wp = jnp.pad(W1, pad)
+    rng = np.random.RandomState(17 + o)
+    if start == "base":
+        x = np.asarray(base)
+        prev = np.ones((n // B, m // B), np.int32)
+    else:
+        # a canvas on its way (every relaxed block moves by far more than
+        # an ulp: jitted on the CPU, XLA contracts the kernel's multiply-adds,
+        # so a block at its fixed point may move by one ulp there and not
+        # here) and two flags in opposite corners: 8 of the 16 blocks relax
+        x = np.asarray(base) + rng.uniform(0, 20, (n, m))
+        prev = np.zeros((n // B, m // B), np.int32)
+        prev[0, 0] = prev[-1, -1] = 1
+    xp_new, jchg = _jax_oriented_round(B, inner_max)(
+        jnp.pad(jnp.asarray(x), pad), kp, wp, base, jnp.int32(o),
+        jnp.asarray(prev))
+    jx = np.asarray(xp_new)[HR: HR + n, HC: HC + m]
+    tK, tW1 = t_ub.compact_from_dense(torch.from_numpy(np.asarray(W)))
+    got, chg = t_ub.gs_round_oriented(
+        torch.from_numpy(x), tK, tW1, torch.from_numpy(np.asarray(base)), o,
+        B=B, inner_max=inner_max,
+        prev=None if start == "base" else torch.from_numpy(prev))
+    np.testing.assert_array_equal(chg.numpy(), np.asarray(jchg))
+    assert int(chg.sum()) == (16 if start == "base" else 8)
+    np.testing.assert_array_almost_equal(got.numpy(), jx, decimal=10)
+
+
+def _cone_state(n=128):
+    """The JAX package's receiver planes and base area of an n² cone."""
+    from chip_smoke import make_cone
+
+    elev = jnp.asarray(make_cone(n, "float64"))
+    dX = dY = jnp.ones(n - 1)
+    mag, direction = slopes_directions(elev, dX, dY)
+    flats = find_flats_edges(elev, mag, direction)
+    direction = jnp.where(flats, -1, direction)
+    section, proportion = section_proportion(direction, flats, dX, dY)
+    W = receiver_weights(section, proportion, elev)
+    return W, base_area(jnp.ones(n), jnp.ones(n), elev.shape, elev.dtype)
+
+
+@pytest.mark.parametrize("max_rounds", [None, 1, 2, 3])
+@pytest.mark.parametrize("case", [33, 5, 24, 13, "cone 128"])
+@pytest.mark.parametrize("solver", ["gs", "pits_gs"])
+def test_gs_solvers_return_jax_rounds(solver, case, max_rounds):
+    """``accumulate_blocked_gs`` and ``accumulate_blocked_pits_gs`` return
+    exactly the JAX solvers' rounds (Pallas in interpret mode) at equal B
+    and ``inner_max``, with values to 10 decimals: on fixtures at 32², B =
+    8, and on the 128² cone at B = 16, where JAX takes 5 rounds and
+    block-Jacobi 8; ``max_rounds`` cuts both alike."""
+    if case == "cone 128":
+        W, base = _cone_state()
+        links = [np.zeros(0, np.int64)] * 2 + [np.zeros(0)]
+        B, inner_max = 16, None
+    else:
+        W, base, *links = _pit_inputs(case)
+        B, inner_max = 8, 8
+    if solver == "gs":
+        links = []
+    elif case == 13:
+        assert len(links[0])  # the fold has links to fold
+    cap = {} if max_rounds is None else dict(max_rounds=max_rounds)
+    jfn = getattr(j_ub, "accumulate_blocked_%s" % solver)
+    want, want_rounds = jfn(base, W, *(jnp.asarray(a) for a in links), B=B,
+                            inner_max=inner_max, interpret=True, **cap)
+    fn = getattr(t_ub, "accumulate_blocked_%s" % solver)
+    got, rounds = fn(*_torch(base, W, *links), B=B, inner_max=inner_max,
+                     **cap)
+    assert rounds == int(want_rounds)
+    if max_rounds is not None:
+        assert rounds <= max_rounds
+    elif case == "cone 128":
+        assert rounds == 5
+        _x, jacobi = t_ub._gs_solve(*_torch(base, W), B, None, 100_000,
+                                    t_ub.gs_round_plain)
+        assert jacobi == 8
+    np.testing.assert_array_almost_equal(got.numpy(), np.asarray(want),
+                                         decimal=10)
+
+
+def test_oriented_round_rejects_bad_arguments():
+    x = torch.zeros((16, 16), dtype=torch.float64)
+    K = torch.full((16, 16), 255, dtype=torch.uint8)
+    prev = torch.ones((2, 2), dtype=torch.int32)
+    kw = dict(B=8, inner_max=8)
+    for o in (4, -1):
+        with pytest.raises(ValueError, match="orientation"):
+            t_ub.gs_round_oriented(x, K, x, x, o, **kw)
+    with pytest.raises(ValueError, match="orientation"):
+        t_ub.round_levels(2, 2, 4)
+    with pytest.raises(ValueError, match="multiple"):
+        t_ub.gs_round_oriented(x[:12], K[:12], x[:12], x[:12], 0, **kw)
+    with pytest.raises(TypeError, match="uint8"):
+        t_ub.gs_round_oriented(x, K.int(), x, x, 0, **kw)
+    with pytest.raises(ValueError, match="prev has shape"):
+        t_ub.gs_round_oriented(x, K, x, x, 0, prev=prev[:1], **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_ub.gs_round_oriented(x.to("meta"), K, x, x, 0, **kw)
+    # an orientation given as a tensor, as a round loop may keep it
+    got, chg = t_ub.gs_round_oriented(x, K, x, x, torch.tensor(3), **kw)
+    assert torch.equal(got, x) and not chg.any()
