@@ -15,15 +15,22 @@ Phases, each reported on its own lines:
 3. kernels vs plain versions on the card, at every block size the kernels
    are built for, on a 512² and on the main path's 2048² cone and hard
    terrain (float32), from the terrain step's own receiver planes: two
-   block-Jacobi K1 rounds, one K1 round in the TPU's Gauss-Seidel order
-   (the level launches of ``gs_round_oriented``) from the base at each
-   orientation 0-3, two K2 rounds, and the full K1 solve in the TPU's
-   order; they must agree bit for bit, flags included, with equal round
-   counts and one launch a level (the solve launches at most 3 rounds
-   more than it counts: its flags are read once per 4 rounds);
+   block-Jacobi K1 rounds; K1 in the TPU's Gauss-Seidel order in every
+   form (canvas, ring, interior, frame; the ring forms on an (n+2)² window
+   whose ring is real) at each orientation 0-3, a round from the base and
+   one on the frontier of its flags, through the dataflow launch
+   (``gs_round_oriented``, one launch a round) and the level launches
+   (``gs_round_levels``, one a level) against the plain round (at 2048²:
+   orientations 0 and 2 at B = 64 and 1 at B = 16, the frontier round
+   after orientation 0 only); two K2 rounds; and the full K1 solve in the
+   TPU's order; they
+   must agree bit for bit, flags included, with equal round counts (the
+   solve launches at most 3 rounds more than it counts: its flags are read
+   once per 4 rounds);
 4. main path, the terrain step: ``terrain_step(uca_solver="blocked")`` on
-   the 2048² cone and hard terrain; the level kernel's launch counter must
-   rise by the rounds' levels; the result must match
+   the 2048² cone and hard terrain; the dataflow launch's counter must
+   rise by the rounds (the level path's and block-Jacobi's by none); the
+   result must match
    ``uca_solver="jacobi"`` (NaN pattern, and the JAX package's own bench
    gate tolerances), repeat bit for bit, and agree with the float64 CPU
    run on a small cone;
@@ -37,9 +44,8 @@ Phases, each reported on its own lines:
    K2 rounds at every block size, then ``accumulate_blocked`` and
    ``accumulate_blocked_pits`` with the K2 launch counter read around them;
    each, K1's ``accumulate_blocked_pits_gs`` (the TPU's order) and K1's
-   block-Jacobi canvas solve with the fold (``gs_round`` iterated: the
-   rounds of the mesh's solvers; its launches are the ``uca_gs_round``
-   entry's), equal to its plain version bit for bit with equal round
+   block-Jacobi canvas solve with the fold (``gs_round`` iterated, a
+   reference form), equal to its plain version bit for bit with equal round
    counts; K2's and the block-Jacobi pit solves reach K1's fixed point
    within the gate;
 7. float64 on the card: the chain's functions (``fill_flats_device``,
@@ -52,16 +58,15 @@ Phases, each reported on its own lines:
    solve's), the hard chain at 2048² through ``tools/hard_breakdown.py``
    (5 reps, each the chain cut into stages with a synchronisation at each,
    then uncut), one block-Jacobi K1 and one K2 round beside their plain
-   rounds at 2048²; K1 in the TPU's order at 2048², B = 64: one round from
-   the base at each orientation beside its plain round, its launches (the
-   levels), its bound, its critical path (the round timed with a sleep
-   queued on the card first, so that the card runs the dependent levels
-   back to back and no gap left by the host counts) and each level's
-   kernel time inside the round (events around each level); one K1 cone
-   solve (its time, its rounds, launches and host reads, and the kernel
-   time summed over its rounds); the same round, critical path and solve
-   at B = 16, the kernel alone; and the full pit solves (K1 with the fold
-   at B = 64 and 16, K2, jacobi).  Each kernel's bound is computed beside
+   rounds at 2048²; K1 in the TPU's order at 2048², B = 64 and 16, the
+   level launches ("before") against the dataflow launch in turns: a round
+   from the base at each orientation (at B = 64 beside its plain round), a
+   skipped round, a partial round (round 12 of the hard chain's pit
+   solve), each with its bound counting the blocks it visits; the critical
+   path (the round timed with a sleep queued on the card first, so that
+   the card runs its launches back to back and no gap left by the host
+   counts); the cone solve and the hard chain's pit solve; and the K2 and
+   jacobi pit solves.  Each kernel's bound is computed beside
    its time: the bytes of the timed round (every input once, every output
    once) over the card's memory rate, or, if larger, one multiply-add per
    nonzero weight over its float32 rate;
@@ -90,19 +95,20 @@ Phases, each reported on its own lines:
    manager's stage seconds, tile reading + mosaic, uploads, store writes,
    the GeoTIFF export and the total, median of 3 after the checked run;
 10. main path, out of core (``pydem_tpu_torch/outofcore.py``):
-    a. K1's ring form on a 2048² window of the 4096² cone's planes, in the
-       middle and at the canvas corner (cut as the engine cuts it: beyond
-       the canvas the state's NaN ring is sanitised to 0): ring kernel ==
-       ring plain bit for bit over two rounds, the ring comes back
-       untouched, and the window's blocks equal the same blocks of one
-       full-canvas K1 round from the same state; one ring round timed
-       beside its plain round, its bound and the 2048² full-canvas round;
+    a. K1's ring form in the TPU's order on a 2048² window of a mid-solve
+       state of the 4096² cone's planes, in the middle and at the canvas
+       corner (cut as the engine cuts it: beyond the canvas the state's NaN
+       ring is sanitised to 0): the dataflow launch == the level launches
+       == plain bit for bit at two orientations, the ring untouched; one
+       ring round from the base timed, levels against dataflow, beside its
+       plain round, its bound and the 2048² canvas round;
     b. the 8192² float32 cone through ``OutOfCoreEngine(superblock=2048,
        fill_flats=False, drain_pits_path=False).run()`` twice, the store
        in a temporary directory (4096² with S = 1024 if it has too little
        room): with the device budget forced to 0 every stage streams
-       windows through the store and every visit launches the ring
-       kernel; with the card's own budget the stages after conditioning
+       windows through the store and every visit runs ring rounds in the
+       TPU's order from the outer round's orientation; with the card's own
+       budget the stages after conditioning
        run as one device-resident pass.  ``uca``, ``twi``, ``slope``,
        ``aspect`` and ``flats`` of the two must be bitwise equal (NaN
        patterns with them), and ``uca`` must match ``terrain_step`` on
@@ -129,31 +135,34 @@ Phases, each reported on its own lines:
        float32 ``DEMProcessor``; the hard terrain printed.
 11. main path, the mesh (``pydem_tpu_torch/parallel``), shards on this one
     card:
-    a. K1's subset rounds (``gs_round_subset``, the kernel over the interior
-       and the boundary block list) on 4096² ring windows of the 8192²
-       cone, the shard shape of b (the centred window and b's top-left
-       shard), with and without a flag ring: kernel == plain bit for bit
-       for each subset, interior then boundary into one output == one full
-       ring round, the ring untouched; the three rounds timed beside their
-       byte bounds on the centred window;
+    a. K1's subset rounds in the TPU's order on 4096² ring windows of a
+       mid-solve state of the 8192² cone, the shard shape of b (the
+       centred window and b's top-left shard): the interior round, then
+       the frame on its output (the split round's compute), the dataflow
+       launch == the level launches == plain bit for bit, the ring
+       untouched; the interior, frame and full ring rounds timed, levels
+       against dataflow, beside their byte bounds on the centred window;
     b. ``run_sharded(uca_solver="blocked")`` on the 8192² float32 cone over
        a 2×2 mesh of four shards on the card: the split round (interior on
-       each shard's stream while the rings are copied, then the frame);
-       ``mag``, ``direction``, ``flats``, ``uca``, ``twi`` and the round
-       count equal to the same call on a 1×1 mesh (the mesh's rounds are
-       block-Jacobi) bit for bit, and within the cone gate of one device's
-       ``terrain_step(uca_solver="blocked")`` (the TPU's order; its rounds
-       printed); wall time, K1 launches by form, host reads, peak device
-       memory; one device's ``accumulate_blocked_gs`` on the same planes
-       at B = 64 and 16 (times, rounds); the solve alone on the same
-       planes with the split and the serial round forced, bit for bit
-       equal; the one-card overlap of ``measure_halo_overlap``; the 2048²
-       cone over 1×2 and 2×4 meshes the same way;
+       each shard's stream while the rings are copied, then the frame, in
+       place, in the TPU's order); its rounds printed, ``mag``,
+       ``direction`` and ``flats`` bitwise and ``uca`` and ``twi`` within
+       the cone gate of one device's ``terrain_step(uca_solver="blocked")``;
+       wall time, dataflow launches, host reads, peak device memory; one
+       device's ``accumulate_blocked_gs`` on the same planes at B = 64 and
+       16 (times, rounds); the solve alone with the split and the serial
+       round forced (times, rounds; within the gate of each other); the
+       one-card overlap of ``measure_halo_overlap``; on the 1024² cone's
+       planes over 2×2, the split and the serial solve through the kernel
+       against the same mesh through the plain rounds, bit for bit with
+       equal rounds; the 2048² cone over 1×2 and 2×4 meshes within the
+       gate of ``terrain_step``;
     c. the hard chain's planes and pit links (phase 6) through
        ``sharded_uca(pit_links=...)`` on a 2×2 mesh (split), and the serial
-       round forced, bit for bit equal to the same call on a 1×1 mesh and
-       to K1's block-Jacobi canvas solve, and within the hard gate of
-       ``accumulate_blocked_pits_gs`` on one device;
+       round forced, within the hard gate of ``accumulate_blocked_pits_gs``
+       on one device (rounds printed); then the 512² hard chain's solve on
+       a 2×2 mesh, split and serial, through the kernel against the plain
+       rounds, bit for bit with equal rounds;
     d. ``ProcessManager(mesh=2×2)`` on the 2048² cone as four tiles,
        ``process_twi()`` and the GeoTIFF export (files read back), against
        the in-memory manager on the same tiles (equal NaN patterns, values
@@ -164,42 +173,45 @@ Phases, each reported on its own lines:
     cards).  First the cards' index, name and power limit, ``nvidia-smi
     topo -m`` and the ``can_device_access_peer`` matrix; then, on the
     float32 cone:
-    a. on every card, K1's canvas rounds (block-Jacobi, and one in the
-       TPU's order) and a K2 round (2048²), and K1's
-       ring and subset rounds at every shard shape that b-f run (8192²,
-       4096×16384, 12288², 4096², 1024² windows of a mid-solve state of
-       the 16384² cone, with the flag ring the sharded rounds pass and,
-       where the subset forms run, without) against their plain versions
-       bit for bit; timed at b's shard and c's band; and the ring round,
-       with and without a flag ring, at g's 24576² shard (a mid-solve
-       state of g's canvas, tiled from one ringed cone's) against the
-       plain round bit for bit, timed;
+    a. on every card, K1's block-Jacobi canvas round, one round in the
+       TPU's order and a K2 round (2048²) against their plain versions bit
+       for bit; K1's ring and subset rounds in the TPU's order at every
+       shard shape that b-f run (8192², 4096×16384, 12288², 4096², 1024²
+       windows of a mid-solve state of the 16384² cone): the dataflow
+       launch == the level launches, and == the plain round up to 8192²
+       (on the first card; on the others up to 2048²); timed at b's shard
+       and c's band, levels against dataflow; and the ring round at g's
+       24576² shard (a mid-solve state of g's canvas, tiled from one
+       ringed cone's), dataflow == levels, timed;
     b. ``run_sharded(uca_solver="blocked")`` on the 16384² cone over the
-       four cards, the cone built shard by shard on each card (a
-       ``ShardedCanvas``, as a user of four cards hands it over): every
-       output shard on its card; ``mag``, ``direction``, ``flats``,
-       ``uca``, ``twi`` and the rounds equal to the same call on a 1×1
-       mesh of one card bit for bit (sha256 of NaN masks and values in
-       1024-row chunks, hashed from the shards after the timed region),
-       and that within the cone gate of one card's
-       ``terrain_step(blocked)``; both wall times, median of 3 with every
-       rep; each card's peak memory, ``cuda:0``'s within 10% of the others';
-       the solve alone with the split and the serial round forced, bitwise
-       equal, timed; the four-card exchange / relax / full round and overlap
-       fraction of ``measure_halo_overlap`` (host clock, every card
-       synchronised);
+       four cards (the serial round), the cone built shard by shard on
+       each card (a ``ShardedCanvas``, as a user of four cards hands it
+       over): every output shard on its card; against one card's
+       ``terrain_step(blocked)``, in turns: ``mag``, ``direction`` and
+       ``flats`` bitwise, ``uca`` and ``twi`` within the cone gate, the
+       rounds of both printed; both wall times, median of 3 with every
+       rep; each card's peak memory, ``cuda:0``'s within 10% of the
+       others'; the solve alone with the split and the serial round forced
+       over the four cards, timed, each bitwise equal to the same round
+       over four shards on ``cuda:0`` with equal rounds; the four-card
+       exchange / relax / full round and overlap fraction of
+       ``measure_halo_overlap`` (host clock, every card synchronised);
+       then ``run_sharded`` over a (4, 1) mesh of the four cards in this
+       process, hashed (sha256 of NaN masks and values in 1024-row
+       chunks), c's reference;
     c. four processes (spawned), one NCCL rank a card,
        ``multihost.run_global(blocked)`` on the same cone in (4, 1) row
        bands, each output left on its rank as its band: each rank hashes
        its band after the timing, then all join one gather of ``uca``;
-       bitwise equal to b's one card, rounds equal, wall and peak by rank
-       (each under 8.5 GB);
+       bitwise equal to b's (4, 1) mesh in one process, rounds equal, wall
+       and peak by rank (each under 8.5 GB);
     d. the 2048² hard terrain's planes and pit links through ``sharded_uca``
-       over the four cards (the solver's round) bitwise equal to the same
-       call on a 1×1 mesh of one card;
+       over the four cards (the serial round) bitwise equal to the same
+       round over four shards on one card, rounds equal, and within the
+       hard gate of one card's ``accumulate_blocked_pits_gs``;
     e. ``OutOfCoreEngine(superblock=2048)`` over the four cards against the
-       same engine over four shards on ``cuda:0``, fused both, bitwise, at
-       8192²; then at 24576², where one card's budget refuses the fused pass
+       same engine over four shards on ``cuda:0`` held to the serial round,
+       fused both, bitwise, at 8192²; then at 24576², where one card's budget refuses the fused pass
        and the four cards' admit it (``outofcore.fits_device_resident``):
        the fused pass, each card's peak under its budget, stage seconds and
        rounds, ``uca`` and ``twi`` within the cone gate of ``run_sharded``
@@ -211,9 +223,10 @@ Phases, each reported on its own lines:
        with its outer 1-px ring NaN (no flow crosses between copies), a
        49152² float32 canvas over 2×2 (four 24576² shards, which the copies
        straddle), built shard by shard on each card;
-       ``run_sharded(blocked)`` on it, every copy's five planes bitwise
-       equal (NaN equal) to ``run_sharded(blocked)`` on a 1×1 mesh of one
-       card on one ringed copy, compared a copy at a time; wall time
+       ``run_sharded(blocked)`` on it, every copy's ``mag``, ``direction``
+       and ``flats`` bitwise equal (NaN equal) and ``uca`` and ``twi``
+       within the cone gate of one card's ``terrain_step(blocked)`` on one
+       ringed copy, compared a copy at a time; wall time
        (median of 3 where the phase's budget allows), the rounds of both,
        each card's peak.  It runs with the allocator's expandable segments (set
        just before it; b-f run under the default allocator) and fails on an
@@ -226,7 +239,8 @@ Phases, each reported on its own lines:
        mosaics: phase 9's hard terrain and the cone), through ``python -m
        pydem_tpu_torch.deploy.submit --local-workers 2 --device cuda
        --export-root`` with the device backends: both jobs done, none
-       failed, each job's K1 launches (its worker's counters) above 0; each
+       failed, each job's dataflow launches (its worker's counters) above
+       0; each
        region's store ``uca`` and ``twi`` and its five exported GeoTIFFs
        bitwise equal to an in-process ``ProcessManager`` run of the same
        tiles on the card.  Printed: the wall time, each job's seconds and
@@ -241,13 +255,14 @@ Phases, each reported on its own lines:
     d. both examples on the card; ``hard_breakdown``'s command at 2048²,
        its stage sum within 20% of its uncut chain (the median of the
        ratios, rep by rep; phase 8's figures printed beside them);
-       ``mesh_scaling`` at 4096², every shape's rounds equal to the 1×1
-       mesh's (one device's ``terrain_step`` rounds printed beside).
+       ``mesh_scaling`` at 4096², each shape's rounds printed beside one
+       device's ``terrain_step``.
     K1's launches in the in-process runs of a and b join the kernel line.
 
-Then a JSON line with the kernel table (K1's canvas form in the TPU's
-order, its block-Jacobi canvas, ring and subset forms, and K2, each with
-its launches on the main paths), and as the last line
+Then a JSON line with the kernel table (K1 in the TPU's order, the
+dataflow launch, with its figures in every form; the level launches it
+replaced, the "before" column; K1's block-Jacobi reference forms; and K2,
+each with its launches on the main paths), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
 exit and no result line.  The port imports neither JAX nor the JAX package.
 """
@@ -276,6 +291,7 @@ from pydem_tpu_torch.api import (DEMProcessor, _edge_flood_program,
 from pydem_tpu_torch.core.conditioning import drain_pit_paths
 from pydem_tpu_torch.core.flats_device import fill_flats_device
 from pydem_tpu_torch.core.receivers import receiver_weights
+from pydem_tpu_torch.core.stencil import dilate
 from pydem_tpu_torch.core.uca import (PitLinks, accumulate, base_area,
                                       reachability)
 from pydem_tpu_torch.deploy import golden_check, jobqueue
@@ -294,14 +310,14 @@ from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
                                            accumulate_blocked_pits_gs,
                                            block_round, block_round_plain,
                                            compact_from_dense, gs_round,
+                                           gs_round_levels,
                                            gs_round_oriented,
                                            gs_round_oriented_plain,
                                            gs_round_plain, gs_round_ring,
-                                           gs_round_ring_plain,
                                            kernel_smem_bytes, launch_count,
                                            round_levels)
 from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
-from pydem_tpu_torch.ops.uca_block import gs_round_subset, subset_blocks
+from pydem_tpu_torch.ops.uca_block import gs_round_subset, visit_sequence
 from pydem_tpu_torch.parallel import sharded
 from pydem_tpu_torch.parallel.dryrun import dryrun_multichip
 from pydem_tpu_torch.parallel.mesh import (ShardedCanvas, make_mesh, pieces,
@@ -404,7 +420,8 @@ def check(cond, what):
 
 # the kernel wrappers by the name of the kernel each launches
 WRAPPERS = (("uca_gs_round", gs_round),
-            ("uca_gs_round_levels", gs_round_oriented),
+            ("uca_gs_round_dataflow", gs_round_oriented),
+            ("uca_gs_round_levels", gs_round_levels),
             ("uca_gs_round_ring", gs_round_ring),
             ("uca_gs_round_subset", gs_round_subset),
             ("uca_block_round", block_round))
@@ -536,19 +553,118 @@ def k2_rounds_vs_plain(name, W, base):
     return worst
 
 
-def levels_per_round(n, m, B):
-    """Launches of one K1 round in the TPU's order: its levels."""
-    return len(round_levels(n // B, m // B, 0))
+def levels_per_round(n, m, B, subset="all"):
+    """Launches of one K1 round in the TPU's order by level: its levels."""
+    return len(round_levels(n // B, m // B, 0, subset))
+
+
+# K1's forms in the TPU's order: (name, ring, subset)
+K1_FORMS = (("canvas", False, "all"), ("ring", True, "all"),
+            ("interior", True, "interior"), ("boundary", True, "boundary"))
+
+
+def form_inputs(elev, ring):
+    """K1's inputs for a form on the (n+2)² terrain ``elev``: the ring form
+    takes the whole window (its ring the neighbours' base, K and W1 real),
+    the canvas form the n² region alone.  Returns ``(x, K, W1, base)``."""
+    W, base = weights_and_base(elev)
+    K, W1 = compact_from_dense(W)
+    region = base[1:-1, 1:-1].contiguous()
+    if ring:
+        return base.contiguous(), K, W1, region
+    cut = lambda a: a[1:-1, 1:-1].contiguous()  # noqa: E731
+    return cut(base), cut(K), cut(W1), region
+
+
+def oriented_vs_plain(tag, args, o, B, ring, subset, prev=None):
+    """One K1 round in the TPU's order through the dataflow launch, the
+    level launches and the plain version on the same inputs: canvas and
+    flags bit for bit, one dataflow launch, one level launch a level.
+    Returns ``(max error, dataflow canvas, its flags)``."""
+    x, K, W1, base = args
+    kw = dict(B=B, inner_max=2 * B + 4, prev=prev, ring=ring, subset=subset)
+    before = launch_count(gs_round_oriented), launch_count(gs_round_levels)
+    xd, cd = gs_round_oriented(x, K, W1, base, o, **kw)
+    xl, cl = gs_round_levels(x, K, W1, base, o, **kw)
+    launches = (launch_count(gs_round_oriented) - before[0],
+                launch_count(gs_round_levels) - before[1])
+    xp, cp = gs_round_oriented_plain(x, K, W1, base, o, **kw)
+    torch.cuda.synchronize()
+    err = max(nan_equal_max_err(xd, xp), nan_equal_max_err(xl, xp))
+    n, m = base.shape
+    check(err <= KERNEL_TOL and torch.equal(cd, cp) and torch.equal(cl, cp)
+          and launches == (1, levels_per_round(n, m, B, subset)),
+          "%s B=%d orientation %d: dataflow / levels != plain (max err %g, "
+          "flags equal %s %s, launches %s)"
+          % (tag, B, o, err, torch.equal(cd, cp), torch.equal(cl, cp),
+             launches))
+    return err, xd, cd
+
+
+def k1_forms_vs_plain(name, elev, n, orientations=None, frontier=None):
+    """K1 in the TPU's order, every form at every orientation (or those of
+    ``orientations[B]``) and block size on the (n+2)² terrain ``elev``: a
+    round from the base with every block dirty, then (after the rounds at
+    the orientations of ``frontier``, default all) one at the next
+    orientation with the frontier of its flags, dataflow == levels == plain
+    bit for bit; the input canvas comes back unwritten.  Returns the
+    largest difference (0.0)."""
+    worst = 0.0
+    for form, ring, subset in K1_FORMS:
+        args = form_inputs(elev, ring)
+        x0 = args[0].clone()
+        for B in KERNEL_BLOCKS:
+            if subset != "all" and n // B < 3:
+                continue  # a subset needs a 3x3 block grid
+            changed = []
+            for o in (orientations or {}).get(B, range(4)):
+                tag = "%s %d² %s" % (name, n, form)
+                err, xd, cd = oriented_vs_plain(tag, args, o, B, ring,
+                                                subset)
+                worst = max(worst, err)
+                changed.append(int(cd.sum()))
+                if frontier is not None and o not in frontier:
+                    continue
+                # the next round's frontier from these flags
+                err, _x, c2 = oriented_vs_plain(
+                    tag + " (frontier)", (xd,) + args[1:], (o + 1) % 4, B,
+                    ring, subset, prev=cd)
+                worst = max(worst, err)
+                changed.append(int(c2.sum()))
+            check(torch.equal(args[0], x0), "a round in the TPU's order "
+                  "wrote its input canvas")
+            log("kernel", "%s %d² %s B=%d: rounds in the TPU's order from "
+                "the base and on their frontier, dataflow == levels == "
+                "plain; blocks changed %s" % (name, n, form, B, changed))
+    return worst
+
+
+def make_hard_f32(n):
+    return make_hard_terrain(n, "float32")
+
+
+def ring_terrain(kind, n, device):
+    """The (n+2)² terrain of ``kind`` whose n² region the ring forms tile
+    (its ring the neighbours' pixels)."""
+    return torch.from_numpy(kind(n + 2)).to(device)
+
+
+# where the plain rounds cost the most (2048²: ~1.3 s a round at B = 64,
+# ~3 s at B = 16), phase 3 holds every form from the base at orientations
+# 0 and 2 at B = 64 and 1 at B = 16, and the frontier round after
+# orientation 0 (at 512² every form, orientation and frontier round)
+K1_FORM_CUTS = {N_MAIN: dict(orientations={64: (0, 2), 16: (1,)},
+                             frontier=(0,))}
 
 
 def phase_kernel_vs_plain(device, n):
-    """Two block-Jacobi K1 rounds, one K1 round in the TPU's order at each
-    orientation, two K2 rounds and the full K1 solve on n² terrains, kernel
-    beside plain, bit for bit.  Returns the largest differences (K1, K2)."""
+    """Two block-Jacobi K1 rounds, K1 in the TPU's order in every form
+    (:func:`k1_forms_vs_plain`), two K2 rounds and the full K1 solve on n²
+    terrains, kernel beside plain, bit for bit.  Returns the largest
+    differences (K1, K2)."""
     worst = worst_k2 = 0.0
-    for name, elev in (("cone", make_cone(n)),
-                       ("hard", make_hard_terrain(n, "float32"))):
-        elev = torch.from_numpy(elev).to(device)
+    for name, kind in (("cone", make_cone), ("hard", make_hard_f32)):
+        elev = torch.from_numpy(kind(n)).to(device)
         W, base = weights_and_base(elev)
         K, W1 = compact_from_dense(W)
         for B in KERNEL_BLOCKS:
@@ -570,30 +686,9 @@ def phase_kernel_vs_plain(device, n):
             log("kernel", "%s %d² B=%d: 2 block-Jacobi rounds kernel == "
                 "plain, %d of %d blocks changed in round 2"
                 % (name, n, B, int(prev.sum()), prev.numel()))
-            # the TPU's order: from the base, every block relaxed, at each
-            # orientation; the input canvas must come back unwritten
-            changed = []
-            for o in range(4):
-                before = launch_count(gs_round_oriented)
-                xk, ck = gs_round_oriented(base, K, W1, base, o, **kw)
-                launches = launch_count(gs_round_oriented) - before
-                xp, cp = gs_round_oriented_plain(base, K, W1, base, o, **kw)
-                torch.cuda.synchronize()
-                err = nan_equal_max_err(xk, xp)
-                worst = max(worst, err)
-                check(err <= KERNEL_TOL and torch.equal(ck, cp)
-                      and launches == levels_per_round(n, n, B),
-                      "%s %d² B=%d orientation %d: level kernel != plain "
-                      "(max err %g, flags equal %s, %d launches)"
-                      % (name, n, B, o, err, torch.equal(ck, cp), launches))
-                changed.append(int(ck.sum()))
-            check(torch.equal(base, weights_and_base(elev)[1]),
-                  "the level kernel wrote its input canvas")
-            log("kernel", "%s %d² B=%d: one round in the TPU's order at each "
-                "orientation 0-3 from the base, level kernel == plain, %d "
-                "launches a round, %s blocks changed"
-                % (name, n, B, levels_per_round(n, n, B), changed))
         worst_k2 = max(worst_k2, k2_rounds_vs_plain(name, W, base))
+        worst = max(worst, k1_forms_vs_plain(name, ring_terrain(kind, n, device),
+                                             n, **K1_FORM_CUTS.get(n, {})))
         for B in KERNEL_BLOCKS:
             before = launch_count(gs_round_oriented)
             ak, rk = accumulate_blocked_gs(base, W, B=B)
@@ -602,15 +697,13 @@ def phase_kernel_vs_plain(device, n):
                                            round_fn=gs_round_oriented_plain)
             err = nan_equal_max_err(ak, ap)
             worst = max(worst, err)
-            levels = levels_per_round(n, n, B)
-            check(err <= KERNEL_TOL and rk == rp
-                  and rk * levels <= launches <= (rk + 3) * levels,
+            check(err <= KERNEL_TOL and rk == rp and rk <= launches <= rk + 3,
                   "%s %d² B=%d full solve: kernel != plain (max err %g, "
                   "rounds %d vs %d, %d launches)"
                   % (name, n, B, err, rk, rp, launches))
-            log("kernel", "%s %d² B=%d full solve in the TPU's order: kernel "
-                "== plain, %d rounds both, %d launches" % (name, n, B, rk,
-                                                           launches))
+            log("kernel", "%s %d² B=%d full solve in the TPU's order: the "
+                "dataflow launch == plain, %d rounds both, %d launches"
+                % (name, n, B, rk, launches))
     return worst, worst_k2
 
 
@@ -628,17 +721,15 @@ def phase_main_path(device):
     torch.cuda.synchronize()
     launches = launch_count(gs_round_oriented)
     check(launches > 0, "the main path launched the UCA kernel no time")
-    check(launch_count(gs_round) == 0, "terrain_step launched the "
-          "block-Jacobi round")
+    check(launch_count(gs_round) + launch_count(gs_round_levels) == 0,
+          "terrain_step launched the block-Jacobi round or the level path")
     rounds = sum(b["uca_sweeps"] for b in blocked.values())
-    levels = levels_per_round(N_MAIN, N_MAIN, _block_size(N_MAIN, N_MAIN))
-    check(rounds * levels <= launches <= (rounds + 3 * len(blocked)) * levels,
-          "terrain_step: %d launches for %d rounds of %d levels"
-          % (launches, rounds, levels))
+    check(rounds <= launches <= rounds + 3 * len(blocked),
+          "terrain_step: %d launches for %d rounds" % (launches, rounds))
     log("main", "terrain_step(blocked) on the %d² cone and hard terrain: %d "
-        "level-kernel launches for %d rounds in the TPU's order (%d levels a "
-        "round; %s rounds), %d host reads of the flags"
-        % (N_MAIN, launches, rounds, levels,
+        "dataflow launches for %d rounds in the TPU's order (%s rounds), %d "
+        "host reads of the flags"
+        % (N_MAIN, launches, rounds,
            {k: b["uca_sweeps"] for k, b in blocked.items()},
            gs_solve.host_reads))
 
@@ -723,11 +814,10 @@ def phase_hard_chain(device):
     dp, twi = run_chain(elev, device)
     torch.cuda.synchronize()
     launches = launch_count(gs_round_oriented)
-    levels = levels_per_round(N_MAIN, N_MAIN, _block_size(N_MAIN, N_MAIN))
-    check(dp.uca_sweeps * levels <= launches
-          <= (dp.uca_sweeps + 3) * levels and launch_count(gs_round) == 0,
-          "the hard chain launched K1 %d times for %d rounds of %d levels"
-          % (launches, dp.uca_sweeps, levels))
+    check(dp.uca_sweeps <= launches <= dp.uca_sweeps + 3
+          and launch_count(gs_round) + launch_count(gs_round_levels) == 0,
+          "the hard chain launched K1 %d times for %d rounds"
+          % (launches, dp.uca_sweeps))
     uca = dp._dev("uca")
     check(tuple(uca.shape) == (N_MAIN, N_MAIN) and twi.shape == uca.shape,
           "hard chain: uca %s, twi %s" % (tuple(uca.shape), twi.shape))
@@ -947,53 +1037,14 @@ def round_bound(inputs, outputs, W):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def time_k1_solve(base, W, B, card):
-    """One K1 solve of the cone in the TPU's order: its time, and with
-    events around every round (one call, its levels' launches) the kernel
-    time summed over the solve, median of 3 after a warm-up; rounds,
-    launches and host reads of one solve.  Returns (median ms, rounds)."""
+def solve_ms(fn, label, card):
+    """``fn()`` (a solve returning ``(area, rounds)``) between CUDA events,
+    median of 3 after a warm-up.  Returns ``(ms, rounds)``."""
     out = []
-    ms, reps = cuda_median_ms(
-        lambda: out.append(accumulate_blocked_gs(base, W, B=B)))
-    rounds = out[-1][1]
-    log("time", "K1 cone solve %d² B=%d (accumulate_blocked_gs): median %.3f "
-        "ms, reps %s ms, %d rounds [%s]"
-        % (N_MAIN, B, ms, ["%.3f" % t for t in reps], rounds, card))
-
-    spans = []
-
-    def timed_round(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = gs_round_oriented(*args, **kw)
-        end.record()
-        spans.append((start, end))
-        return res
-
-    levels = levels_per_round(*base.shape, B)
-    sums = []
-    for rep in range(4):  # rep 0 warms up
-        del spans[:]
-        launches = launch_count(gs_round_oriented)
-        reads = gs_solve.host_reads
-        _x, r = accumulate_blocked_gs(base, W, B=B, round_fn=timed_round)
-        torch.cuda.synchronize()
-        launches = launch_count(gs_round_oriented) - launches
-        reads = gs_solve.host_reads - reads
-        check(r == rounds and launches == len(spans) * levels,
-              "timed K1 solve: %d rounds, %d launches" % (r, launches))
-        if rep:
-            sums.append(sum(a.elapsed_time(b) for a, b in spans))
-    per_round = ["%.3f" % a.elapsed_time(b) for a, b in spans]
-    log("time", "K1 cone solve %d² B=%d: %d rounds, %d launches (%d a "
-        "round), %d host reads; kernel time summed over the rounds median "
-        "%.3f ms, reps %s ms [%s]"
-        % (N_MAIN, B, rounds, launches, levels, reads,
-           statistics.median(sums), ["%.3f" % t for t in sums], card))
-    log("time", "K1 cone solve, ms per round (orientation r %% 4, last rep): "
-        "%s" % " ".join(per_round))
-    return ms, rounds
+    ms, reps = cuda_median_ms(lambda: out.append(fn()))
+    log("time", "%s: median %.3f ms, reps %s ms, %d rounds [%s]"
+        % (label, ms, ["%.3f" % t for t in reps], out[-1][1], card))
+    return ms, out[-1][1]
 
 
 def hold_card(launches):
@@ -1018,101 +1069,146 @@ def held_ms(fn, launches):
     return start.elapsed_time(end)
 
 
-def level_device_ms(base, K, W1, B, o=0):
-    """One K1 round in the TPU's order from the base (every block relaxed)
-    at orientation ``o``, its levels launched one at a time through the
-    level kernel's C entry with CUDA events around each, the card held
-    behind the host (:func:`hold_card`): each pair of events reads one
-    level's kernel time on the card, an event pair's own cost included.
-    The canvas and flags must equal one ``gs_round_oriented`` call's.
-    Returns the levels' ms in launch order."""
-    n, m = base.shape
-    inner_max = 2 * B + 4
-    order, offsets, n_levels = uca_block._level_lists(n // B, m // B, o,
-                                                      base.device)
-    prev = torch.ones((n // B, m // B), dtype=torch.int32,
-                      device=base.device)
-    x, chg = base.clone(), torch.empty_like(prev)
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(n_levels)]
-    hold_card(n_levels)
-    for t, (a, b) in enumerate(events):
-        a.record()
-        uca_block._launch("uca_gs_round_levels_f32", x, K, W1, base, prev,
-                          chg, order, offsets[t: t + 2], 1, n, m, B,
-                          inner_max)
-        b.record()
-    torch.cuda.synchronize()
-    want, want_chg = gs_round_oriented(base, K, W1, base, o, B=B,
-                                       inner_max=inner_max)
-    check(torch.equal(x, want) and torch.equal(chg, want_chg),
-          "%d² B=%d: the levels launched one at a time != the round"
-          % (n, B))
-    return [a.elapsed_time(b) for a, b in events]
+def partial_round(base, W, links, B, r):
+    """The inputs of round ``r`` of the pit solve ``accumulate_blocked_pits_gs``
+    (the hard chain's, mostly partial rounds): ``(x, b, prev, o)``, cloned
+    as the round found them."""
+    seen = []
 
-
-def time_level_rounds(base, K, W1, W, card, B=64, plain=True):
-    """K1 in the TPU's order at N_MAIN², block side ``B``: one round from
-    the base (every block relaxed) at each orientation, with ``plain``
-    beside its plain version (bitwise); the round's bound; its critical
-    path, the round at orientation 0 timed with the card held behind the
-    host (its levels depend one on the next, so the card's time for them
-    back to back is the path; median of 3 after a warm-up); and each
-    level's kernel time inside the round (:func:`level_device_ms`, median
-    of 3 rounds level by level).  Returns the figures."""
-    kw = dict(B=B, inner_max=2 * B + 4)
-    levels = levels_per_round(*base.shape, B)
-    by_o, err = {}, 0.0
-    for o in range(4):
-        what = ("K1 round in the TPU's order %d² B=%d orientation %d (all "
-                "blocks visited, %d launches)" % (N_MAIN, B, o, levels))
-        if plain:
-            times, e = time_round(
-                what, (("kernel", gs_round_oriented),
-                       ("plain", gs_round_oriented_plain)),
-                ((base, K, W1, base, o), kw), card, plain_reps=1)
-            err = max(err, e)
+    def capture(x, K, W1, b, prev, *, B, inner_max):
+        if len(seen) == r:
+            seen.append((x.clone(), b.clone(), prev.clone()))
         else:
+            seen.append(None)
+        return gs_round_oriented(x, K, W1, b, (len(seen) - 1) % 4, B=B,
+                                 inner_max=inner_max, prev=prev,
+                                 inplace=True)
+
+    gs_solve(base, W, B, None, r + 1, capture, PitLinks(*links))
+    x, b, prev = seen[r]
+    return x, b, prev, r % 4
+
+
+def k1_round_bound(inputs, outputs, W, share):
+    """:func:`round_bound` of a round that visits ``share`` of the blocks
+    (the bytes of the visited blocks' inputs and outputs, and their
+    multiply-adds)."""
+    bound, by = round_bound(inputs, outputs, W)
+    return bound * share, by
+
+
+def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
+    """K1 in the TPU's order at N_MAIN², block side ``B``: the level
+    launches ("before") against the dataflow launch, one round each in
+    turns (levels, dataflow, dataflow, levels; median of 5 each): from the
+    base (every block relaxed) at each orientation, with ``plain`` the
+    plain version beside it at orientation 0; a skipped round (no flag
+    set); a partial round of the hard chain's pit solve (round 12); each
+    round's bound, counting the blocks it visits; the critical path, the
+    round at orientation 0 with the card held behind the host; the cone
+    solve and the hard chain's pit solve.  Returns the figures."""
+    kw = dict(B=B, inner_max=2 * B + 4)
+    n = base.shape[0]
+    levels = levels_per_round(n, n, B)
+    paths = (("levels", gs_round_levels), ("dataflow", gs_round_oriented))
+
+    def turns(what, args, prev=None):
+        res = {}
+        for label, fn in paths + paths[::-1]:
             ms, reps = cuda_median_ms(
-                lambda: gs_round_oriented(base, K, W1, base, o, **kw),
-                reps=5)
-            times = dict(kernel=ms)
-            log("time", "%s, kernel: median %.3f ms, reps %s ms [%s]"
-                % (what, ms, ["%.3f" % t for t in reps], card))
-        by_o[o] = times
+                lambda: fn(*args, **kw, prev=prev), reps=5)
+            res.setdefault(label, []).append(ms)
+            log("time", "%s, %s: median %.4f ms, reps %s ms [%s]"
+                % (what, label, ms, ["%.4f" % t for t in reps], card))
+        a, ca = gs_round_levels(*args, **kw, prev=prev)
+        d, cd = gs_round_oriented(*args, **kw, prev=prev)
+        check(torch.equal(a, d) and torch.equal(ca, cd),
+              "%s: levels != dataflow" % what)
+        return {k: statistics.median(v) for k, v in res.items()}, cd
+
+    by_o = {}
+    err = 0.0
+    for o in range(4):
+        what = ("K1 round in the TPU's order %d² B=%d orientation %d from "
+                "the base (all blocks visited)" % (n, B, o))
+        by_o[o], chg = turns(what, (base, K, W1, base, o))
     out, chg = gs_round_oriented(base, K, W1, base, 0, **kw)
-    prev = torch.ones_like(chg)
-    bound, bound_by = round_bound((base, K, W1, base, prev), (out, chg), W)
-    held = [held_ms(lambda: gs_round_oriented(base, K, W1, base, 0, **kw),
-                    levels) for _ in range(4)][1:]
-    path = statistics.median(held)
-    per_level = [level_device_ms(base, K, W1, B) for _ in range(4)][1:]
-    per_level = [statistics.median(t) for t in zip(*per_level)]
-    res = dict(
-        ms=by_o[0]["kernel"], bound=bound, bound_by=bound_by, err=err,
-        levels=levels,
-        ms_by_orientation=[by_o[o]["kernel"] for o in range(4)],
-        level_ms_median=statistics.median(per_level),
-        level_ms_max=max(per_level), levels_sum_ms=sum(per_level),
-        critical_path_ms=path)
+    ones = torch.ones_like(chg)
+    bound, bound_by = round_bound((base, K, W1, base, ones), (out, chg), W)
+    res = dict(levels=levels, bound=bound, bound_by=bound_by,
+               ms=by_o[0]["dataflow"], levels_ms=by_o[0]["levels"],
+               ms_by_orientation=[by_o[o]["dataflow"] for o in range(4)],
+               levels_ms_by_orientation=[by_o[o]["levels"] for o in range(4)])
     if plain:
-        res.update(plain_ms=by_o[0]["plain"], plain_ms_by_orientation=[
-            by_o[o]["plain"] for o in range(4)])
-    log("time", "K1 in the TPU's order %d² B=%d: ms a round by orientation "
-        "0-3 %s%s; %d launches a round, %.4f ms a launch on average at "
-        "orientation 0; bound %.4f ms by %s (%.1f%% of the kernel's round); "
-        "critical path, the round with the card held behind the host, "
-        "median %.3f ms (reps %s) = %.1f%% of the round's %.3f ms; level "
-        "kernel times inside the round, events around each (median of 3 "
-        "rounds): median %.4f ms, max %.4f ms, first 8 %s, summed %.3f ms; "
-        "levels x the median level %.3f ms [%s]"
-        % (N_MAIN, B, ["%.3f" % t for t in res["ms_by_orientation"]],
-           " (plain %s)" % ["%.1f" % t for t in res["plain_ms_by_orientation"]]
-           if plain else "", levels, res["ms"] / levels, bound, bound_by,
-           100 * bound / res["ms"], path, ["%.3f" % t for t in held],
-           100 * path / res["ms"], res["ms"], res["level_ms_median"],
-           res["level_ms_max"], ["%.4f" % t for t in per_level[:8]],
-           res["levels_sum_ms"], levels * res["level_ms_median"], card))
+        pms, preps = cuda_median_ms(
+            lambda: gs_round_oriented_plain(base, K, W1, base, 0, **kw),
+            reps=1)
+        xp, cp = gs_round_oriented_plain(base, K, W1, base, 0, **kw)
+        err = nan_equal_max_err(out, xp)
+        check(err <= KERNEL_TOL and torch.equal(chg, cp),
+              "timed round: dataflow != plain (max err %g)" % err)
+        res["plain_ms"] = pms
+        log("time", "K1 round %d² B=%d orientation 0 from the base, plain: "
+            "%.1f ms [%s]" % (n, B, pms, card))
+    res["err"] = err
+    zero = torch.zeros_like(chg)
+    skipped, _c = turns("K1 skipped round %d² B=%d (no flag set)" % (n, B),
+                        (base, K, W1, base, 0), prev=zero)
+    res["skipped_ms"], res["levels_skipped_ms"] = (skipped["dataflow"],
+                                                   skipped["levels"])
+    # a skipped round reads the flags and writes its own
+    res["skipped_bound"] = 2 * zero.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    Wc, bc, links = state
+    Kc, W1c = compact_from_dense(Wc)
+    x, b, prev, o = partial_round(bc, Wc, links, B, 12)
+    share = float(dilate(prev != 0).double().mean())
+    part, pchg = turns("K1 partial round %d² B=%d, the hard chain's pit "
+                       "solve round 12 (%.1f%% of the blocks dirty)"
+                       % (n, B, 100 * share), (x, Kc, W1c, b, o), prev=prev)
+    res["partial_ms"], res["levels_partial_ms"] = (part["dataflow"],
+                                                   part["levels"])
+    res["partial_share"] = share
+    res["partial_bound"] = k1_round_bound((x, Kc, W1c, b, prev), (x, pchg),
+                                          Wc, share)[0]
+    held = {label: statistics.median(
+        [held_ms(lambda: fn(base, K, W1, base, 0, **kw),
+                 levels if label == "levels" else 1) for _ in range(4)][1:])
+        for label, fn in paths}
+    res["critical_path_ms"] = held["dataflow"]
+    res["levels_critical_path_ms"] = held["levels"]
+    res["solve_ms"], res["solve_rounds"] = solve_ms(
+        lambda: accumulate_blocked_gs(base, W, B=B),
+        "K1 cone solve %d² B=%d, dataflow" % (n, B), card)
+    res["levels_solve_ms"], rounds = solve_ms(
+        lambda: accumulate_blocked_gs(base, W, B=B, round_fn=gs_round_levels),
+        "K1 cone solve %d² B=%d, levels" % (n, B), card)
+    check(rounds == res["solve_rounds"], "the level path's cone solve "
+          "took %d rounds, the dataflow's %d" % (rounds, res["solve_rounds"]))
+    res["pit_solve_ms"], res["pit_solve_rounds"] = solve_ms(
+        lambda: accumulate_blocked_pits_gs(bc, Wc, *links, B=B),
+        "hard chain pit solve %d² B=%d, dataflow" % (n, B), card)
+    res["levels_pit_solve_ms"], rounds = solve_ms(
+        lambda: accumulate_blocked_pits_gs(bc, Wc, *links, B=B,
+                                           round_fn=gs_round_levels),
+        "hard chain pit solve %d² B=%d, levels" % (n, B), card)
+    check(rounds == res["pit_solve_rounds"], "the level path's pit solve "
+          "took %d rounds, the dataflow's %d" % (rounds,
+                                                 res["pit_solve_rounds"]))
+    log("time", "K1 in the TPU's order %d² B=%d, levels -> dataflow: from "
+        "the base by orientation %s -> %s ms (bound %.4f ms by %s, %.1f%% of "
+        "the dataflow round); skipped %.4f -> %.4f ms; partial (%.1f%% "
+        "dirty) %.4f -> %.4f ms (bound %.4f); critical path held %.3f -> "
+        "%.3f ms; cone solve %.3f -> %.3f ms (%d rounds); pit solve %.3f -> "
+        "%.3f ms (%d rounds); %d levels a round -> 1 launch [%s]"
+        % (n, B, ["%.3f" % t for t in res["levels_ms_by_orientation"]],
+           ["%.3f" % t for t in res["ms_by_orientation"]], bound, bound_by,
+           100 * bound / res["ms"], res["levels_skipped_ms"],
+           res["skipped_ms"], 100 * share, res["levels_partial_ms"],
+           res["partial_ms"], res["partial_bound"],
+           res["levels_critical_path_ms"], res["critical_path_ms"],
+           res["levels_solve_ms"], res["solve_ms"], res["solve_rounds"],
+           res["levels_pit_solve_ms"], res["pit_solve_ms"],
+           res["pit_solve_rounds"], levels, card))
     return res
 
 
@@ -1165,36 +1261,21 @@ def phase_times(device, card, state):
             "%.3f ms" % (name, times["bound"], times["bound_by"],
                          100 * times["bound"] / times["kernel"],
                          times["kernel"]))
-    levels = time_level_rounds(base, K, W1, W, card, B)
-    levels["solve_ms"], levels["solve_rounds"] = time_k1_solve(base, W, B,
-                                                                card)
+    levels = time_oriented_rounds(base, K, W1, W, card, state, B)
     levels["step_ms"], levels["step_rounds"] = step_ms["blocked"]
     levels["jacobi_rounds"] = jacobi_rounds
-    # the other block side the kernel takes, B = 16: 4x the levels a round,
-    # each of at most 4x the CTAs with 1/16 the pixels (its kernel ==
-    # plain check is phase 3's)
-    small = time_level_rounds(base, K, W1, W, card, 16, plain=False)
-    small["solve_ms"], small["solve_rounds"] = time_k1_solve(base, W, 16,
-                                                              card)
-    levels["b16"] = small
-
+    # the other block side the kernel takes, B = 16 (its kernel == plain
+    # check is phase 3's)
+    levels["b16"] = time_oriented_rounds(base, K, W1, W, card, state, 16,
+                                         plain=False)
     W, base, links = state
     levels["pit_solve"] = {}
     for name, fn in (
-            ("K1 + fold (accumulate_blocked_pits_gs)",
-             lambda: accumulate_blocked_pits_gs(base, W, *links)),
-            ("K1 + fold at B=16 (accumulate_blocked_pits_gs)",
-             lambda: accumulate_blocked_pits_gs(base, W, *links, B=16)),
             ("K2 (accumulate_blocked_pits)",
              lambda: accumulate_blocked_pits(base, W, *links)),
             ("jacobi (accumulate)", lambda: accumulate(base, W, *links))):
-        out = []
-        ms, reps = cuda_median_ms(lambda: out.append(fn()))
-        levels["pit_solve"][name] = (ms, out[-1][1])
-        log("time", "pit solve, hard chain %d², %s: median %.3f ms, reps %s "
-            "ms, %d rounds or sweeps [%s]" % (N_MAIN, name, ms,
-                                              ["%.3f" % t for t in reps],
-                                              out[-1][1], card))
+        levels["pit_solve"][name] = solve_ms(
+            fn, "pit solve, hard chain %d², %s" % (N_MAIN, name), card)
     return k1, k2, k1_err, k2_err, chain, levels
 
 
@@ -1290,10 +1371,9 @@ def check_manager_store(pm, hard, launches):
     check(np.array_equal(pm._mosaic_elev(), hard.astype("float64")),
           "the mosaic of the tiles is not the unsplit array")
     rounds = pm._dp.uca_sweeps
-    levels = levels_per_round(N_MAIN, N_MAIN, _block_size(N_MAIN, N_MAIN))
-    check(0 < rounds * levels <= launches <= (rounds + 3) * levels,
-          "the manager path launched K1 %d times for %d rounds of %d levels"
-          % (launches, rounds, levels))
+    check(0 < rounds <= launches <= rounds + 3,
+          "the manager path launched K1 %d times for %d rounds"
+          % (launches, rounds))
     store = pm.out_file
     for key in STORE_KEYS:
         check(key in store, "the store lacks %r" % key)
@@ -1532,64 +1612,64 @@ def ring_window(x, K, W1, base, i0, j0, S, w=None):
 
 
 def phase_ring_round(device, card, k1_ms):
-    """10a: K1's ring form against its plain version and against the
-    full-canvas round; one ring round timed.  Returns (times, max error)."""
+    """10a: K1's ring form in the TPU's order on 2048² windows of the 4096²
+    cone, from a mid-solve state: the dataflow launch == the level
+    launches == the plain version at two orientations, the ring untouched;
+    one ring round from the base timed, levels against dataflow.  Returns
+    (times, max error)."""
     n, S, B = 2 * S_OOC, S_OOC, 64
     elev = torch.from_numpy(make_cone(n)).to(device)
     W, base = weights_and_base(elev)
     K, W1 = compact_from_dense(W)
     del W, elev
     kw = dict(B=B, inner_max=2 * B + 4)
-    ones = torch.ones((n // B,) * 2, dtype=torch.int32, device=device)
-    x, _chg = gs_round(base, K, W1, base, ones, **kw)  # a mid-solve state
-    full, full_chg = gs_round(x, K, W1, base, ones, **kw)
+    x, _chg = gs_round_oriented(base, K, W1, base, 0, **kw)  # mid-solve
     worst = 0.0
     for where, (i0, j0) in (("interior", (S // 2, S // 2)),
                             ("corner", (0, 0))):
-        xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
-        prev = ones[: S // B, : S // B].contiguous()
-        ring = torch.ones_like(xw, dtype=torch.bool)
+        args = ring_window(x, K, W1, base, i0, j0, S)
+        ring = torch.ones_like(args[0], dtype=torch.bool)
         ring[1:-1, 1:-1] = False
-        for r in range(2):
-            xk, ck = gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
-            xp, cp = gs_round_ring_plain(xw, Kw, W1w, bw, prev, **kw)
-            torch.cuda.synchronize()
-            err = nan_equal_max_err(xk, xp)
+        changed = []
+        for o in (1, 2):
+            err, xd, cd = oriented_vs_plain("10a ring round, %s window" % where,
+                                            args, o, B, True, "all")
             worst = max(worst, err)
-            check(err <= KERNEL_TOL and torch.equal(ck, cp),
-                  "ring round, %s window, round %d: kernel != plain (max err "
-                  "%g)" % (where, r, err))
-            check(torch.equal(xk[ring], xw[ring]),
+            check(torch.equal(xd[ring], args[0][ring]),
                   "ring round, %s window: the ring was written" % where)
-            if r == 0:
-                check(torch.equal(xk[1:-1, 1:-1],
-                                  full[i0: i0 + S, j0: j0 + S])
-                      and torch.equal(ck, full_chg[i0 // B: (i0 + S) // B,
-                                                   j0 // B: (j0 + S) // B]),
-                      "ring round, %s window: its blocks are not those of "
-                      "the full-canvas round" % where)
-            xw, prev = xk, ck
-        log("ooc", "10a ring round, %s %d² window of the %d² cone, B=%d: 2 "
-            "rounds kernel == plain bitwise, ring untouched, round 1 == the "
-            "same blocks of the full-canvas round, %d of %d blocks changed "
-            "in round 2" % (where, S, n, B, int(prev.sum()), prev.numel()))
+            changed.append(int(cd.sum()))
+        log("ooc", "10a ring round in the TPU's order, %s %d² window of the "
+            "%d² cone, B=%d: dataflow == levels == plain bitwise at "
+            "orientations 1 and 2, ring untouched, %s of %d blocks changed"
+            % (where, S, n, B, changed, cd.numel()))
     xw, Kw, W1w, bw = ring_window(base, K, W1, base, S // 2, S // 2, S)
-    prev = ones[: S // B, : S // B].contiguous()
-    times, err = time_round(
-        "10a first K1 ring round, %d² window B=%d (all blocks visited)"
-        % (S, B), (("kernel", gs_round_ring), ("plain", gs_round_ring_plain)),
-        ((xw, Kw, W1w, bw, prev), kw), card)
-    out, chg = gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
+    times = {}
+    for label, fn in (("levels", gs_round_levels),
+                      ("kernel", gs_round_oriented),
+                      ("kernel", gs_round_oriented),
+                      ("levels", gs_round_levels)):
+        ms, reps = cuda_median_ms(
+            lambda: fn(xw, Kw, W1w, bw, 0, ring=True, **kw), reps=5)
+        times.setdefault(label, []).append(ms)
+        log("time", "10a ring round %d² window B=%d from the base, %s: "
+            "median %.3f ms, reps %s [%s]"
+            % (S, B, "dataflow" if label == "kernel" else label, ms,
+               ["%.3f" % t for t in reps], card))
+    times = {k: statistics.median(v) for k, v in times.items()}
+    times["plain"], _r = cuda_median_ms(
+        lambda: gs_round_oriented_plain(xw, Kw, W1w, bw, 0, ring=True, **kw),
+        reps=1)
+    out, chg = gs_round_oriented(xw, Kw, W1w, bw, 0, ring=True, **kw)
     nbytes = sum(t.numel() * t.element_size()
-                 for t in (xw, Kw, W1w, bw, prev, out, chg))
+                 for t in (xw, Kw, W1w, bw, torch.ones_like(chg), out, chg))
     times["bound"] = nbytes / HBM_BYTES_PER_S * 1e3
-    log("time", "10a ring round %.3f ms beside the %d² full-canvas round "
-        "%.3f ms (phase 8, this run): ratio %.3f; bound %.4f ms by bytes "
-        "(%.1f MB), %.1f%% of the kernel's time [%s]"
-        % (times["kernel"], N_MAIN, k1_ms["kernel"],
-           times["kernel"] / k1_ms["kernel"], times["bound"], nbytes / 1e6,
-           100 * times["bound"] / times["kernel"], card))
-    return times, max(worst, err)
+    log("time", "10a ring round %.3f ms (levels %.3f, plain %.1f) beside the "
+        "%d² canvas round %.3f ms (phase 8, this run): ratio %.3f; bound "
+        "%.4f ms by bytes (%.1f MB), %.1f%% of the kernel's time [%s]"
+        % (times["kernel"], times["levels"], times["plain"], N_MAIN,
+           k1_ms["ms"], times["kernel"] / k1_ms["ms"], times["bound"],
+           nbytes / 1e6, 100 * times["bound"] / times["kernel"], card))
+    return times, worst
 
 
 class CountingStore(ArrayStore):
@@ -1641,13 +1721,18 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
     cards = ([torch.device("cuda", 0)] if mesh is None
              else [d for d, _ks in mesh.devices_of()])
     timer = StageTimer()
-    spans = []
+    spans, visit_rounds = [], []
 
-    def timed_ring(*args, **kw):
+    def visit_round(*args, **kw):
+        """The streamed visits' rounds (the engine's own name for K1),
+        counted, and timed with ``time_kernel``."""
+        visit_rounds.append(1)
+        if not time_kernel:
+            return gs_round_oriented(*args, **kw)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        res = gs_round_ring(*args, **kw)
+        res = gs_round_oriented(*args, **kw)
         end.record()
         spans.append((start, end))
         return res
@@ -1671,8 +1756,7 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
             torch.cuda.reset_peak_memory_stats(d)
             held[d] = torch.cuda.memory_allocated(d)
         reset_counts()
-        if time_kernel:
-            outofcore.gs_round_ring = timed_ring
+        outofcore.gs_round_oriented = visit_round
         try:
             t0 = time.perf_counter()
             eng.run()
@@ -1680,15 +1764,19 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
                 torch.cuda.synchronize(d)
             total = time.perf_counter() - t0
         finally:
-            outofcore.gs_round_ring = gs_round_ring
+            outofcore.gs_round_oriented = gs_round_oriented
     peak_on = {d: torch.cuda.max_memory_allocated(d) - held[d] for d in cards}
+    # launches: every dataflow launch of the run (the fused pass's in-core
+    # or sharded solve, the streamed visits); ring_launches: the streamed
+    # visits' rounds alone
     res = dict(total=total, stages=timer.report(), rounds=eng.uca_rounds,
                visits=eng.uca_visits, skipped=eng.uca_skipped,
                launches=launch_count(gs_round_oriented),
-               ring_launches=launch_count(gs_round_ring),
-               subset_launches=launch_count(gs_round_subset),
-               ring_on=dict(gs_round_ring.launches_on),
-               subset_on=dict(gs_round_subset.launches_on),
+               ring_launches=len(visit_rounds),
+               on=dict(gs_round_oriented.launches_on),
+               block_jacobi=launch_count(gs_round)
+               + launch_count(gs_round_ring) + launch_count(gs_round_subset)
+               + launch_count(gs_round_levels),
                counts=counts_by_card(),
                peak=peak_on[cards[0]], peak_on=peak_on, fused=bool(fused),
                io=dict(store.io),
@@ -1698,9 +1786,11 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
 
 def ooc_report(tag, n, S, res, card):
     io = res["io"]
+    check(res["block_jacobi"] == 0, "%s launched the block-Jacobi forms or "
+          "the level path" % tag)
     log("ooc", "%s %d² S=%d: total %.3f s, stage seconds %s, %d outer "
-        "rounds, %d visits made and %d skipped by the frontier, K1 launches "
-        "%d whole-canvas + %d ring [%s]"
+        "rounds, %d visits made and %d skipped by the frontier, K1 dataflow "
+        "launches %d (%d of them the streamed visits' ring rounds) [%s]"
         % (tag, n, S, res["total"],
            {k: round(v, 3) for k, v in res["stages"].items()}, res["rounds"],
            res["visits"], res["skipped"], res["launches"],
@@ -1754,8 +1844,9 @@ def _phase_ooc_scale(device, card, work, n, S):
     elev = make_cone(n)
     s_str, e_str, streamed = ooc_run(work, "streamed", elev, S, 0,
                                      time_kernel=True, **OOC_OPTS)
-    check(not e_str._fits_device_resident() and streamed["launches"] == 0
-          and streamed["ring_launches"] > 0 and streamed["visits"] > 0,
+    check(not e_str._fits_device_resident()
+          and streamed["launches"] == streamed["ring_launches"] > 0
+          and streamed["visits"] > 0,
           "budget 0 did not stream: %s" % streamed)
     ooc_report("10b streamed (budget 0)", n, S, streamed, card)
     uca_s = streamed["stages"]["uca"]
@@ -1799,8 +1890,7 @@ def _phase_ooc_scale(device, card, work, n, S):
         "on the whole canvas within %s, max abs %g, bitwise equal: %s, %d "
         "rounds vs %d" % (n, GATE_TOL["cone"], err, bitwise, fused["rounds"],
                           step["uca_sweeps"]))
-    return (streamed["launches"] + fused["launches"],
-            streamed["ring_launches"] + fused["ring_launches"])
+    return streamed["launches"] + fused["launches"]
 
 
 OOC_STORE_KEYS = STORE_KEYS + ("elev_src", "flats", "uca_state")
@@ -1835,7 +1925,6 @@ def _phase_ooc_hard(device, card, work):
             os.path.join(work, "ooc_geotiff"))
         export_s = time.perf_counter() - t0
     launches = launch_count(gs_round_oriented)
-    ring_first = launch_count(gs_round_ring)
     eng = pm._ooc
     check(eng.device.type == "cuda" and eng._fits_device_resident()
           and launches > 0,
@@ -1860,7 +1949,7 @@ def _phase_ooc_hard(device, card, work):
         "%d K1 launches, %d pit links, export %.1f s [%s]"
         % (S, N_MAIN, run_s, {k: round(v, 2) for k, v
                               in metrics["stage_seconds"].items()},
-           eng.uca_rounds, launches + ring_first, n_links, export_s, card))
+           eng.uca_rounds, launches, n_links, export_s, card))
 
     uca_dev, twi_dev = store["uca"], store["twi"]
     reset_counts()
@@ -1870,7 +1959,7 @@ def _phase_ooc_hard(device, card, work):
         t0 = time.perf_counter()
         pm2.process_twi()
         resume_s = time.perf_counter() - t0
-    check(launch_count(gs_round_oriented) + launch_count(gs_round_ring) == 0
+    check(launch_count(gs_round_oriented) == 0
           and sorted(pm2.timer.report()) == ["ingest"]
           and pm2._ooc.uca_rounds == eng.uca_rounds,
           "the resumed out-of-core run computed again: %s"
@@ -1884,15 +1973,15 @@ def _phase_ooc_hard(device, card, work):
     # the uca stage again on the same store, streamed
     eng.device_cache_bytes = 0
     check(not eng._fits_device_resident(), "budget 0 still fits")
-    gs_round_ring.launches_on.clear()
+    reset_counts()
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         eng.uca()
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    ring_launches = launch_count(gs_round_ring)
-    check(ring_launches > 0 and launch_count(gs_round_oriented) == 0,
+    ring_launches = launch_count(gs_round_oriented)
+    check(ring_launches > 0 and eng.uca_visits > 0,
           "the streamed uca stage launched no ring round")
     uca_str = np.where(store["flats"], np.nan, store["uca_state"])
     err, bitwise = gate_equal("10c streamed vs device-resident uca", uca_str,
@@ -1904,7 +1993,7 @@ def _phase_ooc_hard(device, card, work):
         % (S, eng.uca_rounds, eng.uca_visits, eng.uca_skipped, ring_launches,
            stream_s, metrics["uca_iters_to_converge"], GATE_TOL["hard"],
            n_links, err, bitwise, card))
-    return launches, ring_first + ring_launches
+    return launches + ring_launches
 
 
 def phase_ooc_precision(device):
@@ -1969,13 +2058,12 @@ def phase_ooc_precision(device):
 N_MESH = 8192  # the sharded canvas: four 4096² shards on one card
 
 
-def subset_bound(blocks, B, S, ring):
+def subset_bound(blocks, B, S):
     """The least time, in ms, of a K1 round over ``blocks`` (flat indices on
     an (S/B)² grid) of an S² region (``S``: or an (h, w) pair) with a 1-px
     ring, by bytes: the x, K and W1 pixels their (B+2)² windows read (each
-    once), their base, their output blocks and, on the rim, the ring they
-    copy, their flags and the flags they test, the list; and the byte
-    count."""
+    once), their base, their output blocks, their flags and the flags they
+    test, their table rows; and the byte count."""
     h, w = (S, S) if isinstance(S, int) else S
     listed = torch.zeros((h // B) * (w // B), dtype=torch.bool)
     listed[blocks.cpu().long()] = True
@@ -1987,21 +2075,21 @@ def subset_bound(blocks, B, S, ring):
                    (-1, 1), (-1, -1)):
         near |= torch.roll(own, (di, dj), (0, 1))
     window = int(near.sum())
-    ring_px = int((near & ~torch.nn.functional.pad(
-        torch.ones(h, w, dtype=torch.bool), (1, 1, 1, 1))).sum()) if ring \
-        else 0
-    nbytes = (window * (4 + 1 + 4) + int(own.sum()) * (4 + 4) + ring_px * 4
+    nbytes = (window * (4 + 1 + 4) + int(own.sum()) * (4 + 4)
               + int(listed.sum()) * (4 + 4 + 9 * 4))
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
 def phase_subset_rounds(device, card):
-    """11a: K1's subset rounds on 4096² ring windows of the 8192² cone, the
-    shard shape of 11b's 2×2 mesh (a 64×64 block grid at B = 64): the
-    centred window, whose ring is all neighbours, and 11b's top-left shard,
-    whose ring is the canvas edge on two sides; against their plain version
-    and against one full ring round, with and without a flag ring; the
-    three rounds timed beside their bounds.  Returns (times, max error)."""
+    """11a: K1's ring and subset rounds in the TPU's order on 4096² ring
+    windows of the 8192² cone, the shard shape of 11b's 2×2 mesh (a 64×64
+    block grid at B = 64), from a mid-solve state: the centred window,
+    whose ring is all neighbours, and 11b's top-left shard, whose ring is
+    the canvas edge on two sides.  The interior and the frame rounds, in
+    place one after the other (the split round's compute), dataflow ==
+    levels == plain bitwise, the ring untouched; then the interior, frame
+    and full ring rounds timed, levels against dataflow, beside their
+    bounds.  Returns (times, max error)."""
     n, S, B = N_MESH, N_MESH // 2, 64
     elev = torch.from_numpy(make_cone(n)).to(device)
     W, base = weights_and_base(elev)
@@ -2009,86 +2097,63 @@ def phase_subset_rounds(device, card):
     del W, elev
     kw = dict(B=B, inner_max=2 * B + 4)
     nb = S // B
-    ones = torch.ones((n // B,) * 2, dtype=torch.int32, device=device)
-    x, _chg = gs_round(base, K, W1, base, ones, **kw)  # a mid-solve state
+    x, _chg = gs_round_oriented(base, K, W1, base, 0, **kw)  # mid-solve
     worst = 0.0
-    rng = np.random.RandomState(5)
-    for where, (i0, j0) in (("centred", (S // 2, S // 2)),
-                            ("top-left shard", (0, 0))):
+    for where, (i0, j0), o in (("centred", (S // 2, S // 2), 1),
+                               ("top-left shard", (0, 0), 2)):
         xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
         ring = torch.ones_like(xw, dtype=torch.bool)
         ring[1:-1, 1:-1] = False
-        # every flag set; then a sparse flag ring (the frontier reads it)
-        for prev in (ones[:nb, :nb].contiguous(),
-                     torch.from_numpy((rng.rand(nb + 2, nb + 2) < 0.1)
-                                      .astype(np.int32)).to(device)):
-            full, full_chg = gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
-            out = (torch.full_like(xw, -1.0),
-                   torch.full((nb, nb), -1, dtype=torch.int32,
-                              device=device))
-            for subset in ("interior", "boundary"):
-                xk, ck = gs_round_subset(xw, Kw, W1w, bw, prev,
-                                         subset=subset, **kw)
-                xp, cp = gs_round_ring_plain(
-                    xw, Kw, W1w, bw, prev, **kw,
-                    blocks=subset_blocks(nb, nb, subset, device))
-                torch.cuda.synchronize()
-                err = nan_equal_max_err(xk, xp)
-                worst = max(worst, err)
-                check(err <= KERNEL_TOL and torch.equal(ck, cp),
-                      "11a %s window, %s round: kernel != plain (max err %g)"
-                      % (where, subset, err))
-                gs_round_subset(xw, Kw, W1w, bw, prev, subset=subset,
-                                out=out, **kw)
-            check(torch.equal(out[0], full) and torch.equal(out[1], full_chg),
-                  "11a %s window: interior then boundary != one full ring "
-                  "round" % where)
-            check(torch.equal(out[0][ring], xw[ring]),
-                  "11a %s window: the ring moved" % where)
-        log("mesh", "11a subset rounds on the %s %d² window of the %d² cone, "
-            "B=%d: interior (%d blocks) and boundary (%d blocks) kernel == "
-            "plain bitwise, flags in block space, with and without a flag "
-            "ring; interior then boundary == one full ring round bitwise, "
-            "ring untouched" % (where, S, n, B, (nb - 2) ** 2, 4 * (nb - 1)))
-    del x, ones
+        changed = []
+        for subset in ("interior", "boundary"):
+            err, xw, cd = oriented_vs_plain(
+                "11a %s window, %s round" % (where, subset),
+                (xw, Kw, W1w, bw), o, B, True, subset)
+            worst = max(worst, err)
+            changed.append(int(cd.sum()))
+        check(torch.equal(xw[ring], ring_window(x, K, W1, base, i0, j0,
+                                                S)[0][ring]),
+              "11a %s window: the ring moved" % where)
+        log("mesh", "11a the %s %d² window of the %d² cone, B=%d, "
+            "orientation %d: the interior round (%d blocks) then the frame "
+            "(%d blocks) on its output, dataflow == levels == plain bitwise, "
+            "ring untouched; blocks changed %s"
+            % (where, S, n, B, o, (nb - 2) ** 2, 4 * (nb - 1), changed))
+    del x
     xw, Kw, W1w, bw = ring_window(base, K, W1, base, S // 2, S // 2, S)
     del K, W1, base
-    prev = torch.ones((nb, nb), dtype=torch.int32, device=device)
     times = {}
-    for subset in ("interior", "boundary", "full"):
-        blocks = (None if subset == "full"
-                  else subset_blocks(nb, nb, subset, device))
-        bufs = [(xw.clone(), torch.zeros((nb, nb), dtype=torch.int32,
-                                         device=device)) for _ in range(2)]
-
-        def kern(*a, subset=subset, out=bufs[0], **k):
-            if subset == "full":
-                return gs_round_ring(*a, out=out, **k)
-            return gs_round_subset(*a, subset=subset, out=out, **k)
-
-        def plain(*a, blocks=blocks, out=bufs[1], **k):
-            return gs_round_ring_plain(*a, blocks=blocks, out=out, **k)
-
-        t, err = time_round("11a K1 %s round, %d² window B=%d (all its blocks "
-                            "visited, into a given output)" % (subset, S, B),
-                            (("kernel", kern), ("plain", plain)),
-                            ((xw, Kw, W1w, bw, prev), kw), card)
-        worst = max(worst, err)
-        if blocks is None:
-            blocks = torch.arange(nb * nb)
-        t["bound"], t["bytes"] = subset_bound(blocks, B, S,
-                                              subset != "interior")
+    for subset in ("interior", "boundary", "all"):
+        t = {}
+        for label, fn in (("levels", gs_round_levels),
+                          ("kernel", gs_round_oriented),
+                          ("kernel", gs_round_oriented),
+                          ("levels", gs_round_levels)):
+            ms, reps = cuda_median_ms(
+                lambda: fn(xw, Kw, W1w, bw, 0, ring=True, subset=subset,
+                           **kw), reps=5)
+            t.setdefault(label, []).append(ms)
+            log("time", "11a K1 %s round in the TPU's order, %d² window "
+                "B=%d from the base, %s: median %.3f ms, reps %s [%s]"
+                % (subset, S, B, "dataflow" if label == "kernel" else label,
+                   ms, ["%.3f" % r for r in reps], card))
+        t = {k: statistics.median(v) for k, v in t.items()}
+        blocks = (torch.arange(nb * nb) if subset == "all" else
+                  torch.tensor(visit_sequence(nb, nb, 0, subset)))
+        t["bound"], t["bytes"] = subset_bound(blocks, B, S)
         times[subset] = t
-        log("time", "11a %s round: %.3f ms; bound %.4f ms by bytes (%.1f MB), "
-            "%.1f%% of the kernel's time [%s]"
-            % (subset, t["kernel"], t["bound"], t["bytes"] / 1e6,
-               100 * t["bound"] / t["kernel"], card))
-    log("time", "11a interior + boundary %.3f ms against one full ring round "
-        "%.3f ms: ratio %.3f [%s]"
+        log("time", "11a %s round: dataflow %.3f ms, levels %.3f ms (%d "
+            "launches); bound %.4f ms by bytes (%.1f MB), %.1f%% of the "
+            "dataflow round [%s]"
+            % (subset, t["kernel"], t["levels"],
+               levels_per_round(S, S, B, subset), t["bound"],
+               t["bytes"] / 1e6, 100 * t["bound"] / t["kernel"], card))
+    log("time", "11a interior + frame %.3f ms against one full ring round "
+        "%.3f ms, dataflow: ratio %.3f [%s]"
         % (times["interior"]["kernel"] + times["boundary"]["kernel"],
-           times["full"]["kernel"], (times["interior"]["kernel"]
-                                     + times["boundary"]["kernel"])
-           / times["full"]["kernel"], card))
+           times["all"]["kernel"], (times["interior"]["kernel"]
+                                    + times["boundary"]["kernel"])
+           / times["all"]["kernel"], card))
     return times, worst
 
 
@@ -2136,32 +2201,8 @@ def canvas_max_err(canvas, want):
                for view, (r0, c0, h, w) in canvas.views())
 
 
-def check_step_equal(tag, got, want):
-    for key in ("mag", "direction", "flats", "uca", "twi"):
-        check(isinstance(got[key], ShardedCanvas)
-              and canvas_equal(got[key], want[key]),
-              "%s: %s differs from one device's" % (tag, key))
-    check(got["uca_sweeps"] == want["uca_sweeps"], "%s: %d rounds, one "
-          "device %d" % (tag, got["uca_sweeps"], want["uca_sweeps"]))
-
-
 def mesh_of(device, shape):
     return make_mesh([device] * (shape[0] * shape[1]), shape)
-
-
-def whole(out):
-    """A mesh run's dict with its canvases assembled on their first
-    device."""
-    return {k: v.assemble() if isinstance(v, ShardedCanvas) else v
-            for k, v in out.items()}
-
-
-def one_shard_step(elev, args, device):
-    """``run_sharded(blocked)`` on a 1×1 mesh of ``device``: the bitwise
-    reference of the mesh runs (their rounds are block-Jacobi; one
-    device's ``terrain_step`` runs the TPU's order).  Whole canvases."""
-    return whole(run_sharded(elev, *args, mesh=mesh_of(device, (1, 1)),
-                             uca_solver="blocked"))
 
 
 def check_near_step(tag, got, step, tol):
@@ -2183,16 +2224,17 @@ def check_near_step(tag, got, step, tol):
     return canvas_max_err(got["uca"], step["uca"])
 
 
-def forced_solve(base, W, mesh, split, links=None):
+def forced_solve(base, W, mesh, split, links=None, round_fn=None):
     """The sharded K1 solve of ``base``/``W`` (and pit links) with the
     split (True) or the serial (False) round forced, through the solver's
-    private switch.  Returns (area as a ShardedCanvas, rounds)."""
+    private switch; ``round_fn``: the plain round in place of the kernel.
+    Returns (area as a ShardedCanvas, rounds)."""
     n_l, m_l = shard_dims(base.shape, mesh)
     area_s, rounds = sharded._blocked_shards(
         mesh_split(base, mesh), mesh_split(W, mesh), mesh,
         _block_size(*base.shape),
         links=sharded._links_of(links, mesh, n_l, m_l, base.dtype),
-        _force_split=split)
+        _force_split=split, _round_fn=round_fn)
     check(sharded._blocked_shards.last_split == split,
           "the solver did not take the forced round")
     return ShardedCanvas(area_s, mesh), rounds
@@ -2204,11 +2246,36 @@ def shards_equal(a, b):
                for x, y in zip(a.local_shards(), b.local_shards()))
 
 
+def mesh_kernel_vs_plain(tag, base, W, mesh, links=None):
+    """The sharded solve through the dataflow launch against the same mesh
+    through the plain rounds on the card, split and serial rounds forced:
+    areas bitwise equal with equal rounds.  Returns the rounds by round
+    kind."""
+    rounds = {}
+    for split in (True, False):
+        reset_counts()
+        got, rk = forced_solve(base, W, mesh, split, links)
+        launches = launch_count(gs_round_oriented)
+        want, rp = forced_solve(base, W, mesh, split, links,
+                                gs_round_oriented_plain)
+        check(rk == rp and shards_equal(got, want)
+              and launches >= (2 if split else 1) * mesh.size * rk,
+              "%s (split %s): the kernel's sharded solve != the plain one "
+              "(rounds %d vs %d, %d launches)" % (tag, split, rk, rp,
+                                                  launches))
+        rounds["split" if split else "serial"] = rk
+    log("mesh", "%s over a %dx%d mesh on one card: the dataflow launch == "
+        "the plain rounds bitwise, equal rounds, split and serial: %s"
+        % (tag, mesh.shape[0], mesh.shape[1], rounds))
+    return rounds
+
+
 def phase_sharded(device, card):
-    """11b: the 8192² cone over four shards on the card against a 1×1 mesh
-    (bitwise) and one device's terrain_step (the gate), split and serial
-    rounds; 1×2 and 2×4 meshes at 2048²; the one-card overlap.  Returns the
-    launches (ring, subset) of the main run."""
+    """11b: the 8192² cone over four shards on the card against one
+    device's terrain_step (the gate), split and serial rounds; the kernel
+    against the plain rounds on a 2048² 2×2 mesh; 1×2 and 2×4 meshes at
+    2048²; the one-card overlap.  Returns the main run's dataflow
+    launches."""
     n = N_MESH
     elev = torch.from_numpy(make_cone(n)).to(device)
     args = spacing(n, torch.float32, device)
@@ -2217,11 +2284,6 @@ def phase_sharded(device, card):
     log("mesh", "11b terrain_step(blocked) on one device, %d² cone: %.3f s, "
         "%d rounds in the TPU's order [%s]"
         % (n, step_s, step["uca_sweeps"], card))
-    single, single_s = synced_seconds(
-        lambda: one_shard_step(elev, args, device))
-    log("mesh", "11b run_sharded(blocked) on a 1x1 mesh, %d² cone: %.3f s, "
-        "%d block-Jacobi rounds [%s]" % (n, single_s, single["uca_sweeps"],
-                                         card))
     mesh = mesh_of(device, (2, 2))
     gc.collect()
     torch.cuda.synchronize()
@@ -2231,33 +2293,29 @@ def phase_sharded(device, card):
     reads = sharded._blocked_shards.host_reads
     out, split_s = synced_seconds(lambda: run_sharded(
         elev, *args, mesh=mesh, uca_solver="blocked"))
-    launches = dict(canvas=launch_count(gs_round)
-                    + launch_count(gs_round_oriented),
-                    ring=launch_count(gs_round_ring),
-                    subset=launch_count(gs_round_subset))
+    launches = launch_count(gs_round_oriented)
+    others = (launch_count(gs_round) + launch_count(gs_round_ring)
+              + launch_count(gs_round_subset) + launch_count(gs_round_levels))
     reads = sharded._blocked_shards.host_reads - reads
     peak = torch.cuda.max_memory_allocated() - held
-    check(sharded._blocked_shards.last_split and launches["subset"] > 0
-          and launches["canvas"] == 0,
-          "11b: the 2x2 run did not take the split round: %s" % launches)
     rounds = out["uca_sweeps"]
-    check(launches["subset"] >= 2 * 4 * rounds, "11b: %d subset launches for "
-          "%d rounds of 4 shards" % (launches["subset"], rounds))
-    check_step_equal("11b 2x2 split", out, single)
+    check(sharded._blocked_shards.last_split and others == 0
+          and launches >= 2 * 4 * rounds,
+          "11b: the 2x2 run did not take the split round in the TPU's "
+          "order: %d dataflow launches for %d rounds, %d others"
+          % (launches, rounds, others))
     err = check_near_step("11b 2x2 split", out, step, GATE_TOL["cone"])
     log("mesh", "11b run_sharded(blocked) over a 2x2 mesh of four %d² shards "
-        "on %s: mag, direction, flats, uca, twi bitwise equal to a 1x1 mesh, "
-        "%d rounds both; uca and twi within %s of one device's "
-        "terrain_step(blocked) (max abs %g, %d rounds in the TPU's order); "
-        "%.3f s (1x1 mesh %.3f s, terrain_step %.3f s); K1 launches: %d "
-        "subset (interior + boundary), %d ring, %d canvas; %d host reads of "
-        "the change counts; peak device memory %.3f GB = %.1f planes of the "
-        "canvas [%s]"
-        % (n // 2, device, rounds, GATE_TOL["cone"], err, step["uca_sweeps"],
-           split_s, single_s, step_s, launches["subset"], launches["ring"],
-           launches["canvas"], reads, peak / 1e9, peak / (n * n * 4.0),
+        "on %s, split round: %d rounds in the TPU's order (one device: %d); "
+        "mag, direction, flats bitwise, uca and twi within %s of one "
+        "device's terrain_step(blocked) (uca max abs %g); %.3f s "
+        "(terrain_step %.3f s); %d dataflow launches (interior + frame), %d "
+        "host reads of the change counts; peak device memory %.3f GB = %.1f "
+        "planes of the canvas [%s]"
+        % (n // 2, device, rounds, step["uca_sweeps"], GATE_TOL["cone"], err,
+           split_s, step_s, launches, reads, peak / 1e9, peak / (n * n * 4.0),
            card))
-    del out, single, step
+    del out, step
     _mag, _dir, _flats, W, base = terrain_pre(elev, *args)
     del elev, _mag, _dir, _flats
     for B in (64, 16):  # the in-core solve alone, at both block sides
@@ -2266,21 +2324,22 @@ def phase_sharded(device, card):
             lambda: solved.append(accumulate_blocked_gs(base, W, B=B)))
         log("mesh", "11b accumulate_blocked_gs on the %d² cone's planes, "
             "B=%d: median %.3f ms, reps %s ms, %d rounds in the TPU's order "
-            "of %d levels [%s]"
-            % (n, B, ms, ["%.3f" % t for t in reps], solved[-1][1],
-               levels_per_round(n, n, B), card))
+            "[%s]" % (n, B, ms, ["%.3f" % t for t in reps], solved[-1][1],
+                      card))
         del solved
     (a_split, r_split), split_solve_s = synced_seconds(
         lambda: forced_solve(base, W, mesh, True))
     (a_serial, r_serial), serial_s = synced_seconds(
         lambda: forced_solve(base, W, mesh, False))
-    check(r_split == r_serial == rounds and shards_equal(a_split, a_serial),
-          "11b: serial rounds differ from split rounds (%d, %d rounds)"
-          % (r_serial, r_split))
+    err = canvas_max_err(a_split, a_serial.assemble(device))
+    check(r_split == rounds and torch.allclose(
+        a_split.assemble(device), a_serial.assemble(device),
+        **GATE_TOL["cone"]), "11b: the split and the serial solves differ "
+        "beyond the gate (max %g; rounds %d, %d)" % (err, r_split, r_serial))
     log("mesh", "11b the solve alone on the same planes, both rounds forced: "
-        "serial (exchange, then one ring round a shard) %.3f s, split %.3f "
-        "s, areas bitwise equal, %d rounds both [%s]"
-        % (serial_s, split_solve_s, rounds, card))
+        "serial (exchange, then one ring round a shard) %.3f s, %d rounds; "
+        "split %.3f s, %d rounds; areas max abs %g apart [%s]"
+        % (serial_s, r_serial, split_solve_s, r_split, err, card))
     del a_split, a_serial
     ov = measure_halo_overlap(base, W, mesh)
     log("mesh", "11b overlap, %d² 2x2: exchange %.3f ms, relax %.3f ms, full "
@@ -2291,27 +2350,29 @@ def phase_sharded(device, card):
            1e3 * ov["t_full_per_round"], ov["timer"],
            ov["overlap_fraction"], card))
     del W, base
+    e = torch.from_numpy(make_cone(N_MAIN // 2)).to(device)
+    a = spacing(N_MAIN // 2, torch.float32, device)
+    _mg, _dr, _fl, W2, b2 = terrain_pre(e, *a)
+    mesh_kernel_vs_plain("11b %d² cone" % (N_MAIN // 2), b2, W2,
+                         mesh_of(device, (2, 2)))
+    e = torch.from_numpy(make_cone(N_MAIN)).to(device)
+    a = spacing(N_MAIN, torch.float32, device)
+    _mg, _dr, _fl, W2, b2 = terrain_pre(e, *a)
     for shape in ((1, 2), (2, 4)):
-        e = torch.from_numpy(make_cone(N_MAIN)).to(device)
-        a = spacing(N_MAIN, torch.float32, device)
-        one, one_s = synced_seconds(lambda: one_shard_step(e, a, device))
         m = mesh_of(device, shape)
         got, got_s = synced_seconds(
             lambda: run_sharded(e, *a, mesh=m, uca_solver="blocked"))
-        check_step_equal("11b %dx%d" % shape, got, one)
         step = terrain_step(e, *a, uca_solver="blocked")
         err = check_near_step("11b %dx%d" % shape, got, step,
                               GATE_TOL["cone"])
-        _mg, _dr, _fl, W2, b2 = terrain_pre(e, *a)
         ov = measure_halo_overlap(b2, W2, m)
-        log("mesh", "11b %d² cone over a %dx%d mesh (split %s): bitwise equal "
-            "to a 1x1 mesh, %d rounds; within %s of terrain_step (max abs "
-            "%g, %d rounds); %.3f s (1x1 mesh %.3f s); overlap: exchange "
-            "%.3f ms, relax %.3f ms, full %.3f ms a round, fraction %s (one "
-            "card, %s) [%s]"
+        log("mesh", "11b %d² cone over a %dx%d mesh (split %s): %d rounds; "
+            "within %s of terrain_step (max abs %g, %d rounds); %.3f s; "
+            "overlap: exchange %.3f ms, relax %.3f ms, full %.3f ms a round, "
+            "fraction %s (one card, %s) [%s]"
             % (N_MAIN, shape[0], shape[1], sharded._blocked_shards.last_split,
                got["uca_sweeps"], GATE_TOL["cone"], err, step["uca_sweeps"],
-               got_s, one_s, 1e3 * ov["t_exchange_per_round"],
+               got_s, 1e3 * ov["t_exchange_per_round"],
                1e3 * ov["t_relax_per_round"], 1e3 * ov["t_full_per_round"],
                ov["overlap_fraction"], ov["timer"], card))
     return launches
@@ -2319,38 +2380,33 @@ def phase_sharded(device, card):
 
 def phase_sharded_pits(device, card, state):
     """11c: the hard chain's planes and pit links through sharded_uca on a
-    2x2 mesh (which takes the split round) against the same call on a 1×1
-    mesh and K1's block-Jacobi canvas solve, bitwise, and against
-    accumulate_blocked_pits_gs (the TPU's order) within the hard gate; the
-    serial round forced."""
+    2x2 mesh (which takes the split round), and with the serial round
+    forced, against accumulate_blocked_pits_gs (one device, the TPU's
+    order) within the hard gate; then the 512² hard chain's solve on a 2x2
+    mesh, the kernel against the plain rounds, bitwise."""
     W, base, links = state
-    want, rw = sharded_uca(base, W, mesh_of(device, (1, 1)), pit_links=links)
-    want = want.assemble()
-    canvas, rc = jacobi_k1_solve(base, W, links)
-    check(rc == rw and torch.equal(canvas, want), "11c: the 1x1 mesh and the "
-          "block-Jacobi canvas solve differ (rounds %d vs %d)" % (rw, rc))
     gs, rgs = accumulate_blocked_pits_gs(base, W, *links)
     mesh = mesh_of(device, (2, 2))
     got, rg = sharded_uca(base, W, mesh, pit_links=links)
     check(sharded._blocked_shards.last_split, "11c: 2x2 did not split")
+    res = {}
     for split, (got, rg) in ((True, (got, rg)),
                              (False, forced_solve(base, W, mesh, False,
                                                   links))):
-        err = canvas_max_err(got, want)
-        check(err == 0.0 and rg == rw, "11c: sharded pit solve (split %s) "
-              "differs from a 1x1 mesh: max err %g, rounds %d vs %d"
-              % (split, err, rg, rw))
-    err = nan_equal_max_err(want, gs)
-    check(torch.allclose(want, gs, **GATE_TOL["hard"]), "11c: the sharded pit "
-          "solve is outside %s of accumulate_blocked_pits_gs (max %g)"
-          % (GATE_TOL["hard"], err))
+        area = got.assemble(device)
+        err = nan_equal_max_err(area, gs)
+        check(torch.allclose(area, gs, **GATE_TOL["hard"]), "11c: the "
+              "sharded pit solve (split %s) is outside %s of "
+              "accumulate_blocked_pits_gs (max %g)"
+              % (split, GATE_TOL["hard"], err))
+        res["split" if split else "serial"] = (rg, err)
     log("mesh", "11c %d² hard terrain, %d pit links, 2x2 mesh: "
-        "sharded_uca(pit_links=...) bitwise equal to a 1x1 mesh and to K1's "
-        "block-Jacobi canvas solve, split and serial, %d rounds all (the "
-        "fold adds each destination's links in link order, as PitLinks "
-        "does); within %s of accumulate_blocked_pits_gs in the TPU's order "
-        "(max abs %g, %d rounds)" % (N_MAIN, len(links[0]), rw,
-                                    GATE_TOL["hard"], err, rgs))
+        "sharded_uca(pit_links=...) (rounds, max abs against one device) "
+        "%s, within %s of accumulate_blocked_pits_gs in the TPU's order (%d "
+        "rounds)" % (N_MAIN, len(links[0]), res, GATE_TOL["hard"], rgs))
+    W, base, links = chain_state(make_hard_terrain(N_MAIN // 4), device)
+    mesh_kernel_vs_plain("11c %d² hard chain, %d pit links"
+                         % (N_MAIN // 4, len(links[0])), base, W, mesh, links)
 
 
 def phase_mesh_manager(device, card, mesh=None, phase="11d"):
@@ -2384,18 +2440,18 @@ def phase_mesh_manager(device, card, mesh=None, phase="11d"):
                         os.path.join(work, "mesh_geotiff"))
                     export_s = time.perf_counter() - t0
             runs[tag] = (pm, twi, run_s, export_s,
-                         launch_count(gs_round)
-                         + launch_count(gs_round_oriented),
-                         launch_count(gs_round_ring),
-                         launch_count(gs_round_subset), counts_by_card())
+                         launch_count(gs_round_oriented),
+                         launch_count(gs_round) + launch_count(gs_round_ring)
+                         + launch_count(gs_round_subset)
+                         + launch_count(gs_round_levels), counts_by_card())
             if written is not None:
                 check_manager_exports(pm, pm.out_file, written)
-        pm0, twi0, s0, _e0, _l0, _r0, _sub0, _c0 = runs["in-memory"]
-        pm1, twi1, s1, e1, l1, ring1, sub1, counts = runs["mesh"]
+        pm0, twi0, s0, _e0, _l0, _o0, _c0 = runs["in-memory"]
+        pm1, twi1, s1, e1, l1, others, counts = runs["mesh"]
         check(pm1._ooc is not None and pm1._ooc.mesh is not None
-              and ring1 + sub1 > 0 and l1 == 0,
-              "%s: the mesh manager did not solve over the mesh (%d ring, %d "
-              "subset, %d canvas launches)" % (phase, ring1, sub1, l1))
+              and l1 > 0 and others == 0,
+              "%s: the mesh manager did not solve over the mesh (%d "
+              "dataflow, %d other launches)" % (phase, l1, others))
         errs = {}
         for key in ("elev", "slope", "aspect", "uca", "twi"):
             errs[key], _bitwise = gate_equal(
@@ -2404,12 +2460,11 @@ def phase_mesh_manager(device, card, mesh=None, phase="11d"):
         log("mesh", "%s ProcessManager(mesh=%r) on the %d² cone's 4 tiles: "
             "process_twi %.1f s (in memory %.1f s), export %.1f s, stage "
             "seconds %s; elev, slope, aspect, uca, twi against the in-memory "
-            "manager: NaN patterns equal, max abs %s within %s; %d ring and "
-            "%d subset launches, %d rounds [%s]"
+            "manager: NaN patterns equal, max abs %s within %s; %d "
+            "dataflow launches, %d rounds [%s]"
             % (phase, mesh, N_MAIN, s1, s0, e1,
                {k: round(v, 3) for k, v in pm1.timer.report().items()},
-               errs, GATE_TOL["cone"], ring1, sub1, pm1._ooc.uca_rounds,
-               card))
+               errs, GATE_TOL["cone"], l1, pm1._ooc.uca_rounds, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     res, dry_s = synced_seconds(lambda: dryrun_multichip(4))
@@ -2532,7 +2587,7 @@ def _phase_deploy(device, card, chain, work, n=N_DEPLOY):
         check(job["result"]["canvas_shape"] == [n, n]
               and job["result"]["n_tiles"] == 4, "job %s: %s" % (name, job))
         # (on the CPU the wrappers run their plain versions and count none)
-        check(job["launches"]["uca_gs_round_levels"] > 0
+        check(job["launches"]["uca_gs_round_dataflow"] > 0
               or device.type == "cpu",
               "job %s launched no K1 round: %s" % (name, job))
         log("deploy", "13a job %s (%s): %.3f s, %.4g px/s, %d rounds, "
@@ -2556,7 +2611,7 @@ def _phase_deploy(device, card, chain, work, n=N_DEPLOY):
     log("deploy", "13a each job's store uca/twi and five GeoTIFFs bitwise "
         "equal to an in-process ProcessManager run of the same tiles on %s; "
         "K1 launches in those runs %s"
-        % (device, launches["uca_gs_round_levels"]))
+        % (device, launches["uca_gs_round_dataflow"]))
 
     # 13b: a job preempted after its elevation stage, stolen and finished
     queue2 = os.path.join(work, "queue_preempt")
@@ -2647,14 +2702,13 @@ def _phase_deploy(device, card, chain, work, n=N_DEPLOY):
     gs = terrain_step(cone, *spacing(N_SCALING, cone.dtype, device),
                       uca_solver="blocked")["uca_sweeps"]
     rounds = [r["rounds"] for r in sc["rows"]]
-    check(sc["rows"][0]["shape"] == [1, 1]
-          and rounds == [rounds[0]] * len(rounds),
-          "13d: mesh_scaling rounds %s, not all the 1x1 mesh's" % rounds)
-    log("deploy", "13d mesh_scaling %d²: %d shapes (%s), rounds %s equal to "
-        "the 1x1 mesh's (block-Jacobi; one device's terrain_step in the "
-        "TPU's order: %d) [%s]" % (
-            N_SCALING, len(rounds), [r["mesh"] for r in sc["rows"]], rounds,
-            gs, card))
+    check(sc["rows"][0]["shape"] == [1, 1] and min(rounds) >= 1,
+          "13d: mesh_scaling's rows %s" % sc["rows"])
+    log("deploy", "13d mesh_scaling %d²: %d shapes (%s), rounds %s in the "
+        "TPU's order, each shape's own (one device's terrain_step %d: the "
+        "in-core solver threads a frontier, the mesh's rounds none) [%s]"
+        % (N_SCALING, len(rounds), [r["mesh"] for r in sc["rows"]], rounds,
+           gs, card))
     return launches
 
 
@@ -2792,33 +2846,53 @@ def digests(out):
 
 
 def phase_card_rounds(cards, tag):
-    """12a: on every card, K1's canvas (block-Jacobi, and one round in the
-    TPU's order), ring and subset rounds and a K2 round against their plain
-    versions, bit for bit: the canvas rounds on a 2048² cone, the ring and
-    subset rounds at every shard shape of 12b-12e, with the flag ring the
-    sharded rounds pass and without; timed at 12b's shard and 12c's band; the
-    ring round at 12g's shard (:func:`giant_shard_rounds`).  Returns {kernel:
-    {card: times}} and the largest difference."""
-    times = {k: {} for k in ("canvas", "levels", "k2", "ring", "subset",
+    """12a: on every card, K1's block-Jacobi canvas round and a K2 round
+    against their plain versions, bit for bit, and K1 in the TPU's order
+    at the shapes the four-card path gives it: the canvas round on a 2048²
+    cone; the ring round and the interior and frame rounds on windows of a
+    mid-solve state of the 16384² cone at every shard shape of 12b-12e,
+    the dataflow launch == the level launches == the plain version (the
+    plain one on the first card at the shapes past 2048², where it takes
+    seconds a round), timed at 12b's shard and 12c's band; the ring round
+    at 12g's shard (:func:`giant_shard_rounds`).  Returns {kernel: {card:
+    times}} and the largest difference."""
+    times = {k: {} for k in ("canvas", "oriented", "k2", "ring", "subset",
                              "band", "giant")}
     worst = 0.0
-    for dev in cards:
+    for k, dev in enumerate(cards):
         with torch.cuda.device(dev):
-            t, err = _card_rounds(dev, tag)
+            t, err = _card_rounds(dev, tag, plain_large=k == 0)
         worst = max(worst, err)
-        for k, v in t.items():
-            times[k][str(dev)] = v
+        for key, v in t.items():
+            times[key][str(dev)] = v
     return times, worst
 
 
-def _card_rounds(dev, tag):
+def dataflow_vs_levels(what, args, B, subset, plain):
+    """A ring round in the TPU's order at orientation 0, every block dirty,
+    through the dataflow launch, the level launches and (``plain``) the
+    plain version: bitwise.  Returns the largest difference."""
+    if plain:
+        return oriented_vs_plain(what, args, 0, B, True, subset)[0]
+    kw = dict(B=B, inner_max=2 * B + 4, ring=True, subset=subset)
+    d = gs_round_oriented(*args, 0, **kw)
+    lv = gs_round_levels(*args, 0, **kw)
+    torch.cuda.synchronize()
+    e = nan_equal_max_err(d[0], lv[0])
+    check(e <= KERNEL_TOL and torch.equal(d[1], lv[1]),
+          "%s: dataflow != levels (max err %g)" % (what, e))
+    return e
+
+
+def _card_rounds(dev, tag, plain_large=True):
     times, worst = {}, 0.0
     n, B = N_MAIN, 64
     kw = dict(B=B, inner_max=2 * B + 4)
     W, base = weights_and_base(cone_rows(n, 0, n, dev))
     K, W1 = compact_from_dense(W)
     ones = torch.ones((n // B,) * 2, dtype=torch.int32, device=dev)
-    t, err = time_round("12a K1 canvas round, %d² on %s" % (n, dev),
+    t, err = time_round("12a K1 block-Jacobi canvas round, %d² on %s"
+                        % (n, dev),
                         (("kernel", gs_round), ("plain", gs_round_plain)),
                         ((base, K, W1, base, ones), kw), tag)
     worst = max(worst, err)
@@ -2833,7 +2907,7 @@ def _card_rounds(dev, tag):
     worst = max(worst, err)
     t["bound"], t["bound_by"] = times["canvas"]["bound"], times["canvas"][
         "bound_by"]
-    times["levels"] = t
+    times["oriented"] = t
     Wc = W.contiguous()
     t, err = time_round("12a K2 round, %d² on %s" % (n, dev),
                         (("kernel", block_round), ("plain", block_round_plain)),
@@ -2843,80 +2917,36 @@ def _card_rounds(dev, tag):
     times["k2"] = t
     del W, Wc, K, W1, base, ones
 
-    # K1's ring and subset rounds at the shapes the four-card path gives
+    # the ring and subset rounds at the shapes the four-card path gives
     # them, windows of a mid-solve state of the 16384² cone
     n = N_MULTI
     W, base = weights_and_base(cone_rows(n, 0, n, dev))
     K, W1 = compact_from_dense(W)
     del W
-    x, flags = base, torch.ones((n // B,) * 2, dtype=torch.int32, device=dev)
-    for _ in range(2):
-        x, flags = gs_round(x, K, W1, base, flags, **kw)
-    flags = torch.nn.functional.pad(flags, (1, 1, 1, 1))  # none off the canvas
+    x, _f = gs_round_oriented(base, K, W1, base, 0, **kw)
 
-    def window(i0, j0, h, w, flag_ring):
-        """A shard's planes and flags: with a flag ring, its neighbours'
-        flags around its own, as the sharded rounds exchange them."""
-        bi, bj, nh, nw = i0 // B, j0 // B, h // B, w // B
-        prev = (flags[bi: bi + nh + 2, bj: bj + nw + 2] if flag_ring
-                else flags[bi + 1: bi + 1 + nh, bj + 1: bj + 1 + nw])
-        return ring_window(x, K, W1, base, i0, j0, h, w) + (
-            prev.contiguous(),)
-
-    def same(what, got, want):
-        torch.cuda.synchronize(dev)
-        e = nan_equal_max_err(got[0], want[0])
-        check(e <= KERNEL_TOL and torch.equal(got[1], want[1]),
-              "12a %s on %s: kernel != plain (max err %g)" % (what, dev, e))
-        return e
-
-    def forms(what, args, subsets):
-        """The ring round, and with ``subsets`` the interior and boundary
-        rounds and the two in turn, against the plain versions."""
-        e = 0.0
-        nh, nw = args[3].shape[0] // B, args[3].shape[1] // B
-        full = gs_round_ring(*args, **kw)
-        e = max(e, same(what + " ring round", full,
-                        gs_round_ring_plain(*args, **kw)))
-        if not subsets:
-            return e
-        out = (torch.full_like(args[0], -1.0),
-               torch.full((nh, nw), -1, dtype=torch.int32, device=dev))
-        for subset in ("interior", "boundary"):
-            e = max(e, same(
-                "%s %s round" % (what, subset),
-                gs_round_subset(*args, subset=subset, **kw),
-                gs_round_ring_plain(*args, **kw, blocks=subset_blocks(
-                    nh, nw, subset, dev))))
-            gs_round_subset(*args, subset=subset, out=out, **kw)
-        check(torch.equal(out[0], full[0]) and torch.equal(out[1], full[1]),
-              "12a %s on %s: interior then boundary != one ring round"
-              % (what, dev))
-        return e
+    def window(i0, j0, h, w):
+        return ring_window(x, K, W1, base, i0, j0, h, w)
 
     def timed(what, args, subset):
+        t = {}
+        for label, fn in (("levels", gs_round_levels),
+                          ("kernel", gs_round_oriented),
+                          ("kernel", gs_round_oriented),
+                          ("levels", gs_round_levels)):
+            ms, reps = cuda_median_ms(
+                lambda: fn(*args, 0, ring=True, subset=subset, **kw), reps=5)
+            t.setdefault(label, []).append(ms)
+        t = {k: statistics.median(v) for k, v in t.items()}
         h, w = args[3].shape
-        blocks = (None if subset == "full"
-                  else subset_blocks(h // B, w // B, subset, dev))
-        bufs = [(args[0].clone(), torch.zeros((h // B, w // B),
-                                              dtype=torch.int32, device=dev))
-                for _ in range(2)]
-
-        def kern(*a, out=bufs[0], **k):
-            if subset == "full":
-                return gs_round_ring(*a, out=out, **k)
-            return gs_round_subset(*a, subset=subset, out=out, **k)
-
-        def plain(*a, out=bufs[1], **k):
-            return gs_round_ring_plain(*a, blocks=blocks, out=out, **k)
-
-        t, e = time_round("12a K1 %s round, %s on %s" % (subset, what, dev),
-                          (("kernel", kern), ("plain", plain)), (args, kw),
-                          tag)
         t["bound"], t["bytes"] = subset_bound(
-            torch.arange((h // B) * (w // B)) if blocks is None else blocks,
-            B, (h, w), subset != "interior")
-        return t, e
+            torch.arange((h // B) * (w // B)) if subset == "all" else
+            torch.tensor(visit_sequence(h // B, w // B, 0, subset)), B,
+            (h, w))
+        log("time", "12a K1 %s round in the TPU's order, %s on %s: dataflow "
+            "%.3f ms, levels %.3f ms; bound %.4f ms [%s]"
+            % (subset, what, dev, t["kernel"], t["levels"], t["bound"], tag))
+        return t
 
     S = n // 2
     shapes = (  # (what, (i0, j0, h, w), the subset forms too)
@@ -2929,36 +2959,37 @@ def _card_rounds(dev, tag):
         ("12d's %d² shard" % (N_MAIN // 2), (S, S, N_MAIN // 2, N_MAIN // 2),
          True))
     for what, (i0, j0, h, w), subsets in shapes:
-        for flag_ring in ((False, True) if subsets else (True,)):
-            args = window(i0, j0, h, w, flag_ring)
-            worst = max(worst, forms(
-                "%s, %s flag ring" % (what, "with a" if flag_ring else "no"),
-                args, subsets))
-            del args
-    log("cards", "12a %s: K1 canvas round (2048²), K2 round (2048²), and, on "
-        "windows of a mid-solve state of the %d² cone, the ring round at %s "
-        "and the interior and boundary subset rounds at %s, with and without "
-        "a flag ring where the path runs both: kernel == plain bitwise; "
-        "interior then boundary == the ring round"
+        args = window(i0, j0, h, w)
+        plain = plain_large or h <= N_MAIN
+        for subset in ("all",) + (("interior", "boundary") if subsets
+                                  else ()):
+            worst = max(worst, dataflow_vs_levels(
+                "12a %s %s round on %s" % (what, subset, dev), args, B,
+                subset, plain and h * w <= N_MULTI * N_MULTI // 4))
+        del args
+    log("cards", "12a %s: the block-Jacobi canvas round, the round in the "
+        "TPU's order and K2 (2048²) kernel == plain bitwise; on windows of a "
+        "mid-solve state of the %d² cone, the ring rounds at %s and the "
+        "interior and frame rounds at %s in the TPU's order: dataflow == "
+        "levels bitwise, == plain too at the shapes up to 8192² (%s)"
         % (dev, n, [w for w, _s, _f in shapes],
-           [w for w, _s, f in shapes if f]))
+           [w for w, _s, f in shapes if f],
+           "all of them" if plain_large else "this card: up to 2048²"))
     # the times: 12b's shard (the ring round is the four-card solver's,
-    # interior + boundary the forced split's), 12c's band, flag ring both
+    # interior + frame the forced split's), 12c's band
     rnd = {}
-    args = window(0, 0, S, S, True)
-    for subset in ("full", "interior", "boundary"):
-        rnd[subset], e = timed(shapes[0][0], args, subset)
-        worst = max(worst, e)
-    args = window(0, 0, n // 4, n, True)
-    times["band"], e = timed(shapes[1][0], args, "full")
-    worst = max(worst, e)
+    args = window(0, 0, S, S)
+    for subset in ("all", "interior", "boundary"):
+        rnd[subset] = timed(shapes[0][0], args, subset)
+    args = window(0, 0, n // 4, n)
+    times["band"] = timed(shapes[1][0], args, "all")
     del args
-    times["ring"] = rnd["full"]
+    times["ring"] = rnd["all"]
     times["subset"] = {k: rnd["interior"][k] + rnd["boundary"][k]
-                       for k in ("kernel", "plain", "bound")}
+                       for k in ("kernel", "levels", "bound")}
     times["subset"].update(interior=rnd["interior"]["kernel"],
                            boundary=rnd["boundary"]["kernel"])
-    del x, K, W1, base, flags
+    del x, K, W1, base
     times["giant"], e = giant_shard_rounds(dev, tag, B)
     return times, max(worst, e)
 
@@ -2975,77 +3006,41 @@ def tile_window(t, period, rows, cols, total, fill):
     return out
 
 
-def ring_round_plain_banded(x, K, W1, base, prev, *, B, inner_max,
-                            rows=4096):
-    """gs_round_ring_plain over a shard, ``rows`` rows of blocks at a time,
-    each band with its 1-px ring and its blocks' flag ring cut from the
-    shard's (zeros beyond it, as the round reads a shard without one).
-    Each block relaxes from the same inputs as in one call, and a block at
-    its fixed point sweeps on as a bitwise no-op, so the result is the
-    plain round's bit for bit, in a band's share of its dense planes."""
-    h, w = base.shape
-    ring = prev if prev.shape[0] == h // B + 2 else torch.nn.functional.pad(
-        prev, (1, 1, 1, 1))
-    x_out = x.clone()
-    chg = torch.empty((h // B, w // B), dtype=torch.int32, device=x.device)
-    for a in range(0, h, rows):
-        b = min(h, a + rows)
-        xb, cb = gs_round_ring_plain(
-            x[a: b + 2], K[a: b + 2], W1[a: b + 2], base[a: b],
-            ring[a // B: b // B + 2].contiguous(), B=B, inner_max=inner_max)
-        x_out[a + 1: b + 1] = xb[1:-1]
-        chg[a // B: b // B] = cb
-    return x_out, chg
-
-
 def giant_shard_rounds(dev, tag, B):
-    """12a at 12g's shard: the ring round on the top-left 24576² shard of
-    12g's canvas (3x3 copies of the 16384² cone, each ringed with NaN),
-    with and without a flag ring, against the plain round bit for bit; the
-    kernel timed.  The planes are a mid-solve state: one ringed cone's
-    compact state after two rounds, tiled.  The NaN rings keep the copies
-    apart and every spacing is 1, so these are the planes of the whole
-    canvas after two rounds, cut as :func:`ring_window` cuts them, built
+    """12a at 12g's shard: the ring round in the TPU's order on the
+    top-left 24576² shard of 12g's canvas (3x3 copies of the 16384² cone,
+    each ringed with NaN), the dataflow launch against the level launches
+    bit for bit (the plain round there would need the shard's dense planes,
+    19 GB); the dataflow launch timed.  The planes are a mid-solve state:
+    one ringed cone's compact state after two rounds, tiled.  The NaN rings
+    keep the copies apart and every spacing is 1, so these are the planes
+    of the whole canvas, cut as :func:`ring_window` cuts them, built
     without the canvas's dense weights.  Returns (times, max error)."""
     n, N = GIANT_CONE, GIANT_COPIES * GIANT_CONE
-    S, nb = N // 2, GIANT_CONE // B
+    S = N // 2
     kw = dict(B=B, inner_max=2 * B + 4)
     W, base = weights_and_base(cone_window(n, torch.arange(n),
                                            torch.arange(n), dev, ring=1))
     K, W1 = compact_from_dense(W)
     del W
-    x, flags = base, torch.ones((nb, nb), dtype=torch.int32, device=dev)
-    for _ in range(2):
-        x, flags = gs_round(x, K, W1, base, flags, **kw)
+    x = base
+    for o in range(2):
+        x, _f = gs_round_oriented(x, K, W1, base, o, **kw)
     ringed = range(-1, S + 1)
     planes = (torch.nan_to_num(tile_window(x, n, ringed, ringed, N, 0.0)),
               tile_window(K, n, ringed, ringed, N, 255),
               tile_window(W1, n, ringed, ringed, N, 0.0),
               tile_window(base, n, range(S), range(S), N, 0.0))
-    blocks = range(-1, S // B + 1)
-    ring = tile_window(flags, nb, blocks, blocks, N // B, 0)
-    del x, K, W1, base, flags
-    worst = 0.0
-    for prev in (ring[1:-1, 1:-1].contiguous(), ring):
-        got = gs_round_ring(*planes, prev, **kw)
-        want = ring_round_plain_banded(*planes, prev, **kw)
-        torch.cuda.synchronize(dev)
-        e = nan_equal_max_err(got[0], want[0])
-        check(e <= KERNEL_TOL and torch.equal(got[1], want[1]),
-              "12a ring round at 12g's %d² shard on %s, %s flag ring: kernel "
-              "!= plain (max err %g)" % (S, dev, "a" if prev is ring else
-                                         "no", e))
-        worst = max(worst, e)
-        del got, want
-    out = (torch.empty_like(planes[0]),
-           torch.empty((S // B,) * 2, dtype=torch.int32, device=dev))
+    del x, K, W1, base
+    worst = dataflow_vs_levels("12a ring round at 12g's %d² shard on %s"
+                               % (S, dev), planes, B, "all", False)
     ms, reps = cuda_median_ms(
-        lambda: gs_round_ring(*planes, ring, out=out, **kw), reps=5)
-    bound, nbytes = subset_bound(torch.arange((S // B) ** 2), B, S, True)
-    log("time", "12a K1 ring round at 12g's %d² shard (a mid-solve state of "
-        "the 3x3 ringed copies of the %d² cone) on %s, with and without a "
-        "flag ring: kernel == plain bitwise; the kernel with the flag ring: "
-        "median %.3f ms, reps %s ms; bound %.3f ms (%d bytes) [%s]"
+        lambda: gs_round_oriented(*planes, 0, ring=True, **kw), reps=5)
+    bound, nbytes = subset_bound(torch.arange((S // B) ** 2), B, S)
+    log("time", "12a K1 ring round in the TPU's order at 12g's %d² shard (a "
+        "mid-solve state of the 3x3 ringed copies of the %d² cone) on %s: "
+        "dataflow == levels bitwise; the dataflow launch: median %.3f ms, "
+        "reps %s ms; bound %.3f ms (%d bytes) [%s]"
         % (S, n, dev, ms, ["%.3f" % t for t in reps], bound, nbytes, tag))
     return {"kernel": ms, "bound": bound}, worst
 
@@ -3067,17 +3062,26 @@ def fmt_reps(reps):
                                          ["%.3f" % r for r in reps])
 
 
+def same_area(a, b):
+    """Two ShardedCanvases of one shard layout, on any cards: bitwise,
+    shard by shard."""
+    return all(torch.equal(x, y.to(x.device))
+               for x, y in zip(a.local_shards(), b.local_shards()))
+
+
 def phase_cards_sharded(cards, tag):
     """12b: run_sharded(blocked) on the 16384² cone over a 2x2 mesh of the
-    four cards against the same call on a 1×1 mesh of one card, bitwise,
-    and one card's terrain_step(blocked) (the TPU's order) within the cone
-    gate; the solve alone with the split and the serial round forced;
-    times, each card's peak memory, the overlap.  Returns the single-card
-    digests and rounds, and the four-card run's launches."""
+    four cards (the serial round, one ring round a shard in the TPU's
+    order) against one card's terrain_step(blocked) within the cone gate,
+    in turns; the solve alone with the split and the serial round forced
+    over the four cards, each bitwise equal to the same forced round over
+    four shards on one card, equal rounds; times, each card's peak memory,
+    the overlap; then run_sharded over a (4, 1) mesh of the four cards,
+    12c's reference.  Returns the (4, 1) run's digests and rounds, the
+    2x2 run's launches and the solve times."""
     n, dev0 = N_MULTI, cards[0]
     args = spacing(n, torch.float32, dev0)
     mesh = make_mesh(cards, (2, 2))
-    one_mesh = make_mesh([dev0], (1, 1))
     log("cards", "12b mesh %r: shard (iy, ix) -> %s" % (mesh, {
         c: str(mesh.devices[c]) for c in mesh.local_shards()}))
     one_reps, four_reps = [], []
@@ -3086,18 +3090,19 @@ def phase_cards_sharded(cards, tag):
         # shard on each card, as a user of four cards hands it over
         elev = cone_rows(n, 0, n, dev0)
         reset_peaks(cards)
-        single, t = synced_seconds(lambda: run_sharded(
-            elev, *args, mesh=one_mesh, uca_solver="blocked"))
+        step, t = synced_seconds(lambda: terrain_step(
+            elev, *args, uca_solver="blocked"))
         one_reps.append(t)
         if rep == 0:
             one_peak = card_peaks(cards)[str(dev0)]
-            want, rounds = digests(single), single["uca_sweeps"]
-            step = terrain_step(elev, *args, uca_solver="blocked")
-            gate_err = check_near_step("12b 1x1 mesh", single, step,
-                                       GATE_TOL["cone"])
             step_rounds = step["uca_sweeps"]
+            # kept on the host for the check: the four cards' peaks below
+            # must not count it on cuda:0
+            step = {k: v.cpu() for k, v in step.items()
+                    if isinstance(v, torch.Tensor)}
+        else:
             del step
-        del single, elev
+        del elev
         elev4 = cone_canvas(n, mesh)
         reset_peaks(cards)
         reset_counts()
@@ -3110,41 +3115,40 @@ def phase_cards_sharded(cards, tag):
             reads = sharded._blocked_shards.host_reads - reads
             peaks = card_peaks(cards)
             split = sharded._blocked_shards.last_split
+            rounds = out["uca_sweeps"]
             check(all(s.device == mesh.devices[c] for key in KEYS
                       for c, s in zip(mesh.local_shards(),
                                       out[key].local_shards())),
                   "12b: an output shard is not on its cell's card")
-            got = digests(out)  # from the shards, after the timed region
-            check(got == want and out["uca_sweeps"] == rounds,
-                  "12b: four cards differ from one card (rounds %d vs %d)"
-                  % (out["uca_sweeps"], rounds))
+            gate_err = check_near_step("12b four cards", out, step,
+                                       GATE_TOL["cone"])
+            del step
         del out, elev4
     nb = (n // 2 // 64,) * 2
-    used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
-    check(split == sharded._use_split(mesh, nb)
-          and not launches["uca_gs_round"]
-          and not launches["uca_gs_round_levels"]
-          and all(used.get(str(d), 0) > 0 for d in cards),
-          "12b: the run did not take the solver's round on every card: %s"
-          % launches)
+    used = launches["uca_gs_round_dataflow"]
+    check(split == sharded._use_split(mesh, nb) is False
+          and not any(sum(launches[k].values()) for k in (
+              "uca_gs_round", "uca_gs_round_levels", "uca_gs_round_ring",
+              "uca_gs_round_subset"))
+          and all(used.get(str(d), 0) >= rounds for d in cards),
+          "12b: the run did not take the serial round in the TPU's order on "
+          "every card: %s" % launches)
     log("cards", "12b run_sharded(blocked), %d² cone over 2x2 = four %d² "
-        "shards on %s: mag, direction, flats, uca, twi bitwise equal to the "
-        "same call on a 1x1 mesh of %s (sha256 of NaN masks and values), %d "
-        "rounds both; that within %s of one card's terrain_step(blocked) "
-        "(max abs %g, %d rounds in the TPU's order); split round %s; "
-        "launches by kernel and card %s; %d host reads [%s]"
-        % (n, n // 2, [str(d) for d in cards], dev0, rounds,
-           GATE_TOL["cone"], gate_err, step_rounds, split, launches, reads,
-           tag))
-    log("cards", "12b wall: one card (1x1 mesh) %s; four cards %s (host "
+        "shards on %s, the serial round: %d rounds in the TPU's order; mag, "
+        "direction, flats bitwise, uca and twi within %s of one card's "
+        "terrain_step(blocked) (uca max abs %g, %d rounds); launches by "
+        "kernel and card %s; %d host reads [%s]"
+        % (n, n // 2, [str(d) for d in cards], rounds, GATE_TOL["cone"],
+           gate_err, step_rounds, launches, reads, tag))
+    log("cards", "12b wall: one card's terrain_step %s; four cards %s (host "
         "clock, every card synchronised) [%s]"
         % (fmt_reps(one_reps), fmt_reps(four_reps), tag))
-    log("cards", "12b peak device memory: one card's 1x1 mesh %.3f GB = %.1f "
-        "planes of the canvas; the four-card run by card %s GB (a shard is "
-        "%.3f GB a plane; input and outputs stay on their shards) [%s]"
-        % (one_peak / 1e9, one_peak / (n * n * 4.0),
-           {k: round(v / 1e9, 3) for k, v in peaks.items()},
-           n * n / 4 * 4 / 1e9, tag))
+    log("cards", "12b peak device memory: one card's terrain_step %.3f GB = "
+        "%.1f planes of the canvas; the four-card run by card %s GB (a "
+        "shard is %.3f GB a plane; input and outputs stay on their shards) "
+        "[%s]" % (one_peak / 1e9, one_peak / (n * n * 4.0),
+                  {k: round(v / 1e9, 3) for k, v in peaks.items()},
+                  n * n / 4 * 4 / 1e9, tag))
     others = max(peaks[str(d)] for d in cards[1:])
     check(peaks[str(dev0)] <= 1.10 * others, "12b: %s peaked at %.3f GB, "
           "over 110%% of the other cards' largest, %.3f GB"
@@ -3153,28 +3157,33 @@ def phase_cards_sharded(cards, tag):
     _mag, _dir, _flats, W, base = terrain_pre(elev, *args)
     del elev, _mag, _dir, _flats
     solves = {True: [], False: []}
-    areas = {}
+    areas, solve_rounds = {}, {}
     for rep in range(3):  # in turns
         for split_ in ((True, False) if rep % 2 == 0 else (False, True)):
             (a, r), t = synced_seconds(
                 lambda: forced_solve(base, W, mesh, split_))
-            check(r == rounds, "12b forced %s: %d rounds, one card %d"
-                  % ("split" if split_ else "serial", r, rounds))
             solves[split_].append(t)
             if rep == 0:
-                areas[split_] = a
+                areas[split_], solve_rounds[split_] = a, r
             del a
-    check(shards_equal(areas[True], areas[False]),
-          "12b: split and serial areas differ")
-    want_area, _r = sharded.accumulate_sharded(base, W, one_mesh, B=64)
-    check(canvas_equal(areas[True], want_area.assemble()),
-          "12b: the four-card area differs from one card's 1x1 mesh solve")
-    del areas, want_area
+    check(solve_rounds[False] == rounds, "12b: the forced serial solve took "
+          "%d rounds, run_sharded %d" % (solve_rounds[False], rounds))
+    one_card = mesh_of(dev0, (2, 2))
+    for split_ in (True, False):
+        a, r = forced_solve(base, W, one_card, split_)
+        check(r == solve_rounds[split_] and same_area(areas[split_], a),
+              "12b: the four cards' %s solve != four shards on %s (rounds "
+              "%d vs %d)" % ("split" if split_ else "serial", dev0,
+                             solve_rounds[split_], r))
+        del a
+    err = canvas_max_err(areas[True], areas[False].assemble(dev0))
+    del areas
     log("cards", "12b the solve alone on the same planes over the four "
-        "cards, both rounds forced, areas bitwise equal to each other and to "
-        "one card's accumulate_sharded on a 1x1 mesh, %d rounds: split %s; "
-        "serial %s [%s]" % (rounds, fmt_reps(solves[True]),
-                            fmt_reps(solves[False]), tag))
+        "cards, both rounds forced, each bitwise equal to the same round "
+        "over four shards on %s with equal rounds: split %s, %d rounds; "
+        "serial %s, %d rounds; split and serial max abs %g apart [%s]"
+        % (dev0, fmt_reps(solves[True]), solve_rounds[True],
+           fmt_reps(solves[False]), solve_rounds[False], err, tag))
     ov = measure_halo_overlap(base, W, mesh)
     log("cards", "12b overlap over four cards, %d² 2x2: exchange %.3f ms, "
         "relax %.3f ms, full (split %s) %.3f ms a round (%s, every block "
@@ -3184,7 +3193,16 @@ def phase_cards_sharded(cards, tag):
            1e3 * ov["t_full_per_round"], ov["timer"], ov["overlap_fraction"],
            tag))
     del W, base
-    return want, rounds, launches, dict(
+    bands = make_mesh(cards, (4, 1))
+    elev4 = cone_canvas(n, bands)
+    out, bands_s = synced_seconds(lambda: run_sharded(
+        elev4, *args, mesh=bands, uca_solver="blocked"))
+    want, want_rounds = digests(out), out["uca_sweeps"]
+    log("cards", "12b run_sharded(blocked) over a (4, 1) mesh of the four "
+        "cards in one process (12c's reference): %d rounds, %.3f s [%s]"
+        % (want_rounds, bands_s, tag))
+    del out, elev4
+    return want, want_rounds, launches, dict(
         split=split, solve_split=statistics.median(solves[True]),
         solve_serial=statistics.median(solves[False]), overlap=ov)
 
@@ -3214,9 +3232,11 @@ def _nccl_rank(rank, world, url, n, work):
         res["walls"].append(time.perf_counter() - t0)
         if rep == 0:
             res.update(rounds=out["uca_sweeps"], counts=counts_by_card(),
-                       ring=launch_count(gs_round_ring),
-                       canvas=launch_count(gs_round)
-                       + launch_count(gs_round_oriented),
+                       dataflow=launch_count(gs_round_oriented),
+                       others=launch_count(gs_round)
+                       + launch_count(gs_round_ring)
+                       + launch_count(gs_round_subset)
+                       + launch_count(gs_round_levels),
                        peak=torch.cuda.max_memory_allocated(dev),
                        shards=len(out["uca"].local_shards()))
             # after the timing: this rank hashes its own band; then every
@@ -3239,9 +3259,9 @@ NCCL_PEAK_BYTES = 8.5e9  # a rank holds its band's planes, not the canvas
 
 def phase_cards_nccl(cards, tag, want, want_rounds):
     """12c: four processes, one NCCL rank a card, run_global(blocked) on
-    the 16384² cone in (4, 1) row bands: bitwise equal to one card's
-    terrain_step (12b's digests), rounds equal.  Returns each rank's
-    launches by kernel and card."""
+    the 16384² cone in (4, 1) row bands: bitwise equal to one process
+    running the same (4, 1) mesh of the four cards (12b's digests), rounds
+    equal.  Returns each rank's launches by kernel and card."""
     import socket
 
     import torch.multiprocessing as mp
@@ -3282,68 +3302,78 @@ def phase_cards_nccl(cards, tag, want, want_rounds):
              for key in KEYS}
     check(bands == want and ranks[0]["gathered_uca"] == want["uca"]
           and all(r["shards"] == 1 for r in ranks),
-          "12c: NCCL ranks differ from one card")
+          "12c: NCCL ranks differ from one process over the four cards")
     check(all(r["rounds"] == want_rounds for r in ranks),
-          "12c: rounds %s, one card %d" % ([r["rounds"] for r in ranks],
-                                           want_rounds))
+          "12c: rounds %s, one process %d" % ([r["rounds"] for r in ranks],
+                                              want_rounds))
     check(sorted(r["device"] for r in ranks) == [str(d) for d in cards]
-          and all(r["ring"] > 0 and r["canvas"] == 0 for r in ranks),
-          "12c: not one rank a card, or no ring launches: %s" % ranks)
+          and all(r["dataflow"] > 0 and r["others"] == 0 for r in ranks),
+          "12c: not one rank a card, or no dataflow launches: %s" % ranks)
     peaks = [r["peak"] for r in ranks]
     check(max(peaks) < NCCL_PEAK_BYTES, "12c: a rank peaked at %.3f GB"
           % (max(peaks) / 1e9))
     log("cards", "12c four NCCL ranks (spawned, one a card: %s), "
         "run_global(blocked) on the %d² cone in (4, 1) row bands, each "
         "output left on its rank as its band: mag, direction, flats, uca, "
-        "twi, hashed band by band on the ranks, bitwise equal to one card's "
-        "terrain_step (sha256), the uca gathered after the timing too; %d "
-        "rounds; wall by rank (host clock, first "
-        "run with the communicators' set-up, then a second) %s s; ring "
-        "launches by rank %s; peak device memory by rank %s GB; the whole "
+        "twi, hashed band by band on the ranks, bitwise equal to one "
+        "process over the same (4, 1) mesh of the four cards (sha256), the "
+        "uca gathered after the timing too; %d rounds; wall by rank (host "
+        "clock, first run with the communicators' set-up, then a second) %s "
+        "s; dataflow launches by rank %s; peak device memory by rank %s GB; "
+        "the whole "
         "phase %.1f s with process start [%s]"
         % ([r["device"] for r in ranks], N_MULTI, want_rounds,
            [["%.3f" % w for w in r["walls"]] for r in ranks],
-           [r["ring"] for r in ranks],
+           [r["dataflow"] for r in ranks],
            [round(r["peak"] / 1e9, 3) for r in ranks], spawn_s, tag))
     return [r["counts"] for r in ranks]
 
 
 def phase_cards_pits(cards, tag):
     """12d: the hard terrain's planes and pit links (2048², chain_state)
-    through sharded_uca over the four cards, the solver's round, against
-    the same call on a 1×1 mesh of one card.  Returns the solver's run's
-    launches by kernel and card."""
+    through sharded_uca over the four cards (the serial round), against
+    the same forced round over four shards on one card, bitwise with equal
+    rounds, and against one card's accumulate_blocked_pits_gs within the
+    hard gate.  Returns the solver's run's launches by kernel and card."""
     dev0 = cards[0]
     W, base, links = chain_state(make_hard_terrain(N_MAIN), dev0)
-    want, rw = sharded_uca(base, W, make_mesh([dev0], (1, 1)),
-                           pit_links=links)
-    want = want.assemble()
+    gs, rgs = accumulate_blocked_pits_gs(base, W, *links)
     mesh = make_mesh(cards, (2, 2))
     reset_counts()
     got, rg = sharded_uca(base, W, mesh, pit_links=links)
     launches = counts_by_card()
     split = sharded._blocked_shards.last_split
-    err = canvas_max_err(got, want)
-    check(err == 0.0 and rg == rw, "12d: differs from one card (max err %g, "
-          "rounds %d vs %d)" % (err, rg, rw))
-    used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
-    check(not launches["uca_gs_round"]
-          and not launches["uca_gs_round_levels"]
+    want, rw = forced_solve(base, W, mesh_of(dev0, (2, 2)), split, links)
+    check(rg == rw and same_area(got, want), "12d: four cards differ from "
+          "four shards on one card (split %s; rounds %d vs %d)"
+          % (split, rg, rw))
+    area = got.assemble(dev0)
+    err = nan_equal_max_err(area, gs)
+    check(torch.allclose(area, gs, **GATE_TOL["hard"]), "12d: outside %s "
+          "of one card's accumulate_blocked_pits_gs (max %g)"
+          % (GATE_TOL["hard"], err))
+    used = launches["uca_gs_round_dataflow"]
+    check(not any(sum(launches[k].values()) for k in (
+              "uca_gs_round", "uca_gs_round_levels", "uca_gs_round_ring",
+              "uca_gs_round_subset"))
           and all(used.get(str(d), 0) > 0 for d in cards),
-          "12d: the run did not take the solver's round on every card: %s"
+          "12d: the run did not take the dataflow launch on every card: %s"
           % launches)
     log("cards", "12d %d² hard terrain, %d pit links, 2x2 over the four "
-        "cards: sharded_uca(pit_links=...) bitwise equal to the same call "
-        "on a 1x1 mesh of %s, the solver's round (split %s), "
-        "%d rounds; launches by kernel and card %s"
-        % (N_MAIN, len(links[0]), dev0, split, rw, launches))
+        "cards: sharded_uca(pit_links=...) (split %s) bitwise equal to the "
+        "same round over four shards on %s, %d rounds both; within %s of "
+        "one card's accumulate_blocked_pits_gs (max abs %g, %d rounds); "
+        "launches by kernel and card %s"
+        % (N_MAIN, len(links[0]), split, dev0, rw, GATE_TOL["hard"], err,
+           rgs, launches))
     return launches
 
 
 def phase_cards_engine(cards, tag):
     """12e: the out-of-core engine with its canvases per shard on each
     shard's card.  8192²: a 2x2 mesh over the four cards == a 2x2 mesh on
-    cuda:0, fused both, bitwise.  24576²: the fit test refuses one card's
+    cuda:0, fused both, bitwise, the one card's solve held to the four
+    cards' serial round (the split round is another order).  24576²: the fit test refuses one card's
     budget and takes the four cards'; the fused pass over the four cards,
     each card's peak under its budget, uca/twi within the cone gate of
     run_sharded on the same canvas over the same cards.  Returns the
@@ -3357,23 +3387,31 @@ def phase_cards_engine(cards, tag):
         n, S = N_OOC, S_OOC
         elev = cone_rows(n, 0, n, cards[0]).cpu().numpy()
         runs = {}
+        use_split = sharded._use_split
         for where, mesh in (("one card", mesh_of(cards[0], (2, 2))),
                             ("four cards", make_mesh(cards, (2, 2)))):
-            store, eng, res = ooc_run(work, where.replace(" ", "_"), elev, S,
-                                      None, mesh=mesh, **OOC_OPTS)
-            check(res["fused"] and res["ring_launches"]
-                  + res["subset_launches"] > 0 and res["launches"] == 0,
+            if where == "one card":  # the four cards' round kind
+                sharded._use_split = lambda mesh, nb, force=None: False
+            try:
+                store, eng, res = ooc_run(work, where.replace(" ", "_"),
+                                          elev, S, None, mesh=mesh,
+                                          **OOC_OPTS)
+            finally:
+                sharded._use_split = use_split
+            check(res["fused"] and res["launches"] > 0
+                  and res["ring_launches"] == 0
+                  and not sharded._blocked_shards.last_split,
                   "12e %d² %s: not the fused per-shard pass: %s"
                   % (n, where, res))
             runs[where] = (store, eng, res)
             log("cards", "12e %d² S=%d, 2x2 mesh on %s: fused, total %.3f s, "
-                "stage seconds %s, %d rounds, peak by card %s GB, launches "
-                "by card ring %s subset %s [%s]"
+                "stage seconds %s, %d rounds, peak by card %s GB, dataflow "
+                "launches by card %s [%s]"
                 % (n, S, where, res["total"],
                    {k: round(v, 3) for k, v in res["stages"].items()},
                    res["rounds"], {str(k): round(v / 1e9, 3)
                                    for k, v in res["peak_on"].items()},
-                   res["ring_on"], res["subset_on"], tag))
+                   {str(k): v for k, v in res["on"].items()}, tag))
         launches.append(runs["four cards"][2]["counts"])
         (s1, e1, r1), (s4, e4, r4) = runs["one card"], runs["four cards"]
         for key in ("slope", "aspect", "flats", "uca", "twi"):
@@ -3384,7 +3422,8 @@ def phase_cards_engine(cards, tag):
         check(r1["rounds"] == r4["rounds"], "12e: rounds differ")
         log("cards", "12e %d²: slope, aspect, flats, uca, twi of the engine "
             "over four cards bitwise equal to the engine over four shards "
-            "on %s, %d rounds both" % (n, cards[0], r4["rounds"]))
+            "on %s (the serial round both), %d rounds both"
+            % (n, cards[0], r4["rounds"]))
         del runs, s1, s4, e1, e4, elev
         shutil.rmtree(os.path.join(work, "one_card.zarr"))
         shutil.rmtree(os.path.join(work, "four_cards.zarr"))
@@ -3411,7 +3450,7 @@ def _wide_engine(cards, tag, work):
     elev = cone_rows(n, 0, n, cards[0])
     store, eng, res = ooc_run(work, "wide", elev, S, None, mesh=mesh,
                               **OOC_OPTS)
-    check(res["fused"] and res["launches"] == 0,
+    check(res["fused"] and res["launches"] > 0 and res["ring_launches"] == 0,
           "12e %d²: the engine did not take the fused per-shard pass" % n)
     for d, peak in res["peak_on"].items():
         check(peak <= eng.device_cache_bytes, "12e: %s peaked at %.1f GB, "
@@ -3419,12 +3458,12 @@ def _wide_engine(cards, tag, work):
                                             eng.device_cache_bytes / 1e9))
     ooc_report("12e fused over four cards", n, S, res, tag)
     log("cards", "12e %d² S=%d over the four cards: fused, %d rounds, peak "
-        "by card %s GB against a budget of %.1f GB a card, launches by card "
-        "ring %s subset %s [%s]"
+        "by card %s GB against a budget of %.1f GB a card, dataflow launches "
+        "by card %s [%s]"
         % (n, S, res["rounds"],
            {str(k): round(v / 1e9, 3) for k, v in res["peak_on"].items()},
-           eng.device_cache_bytes / 1e9, res["ring_on"], res["subset_on"],
-           tag))
+           eng.device_cache_bytes / 1e9,
+           {str(k): v for k, v in res["on"].items()}, tag))
     store_gb = sum(os.path.getsize(os.path.join(dp, f))
                    for dp, _dn, fs in os.walk(store.root) for f in fs) / 1e9
     del eng, elev
@@ -3475,8 +3514,10 @@ def phase_cards_giant(cards, tag):
     NaN (so no flow crosses between copies), over a 2x2 mesh of the four
     cards, built shard by shard on each card; the copies straddle the
     shard edges.  run_sharded(blocked) on it; every copy's five planes,
-    gathered one copy at a time, bitwise equal (NaN equal) to
-    run_sharded(blocked) on a 1×1 mesh of one card on one ringed copy.
+    gathered one copy at a time, against one card's terrain_step(blocked)
+    on one ringed copy: mag, direction and flats bitwise (NaN equal), uca
+    and twi within the cone gate (each copy is cut by the shard edges at
+    other places, and a shard runs its own sequential grid).
     Wall time (median of 3 if the phase's budget allows, else fewer, said
     so), rounds of both, each card's peak.  Returns the first run's launches by
     kernel and card.
@@ -3496,8 +3537,8 @@ def phase_cards_giant(cards, tag):
     dev0, N = cards[0], GIANT_COPIES * n
     mesh = make_mesh(cards, (2, 2))
     elev = cone_window(n, torch.arange(n), torch.arange(n), dev0, ring=1)
-    single, one_s = synced_seconds(lambda: one_shard_step(
-        elev, spacing(n, torch.float32, dev0), dev0))
+    single, one_s = synced_seconds(lambda: terrain_step(
+        elev, *spacing(n, torch.float32, dev0), uca_solver="blocked"))
     ref = {k: single[k].cpu() for k in KEYS}  # kept on the host
     one_rounds = single["uca_sweeps"]
     del elev, single
@@ -3525,19 +3566,19 @@ def phase_cards_giant(cards, tag):
         spent = time.perf_counter() - t_phase
         if spent + 1.5 * max(walls) > GIANT_BUDGET_S:
             break
-    used = launches["uca_gs_round_subset" if split else "uca_gs_round_ring"]
+    used = launches["uca_gs_round_dataflow"]
     check(all(used.get(str(d), 0) > 0 for d in cards)
-          and not launches["uca_gs_round"]
-          and not launches["uca_gs_round_levels"],
-          "12g: the run did not take the solver's round on every card: %s"
+          and not any(sum(launches[k].values()) for k in (
+              "uca_gs_round", "uca_gs_round_levels", "uca_gs_round_ring",
+              "uca_gs_round_subset")),
+          "12g: the run did not take the dataflow launch on every card: %s"
           % launches)
     log("cards", "12g %d² float32 = %dx%d copies of the %d² cone, each "
         "ringed with NaN, over 2x2 = four %d² shards on %s, built shard by "
-        "shard on each card: run_sharded(blocked) %d rounds, the same on a "
-        "1x1 mesh of one card on one ringed copy %d rounds (%.3f s); every "
-        "copy's "
-        "mag, direction, flats, uca, twi bitwise equal to it (NaN equal), "
-        "gathered a copy at a time [%s]"
+        "shard on each card: run_sharded(blocked) %d rounds; one card's "
+        "terrain_step on one ringed copy %d rounds (%.3f s); every copy's "
+        "mag, direction, flats bitwise equal to it (NaN equal), uca and twi "
+        "within the cone gate, gathered a copy at a time [%s]"
         % (N, GIANT_COPIES, GIANT_COPIES, n, N // 2,
            [str(d) for d in cards], rounds, one_rounds, one_s, tag))
     log("cards", "12g wall (host clock, every card synchronised): %s of "
@@ -3565,8 +3606,16 @@ def _giant_check(out, ref, mesh, n):
                     on[dev] = ref[key].to(dev)
                 got = out[key].window((i * n, (i + 1) * n),
                                       (j * n, (j + 1) * n), device=dev)
-                check(tensors_equal(got, on[dev]), "12g: copy (%d, %d) %s "
-                      "differs from one card's ringed copy" % (i, j, key))
+                want = on[dev]
+                ok = tensors_equal(got, want) if key in (
+                    "mag", "direction", "flats") else (
+                    torch.equal(torch.isnan(got), torch.isnan(want))
+                    and torch.allclose(torch.nan_to_num(got),
+                                       torch.nan_to_num(want),
+                                       **GATE_TOL["cone"]))
+                check(ok, "12g: copy (%d, %d) %s differs from one card's "
+                      "ringed copy" % (i, j, key))
+                del want
                 del got
         del on
 
@@ -3592,195 +3641,234 @@ def main_multicard():
         for name, by_card in part.items():
             on[name].update(by_card)
     for d in cards:
-        check(on["uca_gs_round_ring"][str(d)]
-              + on["uca_gs_round_subset"][str(d)] > 0,
+        check(on["uca_gs_round_dataflow"][str(d)] > 0,
               "no K1 launch on %s on the four-card path" % d)
     log("cards", "launches of the runs of 12b-12g by kernel and card: %s"
         % {k: dict(v) for k, v in on.items()})
     src = "pydem_tpu_torch/ops/csrc/uca_block.cu"
 
-    def entry(name, kind, replaces):
+    def entry(name, kind, replaces, launches, plain="plain"):
         per = rounds_ms[kind]
         med = {k: statistics.median(t[k] for t in per.values())
-               for k in ("kernel", "plain", "bound")}
+               for k in ("kernel", plain, "bound")}
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": sum(on[name].values()),
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": med["kernel"],
-                "plain_ms": med["plain"], "bound_ms": med["bound"],
+                "plain_ms": med[plain], "bound_ms": med["bound"],
                 "bound_by": next(iter(per.values())).get("bound_by", "bytes"),
                 "library_ms": None,
                 "ms_by_card": {k: t["kernel"] for k, t in per.items()},
-                "launches_by_card": dict(on[name])}
+                "launches_by_card": dict(on.get(name, {}))}
 
-    ring = entry("uca_gs_round_ring", "ring",
-                 "pydem_tpu/ops/uca_block.py:256")
-    band = rounds_ms["band"]  # 12c's row band, the ring form
-    ring.update({"band_" + k: statistics.median(t[k] for t in band.values())
-                 for k in ("kernel", "plain", "bound")})
-    giant = rounds_ms["giant"]  # 12g's 24576² shard, the ring form
-    ring.update({"giant_shard_" + k: statistics.median(
-        t[k] for t in giant.values()) for k in ("kernel", "bound")})
+    # the dataflow launch: one round in the TPU's order from the base on
+    # 2048² (canvas form, beside its plain version); the ring form at 12b's
+    # shard, 12c's band and 12g's shard, the interior + frame at 12b's shard
+    dataflow = entry("uca_gs_round_dataflow", "oriented",
+                     "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid "
+                     "order of gs_round_oriented :444, _FLIPS :184, "
+                     "_subset_grid :242, subset branches :279-303)",
+                     sum(on["uca_gs_round_dataflow"].values()))
+    for key, kind in (("shard_ring", "ring"), ("band", "band"),
+                      ("split", "subset")):
+        dataflow.update({"%s_%s" % (key, k): statistics.median(
+            t[k] for t in rounds_ms[kind].values())
+            for k in ("kernel", "levels", "bound")})
+    dataflow.update({"giant_shard_" + k: statistics.median(
+        t[k] for t in rounds_ms["giant"].values()) for k in ("kernel",
+                                                             "bound")})
+    levels = {"name": "uca_gs_round_levels", "route": "cuda",
+              "source": src, "replaces": dataflow["replaces"],
+              "launches": sum(on["uca_gs_round_levels"].values()),
+              "role": "before: the level launches the dataflow launch "
+                      "replaced; no main path launches them",
+              "max_abs_err": err, "ms": dataflow["shard_ring_levels"],
+              "plain_ms": dataflow["plain_ms"],
+              "bound_ms": dataflow["shard_ring_bound"], "bound_by": "bytes",
+              "library_ms": None}
+    check(levels["launches"] == 0, "the four-card path launched the level "
+          "kernel")
     print(json.dumps({"kernels": [
-        # the in-core solvers' round; the four-card path runs the ring and
-        # subset forms, so its launches here are 0
-        entry("uca_gs_round_levels", "levels",
-              "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid order "
-              "of gs_round_oriented :444 and _FLIPS :184)"),
-        dict(entry("uca_gs_round", "canvas",
-                   "pydem_tpu/ops/uca_block.py:256"),
-             role="reference form: only the comparisons run it"),
-        ring,
-        entry("uca_gs_round_subset", "subset",
-              "pydem_tpu/ops/uca_block.py:242 (_subset_grid; subset "
-              "branches of _gs_kernel :279-303)"),
-        entry("uca_block_round", "k2", "pydem_tpu/ops/uca_block.py:42"),
+        dataflow, levels,
+        dict(entry("uca_gs_round", "canvas", "pydem_tpu/ops/uca_block.py:256",
+                   0),
+             role="reference forms (block-Jacobi canvas, ring, subset): "
+                  "only the comparisons run them"),
+        entry("uca_block_round", "k2", "pydem_tpu/ops/uca_block.py:42",
+              sum(on["uca_block_round"].values())),
     ], "split_round_over_cards": split["split"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def main():
-    card = phase_device()
-    device = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    phase_build()
-    k1_err, k2_err = 0.0, 0.0
-    for n in (N_CHECK, N_MAIN):
-        e1, e2 = phase_kernel_vs_plain(device, n)
-        k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
-    k1_launches = phase_main_path(device)
-    k1_launches += phase_hard_chain(device)
-    k2_launches, e2, e1, state = phase_k2_path(device)
-    k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
-    phase_f64_chain(device)
-    k1_ms, k2_ms, e1, e2, chain, levels = phase_times(device, card, state)
-    k1_err, k2_err = max(k1_err, e1, levels["err"]), max(k2_err, e2)
-    k1_launches += phase_manager(device, card)
-    ring_ms, ring_err = phase_ring_round(device, card, k1_ms)
-    canvas, ring_launches = phase_ooc_scale(device, card)
-    k1_launches += canvas
-    canvas, ring = phase_ooc_hard(device, card)
-    k1_launches += canvas
-    ring_launches += ring
-    phase_ooc_precision(device)
-    subset_ms, subset_err = phase_subset_rounds(device, card)
-    mesh_launches = phase_sharded(device, card)
-    ring_launches += mesh_launches["ring"]
-    phase_sharded_pits(device, card, state)
-    del state
-    phase_mesh_manager(device, card)
-    deploy = phase_deploy(device, card, chain)
-    k1_launches += sum(deploy["uca_gs_round_levels"].values())
-    ring_launches += sum(deploy["uca_gs_round_ring"].values())
-    log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
-    src = "pydem_tpu_torch/ops/csrc/uca_block.cu"
-    split_round = {k: subset_ms["interior"][k] + subset_ms["boundary"][k]
-                   for k in ("kernel", "plain", "bound")}
-    print(json.dumps({"kernels": [{
-        # K1's canvas form in the TPU's Gauss-Seidel order: one round at
-        # 2048², B = 64, orientation 0, from the base (every block visited),
-        # its levels' launches; the in-core solvers' round
-        "name": "uca_gs_round_levels",
+def dataflow_entry(launches, err, levels, ring_ms, subset_ms):
+    """The kernels-line entry of K1 in the TPU's order, the dataflow
+    launch: one round at 2048², B = 64, orientation 0, from the base (every
+    block visited), beside the level launches it replaced."""
+    b16 = levels["b16"]
+    return {
+        "name": "uca_gs_round_dataflow",
         "route": "cuda",
-        "source": src,
+        "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
         "replaces": "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid "
-                    "order of gs_round_oriented :444 and _FLIPS :184)",
-        "launches": k1_launches,
-        "max_abs_err": k1_err,
+                    "order of gs_round_oriented :444, _FLIPS :184, "
+                    "_subset_grid :242, subset branches :279-303)",
+        "launches": launches,
+        "max_abs_err": err,
         "ms": levels["ms"],
         "plain_ms": levels["plain_ms"],
         "bound_ms": levels["bound"],
         "bound_by": levels["bound_by"],
         "library_ms": None,  # no PyTorch call computes a relaxation round
-        "launches_per_round": levels["levels"],
+        "role": "every K1 round of the main paths: canvas, ring and subset "
+                "forms in the TPU's order, one launch a round",
+        "levels_ms": levels["levels_ms"],
         "ms_by_orientation": levels["ms_by_orientation"],
-        "plain_ms_by_orientation": levels["plain_ms_by_orientation"],
-        # the round with the card held behind the host: its dependent
-        # levels back to back; and each level's kernel time inside it
+        "levels_ms_by_orientation": levels["levels_ms_by_orientation"],
+        "skipped_ms": levels["skipped_ms"],
+        "levels_skipped_ms": levels["levels_skipped_ms"],
+        "skipped_bound_ms": levels["skipped_bound"],
+        "partial_ms": levels["partial_ms"],
+        "levels_partial_ms": levels["levels_partial_ms"],
+        "partial_bound_ms": levels["partial_bound"],
+        "partial_dirty_share": levels["partial_share"],
         "critical_path_ms": levels["critical_path_ms"],
-        "level_ms_median": levels["level_ms_median"],
-        "level_ms_max": levels["level_ms_max"],
+        "levels_critical_path_ms": levels["levels_critical_path_ms"],
         "cone_solve_ms": levels["solve_ms"],
+        "levels_cone_solve_ms": levels["levels_solve_ms"],
         "cone_solve_rounds": levels["solve_rounds"],
+        "hard_pit_solve_ms": levels["pit_solve_ms"],
+        "levels_hard_pit_solve_ms": levels["levels_pit_solve_ms"],
+        "hard_pit_solve_rounds": levels["pit_solve_rounds"],
         "terrain_step_ms": levels["step_ms"],
         "terrain_step_rounds": levels["step_rounds"],
         "block_jacobi_rounds": levels["jacobi_rounds"],
-        # the same at B = 16 (the kernel alone; phase 3 holds it bitwise)
-        "b16_ms_by_orientation": levels["b16"]["ms_by_orientation"],
-        "b16_launches_per_round": levels["b16"]["levels"],
-        "b16_critical_path_ms": levels["b16"]["critical_path_ms"],
-        "b16_cone_solve_ms": levels["b16"]["solve_ms"],
-        "b16_cone_solve_rounds": levels["b16"]["solve_rounds"],
-        "hard_pit_solve_ms": levels["pit_solve"][
-            "K1 + fold (accumulate_blocked_pits_gs)"][0],
-        "b16_hard_pit_solve_ms": levels["pit_solve"][
-            "K1 + fold at B=16 (accumulate_blocked_pits_gs)"][0],
-    }, {
-        # K1's canvas form as block-Jacobi: the reference form that only the
-        # comparisons run (the in-core solvers run the TPU's order, the
-        # mesh and the engine the ring and subset forms), so no main path
-        # launches it
-        "name": "uca_gs_round",
-        "route": "cuda",
-        "source": src,
-        "replaces": "pydem_tpu/ops/uca_block.py:256",
-        "launches": 0,
-        "role": "reference form: only the comparisons run it",
-        "max_abs_err": k1_err,
-        "ms": k1_ms["kernel"],
-        "plain_ms": k1_ms["plain"],
-        "bound_ms": k1_ms["bound"],
-        "bound_by": k1_ms["bound_by"],
-        "library_ms": None,
-    }, {
-        # K1's ring form (uca_gs_round_ring_list_f32 over every block), one
-        # round of a 2048² window
-        "name": "uca_gs_round_ring",
-        "route": "cuda",
-        "source": src,
-        "replaces": "pydem_tpu/ops/uca_block.py:256",
-        "launches": ring_launches,
-        "max_abs_err": ring_err,
-        "ms": ring_ms["kernel"],
-        "plain_ms": ring_ms["plain"],
-        "bound_ms": ring_ms["bound"],
-        "bound_by": "bytes",
-        "library_ms": None,
-    }, {
-        # K1's subset rounds (uca_gs_round_ring_list_f32 over the interior
-        # and the boundary block lists): one interior plus one boundary
-        # round of a 4096² window, a shard of the 8192² cone over 2x2, the
-        # compute of one split round
-        "name": "uca_gs_round_subset",
-        "route": "cuda",
-        "source": src,
-        "replaces": "pydem_tpu/ops/uca_block.py:242 (_subset_grid; subset "
-                    "branches of _gs_kernel :279-303)",
-        "launches": mesh_launches["subset"],
-        "max_abs_err": subset_err,
-        "ms": split_round["kernel"],
-        "plain_ms": split_round["plain"],
-        "bound_ms": split_round["bound"],
-        "bound_by": "bytes",
-        "library_ms": None,
+        "b16_ms_by_orientation": b16["ms_by_orientation"],
+        "b16_levels_ms_by_orientation": b16["levels_ms_by_orientation"],
+        "b16_skipped_ms": b16["skipped_ms"],
+        "b16_levels_skipped_ms": b16["levels_skipped_ms"],
+        "b16_cone_solve_ms": b16["solve_ms"],
+        "b16_levels_cone_solve_ms": b16["levels_solve_ms"],
+        "b16_hard_pit_solve_ms": b16["pit_solve_ms"],
+        "b16_levels_hard_pit_solve_ms": b16["levels_pit_solve_ms"],
+        # the ring form on a 2048² window (10a) and the subset forms on a
+        # 4096² shard (11a), from the base
+        "ring_window_ms": ring_ms["kernel"],
+        "levels_ring_window_ms": ring_ms["levels"],
+        "ring_window_bound_ms": ring_ms["bound"],
         "interior_ms": subset_ms["interior"]["kernel"],
         "boundary_ms": subset_ms["boundary"]["kernel"],
-        "boundary_bound_ms": subset_ms["boundary"]["bound"],
-        "full_ring_ms": subset_ms["full"]["kernel"],
-    }, {
-        "name": "uca_block_round",
+        "shard_ring_ms": subset_ms["all"]["kernel"],
+        "levels_interior_ms": subset_ms["interior"]["levels"],
+        "levels_boundary_ms": subset_ms["boundary"]["levels"],
+        "levels_shard_ring_ms": subset_ms["all"]["levels"],
+        "shard_ring_bound_ms": subset_ms["all"]["bound"],
+    }
+
+
+def levels_entry(levels):
+    """The kernels-line entry of the level launches: the "before" column of
+    the dataflow launch, which no main path launches."""
+    return {
+        "name": "uca_gs_round_levels",
         "route": "cuda",
         "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
-        "replaces": "pydem_tpu/ops/uca_block.py:42",
-        "launches": k2_launches,
-        "max_abs_err": k2_err,
-        "ms": k2_ms["kernel"],
-        "plain_ms": k2_ms["plain"],
-        "bound_ms": k2_ms["bound"],
-        "bound_by": k2_ms["bound_by"],
+        "replaces": "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid "
+                    "order of gs_round_oriented :444 and _FLIPS :184)",
+        "launches": 0,
+        "role": "before: the level launches the dataflow launch replaced, "
+                "timed beside it; no main path launches them",
+        "max_abs_err": levels["err"],
+        "ms": levels["levels_ms"],
+        "plain_ms": levels["plain_ms"],
+        "bound_ms": levels["bound"],
+        "bound_by": levels["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+        "launches_per_round": levels["levels"],
+    }
+
+
+def main():
+    card = phase_device()
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    last = [t0]
+
+    def clock(phase):
+        """The seconds of the phase that just ended, and since the start."""
+        now = time.perf_counter()
+        log("clock", "%s: %.1f s (%.1f s since the start)"
+            % (phase, now - last[0], now - t0))
+        last[0] = now
+
+    phase_build()
+    clock("2 build")
+    k1_err, k2_err = 0.0, 0.0
+    for n in (N_CHECK, N_MAIN):
+        e1, e2 = phase_kernel_vs_plain(device, n)
+        k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+        clock("3 kernels vs plain at %d²" % n)
+    k1_launches = phase_main_path(device)
+    k1_launches += phase_hard_chain(device)
+    clock("4-5 main paths")
+    k2_launches, e2, e1, state = phase_k2_path(device)
+    k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+    phase_f64_chain(device)
+    clock("6-7 K2 path, float64 chain")
+    k1_ms, k2_ms, e1, e2, chain, levels = phase_times(device, card, state)
+    k1_err, k2_err = max(k1_err, e1, levels["err"]), max(k2_err, e2)
+    clock("8 times")
+    k1_launches += phase_manager(device, card)
+    clock("9 manager")
+    ring_ms, ring_err = phase_ring_round(device, card, levels)
+    k1_launches += phase_ooc_scale(device, card)
+    k1_launches += phase_ooc_hard(device, card)
+    phase_ooc_precision(device)
+    clock("10 out of core")
+    subset_ms, subset_err = phase_subset_rounds(device, card)
+    k1_launches += phase_sharded(device, card)
+    phase_sharded_pits(device, card, state)
+    del state
+    counts = phase_mesh_manager(device, card)
+    k1_launches += sum(counts["uca_gs_round_dataflow"].values())
+    clock("11 mesh")
+    deploy = phase_deploy(device, card, chain)
+    k1_launches += sum(deploy["uca_gs_round_dataflow"].values())
+    clock("13 periphery")
+    log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
+    print(json.dumps({"kernels": [
+        dataflow_entry(k1_launches, max(k1_err, ring_err, subset_err),
+                       levels, ring_ms, subset_ms),
+        levels_entry(levels), {
+            # K1 as block-Jacobi (uca_gs_round_kernel: the canvas form
+            # timed here, the ring and subset forms the same kernel): the
+            # reference forms that only the comparisons run
+            "name": "uca_gs_round",
+            "route": "cuda",
+            "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
+            "replaces": "pydem_tpu/ops/uca_block.py:256",
+            "launches": 0,
+            "role": "reference forms (block-Jacobi canvas, ring, subset): "
+                    "only the comparisons run them",
+            "max_abs_err": k1_err,
+            "ms": k1_ms["kernel"],
+            "plain_ms": k1_ms["plain"],
+            "bound_ms": k1_ms["bound"],
+            "bound_by": k1_ms["bound_by"],
+            "library_ms": None,
+        }, {
+            "name": "uca_block_round",
+            "route": "cuda",
+            "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
+            "replaces": "pydem_tpu/ops/uca_block.py:42",
+            "launches": k2_launches,
+            "max_abs_err": k2_err,
+            "ms": k2_ms["kernel"],
+            "plain_ms": k2_ms["plain"],
+            "bound_ms": k2_ms["bound"],
+            "bound_by": k2_ms["bound_by"],
+            "library_ms": None,
+        }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

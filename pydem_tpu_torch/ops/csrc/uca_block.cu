@@ -6,73 +6,70 @@
 // over B x B blocks: Jacobi sweeps inside a block with its 1-px halo frozen,
 // 4 sweeps per convergence test, capped at inner_max, then write-back and
 // the block's changed flag.
-//  * K1, uca_gs_round_kernel, replaces _gs_kernel: the compact receiver
-//    encoding (packed index plane K, slot-1 weight W1, slot-2 weight
-//    1 - W1) and a frontier skip when no block of the 3x3 neighbourhood
-//    changed last round (skipped blocks copy their values into x_out).
-//    uca_gs_level_kernel is the same block visit in place, launched one level
-//    of the TPU's visit order at a time (below); its skipped blocks copy
-//    nothing.
+//  * K1 replaces _gs_kernel: the compact receiver encoding (packed index
+//    plane K, slot-1 weight W1, slot-2 weight 1 - W1) and a frontier skip
+//    when no block of the 3x3 neighbourhood changed last round.  Its
+//    rounds in the TPU's order run as uca_gs_dataflow_kernel, one
+//    persistent launch a round (below); uca_gs_level_kernel is the same
+//    round launched level by level, kept to time the two;
+//    uca_gs_round_kernel is K1 as block-Jacobi, a reference form.
 //  * K2, uca_block_round_kernel, replaces _block_kernel: the 8 dense weight
 //    planes, read straight from device memory, any nonnegative weights and
 //    any number of them per pixel, every block visited.
-// Both end in relax_block, templated on where the weights come from.
+// All end in relax_block, templated on where the weights come from.
 //
 // Differences from the TPU kernels, by design:
 //  * The TPU runs K1's grid in sequence, in place: each block reads the live
-//    canvas, so it sees this round's values of every block visited before it,
-//    and the visit order cycles through four corner orientations (_FLIPS).
-//    CUDA blocks of one launch run in no order, so K1's canvas form in that
-//    order, uca_gs_round_levels_f32, launches a round level by level over one
-//    in-place canvas.  A block at oriented coordinates (p, q) (the block index
-//    after the orientation's flips) has its earlier halo neighbours in the
-//    TPU's row-major visit order at (p-1, q-1), (p-1, q), (p-1, q+1) and
-//    (p, q-1), and its later ones at (p, q+1), (p+1, q-1), (p+1, q) and
-//    (p+1, q+1).  Its level is one more than the highest level of its earlier
-//    halo neighbours (t = 2p + q on grids two or more blocks wide), so every
-//    earlier neighbour has run before its level's launch and no later one
-//    has; blocks of one level are two block columns apart and read nothing
-//    another writes.  The levels reproduce the sequential grid bit for bit:
-//    the plain version (ops/uca_block.py::gs_round_oriented_plain) and the
-//    JAX round at the same orientation compute the same canvas and flags.
-//    A round is 2(nb_i - 1) + nb_j launches with no waiting between CTAs.
-//  * The ring and subset forms (uca_gs_round_ring_list_f32) and the canvas
-//    form uca_gs_round_f32 are block-Jacobi: every block reads the
-//    round-start canvas `x` and writes a second buffer `x_out`, as K2 does
-//    on the TPU too.  They reach the same fixed point as the TPU's K1 in
-//    more rounds; each round has one deterministic result, which the plain
-//    versions (gs_round_plain, gs_round_ring_plain, block_round_plain)
-//    reproduce bit for bit.  The out-of-core engine and the sharded solver
-//    run them.
+//    canvas, so it sees this round's values of every block visited before
+//    it; the visit order cycles through four corner orientations (_FLIPS),
+//    and the grid is every block, the interior blocks, or the frame walked
+//    top row, bottom row, then the side columns row by row (the subset
+//    branches).  CUDA CTAs of one launch run in no order.  From the visit
+//    sequence, a block's predecessors are its halo neighbours in the grid
+//    that come before it (at most MAX_PREDS); the host sorts the blocks by
+//    level (1 + the predecessors' highest level), a topological order, into
+//    a table of rows (block, predecessors).  uca_gs_dataflow_kernel runs the
+//    round as one launch: each CTA draws the next row from a ticket counter,
+//    stages the block's weights and base, waits until every predecessor has
+//    published this round's epoch (device-scope release after its write-back
+//    and a barrier; device-scope acquire before reading the halo), relaxes
+//    in place and publishes.  A block waits only for lower tickets, held by
+//    CTAs already running, so the round cannot deadlock whatever the grid or
+//    whatever else shares the card; a block that skips (a clean
+//    neighbourhood in prev) publishes at once, so dirty blocks that no chain
+//    of dirty predecessors links run together.  Every block reads what the
+//    sequential grid's block reads, so the round equals it bit for bit,
+//    canvas and flags: the plain version (ops/uca_block.py::
+//    gs_round_oriented_plain) and the JAX round in the same form compute the
+//    same.  The level launches (uca_gs_round_levels_f32) reach the same by
+//    running each level's blocks in one launch, 2(nb_i - 1) + nb_j launches
+//    a whole round; the dataflow launch removes the launch gaps and the wait
+//    of every block for the slowest block of the level before.
+//  * The block-Jacobi forms (uca_gs_round_f32, uca_gs_round_ring_list_f32)
+//    read the round-start canvas x and write a second buffer x_out, as K2
+//    does on the TPU too; their plain versions (gs_round_plain,
+//    gs_round_ring_plain, block_round_plain) reproduce them bit for bit.  No
+//    solver runs them.
 //  * The halo is 1 px in shared memory, not the TPU's (8, 128)-aligned pads
 //    or K2's pre-exploded (B+16, B+256) tiles.  Out of the canvas, x and
 //    the weights read 0.
 //  * B is 16 or 64.  The TPU solvers' B = 256 does not fit: one 258^2
 //    float32 window is 266 KB, more than an SM's 228 KB of shared memory.
 //
-// K1 also has a ring form (uca_gs_round_ring_list_f32), for a window of a
-// larger canvas: x, K, W1 and x_out carry a 1-px ring around the n x m
+// K1 has a ring form (RING = 1), for a window of a larger canvas (an
+// engine visit, a shard): x, K and W1 carry a 1-px ring around the n x m
 // region that the blocks tile.  The ring of x is read as the frozen halo of
-// the region's rim blocks and copied to x_out unchanged; the ring of K and
-// W1 is real, because ring pixels send flow into the region.  base, prev and
-// chg cover the region only.  Every pixel's sum is then the same rounding
-// sequence as in a round over the whole canvas, so the blocks of the window
-// come out bit for bit as the same blocks of that round.  Rows of m + 2
-// floats are not 128-byte aligned; the loads are a few percent of a visit.
-//
-// The ring form also takes a block list and a flag ring, which replace the
-// `subset` grids of the TPU kernel (_subset_grid, the interior/boundary
-// branches of _gs_kernel): the sharded solver relaxes a shard's interior
-// blocks, which never read the ring, while its ring is in flight, and its
-// frame after the ring landed.  A launch over a list is a 1-D grid of the
-// list's length; block b of the list is block (b / (m/B), b % (m/B)), and it
-// writes its block of x_out and its flag at that block's place in chg (block
-// space for every list, where the TPU's boundary subset wrote program ids
-// and only summed them, so the cross-round frontier stays sound).  Blocks
-// not listed write nothing; without a list the grid is every block.  With
-// prev_ring = 1, prev is (n/B + 2) x (m/B + 2): the region's flags with a
-// 1-block ring of the neighbouring shards' flags, read by the rim blocks'
-// frontier test.
+// the region's rim blocks and never written by the rounds in the TPU's
+// order; the ring of K and W1 is real, because ring pixels send flow into
+// the region.  base, prev and chg cover the region only.  Every pixel's sum
+// is then the same rounding sequence as in a round over the whole canvas.
+// Rows of m + 2 floats are not 128-byte aligned; the loads are a few
+// percent of a visit.  The subset rounds of the TPU's order (the mesh's
+// split round: the interior while the ring lands, then the frame) are
+// dependency tables of the subset's blocks; their flags are written in
+// block space, where the TPU's frame wrote program ids.  The block-Jacobi
+// ring form also takes a block list and a 1-block flag ring (prev of
+// (n/B + 2) x (m/B + 2)); nothing in the TPU's order reads a flag ring.
 //
 // What bounds it on the card.  Per visited block a round reads the halo
 // window of x, the weights of the block's sources (K1: K at 1 B and W1;
@@ -105,12 +102,16 @@
 //    entered through the halo moves; the rest of the block is skipped.
 //  * Convergence is tested with __syncthreads_or every 4th sweep, and K1
 //    skips converged block neighbourhoods entirely (the frontier).
+//  * The prologue off the critical path: a dataflow CTA stages a block's
+//    W1 window with cp.async and its K window into the shared memory the x
+//    windows use afterwards, decodes the weights into registers and loads
+//    the base before it waits for the predecessors; only the x window is
+//    read after the wait.
 // Not used, on purpose: tensor cores (wgmma), because the sum must be eight
 // separately rounded float32 products added in a fixed order, which no
-// matrix unit gives; TMA or cp.async for the window and the weights,
-// because a visit reads about 70 KB once and then sweeps for tens of
-// microseconds.  With 35 KB of shared memory a persistent block could
-// prefetch the next block's window during the sweeps; that is later work.
+// matrix unit gives; TMA for the window, because a visit reads about 70 KB
+// once and then sweeps for tens of microseconds.  A visit runs on one SM;
+// splitting it over a thread-block cluster is later work.
 //
 // Numerics: the sum is base + w_0 x_0 + ... + w_7 x_7 in NEIGHBOR_OFFSETS
 // order with separate multiply and add roundings (__fmul_rn/__fadd_rn, and
@@ -127,6 +128,36 @@ __device__ __forceinline__ constexpr int off_i(int k) {
 }
 __device__ __forceinline__ constexpr int off_j(int k) {
   return (k <= 1 || k == 7) ? 1 : ((k >= 3 && k <= 5) ? -1 : 0);
+}
+
+// The most predecessors a block has in a round in the TPU's order
+// (ops/uca_block.py MAX_PREDS); a dependency table row is the block and its
+// predecessors, -1 past the last.
+constexpr int MAX_PREDS = 4;
+constexpr int ROW = 1 + MAX_PREDS;
+
+// A 4-byte asynchronous copy into shared memory; src_bytes = 0 fills zeros
+// and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Device-scope acquire load and release store of a "done" epoch.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
 }
 
 // Thread (tx, ty) of a (B, TY) block owns the pixels of column tx in rows
@@ -176,9 +207,10 @@ struct CompactWeights {
       const int gi = i0 - 1 + t / WN, gj = j0 - 1 + t % WN;
       const bool in = RING || (gi >= 0 && gi < n && gj >= 0 && gj < m);
       const size_t g = (size_t)(gi + RING) * (m + 2 * RING) + (gj + RING);
+      cp_async4(w1s + t, in ? W1 + g : W1, in ? 4 : 0);  // 0.f outside
       ks[t] = in ? K[g] : (uint8_t)255;
-      w1s[t] = in ? W1[g] : 0.f;
     }
+    cp_async_wait_all();
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < R + 2; ++q) {
@@ -227,18 +259,61 @@ struct DenseWeights {
   }
 };
 
+// What a visit waits for between its prologue (the weights and the base,
+// which nothing in the round writes) and its read of the x window.
+struct NoWait {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// Nanoseconds on the device's global timer.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A wait longer than this is a fault (no round waits a second for one
+// block): the kernel traps, and the launch fails instead of hanging.
+constexpr unsigned long long WAIT_LIMIT_NS = 20000000000ULL;
+
+// The dataflow round's wait: threads 0..MAX_PREDS-1 each take one
+// predecessor's "done" epoch with a device-scope acquire, then the barrier
+// hands what they acquired to every thread of the CTA.
+struct WaitPreds {
+  const int* preds;  // MAX_PREDS flat block indices, -1 past the last
+  const int* done;
+  int epoch;
+
+  __device__ __forceinline__ void operator()() const {
+    const int t = threadIdx.y * blockDim.x + threadIdx.x;
+    if (t < MAX_PREDS) {
+      const int p = preds[t];
+      if (p >= 0) {
+        const unsigned long long t0 = global_ns();
+        while (ld_acquire(done + p) != epoch) {
+          __nanosleep(32);
+          if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
+        }
+      }
+    }
+    __syncthreads();
+  }
+};
+
 // Relax block (bi, bj) to its local fixed point with its 1-px halo frozen,
-// write it to x_out and its changed flag to chg.  Both kernels end here.
+// write it to x_out and its changed flag to chg.  Every kernel ends here.
+// The weights and the base come first, then wait(), then the x window.
 // x and x_out are the same canvas for the in-place level launches, so neither
 // is __restrict__ here (the kernels that write a second buffer say so on
 // their own parameters).
 // RING = 1: x and x_out are (n + 2, m + 2) with the region at (1, 1), and the
 // halo of a rim block is the ring; RING = 0: (n, m), the halo reads 0 there.
-template <int B, int RING, class Weights>
+template <int B, int RING, class Weights, class Wait = NoWait>
 __device__ __forceinline__ void relax_block(
     const float* x, const Weights& weight,
     const float* __restrict__ base, float* x_out,
-    int* __restrict__ chg, int n, int m, int inner_max, int bi, int bj) {
+    int* __restrict__ chg, int n, int m, int inner_max, int bi, int bj,
+    const Wait& wait = Wait()) {
   using S = Shape<B>;
   constexpr int R = S::R, WN = S::WN, NS = S::NS;
   extern __shared__ float smem[];
@@ -259,6 +334,7 @@ __device__ __forceinline__ void relax_block(
   for (int r = 0; r < R; ++r) {
     bse[r] = base[(size_t)(i0 + r0 + r) * m + (j0 + tx)];
   }
+  wait();
   // Halo window of x into both buffers (the halo stays frozen).
   for (int t = tid; t < WN * WN; t += S::THREADS) {
     const int gi = i0 - 1 + t / WN, gj = j0 - 1 + t % WN;
@@ -408,26 +484,11 @@ uca_gs_round_kernel(const float* __restrict__ x,
                        inner_max, bi, bj);
 }
 
-// K1 in the TPU's Gauss-Seidel order: one level of a round, in place.  The
-// CTAs visit the listed blocks (flat indices bi * (m/B) + bj), each reading
-// and writing the live canvas x; the frontier reads the previous round's
-// flags prev, and every listed block writes its flag in chg (0 if skipped;
-// a skipped block copies nothing).  x is not __restrict__: it is read and
-// written through the one pointer, and no load of it may take the read-only
-// path.
-template <int B>
-__global__ void __launch_bounds__(Shape<B>::THREADS, 1)
-uca_gs_level_kernel(float* x,
-                    const uint8_t* __restrict__ K,
-                    const float* __restrict__ W1,
-                    const float* __restrict__ base,
-                    const int* __restrict__ prev,
-                    int* __restrict__ chg,
-                    const int* __restrict__ blocks,
-                    int n, int m, int inner_max) {
-  const int nb_i = n / B, nb_j = m / B;
-  const int b = blocks[blockIdx.x];
-  const int bi = b / nb_j, bj = b - bi * nb_j;
+// The frontier of the rounds in the TPU's order: relax only if some block
+// of the 3x3 neighbourhood changed last round (no flag ring).
+__device__ __forceinline__ bool frontier_dirty(const int* __restrict__ prev,
+                                               int nb_i, int nb_j, int bi,
+                                               int bj) {
   int dirty = 0;
   for (int a = -1; a <= 1; ++a) {
     for (int c = -1; c <= 1; ++c) {
@@ -437,12 +498,89 @@ uca_gs_level_kernel(float* x,
       }
     }
   }
-  if (!dirty) {
+  return dirty != 0;
+}
+
+// K1 in the TPU's Gauss-Seidel order, one level of a round a launch, in
+// place: CTA c visits the block of dependency row c (flat index
+// bi * (m/B) + bj), reading and writing the live canvas x; the frontier
+// reads the previous round's flags prev, and every visited block writes its
+// flag in chg (0 if skipped; a skipped block writes nothing else).  x is not
+// __restrict__: it is read and written through the one pointer, and no
+// load of it may take the read-only path.  RING as in uca_gs_round_kernel;
+// the ring is never written.
+template <int B, int RING>
+__global__ void __launch_bounds__(Shape<B>::THREADS, 1)
+uca_gs_level_kernel(float* x,
+                    const uint8_t* __restrict__ K,
+                    const float* __restrict__ W1,
+                    const float* __restrict__ base,
+                    const int* __restrict__ prev,
+                    int* __restrict__ chg,
+                    const int* __restrict__ rows,
+                    int n, int m, int inner_max) {
+  const int nb_i = n / B, nb_j = m / B;
+  const int b = rows[blockIdx.x * ROW];
+  const int bi = b / nb_j, bj = b - bi * nb_j;
+  if (!frontier_dirty(prev, nb_i, nb_j, bi, bj)) {
     if (threadIdx.x == 0 && threadIdx.y == 0) chg[b] = 0;
     return;
   }
-  relax_block<B, 0>(x, CompactWeights<0>{K, W1}, base, x, chg, n, m,
-                    inner_max, bi, bj);
+  relax_block<B, RING>(x, CompactWeights<RING>{K, W1}, base, x, chg, n, m,
+                       inner_max, bi, bj);
+}
+
+// K1 in the TPU's Gauss-Seidel order, a whole round in one persistent
+// launch.  Each CTA draws tickets from the 64-bit counter (ticket =
+// counter - start, until it draws one past `rows`); ticket t is row t of
+// the dependency table, rows sorted by level, a topological order.  A CTA
+// that holds a ticket waits only for lower tickets, all held by CTAs that
+// are running, so the round cannot deadlock, whatever the grid and
+// whatever else shares the card.  A dirty block stages its weights and
+// base, waits until each predecessor has published this round's epoch in
+// `done`, relaxes in place and publishes its own epoch (release after its
+// write-back and a barrier); a clean block publishes at once.  Skips are
+// decided from prev alone, as the TPU's are, so the canvas and the flags
+// are the sequential grid's bit for bit.
+template <int B, int RING>
+__global__ void __launch_bounds__(Shape<B>::THREADS, 1)
+uca_gs_dataflow_kernel(float* x,
+                       const uint8_t* __restrict__ K,
+                       const float* __restrict__ W1,
+                       const float* __restrict__ base,
+                       const int* __restrict__ prev,
+                       int* __restrict__ chg,
+                       const int* __restrict__ table,
+                       unsigned long long* counter, int* done,
+                       int n, int m, int inner_max, int rows, int epoch,
+                       unsigned long long start) {
+  __shared__ int ticket;
+  const int nb_i = n / B, nb_j = m / B;
+  const int tid = threadIdx.y * B + threadIdx.x;
+  for (;;) {
+    if (tid == 0) {
+      const unsigned long long t = atomicAdd(counter, 1ULL) - start;
+      ticket = t < (unsigned long long)rows ? (int)t : rows;
+    }
+    __syncthreads();
+    const int t = ticket;
+    __syncthreads();  // read by all before thread 0 draws again
+    if (t >= rows) return;
+    const int* row = table + (size_t)t * ROW;
+    const int b = row[0];
+    const int bi = b / nb_j, bj = b - bi * nb_j;
+    if (frontier_dirty(prev, nb_i, nb_j, bi, bj)) {
+      relax_block<B, RING>(x, CompactWeights<RING>{K, W1}, base, x, chg, n,
+                           m, inner_max, bi, bj,
+                           WaitPreds{row + 1, done, epoch});
+    } else if (tid == 0) {
+      chg[b] = 0;
+    }
+    if (tid == 0) {  // relax_block ended in a barrier after the write-back
+      __threadfence();
+      st_release(done + b, epoch);
+    }
+  }
 }
 
 // K2: one round over the dense weight planes, every block visited.
@@ -499,20 +637,35 @@ int gs_round_entry(const void* x, const void* K, const void* W1,
   }
 }
 
-template <int B>
+template <int B, int RING>
 cudaError_t gs_levels(float* x, const uint8_t* K, const float* W1,
                       const float* base, const int* prev, int* chg,
-                      const int* order, const int* offsets, int n_levels,
+                      const int* table, const int* offsets, int n_levels,
                       int n, int m, int inner_max, cudaStream_t stream) {
   for (int l = 0; l < n_levels; ++l) {
     const int count = offsets[l + 1] - offsets[l];
     if (count <= 0) continue;
-    const cudaError_t err =
-        launch<B>(uca_gs_level_kernel<B>, n, m, count, stream, x, K, W1,
-                  base, prev, chg, order + offsets[l], n, m, inner_max);
+    const cudaError_t err = launch<B>(
+        uca_gs_level_kernel<B, RING>, n, m, count, stream, x, K, W1, base,
+        prev, chg, table + (size_t)offsets[l] * ROW, n, m, inner_max);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+template <int B, int RING>
+int dataflow_ctas() {
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, uca_gs_dataflow_kernel<B, RING>, Shape<B>::THREADS,
+        Shape<B>::SMEM);
+  }
+  return err == cudaSuccess ? sms * per : -(int)err;
 }
 
 }  // namespace
@@ -531,37 +684,85 @@ extern "C" int uca_gs_round_f32(const void* x, const void* K, const void* W1,
                            B, inner_max, -1, 0, stream);
 }
 
-// One K1 round in the TPU's Gauss-Seidel order, in place on x: the level
-// launches of one orientation.  x, W1, base (n, m) float32 and K (n, m) uint8
-// as in uca_gs_round_f32; prev, chg (n/B, m/B) int32.  order (on the device)
-// holds every flat block index bi * (m/B) + bj once, sorted by level;
-// offsets (on the host, n_levels + 1 ints) bound each level's part of it.
-// Launches each level on `stream`, in order, and does not synchronise.
-// Returns the cudaError_t of the first failed launch (0 on success).
+// One K1 round in the TPU's Gauss-Seidel order, in place on x, as level
+// launches.  RING = 0: x, W1, base (n, m) float32 and K (n, m) uint8, as in
+// uca_gs_round_f32; RING = 1: x, K and W1 (n + 2, m + 2) with a 1-px ring,
+// as in uca_gs_round_ring_list_f32 (the ring is read, never written).  prev,
+// chg (n/B, m/B) int32.  table (on the device) holds the round's dependency
+// rows (block, MAX_PREDS predecessors), sorted by level; offsets (on the
+// host, n_levels + 1 ints) bound each level's rows.  Launches each level on
+// `stream`, in order, and does not synchronise.  Returns the cudaError_t of
+// the first failed launch (0 on success).
 extern "C" int uca_gs_round_levels_f32(void* x, const void* K, const void* W1,
                                        const void* base, const void* prev,
-                                       void* chg, const void* order,
+                                       void* chg, const void* table,
                                        const void* offsets, int n_levels,
                                        int n, int m, int B, int inner_max,
-                                       void* stream) {
+                                       int ring, void* stream) {
   auto* xf = static_cast<float*>(x);
   const auto* kf = static_cast<const uint8_t*>(K);
   const auto* wf = static_cast<const float*>(W1);
   const auto* bf = static_cast<const float*>(base);
   const auto* pf = static_cast<const int*>(prev);
   auto* cf = static_cast<int*>(chg);
-  const auto* of = static_cast<const int*>(order);
+  const auto* tf = static_cast<const int*>(table);
   const auto* lf = static_cast<const int*>(offsets);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (B) {
-    case 16:
-      return gs_levels<16>(xf, kf, wf, bf, pf, cf, of, lf, n_levels, n, m,
-                           inner_max, st);
-    case 64:
-      return gs_levels<64>(xf, kf, wf, bf, pf, cf, of, lf, n_levels, n, m,
-                           inner_max, st);
-    default: return cudaErrorInvalidValue;
-  }
+#define LEVELS(BB, RR)                                                     \
+  return gs_levels<BB, RR>(xf, kf, wf, bf, pf, cf, tf, lf, n_levels, n, m, \
+                           inner_max, st)
+  if (B == 16 && !ring) LEVELS(16, 0);
+  if (B == 16 && ring) LEVELS(16, 1);
+  if (B == 64 && !ring) LEVELS(64, 0);
+  if (B == 64 && ring) LEVELS(64, 1);
+#undef LEVELS
+  return cudaErrorInvalidValue;
+}
+
+// One K1 round in the TPU's Gauss-Seidel order, in place on x, as one
+// persistent launch of `ctas` CTAs (uca_gs_dataflow_kernel).  x, K, W1,
+// base, prev, chg, ring as in uca_gs_round_levels_f32; table (on the
+// device) the round's `rows` dependency rows in a topological order.
+// state (on the device): a 64-bit ticket counter, then one int32 "done"
+// epoch per block of the grid; the caller keeps it for every round on
+// `stream`, passes a new `epoch` each round and the counter's value at the
+// round's start in `start` (each round adds rows + ctas to it).  Launches
+// on `stream` and does not synchronise.  Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int uca_gs_round_dataflow_f32(
+    void* x, const void* K, const void* W1, const void* base,
+    const void* prev, void* chg, const void* table, void* state, int n,
+    int m, int B, int inner_max, int ring, int rows, int ctas, int epoch,
+    unsigned long long start, void* stream) {
+  auto* xf = static_cast<float*>(x);
+  const auto* kf = static_cast<const uint8_t*>(K);
+  const auto* wf = static_cast<const float*>(W1);
+  const auto* bf = static_cast<const float*>(base);
+  const auto* pf = static_cast<const int*>(prev);
+  auto* cf = static_cast<int*>(chg);
+  const auto* tf = static_cast<const int*>(table);
+  auto* counter = static_cast<unsigned long long*>(state);
+  auto* done = static_cast<int*>(state) + 2;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0) return cudaSuccess;  // an empty round visits nothing
+#define DATAFLOW(BB, RR)                                                  \
+  return launch<BB>(uca_gs_dataflow_kernel<BB, RR>, n, m, ctas, st, xf,   \
+                    kf, wf, bf, pf, cf, tf, counter, done, n, m, inner_max, \
+                    rows, epoch, start)
+  if (B == 16 && !ring) DATAFLOW(16, 0);
+  if (B == 16 && ring) DATAFLOW(16, 1);
+  if (B == 64 && !ring) DATAFLOW(64, 0);
+  if (B == 64 && ring) DATAFLOW(64, 1);
+#undef DATAFLOW
+  return cudaErrorInvalidValue;
+}
+
+// The CTAs of uca_gs_dataflow_kernel<B, ring> that the current device holds
+// at once (SMs x CTAs per SM); a negative cudaError_t on failure.
+extern "C" int uca_gs_dataflow_ctas(int B, int ring) {
+  if (B == 16) return ring ? dataflow_ctas<16, 1>() : dataflow_ctas<16, 0>();
+  if (B == 64) return ring ? dataflow_ctas<64, 1>() : dataflow_ctas<64, 0>();
+  return -(int)cudaErrorInvalidValue;
 }
 
 // One K1 round in the ring form: x, W1, x_out (n + 2, m + 2) float32 and K

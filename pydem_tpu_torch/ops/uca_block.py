@@ -16,57 +16,53 @@ on the host once per ``ROUNDS_PER_READ`` rounds, which changes neither the
 canvas nor the round count they return (a round after a still round is a
 no-op).
 
-K1's canvas form runs in the TPU kernel's order.  The TPU visits its grid of
-blocks in sequence, row-major, in place: each block reads the live canvas
-and so sees this round's values of every block visited before it; rounds
-cycle through four corner orientations (``_FLIPS``, round r at ``r % 4``).
+K1 runs in the TPU kernel's order.  The TPU visits its grid of blocks in
+sequence, in place: each block reads the live canvas and so sees this
+round's values of every block visited before it; rounds cycle through four
+corner orientations (``_FLIPS``).  The grid is the whole block grid, or a
+*subset*: the interior blocks, or the frame of rim blocks walked top row,
+bottom row, then the two side columns (:func:`visit_sequence`).  From the
+visit sequence each block has its *predecessors*, the halo neighbours of
+the subset visited before it, at most ``MAX_PREDS`` (:func:`round_table`).
 On the GPU the blocks of one launch run in no order, so
-:func:`gs_round_oriented` launches a round level by level over one in-place
-canvas (:func:`round_levels`): a block's level is one more than the highest
-level of its halo neighbours that come earlier in the visit order, so each
-level reads exactly what the sequential grid's block reads, and the round
-equals the JAX ``gs_round_oriented`` round bit for bit, flags included.  Its
-plain version :func:`gs_round_oriented_plain` relaxes each level's blocks
-together.  ``accumulate_blocked_gs`` and ``accumulate_blocked_pits_gs`` run
-these rounds and return the JAX package's round counts at the same B and
-``inner_max``.  The TPU solvers take B = 256; the kernel is built for B ∈
-{16, 64} (one 258² float32 window, 266 KB, is more than an SM's 228 KB of
-shared memory), so the callers keep ``B = 64`` or 16 and the rounds are
-JAX's at that B.
+:func:`gs_round_oriented` runs a round as one persistent *dataflow* launch:
+CTAs draw the blocks in a topological order from a ticket counter, and a
+block relaxes only once each predecessor has published that it is done, so
+it reads exactly what the sequential grid's block reads.  The round equals
+the JAX ``gs_round_oriented`` round bit for bit, flags included.
+:func:`gs_round_levels` is the same round launched level by level (a
+block's level is one more than its predecessors' highest), the design the
+dataflow launch replaced, kept to time the two; its plain twin
+:func:`gs_round_oriented_plain` relaxes each level's blocks together.
+
+Three forms share the kernel: the *canvas* form, the *ring* form
+(``ring=True``: a window of a larger canvas, an engine visit or a shard,
+whose ``x``, ``K`` and ``W1`` carry a 1-px ring, read as the frozen halo
+and never written; the ring of ``K``/``W1`` holds the ring pixels' real
+receivers), and the *subset* forms (``subset="interior"`` or
+``"boundary"`` on the ring form: the mesh's split round).  Every pixel's
+sum is the rounding sequence of a whole-canvas round.  The solvers run the
+JAX package's rounds: ``accumulate_blocked_gs`` and
+``accumulate_blocked_pits_gs`` round r at orientation r % 4, the engine's
+visit at ``(o0 + r) % 4`` (:func:`_in_turn`), the mesh's rounds at
+``r % 4``, each at the same B and ``inner_max``.  The TPU solvers take
+B = 256; the kernel is built for B ∈ {16, 64} (one 258² float32 window,
+266 KB, is more than an SM's 228 KB of shared memory), so the callers keep
+``B = 64`` or 16 and the rounds are JAX's at that B.
 
 :func:`gs_round` is K1's canvas form as block-Jacobi: every block reads the
 round-start canvas and writes a new one, as K2 does on the TPU.  It reaches
 the same fixed point in more rounds, and each round is deterministic: the
-plain rounds compute it bit for bit as the kernels do.  The ring and subset
-forms below are block-Jacobi too (the engine's visits, the sharded rounds).
+plain rounds compute it bit for bit as the kernels do.  Its ring and subset
+forms, :func:`gs_round_ring` and :func:`gs_round_subset` (with a flag ring:
+``prev`` may be (n/B + 2, m/B + 2)), are block-Jacobi too.  No solver runs
+them; they stay as references beside their plain version
+:func:`gs_round_ring_plain`.
 
-:func:`gs_round`, :func:`gs_round_oriented` and :func:`block_round` launch
-their kernel (``csrc/uca_block.cu``) for CUDA tensors and run their plain
-version (:func:`gs_round_plain`, :func:`gs_round_oriented_plain`,
-:func:`block_round_plain`) for CPU tensors.
-
-K1 also has a *ring form*, :func:`gs_round_ring` with its plain version
-:func:`gs_round_ring_plain`, for a window of a larger canvas (the out-of-core
-engine's super-block visit): ``x``, ``K`` and ``W1`` carry a 1-px ring
-around the region that the blocks tile.  The ring of ``x`` holds the
-neighbours' values, is read as the frozen halo of the rim blocks and comes
-back untouched; the ring of ``K``/``W1`` holds the ring pixels' real
-receivers, since they send flow into the region.  Every pixel's sum is the
-rounding sequence of a whole-canvas round, so the window's blocks come out
-bit for bit as the same blocks of that round.
-
-The ring form takes two more things, for the sharded solver
-(:mod:`pydem_tpu_torch.parallel.sharded`), which gives each shard a 1-px ring
-of its neighbours' values.  A *flag ring*: ``prev`` may be
-(n/B + 2, m/B + 2), the region's changed flags inside a 1-block ring of the
-neighbouring shards' flags, so that the frontier test of a rim block sees
-across the shard's edge as it would on one canvas.  And *subset rounds*
-(:func:`gs_round_subset`, the TPU kernel's ``subset`` grids): a launch over
-a list of blocks, ``"interior"`` (the blocks off the region's rim, which
-never read the ring) or ``"boundary"`` (the rim), each writing only its own
-blocks, flags and part of the ring into a shared output; interior then
-boundary is one ring round, bit for bit.  The plain version takes the same
-list (``gs_round_ring_plain(..., blocks=)``).
+:func:`gs_round`, :func:`gs_round_oriented`, :func:`gs_round_ring`,
+:func:`gs_round_subset` and :func:`block_round` launch their kernel
+(``csrc/uca_block.cu``) for CUDA tensors and run their plain version for
+CPU tensors; :func:`gs_round_levels` launches only.
 """
 from __future__ import annotations
 
@@ -297,91 +293,176 @@ def _check_orientation(o):
     return int(o)
 
 
-@functools.cache
-def _levels(nb_i, nb_j, o):
-    """The (nb_i, nb_j) int64 level of each block in a round at orientation
-    ``o`` (see :func:`round_levels`), in block coordinates."""
-    q = torch.arange(nb_j)
-    rows = []
-    up = None
-    for _p in range(nb_i):
-        # 1 + the highest level of the earlier neighbours above, (p-1, q-1),
-        # (p-1, q) and (p-1, q+1); 0 where there is none
-        if up is None:
-            a = torch.zeros(nb_j, dtype=torch.int64)
-        else:
-            u = F.pad(up, (1, 1), value=-1)
-            a = torch.maximum(torch.maximum(u[:-2], u[1:-1]), u[2:]) + 1
-        # and the one to the left, (p, q-1): level_q = max(a_q,
-        # level_{q-1} + 1), a running maximum of a_q - q
-        level = torch.cummax(a - q, 0).values + q
-        rows.append(level)
-        up = level
-    levels = torch.stack(rows)
+FORMS = ("all", "interior", "boundary")
+# the most predecessors a block has in any form (see _order)
+MAX_PREDS = 4
+
+
+def _check_subset(subset, nb_i, nb_j):
+    if subset not in FORMS:
+        raise ValueError("subset must be one of %s, got %r" % (FORMS, subset))
+    if subset != "all" and (nb_i < 3 or nb_j < 3):
+        raise ValueError("subset rounds need a block grid of at least 3x3, "
+                         "got %dx%d" % (nb_i, nb_j))
+
+
+def visit_sequence(nb_i, nb_j, o, subset="all"):
+    """The blocks of a K1 round in the order the TPU's sequential grid visits
+    them, as flat indices ``bi * nb_j + bj`` (a list): the grid of
+    ``subset`` (the JAX kernel's ``_subset_grid``) walked in order, each
+    grid step mapped to its block and then through the flips of
+    ``_FLIPS[o]``.  ``"all"``: the row-major block grid; ``"interior"``: the
+    (nb_i-2) × (nb_j-2) row-major grid, one block in from the rim;
+    ``"boundary"``: the frame walk, the top row, then the bottom row, then
+    the two side columns interleaved row by row.  Grid step ``t`` of the
+    boundary grid is the ``t``-th entry: the JAX kernel writes that block's
+    flag at program id ``t``."""
+    o = _check_orientation(o)
+    _check_subset(subset, nb_i, nb_j)
+    if subset == "all":
+        steps = [(i, j) for i in range(nb_i) for j in range(nb_j)]
+    elif subset == "interior":
+        steps = [(i + 1, j + 1) for i in range(nb_i - 2)
+                 for j in range(nb_j - 2)]
+    else:
+        steps = [(0, j) for j in range(nb_j)]
+        steps += [(nb_i - 1, j) for j in range(nb_j)]
+        steps += [(1 + s // 2, (s % 2) * (nb_j - 1))
+                  for s in range(2 * (nb_i - 2))]
     fi, fj = _FLIPS[o]
-    if fi:
-        levels = levels.flip(0)
-    if fj:
-        levels = levels.flip(1)
-    return levels
-
-
-def round_levels(nb_i, nb_j, o):
-    """The levels of a K1 round at orientation ``o`` over an ``nb_i`` ×
-    ``nb_j`` block grid: a list of int32 tensors of flat block indices
-    (``bi * nb_j + bj``), one per level, in launch order.
-
-    The TPU visits the grid row-major after the flips of ``_FLIPS[o]``, each
-    block reading the live canvas.  In those oriented coordinates (p, q) a
-    block's halo neighbours that come earlier are (p-1, q-1), (p-1, q),
-    (p-1, q+1) and (p, q-1), and its level is one more than the highest of
-    theirs (0 for none): t = 2p + q on grids two or more blocks wide, so a
-    round is 2(nb_i - 1) + nb_j levels.  Every earlier neighbour is on a
-    lower level and every later one on a higher, and the blocks of one level
-    are two block columns apart: running the levels in order over one
-    in-place canvas reads what the sequential grid reads, bit for bit.
-    """
-    levels = _levels(nb_i, nb_j, _check_orientation(o)).reshape(-1)
-    order = torch.argsort(levels, stable=True).to(torch.int32)
-    sizes = torch.bincount(levels).tolist()
-    return list(torch.split(order, sizes))
+    return [(nb_i - 1 - i if fi else i) * nb_j + (nb_j - 1 - j if fj else j)
+            for i, j in steps]
 
 
 @functools.cache
-def _level_lists(nb_i, nb_j, o, device):
-    """:func:`round_levels` for the kernel: every block index once, sorted
-    by level, on ``device``, and the (levels + 1) int32 offsets of the
-    levels' parts on the host."""
-    parts = round_levels(nb_i, nb_j, o)
-    offsets = torch.tensor([0] + [len(p) for p in parts],
-                           dtype=torch.int32).cumsum(0, dtype=torch.int32)
-    return torch.cat(parts).to(device), offsets, len(parts)
+def _order(nb_i, nb_j, o, subset):
+    """The dependencies of a K1 round in the TPU's order, from its visit
+    sequence (:func:`visit_sequence`): ``(table, levels)``.
+
+    A block's *predecessors* are its halo neighbours in the round's subset
+    that the sequence visits before it: what the sequential grid has
+    written, this round, of the halo the block reads.  Its level is one
+    more than the highest level of its predecessors (0 for none).
+    ``table``: (blocks, 1 + MAX_PREDS) int32, one row a block, sorted by
+    level (stably: in visit order within a level), each row the block's
+    flat index and its predecessors' (-1 past the last); so sorted, the
+    rows are a topological order of the dependencies.  ``levels``:
+    (nb_i, nb_j) int64, the level of each block of the subset, -1
+    elsewhere.
+
+    Row-major (``"all"``, ``"interior"``), a block at oriented coordinates
+    (p, q) has (p-1, q-1), (p-1, q), (p-1, q+1) and (p, q-1) before it, and
+    its level is 2p + q on grids two or more blocks wide.  The frame walk
+    is not row-major: a bottom-row block precedes its side-column
+    neighbours, so its levels come from the sequence alone."""
+    seq = visit_sequence(nb_i, nb_j, o, subset)
+    pos = {b: t for t, b in enumerate(seq)}
+    level = {}
+    rows = []
+    for b in seq:
+        bi, bj = divmod(b, nb_j)
+        preds = [qi * nb_j + qj
+                 for qi in (bi - 1, bi, bi + 1) for qj in (bj - 1, bj, bj + 1)
+                 if 0 <= qi < nb_i and 0 <= qj < nb_j
+                 and pos.get(qi * nb_j + qj, len(seq)) < pos[b]]
+        if len(preds) > MAX_PREDS:
+            raise AssertionError("block %d of a %s round has %d predecessors"
+                                 % (b, subset, len(preds)))
+        level[b] = 1 + max((level[q] for q in preds), default=-1)
+        rows.append([b] + preds + [-1] * (MAX_PREDS - len(preds)))
+    table = torch.tensor(rows, dtype=torch.int32).view(-1, 1 + MAX_PREDS)
+    lv = torch.tensor([level[b] for b in seq], dtype=torch.int64)
+    table = table[torch.argsort(lv, stable=True)].contiguous()
+    levels = torch.full((nb_i * nb_j,), -1, dtype=torch.int64)
+    levels[torch.tensor(seq, dtype=torch.int64)] = lv
+    return table, levels.view(nb_i, nb_j)
 
 
-def gs_round_oriented_plain(x, K, W1, base, o, *, B, inner_max, prev=None):
+def round_table(nb_i, nb_j, o, subset="all"):
+    """The dependency table of a K1 round at orientation ``o`` over
+    ``subset`` of an ``nb_i`` × ``nb_j`` block grid: (blocks,
+    1 + ``MAX_PREDS``) int32 rows of a block's flat index and its
+    predecessors' (-1 past the last), in a topological order (see
+    :func:`_order`).  The dataflow kernel takes its rows as tickets."""
+    return _order(nb_i, nb_j, _check_orientation(o), subset)[0]
+
+
+def round_levels(nb_i, nb_j, o, subset="all"):
+    """The levels of a K1 round at orientation ``o`` over ``subset`` of an
+    ``nb_i`` × ``nb_j`` block grid: a list of int32 tensors of flat block
+    indices (``bi * nb_j + bj``), one per level, in launch order.
+
+    A block's level is one more than the highest level of its predecessors
+    (:func:`_order`), so every earlier neighbour is on a lower level and
+    every later one on a higher, and the blocks of one level are no halo
+    neighbours of each other: running the levels in order over one in-place
+    canvas reads what the sequential grid reads, bit for bit.  On the whole
+    grid, two or more blocks wide, a round is 2(nb_i - 1) + nb_j levels.
+    """
+    table, levels = _order(nb_i, nb_j, _check_orientation(o), subset)
+    sizes = torch.bincount(levels[levels >= 0]).tolist()
+    return list(torch.split(table[:, 0].contiguous(), sizes))
+
+
+@functools.cache
+def _device_table(nb_i, nb_j, o, subset, device):
+    """:func:`round_table` on ``device``, and the (levels + 1) int32 offsets
+    of the levels' rows on the host."""
+    table, levels = _order(nb_i, nb_j, o, subset)
+    sizes = torch.bincount(levels[levels >= 0])
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64), sizes.cumsum(0)])
+    return table.to(device), offsets.to(torch.int32), len(sizes)
+
+
+def _check_form(x, K, W1, base, prev, B, ring, subset):
+    """The checks of a round in the TPU's order; returns ``prev``, all ones
+    when None."""
+    n, m = base.shape
+    _check_canvas(base, B)
+    _check_subset(subset, n // B, m // B)
+    if prev is None:
+        prev = torch.ones((n // B, m // B), dtype=torch.int32,
+                          device=x.device)
+    if _check_round_args(x, K, W1, base, prev, B, ring=int(ring)):
+        raise ValueError("a round in the TPU's order takes no flag ring")
+    return prev
+
+
+def gs_round_oriented_plain(x, K, W1, base, o, *, B, inner_max, prev=None,
+                            ring=False, subset="all", inplace=False):
     """One K1 round in the TPU's Gauss-Seidel order at orientation ``o``
-    (0..3), in plain PyTorch (the level kernel's twin).
+    (0..3), in plain PyTorch (the dataflow and level kernels' twin).
 
-    The blocks of each level of :func:`round_levels` relax together (see
-    :func:`_relax_blocks`) on the live canvas, level after level, the blocks
-    whose 3×3 block neighbourhood has a nonzero ``prev`` flag (the previous
-    round's; None relaxes every block).  Equal to a loop over the blocks in
-    the grid's order that reads and writes one canvas, and to the JAX
-    ``gs_round_oriented``.  Returns ``(x_new, chg)``: a new canvas (``x``
-    is not written) and the (n/B, m/B) int32 changed flags.
+    The blocks of ``subset`` (``"all"``, ``"interior"`` or ``"boundary"``,
+    see :func:`visit_sequence`) relax level by level (:func:`round_levels`;
+    each level's blocks together, see :func:`_relax_blocks`) on the live
+    canvas: those whose 3×3 block neighbourhood has a nonzero ``prev`` flag
+    (the previous round's; None relaxes every block).  Equal to a loop over
+    the blocks in the grid's order that reads and writes one canvas, and to
+    the JAX ``gs_round_oriented`` with the same ``subset``.
+
+    ``ring``: the ring form.  ``x``, ``K`` and ``W1`` are (n+2, m+2), the
+    region that the blocks tile inside a 1-px ring (a shard's canvas, an
+    engine window): the ring of ``x`` is read as the frozen halo of the rim
+    blocks and never written, the ring of ``K``/``W1`` holds the ring
+    pixels' real receivers.  Without it the canvas reads zeros around it.
+
+    Returns ``(x_new, chg)``: the canvas (``x`` itself with ``inplace``,
+    else a new tensor and ``x`` is not written) and the (n/B, m/B) int32
+    changed flags in block coordinates, 0 for blocks outside ``subset``.
     """
     o = _check_orientation(o)
+    prev = _check_form(x, K, W1, base, prev, B, ring, subset)
     n, m = base.shape
-    nb_i, nb_j = n // B, m // B
-    if prev is None:
-        prev = torch.ones((nb_i, nb_j), dtype=torch.int32, device=x.device)
-    _check_round_args(x, K, W1, base, prev, B)
     dirty = dilate(prev != 0)
-    levels = _levels(nb_i, nb_j, o).to(x.device)
-    # a ring of zeros and "no edge" weights reads as the canvas form's pad
-    xr = F.pad(x, (1, 1, 1, 1))
-    Wr = F.pad(expand_compact(K, W1), (1, 1, 1, 1))
-    chg = torch.zeros((nb_i, nb_j), dtype=torch.int32, device=x.device)
+    levels = _order(n // B, m // B, o, subset)[1].to(x.device)
+    if ring:
+        xr, Wr = x, expand_compact(K, W1)
+    else:
+        # a ring of zeros and "no edge" weights reads as the canvas's pad
+        xr = F.pad(x, (1, 1, 1, 1))
+        Wr = F.pad(expand_compact(K, W1), (1, 1, 1, 1))
+    chg = torch.zeros((n // B, m // B), dtype=torch.int32, device=x.device)
     for t in range(int(levels.max()) + 1):
         level = dirty & (levels == t)
         if not bool(level.any()):
@@ -389,7 +470,10 @@ def gs_round_oriented_plain(x, K, W1, base, o, *, B, inner_max, prev=None):
         xr, chg_t = _relax_blocks(xr, Wr, base, level, B=B,
                                   inner_max=inner_max, ring=True)
         chg[level] = chg_t[level]
-    return xr[1:-1, 1:-1].contiguous(), chg
+    out = xr if ring else xr[1:-1, 1:-1]
+    if inplace:
+        return x.copy_(out), chg
+    return (out.clone() if out is x else out.contiguous()), chg
 
 
 def gs_round_ring_plain(x, K, W1, base, prev, *, B, inner_max, blocks=None,
@@ -513,41 +597,125 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
 gs_round.launches_on = collections.Counter()
 
 
-def gs_round_oriented(x, K, W1, base, o, *, B, inner_max, prev=None):
-    """One K1 round in the TPU's Gauss-Seidel order at orientation ``o``
-    (0..3; the JAX function's name and arguments): for CUDA tensors the
-    level kernel, one launch per level of :func:`round_levels` over a copy
-    of ``x`` updated in place; for CPU tensors the plain version.  See
-    :func:`gs_round_oriented_plain` for the contract.  ``prev``: the
-    previous round's (n/B, m/B) int32 flags, None for every block.
+def _oriented_args(name, x, K, W1, base, o, B, prev, ring, subset, inplace):
+    """Checks and buffers of a kernel round in the TPU's order: ``(o, prev,
+    out, chg)``, ``out`` the canvas the round updates in place (``x``, or
+    a copy of it)."""
+    if x.device.type != "cuda":
+        raise ValueError("%s: unsupported device %s" % (name, x.device))
+    o = _check_orientation(o)
+    prev = _check_form(x, K, W1, base, prev, B, ring, subset)
+    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
+                              ("prev", prev)))
+    n, m = base.shape
+    out = x if inplace else x.clone()
+    new = torch.empty if subset == "all" else torch.zeros
+    chg = new((n // B, m // B), dtype=torch.int32, device=x.device)
+    return o, prev, out, chg
 
-    ``gs_round_oriented.launches_on`` counts kernel launches (one a level)
-    by device, never plain runs.
+
+class _Tickets:
+    """The device state of dataflow rounds on one stream, for one block
+    grid: a 64-bit ticket counter and a "done" epoch per block, allocated
+    once and never reset.  Each round takes the next epoch; a launch of
+    ``c`` CTAs over ``t`` tickets adds ``t + c`` to the counter (each CTA
+    draws one ticket past the last), so the host knows where the next
+    round's tickets start without reading the device."""
+
+    def __init__(self, blocks, device):
+        self.buf = torch.zeros(2 + blocks, dtype=torch.int32, device=device)
+        self.start = 0
+        self.epoch = 0
+
+
+@functools.cache
+def _tickets(device, stream, blocks):
+    """The :class:`_Tickets` of ``stream`` on ``device`` for a grid of
+    ``blocks`` blocks: rounds on one stream run one after another, rounds
+    on two streams (the split round's shards) never share one."""
+    return _Tickets(blocks, device)
+
+
+@functools.cache
+def _resident_ctas(device, B, ring):
+    """How many CTAs of the dataflow kernel the card holds at once."""
+    from ._build import load
+
+    fn = load("uca_block").uca_gs_dataflow_ctas
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    with torch.cuda.device(device):
+        ctas = fn(B, int(ring))
+    if ctas <= 0:
+        raise RuntimeError("uca_gs_dataflow_ctas failed: cudaError %d"
+                           % -ctas)
+    return ctas
+
+
+def gs_round_oriented(x, K, W1, base, o, *, B, inner_max, prev=None,
+                      ring=False, subset="all", inplace=False):
+    """One K1 round in the TPU's Gauss-Seidel order at orientation ``o``
+    (0..3; the JAX function's name and arguments, with ``subset``): for
+    CUDA tensors the dataflow kernel, one launch a round; for CPU tensors
+    the plain version.  See :func:`gs_round_oriented_plain` for the
+    contract (``ring``, ``subset``, ``inplace``; ``prev`` the previous
+    round's (n/B, m/B) int32 flags, None for every block).
+
+    The launch is persistent: each CTA draws tickets, the rows of
+    :func:`round_table` in order, from a counter, waits until the block's
+    predecessors have published this round's epoch, relaxes it in place and
+    publishes.  ``gs_round_oriented.launches_on`` counts kernel launches
+    (one a round) by device, never plain runs.
     """
     if x.device.type == "cpu":
         return gs_round_oriented_plain(x, K, W1, base, o, B=B,
-                                       inner_max=inner_max, prev=prev)
-    if x.device.type != "cuda":
-        raise ValueError("gs_round_oriented: unsupported device %s"
-                         % x.device)
-    o = _check_orientation(o)
+                                       inner_max=inner_max, prev=prev,
+                                       ring=ring, subset=subset,
+                                       inplace=inplace)
+    o, prev, out, chg = _oriented_args("gs_round_oriented", x, K, W1, base, o,
+                                       B, prev, ring, subset, inplace)
     n, m = base.shape
-    if prev is None:
-        prev = torch.ones((n // B, m // B), dtype=torch.int32,
-                          device=x.device)
-    _check_round_args(x, K, W1, base, prev, B)
-    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
-                              ("prev", prev)))
-    order, offsets, n_levels = _level_lists(n // B, m // B, o, x.device)
-    out = x.clone()
-    chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
-    _launch("uca_gs_round_levels_f32", out, K, W1, base, prev, chg, order,
-            offsets, n_levels, n, m, B, inner_max)
-    _count(gs_round_oriented, x.device, n_levels)
+    table, _offsets, _levels = _device_table(n // B, m // B, o, subset,
+                                             x.device)
+    rows = table.shape[0]
+    ctas = min(rows, _resident_ctas(x.device, B, bool(ring)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    st = _tickets(x.device, stream, (n // B) * (m // B))
+    st.epoch += 1
+    try:
+        _launch("uca_gs_round_dataflow_f32", out, K, W1, base, prev, chg,
+                table, st.buf, n, m, B, inner_max, int(bool(ring)), rows,
+                ctas, st.epoch, st.start)
+    except RuntimeError:
+        _tickets.cache_clear()  # the counter no longer says where it is
+        raise
+    st.start += rows + ctas
+    _count(gs_round_oriented, x.device)
     return out, chg
 
 
 gs_round_oriented.launches_on = collections.Counter()
+
+
+def gs_round_levels(x, K, W1, base, o, *, B, inner_max, prev=None, ring=False,
+                    subset="all", inplace=False):
+    """The same round as :func:`gs_round_oriented`, launched level by level
+    (:func:`round_levels`): one launch of the level kernel a level, each
+    CTA one block.  CUDA tensors only.  It is what the dataflow launch
+    replaced, kept to time the two against each other (``chip_smoke.py``);
+    no solver calls it.  ``gs_round_levels.launches_on`` counts its
+    launches (one a level)."""
+    o, prev, out, chg = _oriented_args("gs_round_levels", x, K, W1, base, o,
+                                       B, prev, ring, subset, inplace)
+    n, m = base.shape
+    table, offsets, n_levels = _device_table(n // B, m // B, o, subset,
+                                             x.device)
+    _launch("uca_gs_round_levels_f32", out, K, W1, base, prev, chg, table,
+            offsets, n_levels, n, m, B, inner_max, int(bool(ring)))
+    _count(gs_round_levels, x.device, n_levels)
+    return out, chg
+
+
+gs_round_levels.launches_on = collections.Counter()
 
 
 def _ring_launch(name, x, K, W1, base, prev, B, inner_max, blocks, out):
@@ -662,15 +830,20 @@ block_round.launches_on = collections.Counter()
 def launch_counts():
     """Every kernel wrapper's launches on every device, by kernel name."""
     return {"uca_gs_round": launch_count(gs_round),
-            "uca_gs_round_levels": launch_count(gs_round_oriented),
+            "uca_gs_round_dataflow": launch_count(gs_round_oriented),
+            "uca_gs_round_levels": launch_count(gs_round_levels),
             "uca_gs_round_ring": launch_count(gs_round_ring),
             "uca_gs_round_subset": launch_count(gs_round_subset),
             "uca_block_round": launch_count(block_round)}
 
-# C entries of csrc/uca_block.cu that launch: (pointer arguments, int
-# arguments), then the stream
-_ENTRIES = {"uca_gs_round_f32": (7, 4), "uca_gs_round_ring_list_f32": (8, 5),
-            "uca_gs_round_levels_f32": (8, 5), "uca_block_round_f32": (5, 4)}
+# C entries of csrc/uca_block.cu that launch, by argument: a pointer (p), an
+# int (i), a 64-bit unsigned int (q); then the stream
+_ENTRIES = {"uca_gs_round_f32": "pppppppiiii",
+            "uca_gs_round_ring_list_f32": "ppppppppiiiii",
+            "uca_gs_round_levels_f32": "ppppppppiiiiii",
+            "uca_gs_round_dataflow_f32": "ppppppppiiiiiiiiq",
+            "uca_block_round_f32": "pppppiiii"}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_ulonglong}
 
 
 @functools.cache
@@ -678,9 +851,7 @@ def _kernel(entry):
     from ._build import load
 
     fn = getattr(load("uca_block"), entry)
-    n_ptr, n_int = _ENTRIES[entry]
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+    fn.argtypes = [_CTYPES[c] for c in _ENTRIES[entry]] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -722,8 +893,10 @@ def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None,
     The solve starts from ``base``, or from ``x0`` when given.  Each round
     is ``round_fn(x, K, W1, b, prev, B=, inner_max=)``, called once a round
     in order (:func:`_in_turn` binds the TPU order's orientations to it).
-    For the ring form (``round_fn`` :func:`gs_round_ring` or its plain
-    version) ``x0`` and the weights are 2 px larger than ``base`` each way,
+    For the ring form (``round_fn`` ``_in_turn(gs_round_oriented, o0,
+    ring=True)``, or :func:`gs_round_ring` and its plain version, the
+    block-Jacobi references) ``x0`` and the weights are 2 px larger than
+    ``base`` each way,
     and so is the canvas returned; ``links`` index a canvas of ``base``'s
     shape and are not used with a ring.
 
@@ -745,7 +918,8 @@ def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None,
     n, m = base.shape
     K, W1 = W if isinstance(W, tuple) else compact_from_dense(W)
     base = base.contiguous()
-    x, b_prev = (base if x0 is None else x0.contiguous()), None
+    # the rounds in the TPU's order update this copy in place
+    x, b_prev = (base if x0 is None else x0).clone(), None
     prev = torch.ones((n // B, m // B), dtype=torch.int32, device=base.device)
     rounds = 0
     while True:
@@ -772,16 +946,18 @@ def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None,
 _gs_solve.host_reads = 0
 
 
-def _in_turn(round_fn):
+def _in_turn(round_fn, o0=0, **form):
     """``round_fn``, a round in the TPU's order (:func:`gs_round_oriented`
-    or its plain version), as :func:`_gs_solve` calls its rounds: the r-th
-    call (from 0) runs at orientation ``r % 4``, as the JAX solvers run
-    round r.  One per solve."""
-    calls = itertools.count()
+    or its plain version), as :func:`_gs_solve` calls its rounds, in place
+    on the solve's canvas: the r-th call (from 0) runs at orientation
+    ``(o0 + r) % 4``, as the JAX solvers run round r (``o0`` = 0) and the
+    JAX engine's visit in outer round ``o0``.  ``form``: ``ring=True`` for
+    the ring form.  One per solve."""
+    calls = itertools.count(o0)
 
     def round_r(x, K, W1, b, prev, *, B, inner_max):
         return round_fn(x, K, W1, b, next(calls) % 4, B=B,
-                        inner_max=inner_max, prev=prev)
+                        inner_max=inner_max, prev=prev, inplace=True, **form)
 
     return round_r
 

@@ -19,8 +19,9 @@ convergence           done/todo masks per tile   per-block changed flags
 Peak memory is O(S²) on host and device regardless of domain size: every
 stage streams super-block windows through :class:`pydem_tpu_torch.io.store
 .ArrayStore`'s chunk-granular IO.  Within a super-block visit the solver is
-the K1 kernel in its ring form (``ops.uca_block.gs_round_ring``) iterated to
-local convergence against a frozen 1-px ring read from the store, and the
+the K1 kernel in its ring form (``ops.uca_block.gs_round_oriented(...,
+ring=True)``, the TPU's Gauss-Seidel order) iterated to local convergence
+against a frozen 1-px ring read from the store, and the
 outer loop sweeps super-blocks in corner-cycling (fast-sweeping) order until
 no block changes: chaotic relaxation, so the fixed point equals the
 single-canvas result.  When the whole canvas fits the device budget the
@@ -36,9 +37,12 @@ Differences from the JAX module, by design:
 
 - ``device`` (default ``"cuda"``; raises without a GPU, the CPU only when
   asked for).  Floats are :func:`pydem_tpu_torch.default_dtype` of it.
-- No orientation inside a visit: CUDA blocks run in no order, K1 is
-  block-Jacobi, so only the outer corner-cycling order of super-blocks is
-  kept.  Round counts may differ from the JAX engine's; fixed points do not.
+- The visit is the JAX one: its rounds run in the TPU's order, round r at
+  orientation ``(o0 + r) % 4`` with ``o0`` the engine's outer round, so at
+  the same K1 block size B a visit returns the JAX visit's rounds and
+  values.  The JAX engine takes B = 8 on the CPU and 256 on a TPU; the
+  port's kernel takes B = 16 or 64 (64 where the super-block allows it),
+  so its outer rounds are those of the JAX engine at that B.
 - No padding buckets and no jitted closures: eager PyTorch compiles nothing,
   so pit links keep their exact size and ``links=None`` means no links.
 - ``mesh`` (a :class:`~pydem_tpu_torch.parallel.mesh.Mesh` whose shards are
@@ -74,7 +78,8 @@ from .api import DEMProcessor, _slope_program, _solve_uca
 from .core import conditioning as cond
 from .core.receivers import receiver_weights, section_proportion
 from .core.twi import twi as twi_fn
-from .ops.uca_block import _gs_solve, compact_from_dense, gs_round_ring
+from .ops.uca_block import (_gs_solve, _in_turn, compact_from_dense,
+                            gs_round_oriented)
 from .parallel.mesh import check_mesh, shard_dims
 from .parallel.mesh import cut as _cut
 from .parallel.mesh import pieces as _mesh_pieces
@@ -132,31 +137,35 @@ def _sb_weights(elev_win, dir_win, flats_win, theta_win):
     return compact_from_dense(receiver_weights(section, proportion, elev_win))
 
 
-def _sb_relax(x_win, K, W1, base_eff, B, inner_max, max_rounds):
-    """K1 ring rounds on one window until no block changes (at most
-    ``max_rounds``, frontier flags threaded between rounds).  Returns the
-    relaxed S×S interior, whether it changed (a 0-dim bool tensor), and the
-    round count."""
+def _sb_relax(x_win, K, W1, base_eff, o0, B, inner_max, max_rounds):
+    """K1 ring rounds in the TPU's order on one window until no block
+    changes (at most ``max_rounds``): round r at orientation ``(o0 + r) %
+    4``, the first over every block, later ones with the frontier flags
+    threaded, as the JAX visit runs them.  Returns the relaxed S×S
+    interior, whether it changed (a 0-dim bool tensor), and the round
+    count."""
     xp, rounds = _gs_solve(base_eff, (K, W1), B, inner_max, max_rounds,
-                           gs_round_ring, x0=x_win)
+                           _in_turn(gs_round_oriented, o0, ring=True),
+                           x0=x_win)
     out = xp[1:-1, 1:-1]
     return out, (out != x_win[1:-1, 1:-1]).any(), rounds
 
 
 def _sb_uca_solve(x_win, elev_win, dir_win, flats_win, theta_win, base_eff,
-                  B, inner_max, max_rounds):
+                  o0, B, inner_max, max_rounds):
     """Relax one (S+2)²-windowed super-block to convergence on the device.
 
     ``x_win`` carries the current area state with its frozen 1-px ring
     (NaN-filled beyond the canvas: sanitised here, since ring NaNs would
     poison the 0-weight products).  The ring is read as x, never folded into
     the base, so every pixel's sum rounds as in a whole-canvas solve.
-    Returns the relaxed S×S interior, whether it changed, and the round
-    count.
+    ``o0``: the engine's outer round, the orientation of the visit's first
+    round (see :func:`_sb_relax`).  Returns the relaxed S×S interior,
+    whether it changed, and the round count.
     """
     K, W1 = _sb_weights(elev_win, dir_win, flats_win, theta_win)
-    return _sb_relax(torch.nan_to_num(x_win), K, W1, base_eff, B, inner_max,
-                     max_rounds)
+    return _sb_relax(torch.nan_to_num(x_win), K, W1, base_eff, o0, B,
+                     inner_max, max_rounds)
 
 
 class OutOfCoreEngine:
@@ -697,8 +706,9 @@ class OutOfCoreEngine:
                 base_eff = self._base_block(bi, bj)
             return bi, bj, x_win, static, base_eff
 
-        def dispatch(blk):
-            """Upload and relax one super-block (main thread)."""
+        def dispatch(blk, rounds):
+            """Upload and relax one super-block in outer round ``rounds``
+            (main thread)."""
             bi, bj, x_win, static, base_eff = blk
             if static is None:
                 K, W1, base_d = dev_cache[(bi, bj)]
@@ -710,7 +720,7 @@ class OutOfCoreEngine:
             if has_pits:
                 base_d = self._to_dev(base_eff)
             out, chg, _r = _sb_relax(
-                torch.nan_to_num(self._to_dev(x_win)), K, W1, base_d,
+                torch.nan_to_num(self._to_dev(x_win)), K, W1, base_d, rounds,
                 B=self.B, inner_max=2 * self.B + 4,
                 max_rounds=4 * (S // self.B) + 8)
             if not bool(chg):
@@ -764,7 +774,7 @@ class OutOfCoreEngine:
                     blk = nxt.result()
                     if k + 1 < len(order):
                         nxt = io.submit(read_block, *order[k + 1], contrib)
-                    done = dispatch(blk)
+                    done = dispatch(blk, rounds)
                     if done is not None:
                         round_changed.add((bi, bj))
                         writes.append(io.submit(self.store.write_window,

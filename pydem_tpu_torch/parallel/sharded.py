@@ -21,30 +21,29 @@ moves with ``ppermute``, ``reduce`` for its ``psum``), in this process
   from the same values by the same operations as on one canvas: equal bit
   for bit.
 - :func:`accumulate_sharded` / :func:`accumulate_sharded_pits`: each shard
-  is a K1 region with a 1-px ring (``ops.uca_block.gs_round_ring``); a round
-  exchanges the rings of the canvas and of the changed flags and relaxes.
-  The ring rounds are block-Jacobi (every block reads the previous round's
-  canvas), so where shard edges fall on block edges a sharded round reads
-  what a round on one canvas reads, and the flag ring carries the frontier
-  across shard edges: the sharded solvers give the same result bit for
-  bit, values and round counts, for any shard grid, a 1×1 mesh included
-  (and equal the block-Jacobi canvas round ``ops.uca_block.gs_round``
-  iterated on one device).  One device's in-core solvers
-  (``accumulate_blocked_gs``, ``accumulate_blocked_pits_gs``, and with them
-  ``terrain_step(uca_solver="blocked")``) run the TPU kernel's
-  Gauss-Seidel order instead: the same fixed point in fewer rounds, equal
-  to the mesh's within the JAX bench gate, not bit for bit.  (The JAX
-  sharded solver relaxes every block every round and threads no
-  frontier.)  Pit links fold into each shard's effective base between
-  rounds in link order, the fold of ``PitLinks``; the compact receivers
-  are exchanged once.
-- The *split round*: a shard's interior blocks (``gs_round_subset(...,
-  "interior")``, which never read the ring) relax on the shard's own CUDA
+  is a K1 region with a 1-px ring; a round exchanges the canvas's rings and
+  runs K1 in the TPU's order on each shard's canvas, in place
+  (``ops.uca_block.gs_round_oriented(..., ring=True)``), round r at
+  orientation r % 4, every block every round (no frontier, as the JAX
+  solver threads none: in the TPU's order a skip decided from last round's
+  flags is not the JAX round, since an earlier neighbour can change in
+  this very round).  Each shard runs its own sequential grid against a
+  ring frozen at the round's start, as the JAX solver's shards do, so the
+  rounds depend on the mesh's shape and equal the JAX solver's on the same
+  mesh and B.  Every shape reaches the fixed point of one device's in-core
+  solve (``accumulate_blocked_gs``) bit for bit; a 1×1 mesh differs from
+  that solve only in the frontier the in-core solver threads, which can
+  change its round count (the 4096² cone: 6 rounds against 5).  Pit links fold into each shard's
+  effective base before each round in link order, the fold of
+  ``PitLinks``; the compact receivers are exchanged once.
+- The *split round*: a shard's interior blocks (``subset="interior"``,
+  which never read the ring) relax in place on the shard's own CUDA
   stream, on the shard's card, while each card's copy stream lands the
-  rings, then its frame (``"boundary"``) against the landed ring.  Interior
-  then boundary is the serial round bit for bit.  The choice is the
-  solver's, no caller's (:func:`_use_split`: shards of one card; the JAX
-  solver splits only on a TPU).
+  rings, then its frame (``"boundary"``) at the same orientation against
+  the landed ring.  It is not the serial round (there the frame blocks are
+  visited among the interior ones), as in the JAX package, which splits
+  only on a TPU.  The choice is the solver's, no caller's
+  (:func:`_use_split`: shards of one card).
 - Results stay on their shards: every mesh function returns its canvases
   as :class:`~pydem_tpu_torch.parallel.mesh.ShardedCanvas`es (the shards
   on their cells' devices, the logical shape beside them), as the JAX
@@ -578,37 +577,36 @@ def _one_card(mesh):
 
 
 class _ShardRounds:
-    """The per-shard state of K1 ring rounds over a mesh: each shard's
-    canvas with its 1-px ring (two buffers), its compact receivers with the
-    neighbours' (exchanged once), its flags inside a flag ring, and, for the
-    split round on CUDA, a stream per shard on the shard's card, a copy
-    stream per card, the subset block lists on every card, and the events
-    that order them: each card's round start, each card's landed rings,
-    each shard's end."""
+    """The per-shard state of K1 ring rounds in the TPU's order over a mesh
+    (``ops.uca_block.gs_round_oriented(..., ring=True)``): each shard's
+    canvas with its 1-px ring, relaxed in place; its compact receivers with
+    the neighbours' (exchanged once); all-ones flags, since the rounds
+    thread no frontier (every block relaxes every round, as in the JAX
+    solver); and, for the split round on CUDA, a stream per shard on the
+    shard's card, a copy stream per card, and the events that order them:
+    each card's round start, each card's landed rings, each shard's end."""
 
-    def __init__(self, mesh, base_s, K_s, W1_s, B, inner_max, split):
-        from ..ops.uca_block import SUBSETS, subset_blocks
+    def __init__(self, mesh, base_s, K_s, W1_s, B, inner_max, split,
+                 round_fn=None):
+        from ..ops.uca_block import FORMS, _device_table, gs_round_oriented
 
         self.mesh, self.ex, self.B, self.inner_max = (
             mesh, mesh.exchange(), B, inner_max)
+        self.round_fn = round_fn or gs_round_oriented
         n_l, m_l = base_s[0].shape
         self.nb = (n_l // B, m_l // B)
         self.kp = self.ex.halo(_ringed(K_s, 255))  # "no edge" off the canvas
         self.w1p = self.ex.halo(_ringed(W1_s, 0.0))
         self.x = _ringed([b.contiguous() for b in base_s], 0.0)
-        self.xn = [torch.zeros_like(x) for x in self.x]
-        self.prev = [torch.zeros((self.nb[0] + 2, self.nb[1] + 2),
-                                 dtype=torch.int32, device=b.device)
+        self.prev = [torch.ones(self.nb, dtype=torch.int32, device=b.device)
                      for b in base_s]
-        self.chg = [torch.zeros(self.nb, dtype=torch.int32, device=b.device)
-                    for b in base_s]
-        self.set_flags(1)
         self.split = split
         if split and mesh.device_type == "cuda":
             self.cards = mesh.devices_of()
-            for dev, _ks in self.cards:
-                for subset in SUBSETS:  # built before the streams use them
-                    subset_blocks(*self.nb, subset, dev)
+            for dev, _ks in self.cards:  # built before the streams use them
+                for subset in FORMS:
+                    for o in range(4):
+                        _device_table(*self.nb, o, subset, dev)
             self.streams = [torch.cuda.Stream(mesh.devices[cell])
                             for cell in mesh.local_shards()]
             self.copy_streams = {dev: torch.cuda.Stream(dev)
@@ -620,73 +618,66 @@ class _ShardRounds:
             for dev, _ks in self.cards:
                 torch.cuda.current_stream(dev).synchronize()
 
-    def set_flags(self, value):
-        """Every block's flag (the frontier then relaxes everything)."""
-        for p in self.prev:
-            p[1:-1, 1:-1] = value
-
     def exchange(self):
         self.ex.halo(self.x)
-        self.ex.halo(self.prev)
 
-    def _relax(self, k, b, subset=None):
-        from ..ops.uca_block import gs_round_ring, gs_round_subset
+    def _relax(self, k, b, o, subset="all"):
+        """Shard ``k``'s round (of ``subset``) at orientation ``o``, in
+        place; returns its flags."""
+        _x, chg = self.round_fn(
+            self.x[k], self.kp[k], self.w1p[k], b, o, B=self.B,
+            inner_max=self.inner_max, prev=self.prev[k], ring=True,
+            subset=subset, inplace=True)
+        return chg
 
-        args = (self.x[k], self.kp[k], self.w1p[k], b, self.prev[k])
-        kw = dict(B=self.B, inner_max=self.inner_max,
-                  out=(self.xn[k], self.chg[k]))
-        if subset is None:
-            gs_round_ring(*args, **kw)
-        else:
-            gs_round_subset(*args, subset=subset, **kw)
-
-    def round(self, b_s, mode="full"):
-        """One round: ``"full"`` (exchange, relax; the flags become the
-        frontier, the canvases swap), ``"exchange"`` or ``"relax"`` alone
-        (for timing; the canvases and flags stay).  Returns the number of
-        changed blocks over the mesh (a device scalar) for ``"full"``."""
+    def round(self, b_s, o, mode="full"):
+        """One round at orientation ``o``: ``"full"`` (exchange, relax),
+        ``"exchange"`` or ``"relax"`` alone (for timing).  Returns the
+        number of changed blocks over the mesh (a device scalar) for
+        ``"full"``."""
         if mode == "exchange":
             self.exchange()
             return None
         if not self.split:
             if mode == "full":
                 self.exchange()
-            for k, b in enumerate(b_s):
-                self._relax(k, b)
+            chg = [self._relax(k, b, o) for k, b in enumerate(b_s)]
         else:
-            self._split_round(b_s, mode)
+            chg = self._split_round(b_s, o, mode)
         if mode != "full":
             return None
-        for p, c in zip(self.prev, self.chg):
-            p[1:-1, 1:-1] = c
-        self.x, self.xn = self.xn, self.x
-        return self.ex.reduce([c.sum() for c in self.chg])
+        return self.ex.reduce([c.sum() for c in chg])
 
-    def _split_round(self, b_s, mode):
+    def _split_round(self, b_s, o, mode):
         """Interior blocks on each shard's stream while each card's copy
-        stream lands the rings; then each shard's frame.
+        stream lands the rings; then each shard's frame, at the same
+        orientation.  Returns the flags of both.
 
-        The canvas is read from ``x`` and written to ``xn`` (block-Jacobi):
-        the interiors read ``x``, write ``xn`` and touch no ring, and the
-        copies write only ``x``'s ring, so the two never race.  On CUDA,
+        Both run in place on the shard's canvas, as the JAX split round's
+        two subset calls do.  The interior blocks never read the ring and
+        never write the shard's edge rows and columns (those belong to the
+        frame's blocks), and the ring copies read only those edge rows and
+        columns and write only the ring: so the two never race, and the
+        rings that land are the round-start values the serial round would
+        exchange.  It is not the serial round: there the frame blocks are
+        visited among the interior ones, here after all of them.  On CUDA,
         per card: the round starts with an event on the card's current
-        stream (after the previous round, its flag update and the fold);
-        the copy streams of every card wait for every card's start (a ring
-        copy reads one card and writes another) and are made current on
-        their cards for the exchange, so each cross-card ``copy_`` is
-        ordered between two copy streams; a card's rings have landed when
-        its copy stream has passed them (it waits for the copies into the
-        card).  A shard's boundary waits for its card's landed rings, and
-        each card's current stream waits for its shards before the change
-        counts are summed."""
+        stream (after the previous round and the fold); the copy streams of
+        every card wait for every card's start (a ring copy reads one card
+        and writes another) and are made current on their cards for the
+        exchange, so each cross-card ``copy_`` is ordered between two copy
+        streams; a card's rings have landed when its copy stream has passed
+        them (it waits for the copies into the card).  A shard's frame
+        waits for its card's landed rings, and each card's current stream
+        waits for its shards before the change counts are summed."""
         if self.mesh.device_type != "cuda":  # in order, on the host
-            for k, b in enumerate(b_s):
-                self._relax(k, b, "interior" if mode == "full" else None)
-            if mode == "full":
-                self.exchange()
-                for k, b in enumerate(b_s):
-                    self._relax(k, b, "boundary")
-            return
+            if mode != "full":
+                return [self._relax(k, b, o) for k, b in enumerate(b_s)]
+            chg = [self._relax(k, b, o, "interior")
+                   for k, b in enumerate(b_s)]
+            self.exchange()
+            return chg + [self._relax(k, b, o, "boundary")
+                          for k, b in enumerate(b_s)]
         for dev, _ks in self.cards:
             self.start[dev].record(torch.cuda.current_stream(dev))
         if mode == "full":
@@ -699,22 +690,26 @@ class _ShardRounds:
                 self.exchange()
                 for dev, _ks in self.cards:
                     self.landed[dev].record(self.copy_streams[dev])
+        chg = []
         for dev, ks in self.cards:
             for k in ks:
                 s = self.streams[k]
                 with torch.cuda.stream(s):
                     s.wait_event(self.start[dev])
                     if mode == "full":
-                        self._relax(k, b_s[k], "interior")
+                        chg.append(self._relax(k, b_s[k], o, "interior"))
                         s.wait_event(self.landed[dev])
-                        self._relax(k, b_s[k], "boundary")
+                        chg.append(self._relax(k, b_s[k], o, "boundary"))
                     else:
-                        self._relax(k, b_s[k])
+                        chg.append(self._relax(k, b_s[k], o))
                     self.done[k].record(s)
         for dev, ks in self.cards:
             main = torch.cuda.current_stream(dev)
             for k in ks:
                 main.wait_event(self.done[k])
+        for c in chg:  # made on a shard's stream, summed on its card's
+            c.record_stream(torch.cuda.current_stream(c.device))
+        return chg
 
 
 def _use_split(mesh, nb, force=None):
@@ -745,15 +740,20 @@ ROUNDS_PER_READ = 4
 
 
 def _blocked_shards(base_s, W_s, mesh, B, inner_max=None, max_rounds=100_000,
-                    links=None, _force_split=None):
+                    links=None, _force_split=None, _round_fn=None):
     """The sharded K1 solve on block-aligned shards (see the module
     docstring).  ``W_s``: dense (8, n_l, m_l) planes or ``(K, W1)`` pairs;
-    ``links``: a :class:`_ShardedLinks` or None.  The loop is
-    ``ops.uca_block._gs_solve``'s: fold, round, one host read per
-    ``ROUNDS_PER_READ`` rounds.  ``_force_split`` lets tests take the split
-    or the serial round where :func:`_use_split` would pick the other.
-    Returns ``(area shards, rounds)``."""
-    from ..ops.uca_block import _block_any, compact_from_dense
+    ``links``: a :class:`_ShardedLinks` or None.  Round r (from 0) runs at
+    orientation ``r % 4``, its pit links folded into the base from the
+    round-start canvas; the loop ends with the first round that changed no
+    block, as the JAX solver's does, and reads the counts on the host once
+    per ``ROUNDS_PER_READ`` rounds (a round after a still one changes
+    nothing: ``ops.uca_block._gs_solve``).  ``_force_split`` lets tests
+    take the split or the serial round where :func:`_use_split` would pick
+    the other, and ``_round_fn`` (``gs_round_oriented_plain``) the plain
+    rounds on the card, to hold the kernel against them.  Returns ``(area
+    shards, rounds)``."""
+    from ..ops.uca_block import compact_from_dense
 
     n_l, m_l = base_s[0].shape
     if n_l % B or m_l % B:
@@ -764,20 +764,16 @@ def _blocked_shards(base_s, W_s, mesh, B, inner_max=None, max_rounds=100_000,
     KW = [w if isinstance(w, tuple) else compact_from_dense(w) for w in W_s]
     nb = (n_l // B, m_l // B)
     st = _ShardRounds(mesh, base_s, [k for k, _ in KW], [w for _, w in KW],
-                      B, inner_max, _use_split(mesh, nb, _force_split))
+                      B, inner_max, _use_split(mesh, nb, _force_split),
+                      _round_fn)
     _blocked_shards.last_split = st.split
-    b_prev, rounds = None, 0
+    rounds = 0
     while True:
         counts = []
-        for _ in range(max(1, min(ROUNDS_PER_READ, max_rounds - rounds))):
-            b_s = base_s
-            if links is not None:
-                b_s = links.add_to(base_s, st.x)
-                if b_prev is not None:
-                    for p, b, bp in zip(st.prev, b_s, b_prev):
-                        p[1:-1, 1:-1] |= _block_any(b != bp, B)
-            counts.append(st.round(b_s))
-            b_prev = b_s
+        for r in range(rounds, rounds + max(1, min(ROUNDS_PER_READ,
+                                                   max_rounds - rounds))):
+            b_s = base_s if links is None else links.add_to(base_s, st.x)
+            counts.append(st.round(b_s, r % 4))
         counts = torch.stack(counts).tolist()
         _blocked_shards.host_reads += 1
         if 0 in counts:
@@ -904,10 +900,9 @@ def accumulate_sharded(base, W, mesh, B=None, inner_max=None,
     canvas into shards that are multiples of ``B`` (default: 64 or 16, the
     largest that fits, :func:`_shard_block_size`); the split round runs
     where :func:`_use_split` picks it.  Returns ``(area, rounds)``, the
-    area a ``ShardedCanvas``; both equal the same call on a 1×1 mesh (the
-    block-Jacobi ``ops.uca_block.gs_round`` iterated on one canvas) bit for
-    bit, and ``accumulate_blocked_gs(base, W, B=B)`` (the TPU's order) to
-    its fixed point in no fewer rounds."""
+    area a ``ShardedCanvas``; the rounds are the JAX solver's on the same
+    mesh and B, and the area is the fixed point of
+    ``accumulate_blocked_gs(base, W, B=B)`` bit for bit."""
     base_s, W_s = _canvas_shards(base, mesh), _canvas_shards(W, mesh)
     n_l, m_l = base_s[0].shape
     B = _shard_block_size(n_l, m_l) if B is None else B
@@ -924,11 +919,11 @@ def accumulate_sharded_pits(base, W, mesh, pit_src, pit_dst, pit_w, B=None,
     """:func:`accumulate_sharded` with non-adjacent pit links (flat indices
     into the canvas, ``pit_src → pit_dst`` with weight ``pit_w``), folded
     into each shard's effective base at the start of every round as
-    ``accumulate_blocked_pits_gs`` folds them on one canvas (blocks whose
-    folded base moved join the frontier).  The compact receivers are
-    exchanged once.  Equal to the same call on a 1×1 mesh bit for bit,
-    values and rounds, and to ``accumulate_blocked_pits_gs`` on one device
-    within the JAX bench gate; the area a :class:`ShardedCanvas`."""
+    ``accumulate_blocked_pits_gs`` folds them on one canvas.  The compact
+    receivers are exchanged once.  The rounds are the JAX solver's on the
+    same mesh and B, and the area is the fixed point of
+    ``accumulate_blocked_pits_gs`` bit for bit; the area a
+    :class:`ShardedCanvas`."""
     base_s, W_s = _canvas_shards(base, mesh), _canvas_shards(W, mesh)
     n_l, m_l = base_s[0].shape
     B = _shard_block_size(n_l, m_l) if B is None else B
@@ -1135,9 +1130,8 @@ def measure_halo_overlap(base, W, mesh, rounds=8, B=None):
         else:
             sync()
             t = time.perf_counter()
-        for _ in range(rounds):
-            st.set_flags(1)
-            st.round(base_s, mode)
+        for r in range(rounds):
+            st.round(base_s, r % 4, mode)
         if events:
             t1.record(torch.cuda.current_stream(dev))
             t1.synchronize()
@@ -1180,8 +1174,8 @@ def run_sharded(elev, dX, dY, dX2=None, dY2=None, mesh=None, n_sweeps=None,
     Returns the dict of :func:`terrain_step`, its canvases
     ``ShardedCanvas``es left on their shards (as the JAX version leaves
     them sharded; ``.assemble()`` or ``np.asarray`` for a whole one): equal
-    to ``terrain_step`` on the same (padded) canvas bit for bit,
-    ``uca_sweeps`` included."""
+    to ``terrain_step`` on the same (padded) canvas bit for bit, apart from
+    the blocked solver's ``uca_sweeps`` (the rounds of the mesh's shape)."""
     if mesh is None:
         mesh = make_mesh()
     _check_solver(uca_solver)

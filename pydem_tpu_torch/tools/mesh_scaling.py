@@ -1,8 +1,9 @@
 """Mesh scaling sweep of the sharded UCA solve.
 
 Counterpart of ``tools/mesh_scaling.py``.  For each mesh shape: the blocked
-UCA rounds to convergence (``sharded_uca``; block-Jacobi, equal on every
-shape to the 1×1 mesh's by construction), the ring bytes a round
+UCA rounds to convergence (``sharded_uca``; in the TPU's order, each
+shard its own sequential grid, so the rounds are the shape's own, and the
+1×1 mesh's are one device's), the ring bytes a round
 exchanges (every shard receives a 1-px ring of float32), and the
 exchange / relax / full-round times with the overlap fraction of
 :func:`~pydem_tpu_torch.parallel.sharded.measure_halo_overlap`.  Then the

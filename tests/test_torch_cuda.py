@@ -1,7 +1,8 @@
 """Checks of the CUDA UCA block kernels (K1 ``gs_round_oriented`` in the
-TPU's Gauss-Seidel order, K1's block-Jacobi ``gs_round``, K2
-``block_round``), the device chain, the flood and the manager that need an
-NVIDIA GPU.
+TPU's Gauss-Seidel order, one dataflow launch a round, in every form, and
+its level launches ``gs_round_levels``; K1's block-Jacobi ``gs_round``;
+K2 ``block_round``), the device chain, the flood and the manager that need
+an NVIDIA GPU.
 
 They skip without one.  The GPU machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
@@ -73,7 +74,7 @@ def test_kernel_round_equals_plain(cuda, B, inner_max, shape):
 
 
 @pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
-@pytest.mark.parametrize("kernel", ["K1", "K1 levels", "K2"])
+@pytest.mark.parametrize("kernel", ["K1", "K1 levels", "K1 dataflow", "K2"])
 @pytest.mark.parametrize("inner_max", [8, None])
 def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
     """NaNs in x inside one block travel downstream exactly as in the plain
@@ -89,11 +90,13 @@ def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
         prev = torch.ones((N // B, M // B), dtype=torch.int32, device=cuda)
         (xk, ck), (xp, cp) = (fn(x, K, W1, base, prev, **kw)
                               for fn in (ub.gs_round, ub.gs_round_plain))
-    elif kernel == "K1 levels":
+    elif kernel in ("K1 levels", "K1 dataflow"):
         K, W1 = ub.compact_from_dense(W)
+        fn = (ub.gs_round_levels if kernel == "K1 levels"
+              else ub.gs_round_oriented)
         (xk, ck), (xp, cp) = (
-            fn(x, K, W1, base, 1, prev=None, **kw)
-            for fn in (ub.gs_round_oriented, ub.gs_round_oriented_plain))
+            f(x, K, W1, base, 1, prev=None, **kw)
+            for f in (fn, ub.gs_round_oriented_plain))
     else:
         W = W.contiguous()
         (xk, ck), (xp, cp) = (fn(x, W, base, **kw)
@@ -105,24 +108,23 @@ def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
     assert torch.equal(ck, cp)
 
 
-def _levels(n, m, B):
-    """Launches of one round in the TPU's order: its levels (2(nb_i - 1) +
-    nb_j on grids two or more blocks wide)."""
-    return len(ub.round_levels(n // B, m // B, 0))
+def _levels(n, m, B, subset="all"):
+    """Launches of one round in the TPU's order by level: its levels
+    (2(nb_i - 1) + nb_j on whole grids two or more blocks wide)."""
+    return len(ub.round_levels(n // B, m // B, 0, subset))
 
 
 def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     W, base = _state(cuda)
-    levels = _levels(N, M, 64)
     before = ub.launch_count(ub.gs_round_oriented)
     jacobi = ub.launch_count(ub.gs_round)
+    levels_before = ub.launch_count(ub.gs_round_levels)
     reads = ub._gs_solve.host_reads
     ak, rounds = ub.accumulate_blocked_gs(base, W, B=64)
     launches = ub.launch_count(ub.gs_round_oriented) - before
-    # one launch a level; the flags are read once per 4 rounds, so up to 3
-    # still rounds follow
-    assert launches % levels == 0
-    assert rounds <= launches // levels <= rounds + 3
+    # one dataflow launch a round; the flags are read once per 4 rounds, so
+    # up to 3 still rounds follow
+    assert rounds <= launches <= rounds + 3
     assert ub._gs_solve.host_reads - reads == -(-rounds // 4)
     ap, rp = ub.accumulate_blocked_gs(base, W, B=64,
                                       round_fn=ub.gs_round_oriented_plain)
@@ -132,8 +134,9 @@ def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     capped, r3 = ub.accumulate_blocked_gs(base, W, B=64, max_rounds=3)
     assert r3 == min(3, rounds)
     assert (ub.launch_count(ub.gs_round_oriented) - before
-            == launches + r3 * levels)
+            == launches + r3)
     assert ub.launch_count(ub.gs_round) == jacobi  # block-Jacobi's
+    assert ub.launch_count(ub.gs_round_levels) == levels_before
 
 
 @pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
@@ -141,28 +144,90 @@ def test_kernel_solve_equals_plain_and_counts_launches(cuda):
 @pytest.mark.parametrize("inner_max", [4, None])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_oriented_kernel_round_equals_plain(cuda, B, o, inner_max, shape):
-    """The level launches in the TPU's order against the plain level round,
-    bit for bit, flags included: a round from the base with every block
-    relaxed, then two rounds at the next orientations with the frontier of
-    the flags; one launch a level; the input canvas is not written."""
+    """The dataflow launch and the level launches in the TPU's order
+    against the plain round, bit for bit, flags included: a round from the
+    base with every block relaxed, then two rounds at the next orientations
+    with the frontier of the flags; one dataflow launch a round, one level
+    launch a level; the input canvas is not written."""
     n, m = shape
     W, base = _state(cuda, n, m)
     K, W1 = ub.compact_from_dense(W)
     kw = dict(B=B, inner_max=_inner(B, inner_max))
     x, prev = base, None
     for r in range(3):
-        before = ub.launch_count(ub.gs_round_oriented)
+        before = (ub.launch_count(ub.gs_round_oriented),
+                  ub.launch_count(ub.gs_round_levels))
         x_in = x.clone()
         xk, ck = ub.gs_round_oriented(x, K, W1, base, (o + r) % 4, prev=prev,
                                       **kw)
-        assert (ub.launch_count(ub.gs_round_oriented) - before
-                == _levels(n, m, B))
+        xl, cl = ub.gs_round_levels(x, K, W1, base, (o + r) % 4, prev=prev,
+                                    **kw)
+        assert (ub.launch_count(ub.gs_round_oriented) - before[0],
+                ub.launch_count(ub.gs_round_levels) - before[1]) == (
+                    1, _levels(n, m, B))
         xp, cp = ub.gs_round_oriented_plain(x, K, W1, base, (o + r) % 4,
                                             prev=prev, **kw)
         assert torch.equal(x, x_in)
-        assert torch.equal(xk, xp)
-        assert torch.equal(ck, cp)
+        assert torch.equal(xk, xp) and torch.equal(xl, xp)
+        assert torch.equal(ck, cp) and torch.equal(cl, cp)
         x, prev = xk, ck
+
+
+@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+@pytest.mark.parametrize("o", range(4))
+@pytest.mark.parametrize("subset", ["all", "interior", "boundary"])
+def test_oriented_ring_forms_equal_plain(cuda, B, o, subset):
+    """The ring and subset forms in the TPU's order (a 192×256 window of a
+    larger canvas, its ring real), the dataflow launch and the level
+    launches against the plain round, bit for bit, flags included, in
+    place and not; the ring is never written; then, from that canvas, a
+    round on the frontier of its flags."""
+    W, base = _state(cuda, 256, 320)
+    K, W1 = ub.compact_from_dense(W)
+    args = ring_window(base * 1.5, K, W1, base, 32, 48, 192, 256)
+    ring = torch.ones_like(args[0], dtype=torch.bool)
+    ring[1:-1, 1:-1] = False
+    kw = dict(B=B, inner_max=2 * B + 4, ring=True, subset=subset)
+    prev = None
+    for r in range(2):
+        xp, cp = ub.gs_round_oriented_plain(*args, (o + r) % 4, prev=prev,
+                                            **kw)
+        xl, cl = ub.gs_round_levels(*args, (o + r) % 4, prev=prev, **kw)
+        x = args[0].clone()
+        xk, ck = ub.gs_round_oriented(x, *args[1:], (o + r) % 4, prev=prev,
+                                      inplace=True, **kw)
+        assert xk is x
+        assert torch.equal(xk, xp) and torch.equal(xl, xp)
+        assert torch.equal(ck, cp) and torch.equal(cl, cp)
+        assert torch.equal(xk[ring], args[0][ring])
+        args, prev = (xk,) + args[1:], ck
+
+
+def test_dataflow_rounds_on_streams_keep_their_own_tickets(cuda):
+    """Rounds on two streams at once (the split round's shards) draw their
+    tickets from two counters, and many rounds on one stream reuse one
+    without a reset: forty rounds over four streams equal the plain rounds
+    bit for bit."""
+    W, base = _state(cuda)
+    K, W1 = ub.compact_from_dense(W)
+    kw = dict(B=16, inner_max=36)
+    want, x = [], []
+    for k in range(4):
+        xp = base * (1 + k)
+        for r in range(10):
+            xp, _c = ub.gs_round_oriented_plain(xp, K, W1, base, r % 4, **kw)
+        want.append(xp)
+        x.append((base * (1 + k)).contiguous())
+    streams = [torch.cuda.Stream(cuda) for _ in range(4)]
+    torch.cuda.synchronize(cuda)
+    for r in range(10):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                ub.gs_round_oriented(x[k], K, W1, base, r % 4, inplace=True,
+                                     **kw)
+    torch.cuda.synchronize(cuda)
+    for a, b in zip(x, want):
+        assert torch.equal(a, b)
 
 
 def test_kernel_wrapper_rejects_what_it_cannot_run(cuda):
@@ -230,11 +295,10 @@ def _pit_links(device, n=N, m=M, count=300, seed=5):
 def test_k1_with_fold_solve_equals_plain(cuda):
     W, base = _state(cuda)
     links = _pit_links(cuda)
-    levels = _levels(N, M, 64)
     before = ub.launch_count(ub.gs_round_oriented)
     ak, rk = ub.accumulate_blocked_pits_gs(base, W, *links, B=64)
     launches = ub.launch_count(ub.gs_round_oriented) - before
-    assert rk * levels <= launches <= (rk + 3) * levels
+    assert rk <= launches <= rk + 3
     ap, rp = ub.accumulate_blocked_pits_gs(
         base, W, *links, B=64, round_fn=ub.gs_round_oriented_plain)
     assert rp == rk
@@ -393,8 +457,9 @@ def test_ring_wrapper_rejects_what_it_cannot_run(cuda):
 
 def test_out_of_core_engine_on_the_card(cuda, tmp_path):
     """``OutOfCoreEngine`` without ``device`` at 512², S = 128, on the noisy
-    cone: the streaming regime launches the ring kernel, the fused regime
-    the whole-canvas level kernel (the TPU's order); ``elev``, ``slope``,
+    cone: both regimes launch K1 in the TPU's order (the streamed visits
+    its ring form, the fused pass its canvas form), never the block-Jacobi
+    forms; ``elev``, ``slope``,
     ``aspect``, ``flats`` and the NaN patterns agree bitwise, ``uca`` within
     the bench gate (bitwise where the terrain has no pit links)."""
     from chip_smoke import make_noisy_cone
@@ -420,12 +485,9 @@ def test_out_of_core_engine_on_the_card(cuda, tmp_path):
             ub.gs_round_oriented.launches_on.clear()
             ub.gs_round_ring.launches_on.clear()
             eng.run()
-        if budget == 0:
-            assert (ub.launch_count(ub.gs_round_ring) > 0
-                    == ub.launch_count(ub.gs_round_oriented))
-        else:
-            assert (ub.launch_count(ub.gs_round_oriented) > 0
-                    == ub.launch_count(ub.gs_round_ring))
+        assert (ub.launch_count(ub.gs_round_oriented) > 0
+                == ub.launch_count(ub.gs_round_ring))
+        assert (eng.uca_visits > 0) == (budget == 0)
         stores[tag] = (store, eng)
     (a, ea), (b, eb) = stores["streamed"], stores["fused"]
     for key in ("elev", "slope", "aspect", "flats"):
@@ -497,30 +559,26 @@ def test_subset_wrapper_rejects_what_it_cannot_run(cuda):
 
 def _near_step(got, step):
     """A mesh run against one device's ``terrain_step(blocked)`` (the TPU's
-    Gauss-Seidel order; the mesh rounds are block-Jacobi): the same NaN
-    pattern and fixed point within the JAX bench gate, in no fewer
-    rounds."""
+    Gauss-Seidel order on the whole canvas; each shard runs its own grid):
+    the same NaN pattern and fixed point within the JAX bench gate."""
     a, b = got["uca"].numpy(), step["uca"].cpu().numpy()
     np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
     np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b), rtol=1e-4,
                                atol=1e-2)
-    assert got["uca_sweeps"] >= step["uca_sweeps"]
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 4)])
 def test_sharded_equals_single_device_on_the_card(cuda, shape):
     """``run_sharded(uca_solver="blocked")`` over shards on ``cuda:0`` at
-    512²: every output bitwise equal to the same call on a 1×1 mesh, rounds
-    equal, and within the bench gate of one device's
-    ``terrain_step(blocked)``; the solver takes the split round, which
-    launches the subset kernel, where the shards hold at least 3×3 blocks
-    (1×2: 8×4, 2×2: 4×4; 2×4 has 4×2), and the split and the serial round,
-    both forced, agree bitwise; with pit links the sharded fold equals the
-    fold on a 1×1 mesh."""
+    512²: within the bench gate of one device's ``terrain_step(blocked)``,
+    which a 1×1 mesh equals bitwise with equal rounds; the solver takes the
+    split round where the shards hold at least 3×3 blocks (1×2: 8×4, 2×2:
+    4×4; 2×4 has 4×2), two dataflow launches a shard a round; the split
+    and the serial round, both forced, and the solve with pit links equal
+    the same mesh through the plain rounds bitwise, rounds equal."""
     from pydem_tpu_torch.parallel import sharded
     from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, split
-    from pydem_tpu_torch.parallel.sharded import (accumulate_sharded_pits,
-                                                  run_sharded, terrain_step)
+    from pydem_tpu_torch.parallel.sharded import run_sharded, terrain_step
 
     n = 512
     mesh = make_mesh([cuda] * (shape[0] * shape[1]), shape)
@@ -528,32 +586,33 @@ def test_sharded_equals_single_device_on_the_card(cuda, shape):
     elev = torch.from_numpy(make_hard_terrain(n, "float32")).to(cuda)
     rows = (torch.ones(n - 1, device=cuda),) * 2 + (
         torch.ones(n, device=cuda),) * 2
+    step = terrain_step(elev, *rows, uca_solver="blocked")
     single = run_sharded(elev, *rows, mesh=one, uca_solver="blocked")
-    splits = shape != (2, 4)
-    before = ub.launch_count(ub.gs_round_subset)
-    out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
+    assert single["uca_sweeps"] == step["uca_sweeps"]
     for key in ("mag", "direction", "flats", "uca", "twi"):
-        assert torch.equal(torch.nan_to_num(out[key].assemble().double()),
-                           torch.nan_to_num(single[key].assemble().double())
-                           ), key
-    assert out["uca_sweeps"] == single["uca_sweeps"]
-    assert (ub.launch_count(ub.gs_round_subset) > before) == splits
+        assert torch.equal(torch.nan_to_num(single[key].assemble().double()),
+                           torch.nan_to_num(step[key].double())), key
+    splits = shape != (2, 4)
+    before = ub.launch_count(ub.gs_round_oriented)
+    out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
+    launches = ub.launch_count(ub.gs_round_oriented) - before
+    assert launches >= (2 if splits else 1) * mesh.size * out["uca_sweeps"]
     assert sharded._blocked_shards.last_split == splits
-    _near_step({"uca": out["uca"].assemble().cpu(),
-                "uca_sweeps": out["uca_sweeps"]},
-               terrain_step(elev, *rows, uca_solver="blocked"))
+    _near_step({"uca": out["uca"].assemble().cpu()}, step)
     W, base = _state(cuda, n, n)
-    if splits:
-        runs = [sharded._blocked_shards(split(base, mesh), split(W, mesh),
-                                        mesh, 64, _force_split=force)
-                for force in (True, False)]
-        (a_s, r_s), (a_p, r_p) = runs
-        assert r_s == r_p and torch.equal(assemble(a_s, mesh),
-                                          assemble(a_p, mesh))
     links = _pit_links(cuda, n, n)
-    want, rw = accumulate_sharded_pits(base, W, one, *links, B=64)
-    got, rg = accumulate_sharded_pits(base, W, mesh, *links, B=64)
-    assert rg == rw and torch.equal(got.assemble(), want.assemble())
+    for force, lk in ((True, None), (False, None), (None, links)):
+        if force and not splits:
+            continue
+        runs = [sharded._blocked_shards(
+            split(base, mesh), split(W, mesh), mesh, 64,
+            links=sharded._links_of(lk, mesh, n // shape[0], n // shape[1],
+                                    base.dtype),
+            _force_split=force, _round_fn=fn)
+            for fn in (None, ub.gs_round_oriented_plain)]
+        (a_k, r_k), (a_p, r_p) = runs
+        assert r_k == r_p and torch.equal(assemble(a_k, mesh),
+                                          assemble(a_p, mesh))
 
 
 @pytest.fixture
@@ -566,77 +625,72 @@ def four_cards():
 @pytest.mark.parametrize("force", [None, True, False])
 def test_sharded_over_four_cards_equals_one_card(four_cards, force):
     """A 2x2 mesh with one shard a card at 512²: the sharded K1 solve (the
-    solver's round, the split round and the serial round) and, unforced,
-    the whole ``run_sharded`` bitwise equal to one card's on a 1×1 mesh,
-    rounds equal (and within the bench gate of one card's
-    ``terrain_step(blocked)``); every card launched the kernel; with pit
-    links the fold over the cards equals the fold on a 1×1 mesh."""
+    solver's round, the serial one over several cards, and the split and
+    the serial round forced) bitwise equal to the same round over four
+    shards on one card, rounds equal, with and without pit links; every
+    card launched the dataflow kernel; unforced, the whole ``run_sharded``
+    within the bench gate of one card's ``terrain_step(blocked)``."""
     from pydem_tpu_torch.parallel import sharded
     from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, split
     from pydem_tpu_torch.parallel.sharded import run_sharded, terrain_step
 
     n, dev0 = 512, four_cards[0]
     mesh = make_mesh(four_cards, (2, 2))
-    one = make_mesh([dev0], (1, 1))
+    on_one = make_mesh([dev0] * 4, (2, 2))
     elev = torch.from_numpy(make_hard_terrain(n, "float32")).to(dev0)
     rows = (torch.ones(n - 1, device=dev0),) * 2 + (
         torch.ones(n, device=dev0),) * 2
     if force is None:
-        single = run_sharded(elev, *rows, mesh=one, uca_solver="blocked")
         out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
-        for key in ("mag", "direction", "flats", "uca", "twi"):
-            assert torch.equal(
-                torch.nan_to_num(out[key].assemble(dev0).double()),
-                torch.nan_to_num(single[key].assemble(dev0).double())), key
-        assert out["uca_sweeps"] == single["uca_sweeps"]
-        _near_step({"uca": out["uca"].assemble().cpu(),
-                    "uca_sweeps": out["uca_sweeps"]},
+        _near_step({"uca": out["uca"].assemble().cpu()},
                    terrain_step(elev, *rows, uca_solver="blocked"))
     W, base = _state(dev0, n, n)
-    want, rw = sharded.accumulate_sharded(base, W, one, B=64)
-    want = want.assemble(dev0)
-    for fn in (ub.gs_round_ring, ub.gs_round_subset):
-        fn.launches_on.clear()
-    area, rounds = sharded._blocked_shards(split(base, mesh), split(W, mesh),
-                                           mesh, 64, _force_split=force)
-    assert rounds == rw and torch.equal(assemble(area, mesh, device=dev0),
-                                        want)
-    split_ = sharded._blocked_shards.last_split
-    used = (ub.gs_round_subset if split_ else ub.gs_round_ring).launches_on
-    assert all(used[d] > 0 for d in four_cards), dict(used)
     links = _pit_links(dev0, n, n)
-    want, rw = sharded.accumulate_sharded_pits(base, W, one, *links, B=64)
-    want = want.assemble(dev0)
-    area, rounds = sharded._blocked_shards(
-        split(base, mesh), split(W, mesh), mesh, 64,
-        links=sharded._links_of(links, mesh, n // 2, n // 2, base.dtype),
-        _force_split=force)
-    assert rounds == rw and torch.equal(assemble(area, mesh, device=dev0),
-                                        want)
+    for lk in (None, links):
+        ub.gs_round_oriented.launches_on.clear()
+        area, rounds = sharded._blocked_shards(
+            split(base, mesh), split(W, mesh), mesh, 64,
+            links=sharded._links_of(lk, mesh, n // 2, n // 2, base.dtype),
+            _force_split=force)
+        split_ = sharded._blocked_shards.last_split
+        assert split_ == bool(force)
+        assert all(ub.gs_round_oriented.launches_on[d] > 0
+                   for d in four_cards)
+        want, rw = sharded._blocked_shards(
+            split(base, on_one), split(W, on_one), on_one, 64,
+            links=sharded._links_of(lk, on_one, n // 2, n // 2, base.dtype),
+            _force_split=split_)
+        assert rounds == rw and torch.equal(
+            assemble(area, mesh, device=dev0), assemble(want, on_one))
 
 
 def test_sharded_outputs_stay_on_their_cards(four_cards):
     """run_sharded over a 2x2 mesh of the four cards, its canvas given from
     the host: every output shard lies on its cell's card, and the host
-    copies equal the same call on one card's 1×1 mesh bitwise."""
+    copies of mag, direction and flats equal one card's terrain_step
+    bitwise, uca within the bench gate."""
     from pydem_tpu_torch.parallel.mesh import ShardedCanvas, make_mesh
-    from pydem_tpu_torch.parallel.sharded import run_sharded
+    from pydem_tpu_torch.parallel.sharded import run_sharded, terrain_step
 
     n = 1024
     mesh = make_mesh(four_cards, (2, 2))
     elev = make_hard_terrain(n, "float32")
     rows = (np.ones(n - 1), np.ones(n - 1), np.ones(n), np.ones(n))
     out = run_sharded(elev, *rows, mesh=mesh, uca_solver="blocked")
-    single = run_sharded(elev, *rows, mesh=make_mesh([four_cards[0]], (1, 1)),
-                         uca_solver="blocked")
-    assert out["uca_sweeps"] == single["uca_sweeps"]
+    dev0 = four_cards[0]
+    t_rows = [torch.as_tensor(r, dtype=torch.float32, device=dev0)
+              for r in rows]
+    step = terrain_step(torch.from_numpy(elev).to(dev0), *t_rows,
+                        uca_solver="blocked")
     for key in ("mag", "direction", "flats", "uca", "twi"):
         c = out[key]
         assert isinstance(c, ShardedCanvas) and c.shape == (n, n), key
         for cell, s in zip(mesh.local_shards(), c.local_shards()):
             assert s.device == mesh.devices[cell], (key, cell, s.device)
-        a, b = np.asarray(c), np.asarray(single[key])
-        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), key
+        if key in ("mag", "direction", "flats"):
+            a, b = np.asarray(c), step[key].cpu().numpy()
+            assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), key
+    _near_step({"uca": out["uca"].assemble().cpu()}, step)
 
 
 def test_first_card_holds_no_more_than_the_others(four_cards):
@@ -668,9 +722,13 @@ def test_first_card_holds_no_more_than_the_others(four_cards):
     del out
 
 
-def test_engine_over_four_cards_equals_one_card(four_cards, tmp_path):
+def test_engine_over_four_cards_equals_one_card(four_cards, tmp_path,
+                                               monkeypatch):
     """The out-of-core engine's fused pass with its canvases per shard on a
-    2x2 mesh of four cards equals the same mesh on one card, bitwise."""
+    2x2 mesh of four cards equals the same mesh on one card, bitwise, the
+    one card held to the four cards' serial round (its own would split,
+    another order)."""
+    from pydem_tpu_torch.parallel import sharded
     from pydem_tpu_torch.io.store import ArrayStore
     from pydem_tpu_torch.outofcore import OutOfCoreEngine
     from pydem_tpu_torch.parallel.mesh import make_mesh
@@ -678,6 +736,8 @@ def test_engine_over_four_cards_equals_one_card(four_cards, tmp_path):
     n, S = 256, 64
     elev = make_hard_terrain(n)
     stores = []
+    monkeypatch.setattr(sharded, "_use_split",
+                        lambda mesh, nb, force=None: False)
     for tag, cells in (("one", [four_cards[0]] * 4), ("four", four_cards)):
         store = ArrayStore(str(tmp_path / tag))
         store.create("elev_src", elev.shape, "float64", chunks=(S, S),

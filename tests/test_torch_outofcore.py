@@ -142,6 +142,23 @@ def test_engine_matches_in_core_and_jax(tmp_path, jax_runs, name):
         assert len(eng._links[0]) > 0  # the fixture actually has pit links
 
 
+@pytest.mark.parametrize("name", ["streaming_with_frontier",
+                                  "streaming_pit_free", "cone_partial_blocks"])
+def test_engine_rounds_equal_jax(tmp_path, jax_runs, name):
+    """At the JAX engine's K1 block (B = 8 in interpret mode) the port's
+    engine takes the JAX engine's outer rounds, streamed (each visit's
+    rounds in the TPU's order from the outer round's orientation) and
+    device-resident, with the same uca to 10 decimals."""
+    _num, _size, _rows, S, margin, opts, budget = CASES[name]
+    store, eng = _t_engine(tmp_path / "ooc.zarr", _case_elev(name), S=S,
+                           margin=margin, budget=budget, **opts)
+    eng.B = 8
+    eng.run()
+    j_store, j_eng = jax_runs(name)
+    assert eng.uca_rounds == j_eng.uca_rounds
+    _assert_fields(store, j_store, ("uca",), "JAX engine")
+
+
 def test_engine_resume_is_idempotent(tmp_path):
     elev = _case_elev("cone_partial_blocks")
     store, eng = _t_engine(tmp_path / "ooc.zarr", elev)
@@ -217,14 +234,18 @@ def test_streaming_cache_budget_does_not_change_result(tmp_path):
     assert (e0.uca_rounds, e0.uca_visits) == (e1.uca_rounds, e1.uca_visits)
 
 
+@pytest.mark.parametrize("o0", range(4))
 @pytest.mark.parametrize("corner", [False, True])
-def test_sb_uca_solve_matches_jax(corner):
-    """One super-block visit on the same windows: the port's ring rounds
-    (plain, float64) against the JAX function (Pallas in interpret mode)."""
+def test_sb_uca_solve_matches_jax(corner, o0):
+    """One super-block visit on the same windows, its first round at
+    orientation ``o0`` (the engine's outer round): the port's ring rounds
+    in the TPU's order (plain, float64) against the JAX function (Pallas in
+    interpret mode) at the same B = 8, equal rounds and changed flag,
+    values to 10 decimals."""
     import jax.numpy as jnp
 
     rng = np.random.RandomState(5)
-    n, S, B = 64, 32, 16
+    n, S, B = 64, 32, 8
     elev, _a, _u = fixtures.get_test_case(33, n)
     one = np.ones(n)
     dp = DEMProcessor(elev=elev, dX=one[1:], dY=one[1:], dX2=one, dY2=one,
@@ -246,11 +267,12 @@ def test_sb_uca_solve_matches_jax(corner):
 
     out, chg, rounds = _sb_uca_solve(
         *(torch.from_numpy(np.ascontiguousarray(a))
-          for a in (x_win, e_win, d_win, f_win, theta, base)), **caps)
-    j_out, j_chg, _r = j_sb_uca_solve(
+          for a in (x_win, e_win, d_win, f_win, theta, base)), o0, **caps)
+    j_out, j_chg, j_rounds = j_sb_uca_solve(
         *(jnp.asarray(a) for a in (x_win, e_win, d_win, f_win, theta, base)),
-        0, B=8, inner_max=20, max_rounds=4 * (S // 8) + 8, interpret=True)
-    assert rounds >= 1 and bool(chg) == bool(j_chg)
+        o0, interpret=True, **caps)
+    assert rounds == int(j_rounds) and bool(chg) == bool(j_chg)
+    assert rounds > 1
     np.testing.assert_array_almost_equal(out.numpy(), np.asarray(j_out),
                                          decimal=10)
 
@@ -322,12 +344,11 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
 @pytest.mark.parametrize("name", ["cone_partial_blocks",
                                   "pit_links_cross_blocks"])
-def test_engine_mesh_route_equals_single_device(tmp_path, name, shape,
-                                                monkeypatch):
+def test_engine_mesh_route_equals_single_device(tmp_path, name, shape):
     """OutOfCoreEngine(mesh=...) on CPU shards == the engine on one device
-    over a 1×1 mesh, bitwise, rounds equal (and the mesh-less engine: see
-    :func:`_against_meshless`): the device-resident UCA stage solves on the
-    shards.  A canvas the mesh divides takes the fused pass (40×48 over 2×2
+    over a 1×1 mesh, bitwise, in the rounds of the mesh's shape (and the
+    mesh-less engine: see :func:`_against_meshless`): the device-resident
+    UCA stage solves on the shards.  A canvas the mesh divides takes the fused pass (40×48 over 2×2
     and 2×4, shards that are not whole K1 blocks); the others (48×45) pad
     to the mesh with NaN elevation and take the staged stages."""
     from pydem_tpu_torch.parallel.mesh import make_mesh
@@ -355,12 +376,11 @@ def test_engine_mesh_route_equals_single_device(tmp_path, name, shape,
     e1._run_fused_device = lambda: calls.append(1) or fused()
     e1.run()
     assert calls == ([1] if (np_, mp_) == elev.shape else [])
-    assert e1.uca_rounds == e0.uca_rounds
     assert len(e1._links[0]) == len(e0._links[0])
     for key in ("slope", "aspect", "flats", "uca", "twi"):
         np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
-    _against_meshless(tmp_path / "meshless.zarr", elev, store, e1,
-                      monkeypatch, S=S, margin=margin, **opts)
+    _against_meshless(tmp_path / "meshless.zarr", elev, store, e1, (s0, e0),
+                      S=S, margin=margin, **opts)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (3, 2)])
@@ -405,52 +425,32 @@ def _mesh_engine(path, elev, mesh, S=16, margin=64, **opts):
 
 
 def _one_shard_engine(path, elev, S=16, margin=64, **opts):
-    """The engine over a 1×1 mesh: the bitwise reference of the mesh route.
-    Its solve runs the sharded solver's block-Jacobi rounds; the mesh-less
-    engine's in-core solve runs the TPU's Gauss-Seidel order."""
+    """The engine over a 1×1 mesh: its solve is the sharded solver's on one
+    shard, the rounds of the mesh-less engine's in-core solve."""
     from pydem_tpu_torch.parallel.mesh import make_mesh
 
     return _mesh_engine(path, elev, make_mesh([torch.device("cpu")], (1, 1)),
                         S=S, margin=margin, **opts)
 
 
-def _jacobi(base, W, B, links=None):
-    """One device's block-Jacobi canvas solve (the plain canvas round
-    iterated, links folded as the in-core solvers fold them): the sharded
-    solver's rounds on one canvas, apart from the sharded code."""
-    from pydem_tpu_torch.core.uca import PitLinks
-    from pydem_tpu_torch.ops import uca_block as ub
-
-    return ub._gs_solve(base.contiguous(), W, B, None, 100_000,
-                        ub.gs_round_plain,
-                        None if links is None else PitLinks(*links))
-
-
-def _against_meshless(path, elev, store, eng, monkeypatch, S=16, margin=64,
-                      **opts):
-    """A mesh run (``store``, ``eng``) against the mesh-less engine: the
-    same fixed point to this file's decimals, in no fewer rounds; and with
-    the block-Jacobi canvas solve in place of the in-core solver, bitwise
-    with equal rounds."""
-    from pydem_tpu_torch.ops import uca_block as ub
-
+def _against_meshless(path, elev, store, eng, one, S=16, margin=64, **opts):
+    """A mesh run (``store``, ``eng``) and the 1×1-mesh run ``one`` (its
+    store and engine) against the mesh-less engine, whose in-core solve
+    runs the TPU's order on the whole canvas: the 1×1 mesh equals it bit
+    for bit, in equal rounds on these fixtures (the in-core solver's
+    frontier could change the count elsewhere); the mesh reaches the same
+    fixed point, bit for bit, in the rounds of its own shape (each shard
+    runs its own sequential grid against a ring frozen at the round's
+    start, as the JAX solver's shards do)."""
     s_gs, e_gs = _t_engine(str(path) + ".gs", elev, S=S, margin=margin,
                            **opts)
     e_gs.run()
-    assert eng.uca_rounds >= e_gs.uca_rounds
-    np.testing.assert_array_equal(store["flats"], s_gs["flats"])
-    _assert_fields(store, s_gs, ("slope", "aspect", "uca", "twi"),
-                   "the mesh-less engine")
-    monkeypatch.setattr(ub, "accumulate_blocked_gs",
-                        lambda base, W, B: _jacobi(base, W, B))
-    monkeypatch.setattr(ub, "accumulate_blocked_pits_gs",
-                        lambda base, W, *links, B: _jacobi(base, W, B, links))
-    s_j, e_j = _t_engine(str(path) + ".jacobi", elev, S=S, margin=margin,
-                         **opts)
-    e_j.run()
-    assert eng.uca_rounds == e_j.uca_rounds
+    s_one, e_one = one
+    assert e_one.uca_rounds == e_gs.uca_rounds
     for key in ("slope", "aspect", "flats", "uca", "twi"):
-        np.testing.assert_array_equal(store[key], s_j[key], err_msg=key)
+        np.testing.assert_array_equal(s_one[key], s_gs[key], err_msg=key)
+        np.testing.assert_array_equal(store[key], s_gs[key], err_msg=key)
+    assert eng.uca_rounds >= 1
 
 
 # fixture, options: a pit-free cone, and terrain with pit links
@@ -459,13 +459,12 @@ PER_SHARD = {"cone": (33, {}), "pit_links": (13, NO_COND)}
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
 @pytest.mark.parametrize("name", sorted(PER_SHARD))
-def test_engine_per_shard_fused_equals_meshless(tmp_path, name, shape,
-                                                 monkeypatch):
+def test_engine_per_shard_fused_equals_meshless(tmp_path, name, shape):
     """A 64² canvas over 1×2 and 2×2 CPU shards of whole K1 blocks takes
     the fused pass shard by shard (slope, weights, the sharded solve,
     finalize per shard) and equals the fused pass over a 1×1 mesh bitwise,
-    rounds and links included, and the mesh-less fused pass (see
-    :func:`_against_meshless`)."""
+    links included, in the rounds of its own shape, and the mesh-less fused
+    pass (see :func:`_against_meshless`)."""
     from pydem_tpu_torch.parallel.mesh import make_mesh
 
     num, opts = PER_SHARD[name]
@@ -481,25 +480,25 @@ def test_engine_per_shard_fused_equals_meshless(tmp_path, name, shape,
     eng._run_fused_device = lambda: calls.append(1) or fused()
     eng.run()
     assert calls == [1]
-    assert eng.uca_rounds == e0.uca_rounds
     assert len(eng._links[0]) == len(e0._links[0])
     if name == "pit_links":
         assert len(eng._links[0]) > 0
     for key in ("slope", "aspect", "flats", "uca_state", "uca", "twi"):
         np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
     _against_meshless(tmp_path / "meshless.zarr", elev, store, eng,
-                      monkeypatch, **opts)
+                      (s0, e0), **opts)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
 @pytest.mark.parametrize("name", sorted(PER_SHARD))
 def test_engine_divided_unaligned_canvas_takes_fused_pass(tmp_path, name,
-                                                          shape, monkeypatch):
+                                                          shape):
     """A 48×40 canvas over 1×2 and 2×2 CPU shards (48×20, 24×20: the mesh
     divides it, K1's 16² blocks do not) keeps the fused pass; its solve
     runs on shards of the canvas padded to whole blocks, and the result
-    equals the fused pass over a 1×1 mesh bitwise, rounds and links
-    included, and the mesh-less fused pass (see :func:`_against_meshless`)."""
+    equals the fused pass over a 1×1 mesh bitwise, links included, in the
+    rounds of its own shape, and the mesh-less fused pass (see
+    :func:`_against_meshless`)."""
     from pydem_tpu_torch.parallel.mesh import make_mesh
 
     num, opts = PER_SHARD[name]
@@ -517,12 +516,11 @@ def test_engine_divided_unaligned_canvas_takes_fused_pass(tmp_path, name,
     eng._run_fused_device = lambda: calls.append(1) or fused()
     eng.run()
     assert calls == [1]
-    assert eng.uca_rounds == e0.uca_rounds
     assert len(eng._links[0]) == len(e0._links[0])
     for key in ("slope", "aspect", "flats", "uca_state", "uca", "twi"):
         np.testing.assert_array_equal(store[key], s0[key], err_msg=key)
     _against_meshless(tmp_path / "meshless.zarr", elev, store, eng,
-                      monkeypatch, **opts)
+                      (s0, e0), **opts)
 
 
 @pytest.fixture(scope="module")
@@ -557,7 +555,7 @@ def jax_mesh_runs(tmp_path_factory):
                 eng.run()
             finally:
                 j_outofcore._slope_program = jitted
-            runs[name] = store
+            runs[name] = store, eng
         return runs[name]
 
     return get
@@ -569,7 +567,8 @@ def test_engine_per_shard_matches_jax_mesh(tmp_path, jax_mesh_runs, name,
                                            shape):
     """The port's engine over CPU shards against the JAX engine over the
     8-virtual-device mesh (its canvases sharded under GSPMD), with and
-    without pit links, within this file's tolerances."""
+    without pit links, within this file's tolerances, both at the JAX
+    engine's B = 8; over the JAX mesh's 2×4 shape, in its rounds."""
     import jax
 
     from pydem_tpu_torch.parallel.mesh import make_mesh
@@ -580,8 +579,11 @@ def test_engine_per_shard_matches_jax_mesh(tmp_path, jax_mesh_runs, name,
     elev, _a, _u = fixtures.get_test_case(num, 64)
     mesh = make_mesh([torch.device("cpu")] * (shape[0] * shape[1]), shape)
     store, eng = _mesh_engine(tmp_path / "mesh.zarr", elev, mesh, **opts)
+    eng.B = 8  # the JAX engine's K1 block in interpret mode
     eng.run()
-    j_store = jax_mesh_runs(name)
+    j_store, j_eng = jax_mesh_runs(name)
+    if shape == (2, 4):  # the JAX mesh's shape: its rounds
+        assert eng.uca_rounds == j_eng.uca_rounds
     _assert_fields(store, j_store, FIELDS, "JAX engine over a mesh")
     np.testing.assert_array_equal(store["flats"], j_store["flats"])
 
