@@ -10,27 +10,36 @@ Phases, each reported on its own lines:
    limit as ``nvidia-smi`` reports them;
 2. build: compile the UCA block kernels K1 and K2 (``nvcc``) and the native
    pit carve (``g++``) from the checkout, at the same time; print the
-   kernels' register, spill and shared-memory lines; no kernel may spill
-   or keep a stack frame, and a block stays under 48 KB of shared memory;
+   kernels' register, spill and shared-memory lines, and for K1's dataflow
+   kernel (both forms) and K2 at every block size a line of its
+   registers, spills, stack, static and dynamic shared memory a CTA, the
+   CTAs of the cluster that relaxes one block (4 at B = 128, 16 at 256)
+   and the CTAs or clusters the card holds at once; no kernel may spill
+   or keep a stack frame, and a CTA stays under 48 KB of shared memory;
 3. kernels vs plain versions on the card, at every block size the kernels
-   are built for, on a 512² and on the main path's 2048² cone and hard
-   terrain (float32), from the terrain step's own receiver planes: two
-   block-Jacobi K1 rounds; K1 in the TPU's Gauss-Seidel order in every
-   form (canvas, ring, interior, frame; the ring forms on an (n+2)² window
-   whose ring is real) at each orientation 0-3, a round from the base and
-   one on the frontier of its flags, through the dataflow launch
-   (``gs_round_oriented``, one launch a round) and the level launches
-   (``gs_round_levels``, one a level) against the plain round (at 2048²:
-   orientations 0 and 2 at B = 64 and 1 at B = 16, the frontier round
-   after orientation 0 only); two K2 rounds; and the full K1 solve in the
-   TPU's order; they
-   must agree bit for bit, flags included, with equal round counts (the
-   solve launches at most 3 rounds more than it counts: its flags are read
-   once per 4 rounds);
+   are built for (the dataflow kernel and K2 at 16, 64, 128 and 256, the
+   reference forms at 16 and 64), on 512² and the main path's 2048² cone
+   and hard terrain (float32), and at 128 and 256 on 1024² (where B = 256
+   has the 3x3 grid a subset round takes), from the terrain step's own receiver
+   planes: two block-Jacobi K1 rounds; K1 in the TPU's Gauss-Seidel order
+   in every form (canvas, ring, interior, frame; the ring forms on an
+   (n+2)² window whose ring is real; the subsets where the grid is 3x3 or
+   more) at each orientation 0-3, a round from the base and one on the
+   frontier of its flags, through the dataflow launch
+   (``gs_round_oriented``, one launch a round) and, at 16 and 64, the level
+   launches (``gs_round_levels``, one a level) against the plain round (at
+   2048²: orientations 0 and 2 at B = 64, 1 at 16 and 128, 3 at 256, the
+   frontier round after orientation 0 at 64, 1 at 128, 3 at 256); two K2
+   rounds; and the full K1 solve in the TPU's order; they must agree bit
+   for bit, flags included, with equal round counts (the solve launches at
+   most 3 rounds more than it counts: its flags are read once per 4
+   rounds);
 4. main path, the terrain step: ``terrain_step(uca_solver="blocked")`` on
-   the 2048² cone and hard terrain; the dataflow launch's counter must
-   rise by the rounds (the level path's and block-Jacobi's by none); the
-   result must match
+   the 2048² cone and hard terrain at its default B = 256 (a cluster of 16
+   CTAs a block); the dataflow launch's counter must rise by the rounds,
+   all at B = 256 (the level path's and block-Jacobi's by none), the
+   rounds printed beside those of the same planes at B = 64; the result
+   must match
    ``uca_solver="jacobi"`` (NaN pattern, and the JAX package's own bench
    gate tolerances), repeat bit for bit, and agree with the float64 CPU
    run on a small cone;
@@ -57,15 +66,18 @@ Phases, each reported on its own lines:
    the terrain step at 2048² (its rounds beside the block-Jacobi canvas
    solve's), the hard chain at 2048² through ``tools/hard_breakdown.py``
    (5 reps, each the chain cut into stages with a synchronisation at each,
-   then uncut), one block-Jacobi K1 and one K2 round beside their plain
-   rounds at 2048²; K1 in the TPU's order at 2048², B = 64 and 16, the
-   level launches ("before") against the dataflow launch in turns: a round
-   from the base at each orientation (at B = 64 beside its plain round), a
-   skipped round, a partial round (round 12 of the hard chain's pit
-   solve), each with its bound counting the blocks it visits; the critical
-   path (the round timed with a sleep queued on the card first, so that
-   the card runs its launches back to back and no gap left by the host
-   counts); the cone solve and the hard chain's pit solve; and the K2 and
+   then uncut), one block-Jacobi K1 round (B = 64) and one K2 round (B =
+   256, 128, 64 and 16) beside their plain rounds at 2048²; K1 in the TPU's order at
+   2048², B = 64, 128 and 256 (B = 16's rows were cut for the time limit),
+   at 64 the level launches ("before") against the dataflow launch in
+   turns: a round from the base at each orientation (beside its plain
+   round), a skipped round, a partial round (round 12 of the hard chain's
+   pit solve), each with its bound counting the blocks it visits; the
+   critical path (the round timed with a sleep queued on the card first,
+   so that the card runs its launches back to back and no gap left by the
+   host counts); the cone solve and the hard chain's pit solve (bound:
+   their rounds at a full round's); the time of one sweep under a CTA
+   barrier (B = 64) and under a cluster barrier (128, 256); and the K2 and
    jacobi pit solves.  Each kernel's bound is computed beside
    its time: the bytes of the timed round (every input once, every output
    once) over the card's memory rate, or, if larger, one multiply-add per
@@ -130,7 +142,7 @@ Phases, each reported on its own lines:
        fold in float64 on the host when streaming, in float32 on the
        card), the link count and the largest difference printed;
     d. the engine on the card (float32) against the engine on the CPU
-       (float64) at 256², S = 64: the noisy cone inside the float32
+       (float64) at 256², S = 128: the noisy cone inside the float32
        envelope and its ``uca`` within relative p99 1e-3 of the in-core
        float32 ``DEMProcessor``; the hard terrain printed.
 11. main path, the mesh (``pydem_tpu_torch/parallel``), shards on this one
@@ -149,8 +161,8 @@ Phases, each reported on its own lines:
        ``direction`` and ``flats`` bitwise and ``uca`` and ``twi`` within
        the cone gate of one device's ``terrain_step(uca_solver="blocked")``;
        wall time, dataflow launches, host reads, peak device memory; one
-       device's ``accumulate_blocked_gs`` on the same planes at B = 64 and
-       16 (times, rounds); the solve alone with the split and the serial
+       device's ``accumulate_blocked_gs`` on the same planes at B = 256 and
+       64 (times, rounds); the solve alone with the split and the serial
        round forced (times, rounds; within the gate of each other); the
        one-card overlap of ``measure_halo_overlap``; on the 1024² cone's
        planes over 2×2, the split and the serial solve through the kernel
@@ -260,9 +272,11 @@ Phases, each reported on its own lines:
     K1's launches in the in-process runs of a and b join the kernel line.
 
 Then a JSON line with the kernel table (K1 in the TPU's order, the
-dataflow launch, with its figures in every form; the level launches it
-replaced, the "before" column; K1's block-Jacobi reference forms; and K2,
-each with its launches on the main paths), and as the last line
+dataflow launch, at the main paths' B = 256, at 128 and at 64, with its
+figures in every form and its main-path launches by block size; the level
+launches it replaced, the "before" column; K1's block-Jacobi reference
+forms; and K2 at 256 and 64, each with its launches on the main paths),
+and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
 exit and no result line.  The port imports neither JAX nor the JAX package.
 """
@@ -304,7 +318,8 @@ from pydem_tpu_torch.manager import ProcessManager
 from pydem_tpu_torch.ops import _build, uca_block
 from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed
 from pydem_tpu_torch.outofcore import OutOfCoreEngine
-from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
+from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, REFERENCE_BLOCKS,
+                                           accumulate_blocked,
                                            accumulate_blocked_gs,
                                            accumulate_blocked_pits,
                                            accumulate_blocked_pits_gs,
@@ -314,8 +329,9 @@ from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, accumulate_blocked,
                                            gs_round_oriented,
                                            gs_round_oriented_plain,
                                            gs_round_plain, gs_round_ring,
+                                           kernel_cluster_size,
                                            kernel_smem_bytes, launch_count,
-                                           round_levels)
+                                           resident_units, round_levels)
 from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
 from pydem_tpu_torch.ops.uca_block import gs_round_subset, visit_sequence
 from pydem_tpu_torch.parallel import sharded
@@ -428,9 +444,26 @@ WRAPPERS = (("uca_gs_round", gs_round),
 
 
 def reset_counts():
-    """Every kernel wrapper's launch counts to 0."""
+    """Every kernel wrapper's launch counts to 0 (by device and, where the
+    wrapper counts so, by block size)."""
     for _name, fn in WRAPPERS:
         fn.launches_on.clear()
+        getattr(fn, "launches_by_block", {}).clear()
+
+
+# the dataflow launches of the main paths' runs by block size (phases 4, 5
+# and 9-11), and K2's of its path (phase 6), for the kernels line
+MAIN_BY_BLOCK = collections.Counter()
+K2_BY_BLOCK = {}
+
+
+def main_launches(tag):
+    """The dataflow launches since :func:`reset_counts` of a main path's
+    run: logged by block size and added to ``MAIN_BY_BLOCK``."""
+    by = dict(gs_round_oriented.launches_by_block)
+    MAIN_BY_BLOCK.update(by)
+    log("main", "%s: dataflow launches by block size %s" % (tag, by))
+    return launch_count(gs_round_oriented)
 
 
 def counts_by_card():
@@ -500,40 +533,72 @@ def phase_build():
         (path, seconds, build_log), (so, so_seconds) = (cuda.result(),
                                                         carve.result())
     log("build", "%s built in %.2f s" % (os.path.relpath(path, ROOT), seconds))
-    entries = 0
+    # ptxas: registers, spills, stack and static shared memory by kernel
+    ptxas, name = {}, None
     for line in build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("build", line.strip())
+        entry = re.search(r"entry function '\S*?\d(uca_[a-z_]+_kernel)ILi"
+                          r"(\d+)(?:ELi(\d))?E", line)
+        if entry:
+            name = (entry.group(1), int(entry.group(2)),
+                    int(entry.group(3) or 0))
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads", line)
         if frame:
             log("build", line.strip())
-            entries += 1
             check(not any(int(g) for g in frame.groups()),
-                  "a kernel spills or keeps its arrays in local memory: %s"
-                  % line.strip())
-    check(entries >= 2 * len(KERNEL_BLOCKS),
-          "expected ptxas lines for K1 and K2 at every block size, got %d"
-          % entries)
-    # both kernels use only dynamic shared memory, which ptxas does not
-    # report: the library says what it launches with
+                  "a kernel spills or keeps its arrays in local memory: %s %s"
+                  % (name, line.strip()))
+            ptxas[name] = dict(zip(("stack", "spill_st", "spill_ld"),
+                                   map(int, frame.groups())))
+        regs = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
+                         line)
+        if regs and name in ptxas:
+            ptxas[name].update(registers=int(regs.group(1)),
+                               static_smem=int(regs.group(2) or 0))
+    # K1 in the TPU's order (both forms) and K2 at every block size, the
+    # reference forms (block-Jacobi K1 and the level launches, both forms)
+    # at theirs
+    want = {("uca_gs_dataflow_kernel", B, r) for B in KERNEL_BLOCKS
+            for r in (0, 1)}
+    want |= {("uca_block_round_kernel", B, 0) for B in KERNEL_BLOCKS}
+    want |= {(k, B, r) for k in ("uca_gs_round_kernel", "uca_gs_level_kernel")
+             for B in REFERENCE_BLOCKS for r in (0, 1)}
+    check(want <= set(ptxas), "no ptxas lines for %s" % sorted(
+        want - set(ptxas)))
+    # the kernels use dynamic shared memory, which ptxas does not report:
+    # the library says what a CTA launches with; at B = 128 and 256 a block
+    # visit is a cluster of CTAs, and the card holds so many of them at once
+    dev = torch.device("cuda", 0)
     for B in KERNEL_BLOCKS:
         smem = kernel_smem_bytes(B)
-        log("build", "K1 and K2 at B=%d: %d bytes of dynamic shared memory "
-            "per block" % (B, smem))
-        check(0 < smem < 48 * 1024, "a block at B=%d takes %d bytes of "
+        check(0 < smem < 48 * 1024, "a CTA at B=%d takes %d bytes of "
               "shared memory" % (B, smem))
+        for kernel, kind, ring in (("uca_gs_dataflow_kernel", "dataflow", 0),
+                                   ("uca_gs_dataflow_kernel", "dataflow", 1),
+                                   ("uca_block_round_kernel", "k2", 0)):
+            info = ptxas[(kernel, B, ring)]
+            log("build", "%s<B=%d%s>: %d registers, %d bytes spilled, %d "
+                "bytes stack, %d bytes static + %d bytes dynamic shared "
+                "memory a CTA, a cluster of %d CTA(s) a block, %d %s "
+                "resident at once" % (
+                    kernel, B, ", ring" if ring else "", info["registers"],
+                    info["spill_st"], info["stack"], info["static_smem"],
+                    smem, kernel_cluster_size(B),
+                    resident_units(dev, B, bool(ring), kind),
+                    "CTAs" if kernel_cluster_size(B) == 1 else "clusters"))
     log("build", "%s built in %.2f s (g++)" % (os.path.relpath(so, ROOT),
                                                  so_seconds))
 
 
-def k2_rounds_vs_plain(name, W, base):
-    """Two K2 rounds at every built block size, kernel beside plain, bit for
-    bit.  Returns the largest difference (0.0)."""
+def k2_rounds_vs_plain(name, W, base, blocks=KERNEL_BLOCKS):
+    """Two K2 rounds at each block size of ``blocks``, kernel beside plain,
+    bit for bit.  Returns the largest difference (0.0)."""
     n = base.shape[0]
     W = W.contiguous()
     worst = 0.0
-    for B in KERNEL_BLOCKS:
+    for B in blocks:
         kw = dict(B=B, inner_max=2 * B + 4)
         x = base
         for r in range(2):
@@ -577,15 +642,17 @@ def form_inputs(elev, ring):
 
 
 def oriented_vs_plain(tag, args, o, B, ring, subset, prev=None):
-    """One K1 round in the TPU's order through the dataflow launch, the
-    level launches and the plain version on the same inputs: canvas and
-    flags bit for bit, one dataflow launch, one level launch a level.
+    """One K1 round in the TPU's order through the dataflow launch (at
+    B = 128 and 256 a cluster a block), at the reference forms' block sizes
+    the level launches, and the plain version on the same inputs: canvas
+    and flags bit for bit, one dataflow launch, one level launch a level.
     Returns ``(max error, dataflow canvas, its flags)``."""
     x, K, W1, base = args
     kw = dict(B=B, inner_max=2 * B + 4, prev=prev, ring=ring, subset=subset)
     before = launch_count(gs_round_oriented), launch_count(gs_round_levels)
     xd, cd = gs_round_oriented(x, K, W1, base, o, **kw)
-    xl, cl = gs_round_levels(x, K, W1, base, o, **kw)
+    levels = B in REFERENCE_BLOCKS
+    xl, cl = gs_round_levels(x, K, W1, base, o, **kw) if levels else (xd, cd)
     launches = (launch_count(gs_round_oriented) - before[0],
                 launch_count(gs_round_levels) - before[1])
     xp, cp = gs_round_oriented_plain(x, K, W1, base, o, **kw)
@@ -593,7 +660,8 @@ def oriented_vs_plain(tag, args, o, B, ring, subset, prev=None):
     err = max(nan_equal_max_err(xd, xp), nan_equal_max_err(xl, xp))
     n, m = base.shape
     check(err <= KERNEL_TOL and torch.equal(cd, cp) and torch.equal(cl, cp)
-          and launches == (1, levels_per_round(n, m, B, subset)),
+          and launches == (1, levels_per_round(n, m, B, subset)
+                           if levels else 0),
           "%s B=%d orientation %d: dataflow / levels != plain (max err %g, "
           "flags equal %s %s, launches %s)"
           % (tag, B, o, err, torch.equal(cd, cp), torch.equal(cl, cp),
@@ -601,19 +669,20 @@ def oriented_vs_plain(tag, args, o, B, ring, subset, prev=None):
     return err, xd, cd
 
 
-def k1_forms_vs_plain(name, elev, n, orientations=None, frontier=None):
+def k1_forms_vs_plain(name, elev, n, orientations=None, frontier=None,
+                      blocks=KERNEL_BLOCKS):
     """K1 in the TPU's order, every form at every orientation (or those of
     ``orientations[B]``) and block size on the (n+2)² terrain ``elev``: a
     round from the base with every block dirty, then (after the rounds at
-    the orientations of ``frontier``, default all) one at the next
-    orientation with the frontier of its flags, dataflow == levels == plain
-    bit for bit; the input canvas comes back unwritten.  Returns the
-    largest difference (0.0)."""
+    the orientations of ``frontier[B]``, default all) one at the next
+    orientation with the frontier of its flags, dataflow == levels (at the
+    reference forms' block sizes) == plain bit for bit; the input canvas
+    comes back unwritten.  Returns the largest difference (0.0)."""
     worst = 0.0
     for form, ring, subset in K1_FORMS:
         args = form_inputs(elev, ring)
         x0 = args[0].clone()
-        for B in KERNEL_BLOCKS:
+        for B in blocks:
             if subset != "all" and n // B < 3:
                 continue  # a subset needs a 3x3 block grid
             changed = []
@@ -623,7 +692,7 @@ def k1_forms_vs_plain(name, elev, n, orientations=None, frontier=None):
                                                 subset)
                 worst = max(worst, err)
                 changed.append(int(cd.sum()))
-                if frontier is not None and o not in frontier:
+                if frontier is not None and o not in frontier.get(B, ()):
                     continue
                 # the next round's frontier from these flags
                 err, _x, c2 = oriented_vs_plain(
@@ -634,8 +703,10 @@ def k1_forms_vs_plain(name, elev, n, orientations=None, frontier=None):
             check(torch.equal(args[0], x0), "a round in the TPU's order "
                   "wrote its input canvas")
             log("kernel", "%s %d² %s B=%d: rounds in the TPU's order from "
-                "the base and on their frontier, dataflow == levels == "
-                "plain; blocks changed %s" % (name, n, form, B, changed))
+                "the base and on their frontier, dataflow%s == plain; "
+                "blocks changed %s" % (name, n, form, B, " == levels" if B
+                                       in REFERENCE_BLOCKS else " (cluster)",
+                                       changed))
     return worst
 
 
@@ -651,23 +722,29 @@ def ring_terrain(kind, n, device):
 
 # where the plain rounds cost the most (2048²: ~1.3 s a round at B = 64,
 # ~3 s at B = 16), phase 3 holds every form from the base at orientations
-# 0 and 2 at B = 64 and 1 at B = 16, and the frontier round after
-# orientation 0 (at 512² every form, orientation and frontier round)
-K1_FORM_CUTS = {N_MAIN: dict(orientations={64: (0, 2), 16: (1,)},
-                             frontier=(0,))}
+# 0 and 2 at B = 64, 1 at B = 16 and 128 and 3 at B = 256, and the frontier
+# round after orientation 0 at B = 64, 1 at 128 and 3 at 256 (at 512² and
+# 1024² every form, orientation and frontier round)
+K1_FORM_CUTS = {N_MAIN: dict(
+    orientations={64: (0, 2), 16: (1,), 128: (1,), 256: (3,)},
+    frontier={64: (0,), 128: (1,), 256: (3,)})}
+# the canvases of phase 3: at 512² B = 256 is a 2x2 grid (no subset round),
+# at 1024² a 4x4 one
+N_FORMS = 1024
 
 
-def phase_kernel_vs_plain(device, n):
+def phase_kernel_vs_plain(device, n, blocks=KERNEL_BLOCKS):
     """Two block-Jacobi K1 rounds, K1 in the TPU's order in every form
     (:func:`k1_forms_vs_plain`), two K2 rounds and the full K1 solve on n²
-    terrains, kernel beside plain, bit for bit.  Returns the largest
-    differences (K1, K2)."""
+    terrains, kernel beside plain, bit for bit, at the block sizes
+    ``blocks``.  Returns the largest differences (K1, K2)."""
     worst = worst_k2 = 0.0
     for name, kind in (("cone", make_cone), ("hard", make_hard_f32)):
         elev = torch.from_numpy(kind(n)).to(device)
         W, base = weights_and_base(elev)
         K, W1 = compact_from_dense(W)
-        for B in KERNEL_BLOCKS:
+        # the block-Jacobi reference form
+        for B in (b for b in REFERENCE_BLOCKS if b in blocks):
             kw = dict(B=B, inner_max=2 * B + 4)
             prev = torch.ones((n // B,) * 2, dtype=torch.int32,
                               device=device)
@@ -686,10 +763,11 @@ def phase_kernel_vs_plain(device, n):
             log("kernel", "%s %d² B=%d: 2 block-Jacobi rounds kernel == "
                 "plain, %d of %d blocks changed in round 2"
                 % (name, n, B, int(prev.sum()), prev.numel()))
-        worst_k2 = max(worst_k2, k2_rounds_vs_plain(name, W, base))
-        worst = max(worst, k1_forms_vs_plain(name, ring_terrain(kind, n, device),
-                                             n, **K1_FORM_CUTS.get(n, {})))
-        for B in KERNEL_BLOCKS:
+        worst_k2 = max(worst_k2, k2_rounds_vs_plain(name, W, base, blocks))
+        worst = max(worst, k1_forms_vs_plain(
+            name, ring_terrain(kind, n, device), n, blocks=blocks,
+            **K1_FORM_CUTS.get(n, {})))
+        for B in blocks:
             before = launch_count(gs_round_oriented)
             ak, rk = accumulate_blocked_gs(base, W, B=B)
             launches = launch_count(gs_round_oriented) - before
@@ -719,19 +797,30 @@ def phase_main_path(device):
     blocked = {k: terrain_step(e, *args, uca_solver="blocked")
                for k, e in elevs.items()}
     torch.cuda.synchronize()
-    launches = launch_count(gs_round_oriented)
+    launches = main_launches("4 terrain_step")
     check(launches > 0, "the main path launched the UCA kernel no time")
+    B = _block_size(N_MAIN, N_MAIN)
+    check(gs_round_oriented.launches_by_block[B] == launches,
+          "terrain_step launched the dataflow kernel at other block sizes "
+          "than its default %d: %s" % (B, dict(
+              gs_round_oriented.launches_by_block)))
     check(launch_count(gs_round) + launch_count(gs_round_levels) == 0,
           "terrain_step launched the block-Jacobi round or the level path")
     rounds = sum(b["uca_sweeps"] for b in blocked.values())
     check(rounds <= launches <= rounds + 3 * len(blocked),
           "terrain_step: %d launches for %d rounds" % (launches, rounds))
     log("main", "terrain_step(blocked) on the %d² cone and hard terrain: %d "
-        "dataflow launches for %d rounds in the TPU's order (%s rounds), %d "
-        "host reads of the flags"
-        % (N_MAIN, launches, rounds,
+        "dataflow launches at B=%d (a cluster of %d CTAs a block) for %d "
+        "rounds in the TPU's order (%s rounds), %d host reads of the flags"
+        % (N_MAIN, launches, B, kernel_cluster_size(B), rounds,
            {k: b["uca_sweeps"] for k, b in blocked.items()},
            gs_solve.host_reads))
+    # the rounds the same planes take at the old default, B = 64
+    at64 = {k: accumulate_blocked_gs(*weights_and_base(e)[::-1], B=64)[1]
+            for k, e in elevs.items()}
+    log("main", "terrain_step's solve on the same planes: rounds at B=%d %s, "
+        "at B=64 %s" % (B, {k: b["uca_sweeps"] for k, b in blocked.items()},
+                        at64))
 
     for k, e in elevs.items():
         b = blocked[k]
@@ -813,7 +902,11 @@ def phase_hard_chain(device):
     reset_counts()
     dp, twi = run_chain(elev, device)
     torch.cuda.synchronize()
-    launches = launch_count(gs_round_oriented)
+    launches = main_launches("5 hard chain")
+    B = _block_size(N_MAIN, N_MAIN)
+    check(gs_round_oriented.launches_by_block[B] == launches > 0,
+          "the hard chain launched the dataflow kernel at other block sizes "
+          "than its default %d" % B)
     check(dp.uca_sweeps <= launches <= dp.uca_sweeps + 3
           and launch_count(gs_round) + launch_count(gs_round_levels) == 0,
           "the hard chain launched K1 %d times for %d rounds"
@@ -825,9 +918,9 @@ def phase_hard_chain(device):
     check(bool((finite | dp._dev("flats")).all()),
           "hard chain: non-finite uca outside flats")
     check(bool((uca[finite] > 0).all()), "hard chain: uca <= 0")
-    log("main", "DEMProcessor(blocked, cuda) hard %d²: %d K1 launches, %d "
-        "rounds, %d flat px" % (N_MAIN, launches, dp.uca_sweeps,
-                                int(dp._dev("flats").sum())))
+    log("main", "DEMProcessor(blocked, cuda) hard %d²: %d K1 launches at "
+        "B=%d, %d rounds, %d flat px" % (N_MAIN, launches, B, dp.uca_sweeps,
+                                         int(dp._dev("flats").sum())))
 
     dj, _twi = run_chain(elev, device, uca_solver="jacobi")
     err = nan_equal_max_err(uca, dj._dev("uca"))
@@ -861,10 +954,14 @@ def phase_k2_path(device):
     worst_k2 = k2_rounds_vs_plain("conditioned hard", W, base)
 
     block_round.launches_on.clear()
+    block_round.launches_by_block.clear()
     ak, rk = accumulate_blocked(base, W)
     pk, prk = accumulate_blocked_pits(base, W, *links)
     torch.cuda.synchronize()
     launches = launch_count(block_round)
+    K2_BY_BLOCK.update(block_round.launches_by_block)
+    check(K2_BY_BLOCK == {256: launches}, "K2's path launched K2 at other "
+          "block sizes than the solvers' default 256: %s" % K2_BY_BLOCK)
     check(launches == rk + prk > 0,
           "K2's path launched K2 %d times for %d + %d rounds"
           % (launches, rk, prk))
@@ -883,6 +980,9 @@ def phase_k2_path(device):
         log("k2", "%s: kernel == plain, %d rounds" % (what, r1))
 
     gk, grk = accumulate_blocked_pits_gs(base, W, *links)
+    _g64, r64 = accumulate_blocked_pits_gs(base, W, *links, B=64)
+    log("k2", "the hard chain's pit solve in the TPU's order: %d rounds at "
+        "the default B=256, %d at B=64" % (grk, r64))
     gp, grp = accumulate_blocked_pits_gs(base, W, *links,
                                          round_fn=gs_round_oriented_plain)
     worst_k1 = nan_equal_max_err(gk, gp)
@@ -920,10 +1020,10 @@ def phase_k2_path(device):
 
 def jacobi_k1_solve(base, W, links=None, round_fn=gs_round):
     """K1's block-Jacobi canvas solve (``gs_round`` iterated, the pit links
-    folded as ``accumulate_blocked_pits_gs`` folds them) at the main path's
-    block side: the rounds of the mesh's solvers on one canvas."""
-    return gs_solve(base, W, _block_size(*base.shape), None, 100_000,
-                    round_fn, None if links is None else PitLinks(*links))
+    folded as ``accumulate_blocked_pits_gs`` folds them) at B = 64, the
+    largest block side of the reference forms."""
+    return gs_solve(base, W, 64, None, 100_000, round_fn,
+                    None if links is None else PitLinks(*links))
 
 
 def phase_f64_chain(device, n=256):
@@ -1098,19 +1198,23 @@ def k1_round_bound(inputs, outputs, W, share):
 
 
 def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
-    """K1 in the TPU's order at N_MAIN², block side ``B``: the level
-    launches ("before") against the dataflow launch, one round each in
-    turns (levels, dataflow, dataflow, levels; median of 5 each): from the
-    base (every block relaxed) at each orientation, with ``plain`` the
-    plain version beside it at orientation 0; a skipped round (no flag
+    """K1 in the TPU's order at N_MAIN², block side ``B``: the dataflow
+    launch (at B = 128 and 256 a cluster a block) and, at the reference
+    forms' block sizes, the level launches ("before") against it, one round
+    each in turns (levels, dataflow, dataflow, levels; median of 5 each):
+    from the base (every block relaxed) at each orientation, with ``plain``
+    the plain version beside it at orientation 0; a skipped round (no flag
     set); a partial round of the hard chain's pit solve (round 12); each
     round's bound, counting the blocks it visits; the critical path, the
     round at orientation 0 with the card held behind the host; the cone
-    solve and the hard chain's pit solve.  Returns the figures."""
+    solve and the hard chain's pit solve.  Returns the figures (the level
+    path's None where it has none)."""
     kw = dict(B=B, inner_max=2 * B + 4)
     n = base.shape[0]
     levels = levels_per_round(n, n, B)
-    paths = (("levels", gs_round_levels), ("dataflow", gs_round_oriented))
+    has_levels = B in REFERENCE_BLOCKS
+    paths = ((("levels", gs_round_levels),) if has_levels else ()) + (
+        ("dataflow", gs_round_oriented),)
 
     def turns(what, args, prev=None):
         res = {}
@@ -1120,11 +1224,14 @@ def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
             res.setdefault(label, []).append(ms)
             log("time", "%s, %s: median %.4f ms, reps %s ms [%s]"
                 % (what, label, ms, ["%.4f" % t for t in reps], card))
-        a, ca = gs_round_levels(*args, **kw, prev=prev)
         d, cd = gs_round_oriented(*args, **kw, prev=prev)
-        check(torch.equal(a, d) and torch.equal(ca, cd),
-              "%s: levels != dataflow" % what)
-        return {k: statistics.median(v) for k, v in res.items()}, cd
+        if has_levels:
+            a, ca = gs_round_levels(*args, **kw, prev=prev)
+            check(torch.equal(a, d) and torch.equal(ca, cd),
+                  "%s: levels != dataflow" % what)
+        out = {k: statistics.median(v) for k, v in res.items()}
+        out.setdefault("levels", None)
+        return out, cd
 
     by_o = {}
     err = 0.0
@@ -1135,10 +1242,12 @@ def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
     out, chg = gs_round_oriented(base, K, W1, base, 0, **kw)
     ones = torch.ones_like(chg)
     bound, bound_by = round_bound((base, K, W1, base, ones), (out, chg), W)
-    res = dict(levels=levels, bound=bound, bound_by=bound_by,
+    res = dict(B=B, cluster=kernel_cluster_size(B), levels=levels,
+               bound=bound, bound_by=bound_by,
                ms=by_o[0]["dataflow"], levels_ms=by_o[0]["levels"],
                ms_by_orientation=[by_o[o]["dataflow"] for o in range(4)],
                levels_ms_by_orientation=[by_o[o]["levels"] for o in range(4)])
+    res["plain_ms"] = None
     if plain:
         pms, preps = cuda_median_ms(
             lambda: gs_round_oriented_plain(base, K, W1, base, 0, **kw),
@@ -1175,41 +1284,92 @@ def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
                  levels if label == "levels" else 1) for _ in range(4)][1:])
         for label, fn in paths}
     res["critical_path_ms"] = held["dataflow"]
-    res["levels_critical_path_ms"] = held["levels"]
+    res["levels_critical_path_ms"] = held.get("levels")
     res["solve_ms"], res["solve_rounds"] = solve_ms(
         lambda: accumulate_blocked_gs(base, W, B=B),
         "K1 cone solve %d² B=%d, dataflow" % (n, B), card)
-    res["levels_solve_ms"], rounds = solve_ms(
-        lambda: accumulate_blocked_gs(base, W, B=B, round_fn=gs_round_levels),
-        "K1 cone solve %d² B=%d, levels" % (n, B), card)
-    check(rounds == res["solve_rounds"], "the level path's cone solve "
-          "took %d rounds, the dataflow's %d" % (rounds, res["solve_rounds"]))
     res["pit_solve_ms"], res["pit_solve_rounds"] = solve_ms(
         lambda: accumulate_blocked_pits_gs(bc, Wc, *links, B=B),
         "hard chain pit solve %d² B=%d, dataflow" % (n, B), card)
-    res["levels_pit_solve_ms"], rounds = solve_ms(
-        lambda: accumulate_blocked_pits_gs(bc, Wc, *links, B=B,
-                                           round_fn=gs_round_levels),
-        "hard chain pit solve %d² B=%d, levels" % (n, B), card)
-    check(rounds == res["pit_solve_rounds"], "the level path's pit solve "
-          "took %d rounds, the dataflow's %d" % (rounds,
-                                                 res["pit_solve_rounds"]))
-    log("time", "K1 in the TPU's order %d² B=%d, levels -> dataflow: from "
-        "the base by orientation %s -> %s ms (bound %.4f ms by %s, %.1f%% of "
-        "the dataflow round); skipped %.4f -> %.4f ms; partial (%.1f%% "
-        "dirty) %.4f -> %.4f ms (bound %.4f); critical path held %.3f -> "
-        "%.3f ms; cone solve %.3f -> %.3f ms (%d rounds); pit solve %.3f -> "
-        "%.3f ms (%d rounds); %d levels a round -> 1 launch [%s]"
-        % (n, B, ["%.3f" % t for t in res["levels_ms_by_orientation"]],
+    # each solve's bound: its rounds from the base, each at the round's
+    res["solve_bound"] = res["solve_rounds"] * bound
+    res["pit_solve_bound"] = res["pit_solve_rounds"] * bound
+    res["levels_solve_ms"] = res["levels_pit_solve_ms"] = None
+    if has_levels:
+        res["levels_solve_ms"], rounds = solve_ms(
+            lambda: accumulate_blocked_gs(base, W, B=B,
+                                          round_fn=gs_round_levels),
+            "K1 cone solve %d² B=%d, levels" % (n, B), card)
+        check(rounds == res["solve_rounds"], "the level path's cone solve "
+              "took %d rounds, the dataflow's %d"
+              % (rounds, res["solve_rounds"]))
+        res["levels_pit_solve_ms"], rounds = solve_ms(
+            lambda: accumulate_blocked_pits_gs(bc, Wc, *links, B=B,
+                                               round_fn=gs_round_levels),
+            "hard chain pit solve %d² B=%d, levels" % (n, B), card)
+        check(rounds == res["pit_solve_rounds"], "the level path's pit "
+              "solve took %d rounds, the dataflow's %d"
+              % (rounds, res["pit_solve_rounds"]))
+    fmt = lambda v, f="%.3f": "-" if v is None else f % v  # noqa: E731
+    log("time", "K1 in the TPU's order %d² B=%d (a cluster of %d CTAs a "
+        "block), levels -> dataflow: from the base by orientation %s -> %s "
+        "ms (bound %.4f ms by %s, %.1f%% of the dataflow round); skipped %s "
+        "-> %.4f ms; partial (%.1f%% dirty) %s -> %.4f ms (bound %.4f); "
+        "critical path held %s -> %.3f ms; cone solve %s -> %.3f ms (%d "
+        "rounds, bound %.4f); pit solve %s -> %.3f ms (%d rounds, bound "
+        "%.4f); %d levels a round -> 1 launch [%s]"
+        % (n, B, res["cluster"],
+           [fmt(t) for t in res["levels_ms_by_orientation"]],
            ["%.3f" % t for t in res["ms_by_orientation"]], bound, bound_by,
-           100 * bound / res["ms"], res["levels_skipped_ms"],
-           res["skipped_ms"], 100 * share, res["levels_partial_ms"],
-           res["partial_ms"], res["partial_bound"],
-           res["levels_critical_path_ms"], res["critical_path_ms"],
-           res["levels_solve_ms"], res["solve_ms"], res["solve_rounds"],
-           res["levels_pit_solve_ms"], res["pit_solve_ms"],
-           res["pit_solve_rounds"], levels, card))
+           100 * bound / res["ms"], fmt(res["levels_skipped_ms"], "%.4f"),
+           res["skipped_ms"], 100 * share,
+           fmt(res["levels_partial_ms"], "%.4f"), res["partial_ms"],
+           res["partial_bound"], fmt(res["levels_critical_path_ms"]),
+           res["critical_path_ms"], fmt(res["levels_solve_ms"]),
+           res["solve_ms"], res["solve_rounds"], res["solve_bound"],
+           fmt(res["levels_pit_solve_ms"]), res["pit_solve_ms"],
+           res["pit_solve_rounds"], res["pit_solve_bound"], levels, card))
     return res
+
+
+def time_sweeps(device, card):
+    """The time of one sweep of a block visit, under a CTA barrier (B = 64,
+    one CTA) and under a cluster barrier with the edge rows swapped through
+    distributed shared memory (128: 4 CTAs, 256: 16), each CTA sweeping
+    4096 pixels: K2 on one B x B block whose every pixel sends all its flow
+    east, so that a wave crosses the block one column a sweep and every
+    4-sweep test finds change until sweep B; (the visit capped at B sweeps
+    - at 4 sweeps) / (B - 4), CUDA events around 50 launches, median of 5.
+    Returns ``{B: ms a sweep}``."""
+    out = {}
+    for B in (64, 128, 256):
+        W = torch.zeros((8, B, B), device=device)
+        W[0] = 1.0  # NEIGHBOR_OFFSETS[0]: east
+        base = torch.ones((B, B), device=device)
+        x, chg = block_round(base, W, base, B=B, inner_max=B)
+        torch.cuda.synchronize()
+        check(bool(chg.all()) and float(x[0, -1]) == B,
+              "the sweep probe at B=%d did not sweep %d times" % (B, B))
+        ms = {}
+        for sweeps in (4, B):
+            def fifty():
+                for _ in range(50):
+                    block_round(base, W, base, B=B, inner_max=sweeps)
+
+            ms[sweeps] = cuda_median_ms(fifty, reps=5)[0] / 50
+        out[B] = (ms[B] - ms[4]) / (B - 4)
+        log("time", "one sweep of a block visit at B=%d (%s): %.3f us (a "
+            "visit of 4 sweeps %.4f ms, of %d sweeps %.4f ms) [%s]"
+            % (B, "one CTA, CTA barrier" if B == 64 else "a cluster of %d "
+               "CTAs, cluster barrier + DSMEM rows" % kernel_cluster_size(B),
+               1e3 * out[B], ms[4], B, ms[B], card))
+    return out
+
+
+# the block sides of phase 8's K1 figures: the reference forms' 64, the
+# cluster's 128 and the main path's default 256 (B = 16's rows were cut for
+# the time limit)
+TIMED_BLOCKS = (64, 128, 256)
 
 
 def phase_times(device, card, state):
@@ -1234,9 +1394,10 @@ def phase_times(device, card, state):
                 solver, N_MAIN, ms, ["%.3f" % t for t in reps],
                 px / (ms / 1e3), out["uca_sweeps"],
                 "rounds" if solver == "blocked" else "sweeps",
-                " in the TPU's order (the block-Jacobi canvas solve: %d)"
-                % jacobi_rounds if solver == "blocked"
-                else "", card))
+                " in the TPU's order at B=%d (the block-Jacobi canvas "
+                "solve at B=64: %d)" % (_block_size(N_MAIN, N_MAIN),
+                                        jacobi_rounds)
+                if solver == "blocked" else "", card))
 
     chain = time_chain(device, card)
 
@@ -1249,25 +1410,39 @@ def phase_times(device, card, state):
         (("kernel", gs_round), ("plain", gs_round_plain)),
         ((base, K, W1, base, prev), kw), card)
     W = W.contiguous()
-    k2, k2_err = time_round(
-        "first K2 round %d² B=%d (all blocks visited)" % (N_MAIN, B),
-        (("kernel", block_round), ("plain", block_round_plain)),
-        ((base, W, base), kw), card)
     out, chg = gs_round(base, K, W1, base, prev, **kw)
-    for name, times, inputs in (("K1", k1, (base, K, W1, base, prev)),
-                                ("K2", k2, (base, W, base))):
-        times["bound"], times["bound_by"] = round_bound(inputs, (out, chg), W)
-        log("time", "%s round bound: %.4f ms by %s, %.1f%% of the kernel's "
-            "%.3f ms" % (name, times["bound"], times["bound_by"],
-                         100 * times["bound"] / times["kernel"],
-                         times["kernel"]))
-    levels = time_oriented_rounds(base, K, W1, W, card, state, B)
+    k1["bound"], k1["bound_by"] = round_bound((base, K, W1, base, prev),
+                                              (out, chg), W)
+    log("time", "K1 round bound: %.4f ms by %s, %.1f%% of the kernel's %.3f "
+        "ms" % (k1["bound"], k1["bound_by"], 100 * k1["bound"] / k1["kernel"],
+                k1["kernel"]))
+    # K2 at the solvers' default B = 256 and at 128, 64 and 16
+    k2, k2_err = {}, 0.0
+    for Bk in (256, 128, 64, 16):
+        kw2 = dict(B=Bk, inner_max=2 * Bk + 4)
+        k2[Bk], e = time_round(
+            "first K2 round %d² B=%d (all blocks visited)" % (N_MAIN, Bk),
+            (("kernel", block_round), ("plain", block_round_plain)),
+            ((base, W, base), kw2), card)
+        k2_err = max(k2_err, e)
+        out, chg = block_round(base, W, base, **kw2)
+        k2[Bk]["bound"], k2[Bk]["bound_by"] = round_bound((base, W, base),
+                                                          (out, chg), W)
+        log("time", "K2 round B=%d bound: %.4f ms by %s, %.1f%% of the "
+            "kernel's %.3f ms" % (Bk, k2[Bk]["bound"], k2[Bk]["bound_by"],
+                                  100 * k2[Bk]["bound"] / k2[Bk]["kernel"],
+                                  k2[Bk]["kernel"]))
+    k2[256]["by_block"] = {Bk: k2[Bk] for Bk in (128, 64, 16)}
+    k2 = k2[256]
+    # K1 in the TPU's order: the main path's B = 256 (beside its plain
+    # round), and 64 and 128
+    by_block = {Bt: time_oriented_rounds(base, K, W1, W, card, state, Bt)
+                for Bt in TIMED_BLOCKS}
+    levels = dict(by_block[_block_size(N_MAIN, N_MAIN)])
+    levels["by_block"] = by_block
+    levels["sweep_ms"] = time_sweeps(device, card)
     levels["step_ms"], levels["step_rounds"] = step_ms["blocked"]
     levels["jacobi_rounds"] = jacobi_rounds
-    # the other block side the kernel takes, B = 16 (its kernel == plain
-    # check is phase 3's)
-    levels["b16"] = time_oriented_rounds(base, K, W1, W, card, state, 16,
-                                         plain=False)
     W, base, links = state
     levels["pit_solve"] = {}
     for name, fn in (
@@ -1493,7 +1668,7 @@ def _phase_manager(device, card, work):
     reset_counts()
     pm, twi, written, times0 = manager_run(tiles, work, "run0",
                                            dem_proc_kwargs=MANAGER_KW)
-    launches = launch_count(gs_round_oriented)
+    launches = main_launches("9 manager")
     check(pm._dp.device.type == device.type == "cuda",
           "the manager ran on %s" % pm._dp.device)
     store = check_manager_store(pm, hard, launches)
@@ -1771,7 +1946,7 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
     # visits' rounds alone
     res = dict(total=total, stages=timer.report(), rounds=eng.uca_rounds,
                visits=eng.uca_visits, skipped=eng.uca_skipped,
-               launches=launch_count(gs_round_oriented),
+               launches=main_launches("10 engine %s" % tag),
                ring_launches=len(visit_rounds),
                on=dict(gs_round_oriented.launches_on),
                block_jacobi=launch_count(gs_round)
@@ -1924,7 +2099,7 @@ def _phase_ooc_hard(device, card, work):
         written = pm.save_non_overlap_data_geotiff(
             os.path.join(work, "ooc_geotiff"))
         export_s = time.perf_counter() - t0
-    launches = launch_count(gs_round_oriented)
+    launches = main_launches("10c out-of-core manager")
     eng = pm._ooc
     check(eng.device.type == "cuda" and eng._fits_device_resident()
           and launches > 0,
@@ -1997,8 +2172,9 @@ def _phase_ooc_hard(device, card, work):
 
 
 def phase_ooc_precision(device):
-    """10d: the engine on the card in float32 against the CPU in float64."""
-    n, S = 256, 64
+    """10d: the engine on the card in float32 against the CPU in float64
+    (S = 128: the card's block size, 128, divides it)."""
+    n, S = 256, 128
     work = tempfile.mkdtemp(prefix="pydem_smoke_ooc_")
     try:
         for name, elev in (("noisy cone", make_noisy_cone(n)),
@@ -2224,15 +2400,16 @@ def check_near_step(tag, got, step, tol):
     return canvas_max_err(got["uca"], step["uca"])
 
 
-def forced_solve(base, W, mesh, split, links=None, round_fn=None):
+def forced_solve(base, W, mesh, split, links=None, round_fn=None, B=None):
     """The sharded K1 solve of ``base``/``W`` (and pit links) with the
     split (True) or the serial (False) round forced, through the solver's
-    private switch; ``round_fn``: the plain round in place of the kernel.
+    private switch; ``round_fn``: the plain round in place of the kernel;
+    ``B``: the block side, by default the canvas's (:func:`_block_size`).
     Returns (area as a ShardedCanvas, rounds)."""
     n_l, m_l = shard_dims(base.shape, mesh)
     area_s, rounds = sharded._blocked_shards(
         mesh_split(base, mesh), mesh_split(W, mesh), mesh,
-        _block_size(*base.shape),
+        _block_size(*base.shape) if B is None else B,
         links=sharded._links_of(links, mesh, n_l, m_l, base.dtype),
         _force_split=split, _round_fn=round_fn)
     check(sharded._blocked_shards.last_split == split,
@@ -2246,18 +2423,19 @@ def shards_equal(a, b):
                for x, y in zip(a.local_shards(), b.local_shards()))
 
 
-def mesh_kernel_vs_plain(tag, base, W, mesh, links=None):
+def mesh_kernel_vs_plain(tag, base, W, mesh, links=None, B=64):
     """The sharded solve through the dataflow launch against the same mesh
     through the plain rounds on the card, split and serial rounds forced:
-    areas bitwise equal with equal rounds.  Returns the rounds by round
-    kind."""
+    areas bitwise equal with equal rounds.  At B = 64 (default), where the
+    1024² and 512² canvases' shards hold the 3x3 blocks a split round
+    takes.  Returns the rounds by round kind."""
     rounds = {}
     for split in (True, False):
         reset_counts()
-        got, rk = forced_solve(base, W, mesh, split, links)
+        got, rk = forced_solve(base, W, mesh, split, links, B=B)
         launches = launch_count(gs_round_oriented)
         want, rp = forced_solve(base, W, mesh, split, links,
-                                gs_round_oriented_plain)
+                                gs_round_oriented_plain, B=B)
         check(rk == rp and shards_equal(got, want)
               and launches >= (2 if split else 1) * mesh.size * rk,
               "%s (split %s): the kernel's sharded solve != the plain one "
@@ -2293,7 +2471,7 @@ def phase_sharded(device, card):
     reads = sharded._blocked_shards.host_reads
     out, split_s = synced_seconds(lambda: run_sharded(
         elev, *args, mesh=mesh, uca_solver="blocked"))
-    launches = launch_count(gs_round_oriented)
+    launches = main_launches("11b run_sharded")
     others = (launch_count(gs_round) + launch_count(gs_round_ring)
               + launch_count(gs_round_subset) + launch_count(gs_round_levels))
     reads = sharded._blocked_shards.host_reads - reads
@@ -2318,7 +2496,9 @@ def phase_sharded(device, card):
     del out, step
     _mag, _dir, _flats, W, base = terrain_pre(elev, *args)
     del elev, _mag, _dir, _flats
-    for B in (64, 16):  # the in-core solve alone, at both block sides
+    # the in-core solve alone, at the default B = 256 and at 64 (B = 16's
+    # row was cut for the time limit)
+    for B in (256, 64):
         solved = []
         ms, reps = cuda_median_ms(
             lambda: solved.append(accumulate_blocked_gs(base, W, B=B)))
@@ -2440,7 +2620,7 @@ def phase_mesh_manager(device, card, mesh=None, phase="11d"):
                         os.path.join(work, "mesh_geotiff"))
                     export_s = time.perf_counter() - t0
             runs[tag] = (pm, twi, run_s, export_s,
-                         launch_count(gs_round_oriented),
+                         main_launches("%s %s manager" % (phase, tag)),
                          launch_count(gs_round) + launch_count(gs_round_ring)
                          + launch_count(gs_round_subset)
                          + launch_count(gs_round_levels), counts_by_card())
@@ -2856,8 +3036,8 @@ def phase_card_rounds(cards, tag):
     seconds a round), timed at 12b's shard and 12c's band; the ring round
     at 12g's shard (:func:`giant_shard_rounds`).  Returns {kernel: {card:
     times}} and the largest difference."""
-    times = {k: {} for k in ("canvas", "oriented", "k2", "ring", "subset",
-                             "band", "giant")}
+    times = {k: {} for k in ("canvas", "oriented", "oriented_b256", "k2",
+                             "ring", "subset", "band", "giant")}
     worst = 0.0
     for k, dev in enumerate(cards):
         with torch.cuda.device(dev):
@@ -2908,6 +3088,17 @@ def _card_rounds(dev, tag, plain_large=True):
     t["bound"], t["bound_by"] = times["canvas"]["bound"], times["canvas"][
         "bound_by"]
     times["oriented"] = t
+    # the main path's default block side: a cluster of 16 CTAs a block
+    kw256 = dict(B=256, inner_max=2 * 256 + 4)
+    t, err = time_round("12a K1 round in the TPU's order B=256, %d² on %s"
+                        % (n, dev),
+                        (("kernel", gs_round_oriented),
+                         ("plain", gs_round_oriented_plain)),
+                        ((base, K, W1, base, 0), kw256), tag, plain_reps=1)
+    worst = max(worst, err)
+    t["bound"], t["bound_by"] = times["canvas"]["bound"], times["canvas"][
+        "bound_by"]
+    times["oriented_b256"] = t
     Wc = W.contiguous()
     t, err = time_round("12a K2 round, %d² on %s" % (n, dev),
                         (("kernel", block_round), ("plain", block_round_plain)),
@@ -3112,6 +3303,7 @@ def phase_cards_sharded(cards, tag):
         four_reps.append(t)
         if rep == 0:
             launches = counts_by_card()
+            main_launches("12b run_sharded over the four cards")
             reads = sharded._blocked_shards.host_reads - reads
             peaks = card_peaks(cards)
             split = sharded._blocked_shards.last_split
@@ -3124,7 +3316,7 @@ def phase_cards_sharded(cards, tag):
                                        GATE_TOL["cone"])
             del step
         del out, elev4
-    nb = (n // 2 // 64,) * 2
+    nb = (n // 2 // _block_size(n, n),) * 2
     used = launches["uca_gs_round_dataflow"]
     check(split == sharded._use_split(mesh, nb) is False
           and not any(sum(launches[k].values()) for k in (
@@ -3676,6 +3868,12 @@ def main_multicard():
     dataflow.update({"giant_shard_" + k: statistics.median(
         t[k] for t in rounds_ms["giant"].values()) for k in ("kernel",
                                                              "bound")})
+    # the main path's default B = 256, a cluster of 16 CTAs a block (the
+    # entry's own figures are B = 64's, beside the level launches)
+    dataflow.update({"b256_%s" % k: statistics.median(
+        t[k] for t in rounds_ms["oriented_b256"].values())
+        for k in ("kernel", "plain")})
+    dataflow["launches_by_block"] = dict(MAIN_BY_BLOCK)
     levels = {"name": "uca_gs_round_levels", "route": "cuda",
               "source": src, "replaces": dataflow["replaces"],
               "launches": sum(on["uca_gs_round_levels"].values()),
@@ -3701,74 +3899,101 @@ def main_multicard():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def dataflow_entry(launches, err, levels, ring_ms, subset_ms):
-    """The kernels-line entry of K1 in the TPU's order, the dataflow
-    launch: one round at 2048², B = 64, orientation 0, from the base (every
-    block visited), beside the level launches it replaced."""
-    b16 = levels["b16"]
+REPLACES_K1 = ("pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid order "
+               "of gs_round_oriented :444, _FLIPS :184, _subset_grid :242, "
+               "subset branches :279-303)")
+
+
+def block_figures(t):
+    """K1 in the TPU's order at one block side, phase 8's figures at 2048²
+    (:func:`time_oriented_rounds`), for the kernels line."""
     return {
-        "name": "uca_gs_round_dataflow",
-        "route": "cuda",
-        "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
-        "replaces": "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid "
-                    "order of gs_round_oriented :444, _FLIPS :184, "
-                    "_subset_grid :242, subset branches :279-303)",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": levels["ms"],
-        "plain_ms": levels["plain_ms"],
-        "bound_ms": levels["bound"],
-        "bound_by": levels["bound_by"],
-        "library_ms": None,  # no PyTorch call computes a relaxation round
-        "role": "every K1 round of the main paths: canvas, ring and subset "
-                "forms in the TPU's order, one launch a round",
-        "levels_ms": levels["levels_ms"],
-        "ms_by_orientation": levels["ms_by_orientation"],
-        "levels_ms_by_orientation": levels["levels_ms_by_orientation"],
-        "skipped_ms": levels["skipped_ms"],
-        "levels_skipped_ms": levels["levels_skipped_ms"],
-        "skipped_bound_ms": levels["skipped_bound"],
-        "partial_ms": levels["partial_ms"],
-        "levels_partial_ms": levels["levels_partial_ms"],
-        "partial_bound_ms": levels["partial_bound"],
-        "partial_dirty_share": levels["partial_share"],
-        "critical_path_ms": levels["critical_path_ms"],
-        "levels_critical_path_ms": levels["levels_critical_path_ms"],
-        "cone_solve_ms": levels["solve_ms"],
-        "levels_cone_solve_ms": levels["levels_solve_ms"],
-        "cone_solve_rounds": levels["solve_rounds"],
-        "hard_pit_solve_ms": levels["pit_solve_ms"],
-        "levels_hard_pit_solve_ms": levels["levels_pit_solve_ms"],
-        "hard_pit_solve_rounds": levels["pit_solve_rounds"],
-        "terrain_step_ms": levels["step_ms"],
-        "terrain_step_rounds": levels["step_rounds"],
-        "block_jacobi_rounds": levels["jacobi_rounds"],
-        "b16_ms_by_orientation": b16["ms_by_orientation"],
-        "b16_levels_ms_by_orientation": b16["levels_ms_by_orientation"],
-        "b16_skipped_ms": b16["skipped_ms"],
-        "b16_levels_skipped_ms": b16["levels_skipped_ms"],
-        "b16_cone_solve_ms": b16["solve_ms"],
-        "b16_levels_cone_solve_ms": b16["levels_solve_ms"],
-        "b16_hard_pit_solve_ms": b16["pit_solve_ms"],
-        "b16_levels_hard_pit_solve_ms": b16["levels_pit_solve_ms"],
-        # the ring form on a 2048² window (10a) and the subset forms on a
-        # 4096² shard (11a), from the base
-        "ring_window_ms": ring_ms["kernel"],
-        "levels_ring_window_ms": ring_ms["levels"],
-        "ring_window_bound_ms": ring_ms["bound"],
-        "interior_ms": subset_ms["interior"]["kernel"],
-        "boundary_ms": subset_ms["boundary"]["kernel"],
-        "shard_ring_ms": subset_ms["all"]["kernel"],
-        "levels_interior_ms": subset_ms["interior"]["levels"],
-        "levels_boundary_ms": subset_ms["boundary"]["levels"],
-        "levels_shard_ring_ms": subset_ms["all"]["levels"],
-        "shard_ring_bound_ms": subset_ms["all"]["bound"],
+        "cluster_ctas": t["cluster"],
+        "ms_by_orientation": t["ms_by_orientation"],
+        "skipped_ms": t["skipped_ms"],
+        "skipped_bound_ms": t["skipped_bound"],
+        "partial_ms": t["partial_ms"],
+        "partial_bound_ms": t["partial_bound"],
+        "partial_dirty_share": t["partial_share"],
+        "critical_path_ms": t["critical_path_ms"],
+        "cone_solve_ms": t["solve_ms"],
+        "cone_solve_rounds": t["solve_rounds"],
+        "cone_solve_bound_ms": t["solve_bound"],
+        "hard_pit_solve_ms": t["pit_solve_ms"],
+        "hard_pit_solve_rounds": t["pit_solve_rounds"],
+        "hard_pit_solve_bound_ms": t["pit_solve_bound"],
     }
 
 
+def dataflow_entries(launches, err, levels, ring_ms, subset_ms):
+    """The kernels-line entries of K1 in the TPU's order, the dataflow
+    launch: one round at 2048² from the base (every block visited),
+    orientation 0, at the main path's B = 256 (a cluster of 16 CTAs a
+    block), and one entry each for B = 128 (clusters of 4) and 64 (one
+    CTA), beside the level launches they replaced at 64."""
+    by = levels["by_block"]
+    main_b = _block_size(N_MAIN, N_MAIN)
+    entries = []
+    for B in (main_b,) + tuple(b for b in TIMED_BLOCKS if b != main_b):
+        t = by[B]
+        entry = {
+            "name": "uca_gs_round_dataflow" + ("" if B == main_b
+                                               else "_b%d" % B),
+            "route": "cuda",
+            "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
+            "replaces": REPLACES_K1,
+            "launches": (launches if B == main_b
+                         else MAIN_BY_BLOCK.get(B, 0)),
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,  # no PyTorch call computes a relaxation round
+            "block": B,
+            "role": ("every K1 round of the main paths at their default B "
+                     "(canvas, ring and subset forms in the TPU's order, one "
+                     "launch a round)" if B == main_b else
+                     "K1 in the TPU's order at B=%d (B= and block_size= "
+                     "take it)" % B),
+            "sweep_ms": levels["sweep_ms"][B],
+        }
+        entry.update(block_figures(t))
+        if B == main_b:
+            entry.update({
+                "launches_by_block": dict(MAIN_BY_BLOCK),
+                "terrain_step_ms": levels["step_ms"],
+                "terrain_step_rounds": levels["step_rounds"],
+                "block_jacobi_rounds_b64": levels["jacobi_rounds"]})
+        if B == 64:
+            entry.update({
+                "levels_ms": t["levels_ms"],
+                "levels_ms_by_orientation": t["levels_ms_by_orientation"],
+                "levels_skipped_ms": t["levels_skipped_ms"],
+                "levels_partial_ms": t["levels_partial_ms"],
+                "levels_critical_path_ms": t["levels_critical_path_ms"],
+                "levels_cone_solve_ms": t["levels_solve_ms"],
+                "levels_hard_pit_solve_ms": t["levels_pit_solve_ms"],
+                # the ring form on a 2048² window (10a) and the subset
+                # forms on a 4096² shard (11a), from the base
+                "ring_window_ms": ring_ms["kernel"],
+                "levels_ring_window_ms": ring_ms["levels"],
+                "ring_window_bound_ms": ring_ms["bound"],
+                "interior_ms": subset_ms["interior"]["kernel"],
+                "boundary_ms": subset_ms["boundary"]["kernel"],
+                "shard_ring_ms": subset_ms["all"]["kernel"],
+                "levels_interior_ms": subset_ms["interior"]["levels"],
+                "levels_boundary_ms": subset_ms["boundary"]["levels"],
+                "levels_shard_ring_ms": subset_ms["all"]["levels"],
+                "shard_ring_bound_ms": subset_ms["all"]["bound"]})
+        entries.append(entry)
+    return entries
+
+
 def levels_entry(levels):
-    """The kernels-line entry of the level launches: the "before" column of
-    the dataflow launch, which no main path launches."""
+    """The kernels-line entry of the level launches at B = 64: the
+    "before" column of the dataflow launch, which no main path launches."""
+    t = levels["by_block"][64]
     return {
         "name": "uca_gs_round_levels",
         "route": "cuda",
@@ -3777,14 +4002,15 @@ def levels_entry(levels):
                     "order of gs_round_oriented :444 and _FLIPS :184)",
         "launches": 0,
         "role": "before: the level launches the dataflow launch replaced, "
-                "timed beside it; no main path launches them",
-        "max_abs_err": levels["err"],
-        "ms": levels["levels_ms"],
-        "plain_ms": levels["plain_ms"],
-        "bound_ms": levels["bound"],
-        "bound_by": levels["bound_by"],
+                "timed beside it at B=64; no main path launches them",
+        "max_abs_err": t["err"],
+        "ms": t["levels_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
-        "launches_per_round": levels["levels"],
+        "block": 64,
+        "launches_per_round": t["levels"],
     }
 
 
@@ -3804,8 +4030,10 @@ def main():
     phase_build()
     clock("2 build")
     k1_err, k2_err = 0.0, 0.0
-    for n in (N_CHECK, N_MAIN):
-        e1, e2 = phase_kernel_vs_plain(device, n)
+    for n in (N_CHECK, N_FORMS, N_MAIN):
+        # 1024² for the clusters' subset rounds (at 512², B = 256 is 2x2)
+        e1, e2 = phase_kernel_vs_plain(
+            device, n, (128, 256) if n == N_FORMS else KERNEL_BLOCKS)
         k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
         clock("3 kernels vs plain at %d²" % n)
     k1_launches = phase_main_path(device)
@@ -3816,11 +4044,13 @@ def main():
     phase_f64_chain(device)
     clock("6-7 K2 path, float64 chain")
     k1_ms, k2_ms, e1, e2, chain, levels = phase_times(device, card, state)
-    k1_err, k2_err = max(k1_err, e1, levels["err"]), max(k2_err, e2)
+    k1_err = max(k1_err, e1, *(t["err"] for t in levels["by_block"].values()))
+    k2_err = max(k2_err, e2)
     clock("8 times")
     k1_launches += phase_manager(device, card)
     clock("9 manager")
-    ring_ms, ring_err = phase_ring_round(device, card, levels)
+    ring_ms, ring_err = phase_ring_round(device, card,
+                                         levels["by_block"][64])
     k1_launches += phase_ooc_scale(device, card)
     k1_launches += phase_ooc_hard(device, card)
     phase_ooc_precision(device)
@@ -3837,8 +4067,8 @@ def main():
     clock("13 periphery")
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [
-        dataflow_entry(k1_launches, max(k1_err, ring_err, subset_err),
-                       levels, ring_ms, subset_ms),
+        *dataflow_entries(k1_launches, max(k1_err, ring_err, subset_err),
+                          levels, ring_ms, subset_ms),
         levels_entry(levels), {
             # K1 as block-Jacobi (uca_gs_round_kernel: the canvas form
             # timed here, the ring and subset forms the same kernel): the
@@ -3863,11 +4093,19 @@ def main():
             "replaces": "pydem_tpu/ops/uca_block.py:42",
             "launches": k2_launches,
             "max_abs_err": k2_err,
+            # one round at 2048² from the base at the solvers' default
+            # B = 256 (a cluster of 16 CTAs a block), and at 128, 64, 16
+            "block": 256,
             "ms": k2_ms["kernel"],
             "plain_ms": k2_ms["plain"],
             "bound_ms": k2_ms["bound"],
             "bound_by": k2_ms["bound_by"],
             "library_ms": None,
+            **{"b%d_%s" % (Bk, k): t[v]
+               for Bk, t in k2_ms["by_block"].items()
+               for k, v in (("ms", "kernel"), ("plain_ms", "plain"),
+                            ("bound_ms", "bound"))},
+            "launches_by_block": K2_BY_BLOCK,
         }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -278,7 +278,8 @@ class DEMProcessor:
     # "jacobi" = global sweeps; "blocked" = block rounds (the CUDA kernel on
     # a GPU); "auto" = blocked on CUDA with min(n, m) >= 256, else jacobi
     uca_solver = "auto"
-    # block size for the blocked solver (None = 64, or 16 below 64 px)
+    # block size for the blocked solver (None: the JAX rule, 256, or 128
+    # below 256 px)
     uca_block_size = None
 
     CONFIG_KEYS = [

@@ -53,8 +53,47 @@
 //  * The halo is 1 px in shared memory, not the TPU's (8, 128)-aligned pads
 //    or K2's pre-exploded (B+16, B+256) tiles.  Out of the canvas, x and
 //    the weights read 0.
-//  * B is 16 or 64.  The TPU solvers' B = 256 does not fit: one 258^2
-//    float32 window is 266 KB, more than an SM's 228 KB of shared memory.
+//  * B is 16, 64, 128 or 256 for the dataflow kernel and K2; the level
+//    launches and the block-Jacobi K1 forms, references only, are built for
+//    16 and 64.  One CTA holds a visit up to B = 64.  A 258^2 float32 window
+//    (266 KB) is more than one SM's 228 KB of shared memory, so at B = 128
+//    and 256 a visit is split over a thread-block cluster (below).
+//
+// The cluster visit (B = 128: 4 CTAs of 32 rows; B = 256: 16 CTAs of 16
+// rows, above the portable cluster size of 8, so the kernels allow the
+// non-portable size).  Each CTA of the cluster owns a band of B / C rows
+// across the whole block width, with the same thread mapping as a one-CTA
+// visit (R = 8 rows a thread, one column a lane, 512 threads), and keeps
+// its own (rows + 2) x (B + 2) windows.  Between two sweeps the bands swap
+// the rows next to the cut through distributed shared memory: the thread
+// that computes a band's first (last) row also stores the value into the
+// window row of the band above (below) that mirrors it, in the buffer the
+// neighbour reads next sweep; a warp that writes its strip's changed flag
+// stores it into the neighbour's ghost row of strip flags too, so the
+// strip-activity skip reads across the cut exactly as within a band.  One
+// cluster barrier (barrier.cluster.arrive.release / wait.acquire) per sweep
+// replaces the CTA barrier: it orders the remote stores of a sweep before
+// the next sweep's reads, and no CTA writes a buffer that another still
+// reads, because every CTA sweeps with the same parity.  The 4th-sweep
+// convergence test is a cluster-wide OR (each CTA stores its vote into
+// every CTA's vote slots before the barrier), so every CTA of the cluster
+// leaves the sweep loop at the same sweep.  Each CTA writes its band back;
+// the block's changed flag is the OR of the bands' (stored into rank 0's
+// slots, then a cluster barrier).  Every pixel's sum is the same rounding
+// sequence as in a one-CTA visit, and the sweeps, the skips and the exit
+// are the whole block's, so a cluster visit equals the plain version bit
+// for bit.  The dataflow kernel draws its tickets per cluster (rank 0 draws
+// and stores the ticket into every CTA's slot); after a visit's last
+// cluster barrier, which follows every CTA's write-back, rank 0 alone
+// fences and publishes the block's "done" epoch with a device-scope
+// release: the cluster barrier's release/acquire orders every band's
+// write-back before rank 0's fence, and the fence is cumulative, so a
+// successor that acquires the epoch reads every band.  One publication a
+// block keeps the epoch protocol and the waiters as they are (a count of C
+// releases per block would need C atomics and a waiter on epoch x C).  The
+// persistent grid is the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters); a launch whose cluster cannot be
+// resident fails, and the wrappers raise.
 //
 // K1 has a ring form (RING = 1), for a window of a larger canvas (an
 // engine visit, a shard): x, K and W1 carry a 1-px ring around the n x m
@@ -86,7 +125,8 @@
 //    windows use afterwards) or loads (K2, coalesced from the 8 planes) the
 //    8 incoming weights of each of its pixels once per visit and keeps them
 //    for all sweeps.  Shared memory holds only the two x windows and the
-//    strip flags: 34,976 bytes at B = 64.
+//    strip flags: 35,008 bytes at B = 64, 35,552 at 128 and 37,408 at 256
+//    (a CTA's band).
 //  * A register-tiled window.  Per sweep a thread reads the (R+2) x 3 window
 //    around its strip once and forms its R sums from registers: 30 loads and
 //    8 stores per 8 pixels at R = 8, where one pixel a time needs 17 and 1.
@@ -110,17 +150,20 @@
 // Not used, on purpose: tensor cores (wgmma), because the sum must be eight
 // separately rounded float32 products added in a fixed order, which no
 // matrix unit gives; TMA for the window, because a visit reads about 70 KB
-// once and then sweeps for tens of microseconds.  A visit runs on one SM;
-// splitting it over a thread-block cluster is later work.
+// once and then sweeps for tens of microseconds.  A visit up to B = 64 runs
+// on one SM, at B = 128 and 256 on the C SMs of its cluster.
 //
 // Numerics: the sum is base + w_0 x_0 + ... + w_7 x_7 in NEIGHBOR_OFFSETS
 // order with separate multiply and add roundings (__fmul_rn/__fadd_rn, and
 // the file is built with -fmad=false), as the plain versions compute it.
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 // NEIGHBOR_OFFSETS (core/stencil.py): E, NE, N, NW, W, SW, S, SE.
 __device__ __forceinline__ constexpr int off_i(int k) {
@@ -160,23 +203,68 @@ __device__ __forceinline__ void st_release(int* p, int v) {
                :: "l"(p), "r"(v) : "memory");
 }
 
-// Thread (tx, ty) of a (B, TY) block owns the pixels of column tx in rows
-// ty*R .. ty*R + R - 1.  The pixels of one warp form a strip of SH rows by
-// LW columns; the block is a grid of SR x SC strips.
+// This CTA's rank in its cluster, and the cluster barrier: every thread of
+// every CTA of the cluster arrives (release) and waits (acquire), so it
+// also orders the CTA's own shared memory as __syncthreads does.
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// p, a variable in this CTA's shared memory, in the shared memory of the
+// cluster's CTA `rank` (distributed shared memory).
+template <class T>
+__device__ __forceinline__ T* in_rank(T* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, static_cast<unsigned>(rank));
+}
+// The 32-bit shared::cluster address of this CTA's shared-memory address
+// `a` in the cluster's CTA `rank`, and stores through such an address: the
+// sweep's stores into a neighbour's window, which keep no 64-bit pointer.
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int rank) {
+  unsigned d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d) : "r"(a), "r"(rank));
+  return d;
+}
+__device__ __forceinline__ void st_cluster(unsigned a, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(a), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster(unsigned a, int v) {
+  asm volatile("st.shared::cluster.s32 [%0], %1;\n"
+               :: "r"(a), "r"(v) : "memory");
+}
+
+// A block visit at block size B runs on a cluster of C CTAs (C = 1 up to
+// B = 64), each owning a band of BR = B / C rows.  Thread (tx, ty) of a
+// (B, TY) CTA owns the pixels of column tx in rows ty*R .. ty*R + R - 1 of
+// its band.  The pixels of one warp form a strip of SH rows by LW columns;
+// the band is a grid of SR x SC strips.
 template <int B>
 struct Shape {
+  static constexpr int C = (B <= 64) ? 1 : ((B == 128) ? 4 : 16);
+  static constexpr int BR = B / C;              // rows of a CTA's band
   static constexpr int R = (B >= 64) ? 8 : 4;   // rows per thread
-  static constexpr int TY = B / R;              // thread rows
+  static constexpr int TY = BR / R;             // thread rows
   static constexpr int THREADS = B * TY;
-  static constexpr int WN = B + 2;              // window side
+  static constexpr int WR = BR + 2, WC = B + 2;  // window rows, columns
   static constexpr int LW = (B < 32) ? B : 32;  // strip width
   static constexpr int SH = R * (32 / LW);      // strip height
-  static constexpr int SR = B / SH, SC = B / LW;
-  static constexpr int NS = SR * SC;            // strips per block
+  static constexpr int SR = BR / SH, SC = B / LW;
+  // strip flags with a ghost row above and below: the flags of the
+  // neighbouring bands' edge strips (0 on the block's rim: the halo is
+  // frozen)
+  static constexpr int NF = (SR + 2) * SC;
   // two x windows and two sets of strip flags
   static constexpr size_t SMEM =
-      2 * WN * WN * sizeof(float) + 2 * NS * sizeof(int);
-  static_assert(THREADS % 32 == 0 && THREADS >= NS, "whole warps");
+      2 * WR * WC * sizeof(float) + 2 * NF * sizeof(int);
+  static_assert(B % C == 0 && BR % SH == 0 && THREADS % 32 == 0,
+                "whole warps");
+  static_assert(THREADS <= 1024, "one CTA");
   static_assert(SMEM <= 48 * 1024, "fits without the opt-in limit");
 };
 
@@ -190,21 +278,22 @@ struct CompactWeights {
   const uint8_t* K;
   const float* W1;
 
-  // w[r][k] for the thread's R pixels.  The (B+2)^2 source window of K and
-  // W1 is staged in `scratch` (the x windows' memory, free until this
-  // returns), then each thread reads the (R+2) x 3 sources around its strip
-  // once and hands each source's weights to the pixels that receive them.
+  // w[r][k] for the thread's R pixels of the band from row i0.  The
+  // (BR+2) x (B+2) source window of K and W1 is staged in `scratch` (the x
+  // windows' memory, free until this returns), then each thread reads the
+  // (R+2) x 3 sources around its strip once and hands each source's weights
+  // to the pixels that receive them.
   template <int B>
   __device__ __forceinline__ void load(float (&w)[Shape<B>::R][8],
                                        float* scratch, int n, int m, int i0,
                                        int j0) const {
     using S = Shape<B>;
-    constexpr int R = S::R, WN = S::WN;
+    constexpr int R = S::R, WR = S::WR, WC = S::WC;
     float* w1s = scratch;
-    uint8_t* ks = reinterpret_cast<uint8_t*>(scratch + WN * WN);
+    uint8_t* ks = reinterpret_cast<uint8_t*>(scratch + WR * WC);
     const int tx = threadIdx.x, r0 = threadIdx.y * R;
-    for (int t = threadIdx.y * B + tx; t < WN * WN; t += S::THREADS) {
-      const int gi = i0 - 1 + t / WN, gj = j0 - 1 + t % WN;
+    for (int t = threadIdx.y * B + tx; t < WR * WC; t += S::THREADS) {
+      const int gi = i0 - 1 + t / WC, gj = j0 - 1 + t % WC;
       const bool in = RING || (gi >= 0 && gi < n && gj >= 0 && gj < m);
       const size_t g = (size_t)(gi + RING) * (m + 2 * RING) + (gj + RING);
       cp_async4(w1s + t, in ? W1 + g : W1, in ? 4 : 0);  // 0.f outside
@@ -216,7 +305,7 @@ struct CompactWeights {
     for (int q = 0; q < R + 2; ++q) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const int t = (r0 + q) * WN + tx + c;
+        const int t = (r0 + q) * WC + tx + c;
         const int kk = ks[t];
         const int k1 = kk >> 4, k2 = kk & 15;
         const float w1 = w1s[t];
@@ -278,7 +367,8 @@ constexpr unsigned long long WAIT_LIMIT_NS = 20000000000ULL;
 
 // The dataflow round's wait: threads 0..MAX_PREDS-1 each take one
 // predecessor's "done" epoch with a device-scope acquire, then the barrier
-// hands what they acquired to every thread of the CTA.
+// hands what they acquired to every thread of the CTA.  Every CTA of a
+// cluster waits for itself: each reads its own halo.
 struct WaitPreds {
   const int* preds;  // MAX_PREDS flat block indices, -1 past the last
   const int* done;
@@ -300,8 +390,25 @@ struct WaitPreds {
   }
 };
 
+// The cluster's vote slots: each CTA stores its convergence vote (`sweep`)
+// into every CTA's slot of its rank, and its changed flag (`moved`) into
+// rank 0's; the dataflow kernel's ticket, stored by rank 0 into every CTA,
+// alternates between two slots.  `origin`: the visit's band origin and
+// flat block index, read again for the write-back, so that no register
+// holds them through the sweeps.
+template <int C>
+struct Votes {
+  int sweep[C];
+  int moved[C];
+  int ticket[2];
+  int origin[3];
+};
+
 // Relax block (bi, bj) to its local fixed point with its 1-px halo frozen,
-// write it to x_out and its changed flag to chg.  Every kernel ends here.
+// write it to x_out and its changed flag to chg.  Every kernel ends here;
+// at C > 1 every CTA of the cluster calls it for the same block, each on its
+// band (see the cluster visit at the top of the file), and it ends in a
+// cluster barrier after which rank 0 has written chg.
 // The weights and the base come first, then wait(), then the x window.
 // x and x_out are the same canvas for the in-place level launches, so neither
 // is __restrict__ here (the kernels that write a second buffer say so on
@@ -313,18 +420,22 @@ __device__ __forceinline__ void relax_block(
     const float* x, const Weights& weight,
     const float* __restrict__ base, float* x_out,
     int* __restrict__ chg, int n, int m, int inner_max, int bi, int bj,
-    const Wait& wait = Wait()) {
+    Votes<Shape<B>::C>& votes, const Wait& wait = Wait()) {
   using S = Shape<B>;
-  constexpr int R = S::R, WN = S::WN, NS = S::NS;
+  constexpr int R = S::R, WR = S::WR, WC = S::WC, C = S::C;
+  constexpr int SR = S::SR, SC = S::SC, NF = S::NF, TY = S::TY;
   extern __shared__ float smem[];
   float* cur = smem;            // x window read by this sweep
-  float* nxt = smem + WN * WN;  // x window written by this sweep
-  int* flags = reinterpret_cast<int*>(smem + 2 * WN * WN);
+  float* nxt = smem + WR * WC;  // x window written by this sweep
+  int* flags = reinterpret_cast<int*>(smem + 2 * WR * WC);
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * B + tx, lane = tid & 31;
-  const int i0 = bi * B, j0 = bj * B, r0 = ty * R;
+  int rank = 0;
+  if constexpr (C > 1) rank = cluster_rank();
+  const int i0 = bi * B + rank * S::BR, j0 = bj * B, r0 = ty * R;
   const size_t pitch = m + 2 * RING;  // row length of x and x_out
+  const bool above = rank > 0, below = rank < C - 1;  // neighbouring bands
 
   // Once per visit, into registers: the incoming weights and the base.
   float w[R][8];
@@ -335,9 +446,10 @@ __device__ __forceinline__ void relax_block(
     bse[r] = base[(size_t)(i0 + r0 + r) * m + (j0 + tx)];
   }
   wait();
-  // Halo window of x into both buffers (the halo stays frozen).
-  for (int t = tid; t < WN * WN; t += S::THREADS) {
-    const int gi = i0 - 1 + t / WN, gj = j0 - 1 + t % WN;
+  // Halo window of x into both buffers (the block's halo stays frozen; the
+  // rows next to another band are that band's, kept current by its stores).
+  for (int t = tid; t < WR * WC; t += S::THREADS) {
+    const int gi = i0 - 1 + t / WC, gj = j0 - 1 + t % WC;
     float v = 0.f;
     if (RING || (gi >= 0 && gi < n && gj >= 0 && gj < m)) {
       v = x[(size_t)(gi + RING) * pitch + (gj + RING)];
@@ -345,17 +457,58 @@ __device__ __forceinline__ void relax_block(
     cur[t] = v;
     nxt[t] = v;
   }
-  // Strip flags: the first sweep finds every strip "changed".
+  if (tid == 0) {
+    votes.origin[0] = i0;
+    votes.origin[1] = j0;
+    votes.origin[2] = bi * (m / B) + bj;
+  }
+  // Strip flags: the first sweep finds every strip "changed"; a ghost row
+  // with no band beyond it stays 0 in both sets.
   int* f_rd = flags;       // written by the sweep before
-  int* f_wr = flags + NS;  // written by this sweep
-  if (tid < NS) f_rd[tid] = 1;
-  __syncthreads();
+  int* f_wr = flags + NF;  // written by this sweep
+  for (int t = tid; t < NF; t += S::THREADS) {
+    const int row = t / SC;
+    f_rd[t] = !((row == 0 && !above) || (row == SR + 1 && !below));
+    f_wr[t] = 0;
+  }
+  // the windows and flags are set before a neighbour's first store into them
+  if constexpr (C > 1) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
 
   // This warp's strip, and the strip of its 3x3 neighbourhood that this
-  // lane polls (lanes 0..8; none beyond the block's rim: the halo is frozen).
+  // lane polls (lanes 0..8; a ghost row above or below the band; -1: none).
   const int sr = ty / (32 / S::LW), sc = tx / S::LW;
-  const int qr = sr + lane / 3 - 1, qc = sc + lane % 3 - 1;
-  const bool poll = lane < 9 && qr >= 0 && qr < S::SR && qc >= 0 && qc < S::SC;
+  const int qc = sc + lane % 3 - 1;
+  const int poll = (lane < 9 && qc >= 0 && qc < SC)
+                       ? (sr + lane / 3) * SC + qc : -1;
+  const int own = (sr + 1) * SC + sc;
+  // At C > 1, where this thread stores into a neighbouring band's shared
+  // memory (the address in the first buffer or flag set; 0: no store): the
+  // threads of the band's first row (ty = 0) their pixels into the bottom
+  // halo row of the band above, those of its last row (ty = TY - 1) into
+  // the top halo row of the band below; lane 0 of a strip on the band's
+  // first or last strip row its flag into that band's ghost row.  TY >= 2
+  // and SR >= 2, so a thread stores one row and a lane one flag at most.
+  unsigned row_to = 0, flag_to = 0;
+  if constexpr (C > 1) {
+    static_assert(TY >= 2 && SR >= 2, "one neighbour a thread");
+    const unsigned base_sh =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    if (ty == 0 && above) {
+      row_to = cluster_addr(base_sh, rank - 1) + ((WR - 1) * WC + tx + 1) * 4;
+    } else if (ty == TY - 1 && below) {
+      row_to = cluster_addr(base_sh, rank + 1) + (tx + 1) * 4;
+    }
+    if (lane == 0 && sr == 0 && above) {
+      flag_to = cluster_addr(base_sh, rank - 1)
+                + (2 * WR * WC + (SR + 1) * SC + sc) * 4;
+    } else if (lane == 0 && sr == SR - 1 && below) {
+      flag_to = cluster_addr(base_sh, rank + 1) + (2 * WR * WC + sc) * 4;
+    }
+  }
 
   int it = 0;
   int changed = 1;
@@ -363,12 +516,12 @@ __device__ __forceinline__ void relax_block(
 #pragma unroll 1
     for (int s = 0; s < 4; ++s) {
       int local = 0;
-      if (__any_sync(0xffffffffu, poll && f_rd[qr * S::SC + qc])) {
+      if (__any_sync(0xffffffffu, poll >= 0 && f_rd[poll])) {
         float v[R + 2][3];
 #pragma unroll
         for (int q = 0; q < R + 2; ++q) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) v[q][c] = cur[(r0 + q) * WN + tx + c];
+          for (int c = 0; c < 3; ++c) v[q][c] = cur[(r0 + q) * WC + tx + c];
         }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
@@ -379,14 +532,39 @@ __device__ __forceinline__ void relax_block(
                 acc, __fmul_rn(w[r][k], v[r + 1 - off_i(k)][1 - off_j(k)]));
           }
           local |= (acc != v[r + 1][1]);
-          nxt[(r0 + r + 1) * WN + tx + 1] = acc;
+          nxt[(r0 + r + 1) * WC + tx + 1] = acc;
+          if constexpr (C > 1) {
+            // the band's first and last rows into the neighbours' windows,
+            // into the buffer this sweep writes
+            if ((r == 0 || r == R - 1) && row_to
+                && (r == 0) == (ty == 0)) {
+              st_cluster(row_to + ((nxt == smem) ? 0u : WR * WC * 4u), acc);
+            }
+          }
         }
         local = __any_sync(0xffffffffu, local);
       }
-      if (lane == 0) f_wr[sr * S::SC + sc] = local;
+      if (lane == 0) {
+        f_wr[own] = local;
+        if constexpr (C > 1) {  // an edge strip's flag into the ghost row
+          if (flag_to) {
+            st_cluster(flag_to + ((f_wr == flags) ? 0u : NF * 4u), local);
+          }
+        }
+      }
       // one barrier per sweep: the next sweep writes what this one read
       if (s == 3) {
         changed = __syncthreads_or(local);
+        if constexpr (C > 1) {  // the whole block's vote
+          const int to = threadIdx.y * B + threadIdx.x;
+          if (to < C) *in_rank(&votes.sweep[cluster_rank()], to) = changed;
+          cluster_sync();
+          changed = 0;
+#pragma unroll
+          for (int k = 0; k < C; ++k) changed |= votes.sweep[k];
+        }
+      } else if constexpr (C > 1) {
+        cluster_sync();
       } else {
         __syncthreads();
       }
@@ -401,15 +579,33 @@ __device__ __forceinline__ void relax_block(
   }
 
   int moved = 0;
+  {
+    const int ti = votes.origin[0] + threadIdx.y * R + RING;
+    const int tj = votes.origin[1] + threadIdx.x + RING;
+    const int wt = (threadIdx.y * R + 1) * WC + threadIdx.x + 1;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const size_t g = (size_t)(i0 + r0 + r + RING) * pitch + (j0 + tx + RING);
-    const float v = cur[(r0 + r + 1) * WN + tx + 1];
-    moved |= (v != x[g]);
-    x_out[g] = v;
+    for (int r = 0; r < R; ++r) {
+      const size_t g = (size_t)(ti + r) * (m + 2 * RING) + tj;
+      const float v = cur[wt + r * WC];
+      moved |= (v != x[g]);
+      x_out[g] = v;
+    }
   }
   moved = __syncthreads_or(moved);
-  if (tid == 0) chg[(i0 / B) * (m / B) + j0 / B] = moved;
+  const bool first = threadIdx.x == 0 && threadIdx.y == 0;
+  if constexpr (C > 1) {
+    const int me = cluster_rank();
+    if (first) *in_rank(&votes.moved[me], 0) = moved;
+    cluster_sync();  // after every band's write-back
+    if (me == 0 && first) {
+      int any = 0;
+#pragma unroll
+      for (int k = 0; k < C; ++k) any |= votes.moved[k];
+      chg[votes.origin[2]] = any;
+    }
+  } else if (first) {
+    chg[votes.origin[2]] = moved;
+  }
 }
 
 // K1: one round over the compact receivers with the frontier skip.  RING = 1
@@ -418,7 +614,8 @@ __device__ __forceinline__ void relax_block(
 // visits the listed blocks.  prev_ring: prev carries a 1-block flag ring.
 // The minimum of one block per SM lets ptxas give the 64-thread B = 16
 // blocks more than the 64 registers it otherwise holds them to (where the
-// block index read from the list spilled); B = 64 is unchanged.
+// block index read from the list spilled); B = 64 is unchanged.  A
+// reference form, built for B = 16 and 64 (one CTA a visit).
 template <int B, int RING>
 __global__ void __launch_bounds__(Shape<B>::THREADS, 1)
 uca_gs_round_kernel(const float* __restrict__ x,
@@ -431,6 +628,8 @@ uca_gs_round_kernel(const float* __restrict__ x,
                     const int* __restrict__ blocks,
                     int n, int m, int inner_max, int prev_ring) {
   using S = Shape<B>;
+  static_assert(S::C == 1, "a reference form: one CTA a visit");
+  __shared__ Votes<1> votes;
   const int nb_i = n / B, nb_j = m / B;
   int bi = blockIdx.y, bj = blockIdx.x;
   if (blocks != nullptr) {
@@ -444,11 +643,11 @@ uca_gs_round_kernel(const float* __restrict__ x,
     // The ring pixels on the perimeter of this block's window; a corner of
     // the ring is written by up to three blocks, all with the same value.
     const int t = threadIdx.y * B + threadIdx.x;
-    if (t < S::WN) {
+    if (t < S::WC) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {  // top, bottom, left, right
-        const int wi = (e == 0) ? 0 : ((e == 1) ? S::WN - 1 : t);
-        const int wj = (e < 2) ? t : ((e == 2) ? 0 : S::WN - 1);
+        const int wi = (e == 0) ? 0 : ((e == 1) ? S::WC - 1 : t);
+        const int wj = (e < 2) ? t : ((e == 2) ? 0 : S::WC - 1);
         const int gi = bi * B - 1 + wi, gj = bj * B - 1 + wj;
         if (gi < 0 || gi >= n || gj < 0 || gj >= m) {
           const size_t g = (size_t)(gi + 1) * pitch + (gj + 1);
@@ -481,7 +680,7 @@ uca_gs_round_kernel(const float* __restrict__ x,
     return;
   }
   relax_block<B, RING>(x, CompactWeights<RING>{K, W1}, base, x_out, chg, n, m,
-                       inner_max, bi, bj);
+                       inner_max, bi, bj, votes);
 }
 
 // The frontier of the rounds in the TPU's order: relax only if some block
@@ -508,7 +707,7 @@ __device__ __forceinline__ bool frontier_dirty(const int* __restrict__ prev,
 // flag in chg (0 if skipped; a skipped block writes nothing else).  x is not
 // __restrict__: it is read and written through the one pointer, and no
 // load of it may take the read-only path.  RING as in uca_gs_round_kernel;
-// the ring is never written.
+// the ring is never written.  A reference form, built for B = 16 and 64.
 template <int B, int RING>
 __global__ void __launch_bounds__(Shape<B>::THREADS, 1)
 uca_gs_level_kernel(float* x,
@@ -519,6 +718,8 @@ uca_gs_level_kernel(float* x,
                     int* __restrict__ chg,
                     const int* __restrict__ rows,
                     int n, int m, int inner_max) {
+  static_assert(Shape<B>::C == 1, "a reference form: one CTA a visit");
+  __shared__ Votes<1> votes;
   const int nb_i = n / B, nb_j = m / B;
   const int b = rows[blockIdx.x * ROW];
   const int bi = b / nb_j, bj = b - bi * nb_j;
@@ -527,14 +728,15 @@ uca_gs_level_kernel(float* x,
     return;
   }
   relax_block<B, RING>(x, CompactWeights<RING>{K, W1}, base, x, chg, n, m,
-                       inner_max, bi, bj);
+                       inner_max, bi, bj, votes);
 }
 
 // K1 in the TPU's Gauss-Seidel order, a whole round in one persistent
-// launch.  Each CTA draws tickets from the 64-bit counter (ticket =
-// counter - start, until it draws one past `rows`); ticket t is row t of
-// the dependency table, rows sorted by level, a topological order.  A CTA
-// that holds a ticket waits only for lower tickets, all held by CTAs that
+// launch.  Each unit (a CTA, or at B = 128 and 256 a cluster, whose rank 0
+// draws for it) draws tickets from the 64-bit counter (ticket = counter -
+// start, until it draws one past `rows`); ticket t is row t of the
+// dependency table, rows sorted by level, a topological order.  A unit
+// that holds a ticket waits only for lower tickets, all held by units that
 // are running, so the round cannot deadlock, whatever the grid and
 // whatever else shares the card.  A dirty block stages its weights and
 // base, waits until each predecessor has published this round's epoch in
@@ -554,36 +756,55 @@ uca_gs_dataflow_kernel(float* x,
                        unsigned long long* counter, int* done,
                        int n, int m, int inner_max, int rows, int epoch,
                        unsigned long long start) {
-  __shared__ int ticket;
+  constexpr int C = Shape<B>::C;
+  __shared__ Votes<C> votes;
   const int nb_i = n / B, nb_j = m / B;
   const int tid = threadIdx.y * B + threadIdx.x;
-  for (;;) {
-    if (tid == 0) {
-      const unsigned long long t = atomicAdd(counter, 1ULL) - start;
-      ticket = t < (unsigned long long)rows ? (int)t : rows;
+  int rank = 0;
+  if constexpr (C > 1) rank = cluster_rank();
+  for (int par = 0;; par ^= 1) {
+    // rank 0 draws; the ticket slot alternates, so a slot is written again
+    // only after every CTA has passed the next draw's barrier
+    if (rank == 0 && tid < 32) {
+      unsigned long long t = 0;
+      if (tid == 0) t = atomicAdd(counter, 1ULL) - start;
+      t = __shfl_sync(0xffffffffu, t, 0);
+      const int ticket = t < (unsigned long long)rows ? (int)t : rows;
+      if constexpr (C > 1) {
+        if (tid < C) *in_rank(&votes.ticket[par], tid) = ticket;
+      } else if (tid == 0) {
+        votes.ticket[par] = ticket;
+      }
     }
-    __syncthreads();
-    const int t = ticket;
-    __syncthreads();  // read by all before thread 0 draws again
+    if constexpr (C > 1) {
+      cluster_sync();
+    } else {
+      __syncthreads();
+    }
+    const int t = votes.ticket[par];
     if (t >= rows) return;
     const int* row = table + (size_t)t * ROW;
     const int b = row[0];
     const int bi = b / nb_j, bj = b - bi * nb_j;
     if (frontier_dirty(prev, nb_i, nb_j, bi, bj)) {
       relax_block<B, RING>(x, CompactWeights<RING>{K, W1}, base, x, chg, n,
-                           m, inner_max, bi, bj,
+                           m, inner_max, bi, bj, votes,
                            WaitPreds{row + 1, done, epoch});
-    } else if (tid == 0) {
+    } else if (rank == 0 && tid == 0) {
       chg[b] = 0;
     }
-    if (tid == 0) {  // relax_block ended in a barrier after the write-back
+    // relax_block ended in a barrier (of the cluster) after every band's
+    // write-back; the fence is cumulative over what that barrier ordered.
+    // The block is read again from the ticket, not kept through the visit.
+    if (rank == 0 && tid == 0) {
       __threadfence();
-      st_release(done + b, epoch);
+      st_release(done + table[(size_t)votes.ticket[par] * ROW], epoch);
     }
   }
 }
 
-// K2: one round over the dense weight planes, every block visited.
+// K2: one round over the dense weight planes, every block visited; the
+// (C * m/B, n/B) grid runs a cluster of C CTAs a block.
 template <int B>
 __global__ void __launch_bounds__(Shape<B>::THREADS)
 uca_block_round_kernel(const float* __restrict__ x,
@@ -592,20 +813,82 @@ uca_block_round_kernel(const float* __restrict__ x,
                        float* __restrict__ x_out,
                        int* __restrict__ chg,
                        int n, int m, int inner_max) {
+  __shared__ Votes<Shape<B>::C> votes;
   relax_block<B, 0>(x, DenseWeights{W}, base, x_out, chg, n, m, inner_max,
-                    blockIdx.y, blockIdx.x);
+                    blockIdx.y, blockIdx.x / Shape<B>::C, votes);
+}
+
+// The launch configuration of a kernel at block size B: (B, TY) CTAs and
+// their dynamic shared memory, in clusters of C CTAs along x when C > 1.
+// The kernels allow cluster sizes above the portable 8 (B = 256).
+template <int B, class Kernel>
+cudaError_t configure(Kernel kernel, dim3 grid, cudaStream_t stream,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  using S = Shape<B>;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(B, S::TY);
+  cfg.dynamicSmemBytes = S::SMEM;
+  cfg.stream = stream;
+  if constexpr (S::C == 1) return cudaSuccess;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = S::C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if constexpr (S::C > 8) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return cudaSuccess;
+}
+
+template <int B, class... KArgs, class... Args>
+cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, cudaStream_t stream,
+                   Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure<B>(kernel, grid, stream, cfg, attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// What the card holds at once of a kernel at block size B: CTAs at C = 1
+// (SMs x CTAs per SM), clusters at C > 1 (0 if no cluster fits); a
+// negative cudaError_t on failure.
+template <int B, class Kernel>
+int resident(Kernel kernel) {
+  using S = Shape<B>;
+  cudaError_t err;
+  if constexpr (S::C == 1) {
+    int dev = 0, sms = 0, per = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
+                                                          S::THREADS, S::SMEM);
+    }
+    return err == cudaSuccess ? sms * per : -(int)err;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  err = configure<B>(kernel, dim3(S::C), nullptr, cfg, attr);
+  int clusters = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  }
+  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 // nblocks < 0: the (m/B, n/B) grid of every block; else a 1-D grid of
 // nblocks (the length of a block list).
-template <int B, class Kernel, class... Args>
-cudaError_t launch(Kernel kernel, int n, int m, int nblocks,
-                   cudaStream_t stream, Args... args) {
-  using S = Shape<B>;
-  const dim3 grid = nblocks < 0 ? dim3(m / B, n / B) : dim3(nblocks);
-  const dim3 block(B, S::TY);
-  kernel<<<grid, block, S::SMEM, stream>>>(args...);
-  return cudaGetLastError();
+dim3 block_grid(int B, int n, int m, int nblocks) {
+  return nblocks < 0 ? dim3(m / B, n / B) : dim3(nblocks);
 }
 
 template <int RING>
@@ -624,15 +907,14 @@ int gs_round_entry(const void* x, const void* K, const void* W1,
   auto st = static_cast<cudaStream_t>(stream);
   if (lf == nullptr) nblocks = -1;
   if (nblocks == 0) return cudaSuccess;  // an empty list visits nothing
+  const dim3 grid = block_grid(B, n, m, nblocks);
   switch (B) {
     case 16:
-      return launch<16>(uca_gs_round_kernel<16, RING>, n, m, nblocks, st, xf,
-                        kf, wf, bf, pf, of, cf, lf, n, m, inner_max,
-                        prev_ring);
+      return launch<16>(uca_gs_round_kernel<16, RING>, grid, st, xf, kf, wf,
+                        bf, pf, of, cf, lf, n, m, inner_max, prev_ring);
     case 64:
-      return launch<64>(uca_gs_round_kernel<64, RING>, n, m, nblocks, st, xf,
-                        kf, wf, bf, pf, of, cf, lf, n, m, inner_max,
-                        prev_ring);
+      return launch<64>(uca_gs_round_kernel<64, RING>, grid, st, xf, kf, wf,
+                        bf, pf, of, cf, lf, n, m, inner_max, prev_ring);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -646,26 +928,11 @@ cudaError_t gs_levels(float* x, const uint8_t* K, const float* W1,
     const int count = offsets[l + 1] - offsets[l];
     if (count <= 0) continue;
     const cudaError_t err = launch<B>(
-        uca_gs_level_kernel<B, RING>, n, m, count, stream, x, K, W1, base,
+        uca_gs_level_kernel<B, RING>, dim3(count), stream, x, K, W1, base,
         prev, chg, table + (size_t)offsets[l] * ROW, n, m, inner_max);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-template <int B, int RING>
-int dataflow_ctas() {
-  int dev = 0, sms = 0, per = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, uca_gs_dataflow_kernel<B, RING>, Shape<B>::THREADS,
-        Shape<B>::SMEM);
-  }
-  return err == cudaSuccess ? sms * per : -(int)err;
 }
 
 }  // namespace
@@ -673,7 +940,7 @@ int dataflow_ctas() {
 // One K1 round (compact receivers, frontier).  All arrays are row-major and
 // contiguous on the current device: x, W1, base, x_out (n, m) float32; K
 // (n, m) uint8; prev, chg (n/B, m/B) int32.  n and m are multiples of B; B
-// is 16 or 64, the block sizes the solvers use.  Launches on `stream` and
+// is 16 or 64 (a block-Jacobi reference form).  Launches on `stream` and
 // does not synchronise.  Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int uca_gs_round_f32(const void* x, const void* K, const void* W1,
@@ -690,9 +957,9 @@ extern "C" int uca_gs_round_f32(const void* x, const void* K, const void* W1,
 // as in uca_gs_round_ring_list_f32 (the ring is read, never written).  prev,
 // chg (n/B, m/B) int32.  table (on the device) holds the round's dependency
 // rows (block, MAX_PREDS predecessors), sorted by level; offsets (on the
-// host, n_levels + 1 ints) bound each level's rows.  Launches each level on
-// `stream`, in order, and does not synchronise.  Returns the cudaError_t of
-// the first failed launch (0 on success).
+// host, n_levels + 1 ints) bound each level's rows.  B is 16 or 64.
+// Launches each level on `stream`, in order, and does not synchronise.
+// Returns the cudaError_t of the first failed launch (0 on success).
 extern "C" int uca_gs_round_levels_f32(void* x, const void* K, const void* W1,
                                        const void* base, const void* prev,
                                        void* chg, const void* table,
@@ -720,19 +987,20 @@ extern "C" int uca_gs_round_levels_f32(void* x, const void* K, const void* W1,
 }
 
 // One K1 round in the TPU's Gauss-Seidel order, in place on x, as one
-// persistent launch of `ctas` CTAs (uca_gs_dataflow_kernel).  x, K, W1,
-// base, prev, chg, ring as in uca_gs_round_levels_f32; table (on the
-// device) the round's `rows` dependency rows in a topological order.
+// persistent launch of `units` units (uca_gs_dataflow_kernel): CTAs at
+// B = 16 and 64, clusters of uca_block_cluster_size(B) CTAs at 128 and 256.
+// x, K, W1, base, prev, chg, ring as in uca_gs_round_levels_f32; table (on
+// the device) the round's `rows` dependency rows in a topological order.
 // state (on the device): a 64-bit ticket counter, then one int32 "done"
 // epoch per block of the grid; the caller keeps it for every round on
 // `stream`, passes a new `epoch` each round and the counter's value at the
-// round's start in `start` (each round adds rows + ctas to it).  Launches
+// round's start in `start` (each round adds rows + units to it).  Launches
 // on `stream` and does not synchronise.  Returns the cudaError_t of the
 // launch (0 on success).
 extern "C" int uca_gs_round_dataflow_f32(
     void* x, const void* K, const void* W1, const void* base,
     const void* prev, void* chg, const void* table, void* state, int n,
-    int m, int B, int inner_max, int ring, int rows, int ctas, int epoch,
+    int m, int B, int inner_max, int ring, int rows, int units, int epoch,
     unsigned long long start, void* stream) {
   auto* xf = static_cast<float*>(x);
   const auto* kf = static_cast<const uint8_t*>(K);
@@ -745,23 +1013,42 @@ extern "C" int uca_gs_round_dataflow_f32(
   auto* done = static_cast<int*>(state) + 2;
   auto st = static_cast<cudaStream_t>(stream);
   if (rows <= 0) return cudaSuccess;  // an empty round visits nothing
-#define DATAFLOW(BB, RR)                                                  \
-  return launch<BB>(uca_gs_dataflow_kernel<BB, RR>, n, m, ctas, st, xf,   \
-                    kf, wf, bf, pf, cf, tf, counter, done, n, m, inner_max, \
-                    rows, epoch, start)
+#define DATAFLOW(BB, RR)                                                    \
+  return launch<BB>(uca_gs_dataflow_kernel<BB, RR>,                         \
+                    dim3(units * Shape<BB>::C), st, xf, kf, wf, bf, pf, cf, \
+                    tf, counter, done, n, m, inner_max, rows, epoch, start)
   if (B == 16 && !ring) DATAFLOW(16, 0);
   if (B == 16 && ring) DATAFLOW(16, 1);
   if (B == 64 && !ring) DATAFLOW(64, 0);
   if (B == 64 && ring) DATAFLOW(64, 1);
+  if (B == 128 && !ring) DATAFLOW(128, 0);
+  if (B == 128 && ring) DATAFLOW(128, 1);
+  if (B == 256 && !ring) DATAFLOW(256, 0);
+  if (B == 256 && ring) DATAFLOW(256, 1);
 #undef DATAFLOW
   return cudaErrorInvalidValue;
 }
 
-// The CTAs of uca_gs_dataflow_kernel<B, ring> that the current device holds
-// at once (SMs x CTAs per SM); a negative cudaError_t on failure.
-extern "C" int uca_gs_dataflow_ctas(int B, int ring) {
-  if (B == 16) return ring ? dataflow_ctas<16, 1>() : dataflow_ctas<16, 0>();
-  if (B == 64) return ring ? dataflow_ctas<64, 1>() : dataflow_ctas<64, 0>();
+// The units of uca_gs_dataflow_kernel<B, ring> (kernel = 0) or of
+// uca_block_round_kernel<B> (kernel = 1) that the current device holds at
+// once: CTAs at B = 16 and 64, clusters at 128 and 256 (0: none fits); a
+// negative cudaError_t on failure.
+extern "C" int uca_resident_units(int kernel, int B, int ring) {
+  if (kernel == 1) {
+    if (B == 16) return resident<16>(uca_block_round_kernel<16>);
+    if (B == 64) return resident<64>(uca_block_round_kernel<64>);
+    if (B == 128) return resident<128>(uca_block_round_kernel<128>);
+    if (B == 256) return resident<256>(uca_block_round_kernel<256>);
+    return -(int)cudaErrorInvalidValue;
+  }
+#define RESIDENT(BB)                                                    \
+  return ring ? resident<BB>(uca_gs_dataflow_kernel<BB, 1>)             \
+              : resident<BB>(uca_gs_dataflow_kernel<BB, 0>)
+  if (B == 16) RESIDENT(16);
+  if (B == 64) RESIDENT(64);
+  if (B == 128) RESIDENT(128);
+  if (B == 256) RESIDENT(256);
+#undef RESIDENT
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -790,9 +1077,10 @@ extern "C" int uca_gs_round_ring_list_f32(const void* x, const void* K,
 
 // One K2 round (dense weight planes, every block).  x, base, x_out (n, m)
 // and W (8, n, m) float32, chg (n/B, m/B) int32, all row-major and
-// contiguous on the current device; n, m multiples of B; B is 16 or 64.
-// Launches on `stream` and does not synchronise.  Returns the cudaError_t
-// of the launch (0 on success).
+// contiguous on the current device; n, m multiples of B; B is 16, 64, 128
+// or 256 (a cluster of uca_block_cluster_size(B) CTAs a block).  Launches
+// on `stream` and does not synchronise.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int uca_block_round_f32(const void* x, const void* W,
                                    const void* base, void* x_out, void* chg,
                                    int n, int m, int B, int inner_max,
@@ -803,24 +1091,41 @@ extern "C" int uca_block_round_f32(const void* x, const void* W,
   auto* of = static_cast<float*>(x_out);
   auto* cf = static_cast<int*>(chg);
   auto st = static_cast<cudaStream_t>(stream);
+#define K2(BB)                                                               \
+  return launch<BB>(uca_block_round_kernel<BB>,                              \
+                    dim3(m / BB * Shape<BB>::C, n / BB), st, xf, wf, bf, of, \
+                    cf, n, m, inner_max)
   switch (B) {
-    case 16:
-      return launch<16>(uca_block_round_kernel<16>, n, m, -1, st, xf, wf, bf,
-                        of, cf, n, m, inner_max);
-    case 64:
-      return launch<64>(uca_block_round_kernel<64>, n, m, -1, st, xf, wf, bf,
-                        of, cf, n, m, inner_max);
+    case 16: K2(16);
+    case 64: K2(64);
+    case 128: K2(128);
+    case 256: K2(256);
     default: return cudaErrorInvalidValue;
   }
+#undef K2
 }
 
-// Bytes of dynamic shared memory a block of either kernel uses at block
-// size B (ptxas does not report dynamic shared memory); -1 for a B the
-// kernels are not built for.
+// Bytes of dynamic shared memory a CTA of either kernel uses at block size
+// B (ptxas does not report dynamic shared memory); -1 for a B the kernels
+// are not built for.
 extern "C" int uca_block_smem_bytes(int B) {
   switch (B) {
     case 16: return (int)Shape<16>::SMEM;
     case 64: return (int)Shape<64>::SMEM;
+    case 128: return (int)Shape<128>::SMEM;
+    case 256: return (int)Shape<256>::SMEM;
+    default: return -1;
+  }
+}
+
+// The CTAs of the cluster that relaxes one block at block size B (1: one
+// CTA); -1 for a B the kernels are not built for.
+extern "C" int uca_block_cluster_size(int B) {
+  switch (B) {
+    case 16: return Shape<16>::C;
+    case 64: return Shape<64>::C;
+    case 128: return Shape<128>::C;
+    case 256: return Shape<256>::C;
     default: return -1;
   }
 }

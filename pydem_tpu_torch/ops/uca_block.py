@@ -45,10 +45,18 @@ sum is the rounding sequence of a whole-canvas round.  The solvers run the
 JAX package's rounds: ``accumulate_blocked_gs`` and
 ``accumulate_blocked_pits_gs`` round r at orientation r % 4, the engine's
 visit at ``(o0 + r) % 4`` (:func:`_in_turn`), the mesh's rounds at
-``r % 4``, each at the same B and ``inner_max``.  The TPU solvers take
-B = 256; the kernel is built for B ∈ {16, 64} (one 258² float32 window,
-266 KB, is more than an SM's 228 KB of shared memory), so the callers keep
-``B = 64`` or 16 and the rounds are JAX's at that B.
+``r % 4``, each at the same B and ``inner_max``.  The solvers default to
+the TPU solvers' B = 256, and the callers take the JAX functions' rules
+(256, or 128 on small canvases), so the defaults return the JAX package's
+rounds.  The dataflow kernel and K2 are built for B ∈ ``KERNEL_BLOCKS``
+(16, 64, 128, 256).  One 258² float32 window (266 KB) is more than an
+SM's 228 KB of shared memory, so at B = 128 and 256 one block visit is
+relaxed by a thread-block cluster of 4 or 16 CTAs, each owning a band of
+the block's rows and swapping the rows next to the cut with its
+neighbours through distributed shared memory between sweeps
+(:func:`kernel_cluster_size`); it computes what one CTA would, bit for
+bit.  The level launches and the block-Jacobi forms, references only, are
+built for ``REFERENCE_BLOCKS`` (16, 64) and raise at any other B.
 
 :func:`gs_round` is K1's canvas form as block-Jacobi: every block reads the
 round-start canvas and writes a new one, as K2 does on the TPU.  It reaches
@@ -82,8 +90,12 @@ from ..core.uca import PitLinks
 # index plane K = k1*16 + k2 (15 = "no edge"; stored as uint8, all-none is
 # 255) plus one weight plane W1; the slot-2 weight is 1 - W1.
 _NO_EDGE = 15
-# block sizes the CUDA kernels are built for: those the solvers use
-KERNEL_BLOCKS = (16, 64)
+# block sizes the dataflow kernel (K1 in the TPU's order) and K2 are built
+# for; at 128 and 256 a visit runs on a thread-block cluster
+KERNEL_BLOCKS = (16, 64, 128, 256)
+# block sizes of the reference forms: the level launches and K1's
+# block-Jacobi canvas, ring and subset rounds (one CTA a visit)
+REFERENCE_BLOCKS = (16, 64)
 
 
 def compact_from_dense(W):
@@ -533,12 +545,12 @@ def block_round_plain(x, W, base, *, B, inner_max):
     return _relax_blocks(x, W, base, dirty, B=B, inner_max=inner_max)
 
 
-def _check_kernel_args(x, B, named):
+def _check_kernel_args(x, B, named, blocks=KERNEL_BLOCKS):
     if x.dtype != torch.float32:
         raise TypeError("the CUDA kernel takes float32, got %s" % x.dtype)
-    if B not in KERNEL_BLOCKS:
+    if B not in blocks:
         raise ValueError("the CUDA kernel is built for B in %s, got %d"
-                         % (KERNEL_BLOCKS, B))
+                         % (blocks, B))
     for name, t in (("x", x),) + named:
         if t.device != x.device:
             raise ValueError("%s is on %s, x on %s"
@@ -547,9 +559,13 @@ def _check_kernel_args(x, B, named):
             raise ValueError("%s must be contiguous" % name)
 
 
-def _count(wrapper, device, launches=1):
-    """``launches`` launches of ``wrapper``'s kernel on ``device``."""
+def _count(wrapper, device, launches=1, B=None):
+    """``launches`` launches of ``wrapper``'s kernel on ``device``, and at
+    block size ``B`` where the wrapper counts by block size too
+    (``launches_by_block``)."""
     wrapper.launches_on[device] += launches
+    if B is not None:
+        wrapper.launches_by_block[B] += launches
 
 
 def launch_count(wrapper):
@@ -584,7 +600,7 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
         raise ValueError("gs_round: unsupported device %s" % x.device)
     _check_round_args(x, K, W1, base, prev, B)
     _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
-                              ("prev", prev)))
+                              ("prev", prev)), REFERENCE_BLOCKS)
     n, m = x.shape
     out = torch.empty_like(x)
     chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
@@ -597,7 +613,8 @@ def gs_round(x, K, W1, base, prev, *, B, inner_max):
 gs_round.launches_on = collections.Counter()
 
 
-def _oriented_args(name, x, K, W1, base, o, B, prev, ring, subset, inplace):
+def _oriented_args(name, x, K, W1, base, o, B, prev, ring, subset, inplace,
+                   blocks=KERNEL_BLOCKS):
     """Checks and buffers of a kernel round in the TPU's order: ``(o, prev,
     out, chg)``, ``out`` the canvas the round updates in place (``x``, or
     a copy of it)."""
@@ -606,7 +623,7 @@ def _oriented_args(name, x, K, W1, base, o, B, prev, ring, subset, inplace):
     o = _check_orientation(o)
     prev = _check_form(x, K, W1, base, prev, B, ring, subset)
     _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
-                              ("prev", prev)))
+                              ("prev", prev)), blocks)
     n, m = base.shape
     out = x if inplace else x.clone()
     new = torch.empty if subset == "all" else torch.zeros
@@ -618,9 +635,10 @@ class _Tickets:
     """The device state of dataflow rounds on one stream, for one block
     grid: a 64-bit ticket counter and a "done" epoch per block, allocated
     once and never reset.  Each round takes the next epoch; a launch of
-    ``c`` CTAs over ``t`` tickets adds ``t + c`` to the counter (each CTA
-    draws one ticket past the last), so the host knows where the next
-    round's tickets start without reading the device."""
+    ``c`` units (CTAs, or clusters at B = 128 and 256) over ``t`` tickets
+    adds ``t + c`` to the counter (each unit draws one ticket past the
+    last), so the host knows where the next round's tickets start without
+    reading the device."""
 
     def __init__(self, blocks, device):
         self.buf = torch.zeros(2 + blocks, dtype=torch.int32, device=device)
@@ -636,19 +654,32 @@ def _tickets(device, stream, blocks):
     return _Tickets(blocks, device)
 
 
+_KINDS = ("dataflow", "k2")
+
+
 @functools.cache
-def _resident_ctas(device, B, ring):
-    """How many CTAs of the dataflow kernel the card holds at once."""
+def resident_units(device, B, ring=False, kind="dataflow"):
+    """How many units of a kernel the card ``device`` holds at once: CTAs
+    at B = 16 and 64, clusters of :func:`kernel_cluster_size` CTAs at 128
+    and 256; ``kind`` ``"dataflow"`` (K1 in the TPU's order, ``ring`` its
+    ring form) or ``"k2"``.  Raises ``RuntimeError`` when none can be
+    resident: the wrappers launch the cluster kernel or raise, never run
+    another block size instead."""
     from ._build import load
 
-    fn = load("uca_block").uca_gs_dataflow_ctas
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    fn = load("uca_block").uca_resident_units
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
     with torch.cuda.device(device):
-        ctas = fn(B, int(ring))
-    if ctas <= 0:
-        raise RuntimeError("uca_gs_dataflow_ctas failed: cudaError %d"
-                           % -ctas)
-    return ctas
+        units = fn(_KINDS.index(kind), B, int(ring))
+    if units < 0:
+        raise RuntimeError("uca_resident_units(%s, B=%d) failed: cudaError "
+                           "%d" % (kind, B, -units))
+    if units == 0:
+        raise RuntimeError("no cluster of %d CTAs of the %s kernel at B=%d "
+                           "can be resident on %s"
+                           % (kernel_cluster_size(B), kind, B, device))
+    return units
 
 
 def gs_round_oriented(x, K, W1, base, o, *, B, inner_max, prev=None,
@@ -677,23 +708,24 @@ def gs_round_oriented(x, K, W1, base, o, *, B, inner_max, prev=None,
     table, _offsets, _levels = _device_table(n // B, m // B, o, subset,
                                              x.device)
     rows = table.shape[0]
-    ctas = min(rows, _resident_ctas(x.device, B, bool(ring)))
+    units = min(rows, resident_units(x.device, B, bool(ring)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     st = _tickets(x.device, stream, (n // B) * (m // B))
     st.epoch += 1
     try:
         _launch("uca_gs_round_dataflow_f32", out, K, W1, base, prev, chg,
                 table, st.buf, n, m, B, inner_max, int(bool(ring)), rows,
-                ctas, st.epoch, st.start)
+                units, st.epoch, st.start)
     except RuntimeError:
         _tickets.cache_clear()  # the counter no longer says where it is
         raise
-    st.start += rows + ctas
-    _count(gs_round_oriented, x.device)
+    st.start += rows + units
+    _count(gs_round_oriented, x.device, B=B)
     return out, chg
 
 
 gs_round_oriented.launches_on = collections.Counter()
+gs_round_oriented.launches_by_block = collections.Counter()
 
 
 def gs_round_levels(x, K, W1, base, o, *, B, inner_max, prev=None, ring=False,
@@ -705,7 +737,8 @@ def gs_round_levels(x, K, W1, base, o, *, B, inner_max, prev=None, ring=False,
     no solver calls it.  ``gs_round_levels.launches_on`` counts its
     launches (one a level)."""
     o, prev, out, chg = _oriented_args("gs_round_levels", x, K, W1, base, o,
-                                       B, prev, ring, subset, inplace)
+                                       B, prev, ring, subset, inplace,
+                                       REFERENCE_BLOCKS)
     n, m = base.shape
     table, offsets, n_levels = _device_table(n // B, m // B, o, subset,
                                              x.device)
@@ -725,7 +758,7 @@ def _ring_launch(name, x, K, W1, base, prev, B, inner_max, blocks, out):
         raise ValueError("%s: unsupported device %s" % (name, x.device))
     prev_ring = _check_round_args(x, K, W1, base, prev, B, ring=1)
     _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
-                              ("prev", prev)))
+                              ("prev", prev)), REFERENCE_BLOCKS)
     n, m = base.shape
     if out is not None:
         x_out, chg = out
@@ -735,7 +768,8 @@ def _ring_launch(name, x, K, W1, base, prev, B, inner_max, blocks, out):
             raise ValueError("%s: out must be an (x, flags) pair of shapes "
                              "%s, %s" % (name, tuple(x.shape),
                                          (n // B, m // B)))
-        _check_kernel_args(x, B, (("out x", x_out), ("out flags", chg)))
+        _check_kernel_args(x, B, (("out x", x_out), ("out flags", chg)),
+                           REFERENCE_BLOCKS)
         if x_out.data_ptr() == x.data_ptr():
             raise ValueError("%s: out must not be x (every block reads the "
                              "round-start canvas)" % name)
@@ -820,11 +854,12 @@ def block_round(x, W, base, *, B, inner_max):
     out = torch.empty_like(x)
     chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
     _launch("uca_block_round_f32", x, W, base, out, chg, n, m, B, inner_max)
-    _count(block_round, x.device)
+    _count(block_round, x.device, B=B)
     return out, chg
 
 
 block_round.launches_on = collections.Counter()
+block_round.launches_by_block = collections.Counter()
 
 
 def launch_counts():
@@ -857,11 +892,22 @@ def _kernel(entry):
 
 
 def kernel_smem_bytes(B):
-    """Dynamic shared memory, in bytes, of one block of either kernel at
+    """Dynamic shared memory, in bytes, of one CTA of either kernel at
     block size ``B`` (builds the kernels if need be)."""
     from ._build import load
 
     fn = load("uca_block").uca_block_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(B)
+
+
+def kernel_cluster_size(B):
+    """The CTAs of the thread-block cluster that relaxes one block at block
+    size ``B``: 1 at 16 and 64, 4 at 128, 16 at 256 (builds the kernels if
+    need be)."""
+    from ._build import load
+
+    fn = load("uca_block").uca_block_cluster_size
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(B)
 
@@ -962,7 +1008,7 @@ def _in_turn(round_fn, o0=0, **form):
     return round_r
 
 
-def accumulate_blocked_gs(base, W, B=64, inner_max=None, max_rounds=100_000,
+def accumulate_blocked_gs(base, W, B=256, inner_max=None, max_rounds=100_000,
                           round_fn=gs_round_oriented):
     """Solve area = base + A·area by K1 rounds in the TPU's Gauss-Seidel
     order, round r at orientation r % 4, as the JAX function does.
@@ -973,13 +1019,12 @@ def accumulate_blocked_gs(base, W, B=64, inner_max=None, max_rounds=100_000,
     :func:`gs_round_oriented`, or :func:`gs_round_oriented_plain` to hold
     the kernel against its plain version on the same device.  Returns
     ``(area, rounds)``: the JAX function's rounds at the same ``B`` and
-    ``inner_max`` (its callers take B = 256, which the kernel does not: see
-    the module docstring).
+    ``inner_max`` (B defaults to the JAX function's 256).
     """
     return _gs_solve(base, W, B, inner_max, max_rounds, _in_turn(round_fn))
 
 
-def accumulate_blocked_pits_gs(base, W, pit_src, pit_dst, pit_w, B=64,
+def accumulate_blocked_pits_gs(base, W, pit_src, pit_dst, pit_w, B=256,
                                inner_max=None, max_rounds=100_000,
                                round_fn=gs_round_oriented):
     """:func:`accumulate_blocked_gs` with non-adjacent pit links
@@ -990,7 +1035,7 @@ def accumulate_blocked_pits_gs(base, W, pit_src, pit_dst, pit_w, B=64,
                      PitLinks(pit_src, pit_dst, pit_w))
 
 
-def accumulate_blocked(base, W, B=64, inner_max=None, max_rounds=100_000,
+def accumulate_blocked(base, W, B=256, inner_max=None, max_rounds=100_000,
                        round_fn=block_round):
     """Solve area = base + A·area by K2 rounds (every block every round, on
     the dense planes ``W``, which may hold any nonnegative weights).
@@ -1009,7 +1054,7 @@ def accumulate_blocked(base, W, B=64, inner_max=None, max_rounds=100_000,
     return x, rounds
 
 
-def accumulate_blocked_pits(base, W, pit_src, pit_dst, pit_w, B=64,
+def accumulate_blocked_pits(base, W, pit_src, pit_dst, pit_w, B=256,
                             inner_max=None, max_rounds=100_000,
                             round_fn=block_round):
     """:func:`accumulate_blocked` with non-adjacent pit links folded into

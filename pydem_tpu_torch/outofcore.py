@@ -40,9 +40,12 @@ Differences from the JAX module, by design:
 - The visit is the JAX one: its rounds run in the TPU's order, round r at
   orientation ``(o0 + r) % 4`` with ``o0`` the engine's outer round, so at
   the same K1 block size B a visit returns the JAX visit's rounds and
-  values.  The JAX engine takes B = 8 on the CPU and 256 on a TPU; the
-  port's kernel takes B = 16 or 64 (64 where the super-block allows it),
-  so its outer rounds are those of the JAX engine at that B.
+  values.  The JAX engine takes B = 8 on the CPU and 256 on a TPU (128
+  for super-blocks under 256); the port takes the TPU's rule on a GPU
+  (:func:`_engine_block_size`: a visit at 128 or 256 runs on a
+  thread-block cluster), so there its outer rounds are those of the JAX
+  engine on a TPU, and it raises, as the JAX engine does, for a
+  super-block that B does not divide; on the CPU it takes 64, or 16.
 - No padding buckets and no jitted closures: eager PyTorch compiles nothing,
   so pit links keep their exact size and ``links=None`` means no links.
 - ``mesh`` (a :class:`~pydem_tpu_torch.parallel.mesh.Mesh` whose shards are
@@ -168,6 +171,23 @@ def _sb_uca_solve(x_win, elev_win, dir_win, flats_win, theta_win, base_eff,
                      inner_max, max_rounds)
 
 
+def _engine_block_size(S, device):
+    """The K1 block size within an S² super-block window on ``device``: the
+    JAX engine's rule on a TPU, ``256 if S >= 256 else 128``, on a GPU; on
+    the CPU 64, or 16 where 64 does not divide S (the JAX engine takes
+    interpret mode's B = 8 there, and the tests set ``eng.B`` to compare).
+    Raises ``ValueError`` for a super-block that B does not divide, as the
+    JAX engine does."""
+    if torch.device(device).type == "cpu":
+        B = 64 if S >= 64 and S % 64 == 0 else 16
+    else:
+        B = 256 if S >= 256 else 128
+    if S % B:
+        raise ValueError("superblock (%d) must be a multiple of the kernel "
+                         "block size (%d)" % (S, B))
+    return B
+
+
 class OutOfCoreEngine:
     """Stream the full pipeline through the store in S×S super-blocks."""
 
@@ -207,12 +227,10 @@ class OutOfCoreEngine:
         n, m = self.shape
         self.nbi = -(-n // self.S)
         self.nbj = -(-m // self.S)
-        # K1 block size within a super-block window (the sizes the kernel is
-        # built for)
-        self.B = 64 if self.S >= 64 and self.S % 64 == 0 else 16
-        if self.S % self.B:
-            raise ValueError("superblock (%d) must be a multiple of the "
-                             "kernel block size (%d)" % (self.S, self.B))
+        # K1 block size within a super-block window: the JAX engine's rule
+        # on a GPU; on the CPU (where the JAX engine takes interpret mode's
+        # B = 8) 64, or 16 for super-blocks that 64 does not divide
+        self.B = _engine_block_size(self.S, self.device)
         t = np.arctan2(self.dY[: n - 2], self.dX[: n - 2])
         self.theta = t[np.clip(np.arange(n) - 1, 0, n - 3)]
         self.min_area = float(np.nanmin(self.dX2 * self.dY2))

@@ -82,11 +82,14 @@ def dryrun_multichip(n_devices, device="cuda"):
                                      "gate of one device's" % key)
 
     twis = {}
+    # small super-blocks, which the engine's block size divides: on a GPU
+    # it takes 128 or 256 (the JAX engine's rule on a TPU), on the CPU 16
+    small = (64, 32) if dev.type == "cpu" else (128, 128)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        for tag, kw in (("manager", dict(superblock=64)),
+        for tag, kw in (("manager", dict(superblock=small[0])),
                         ("out_of_core", dict(out_of_core=True,
-                                             superblock=32))):
+                                             superblock=small[1]))):
             with tempfile.TemporaryDirectory() as d:
                 chunks = fixtures.mk_test_multifile(
                     33, max(n, 16), d, nx_grid=2, ny_grid=2, nx_overlap=2,

@@ -94,12 +94,13 @@ FLAT_ID_INT = -1
 
 
 def _block_size(n, m):
-    """Relaxation block side: 64 (the largest the CUDA kernel takes), or 16
-    for canvases smaller than one 64-block.  On an H100 the in-core solve
-    in the TPU's order took longer at B = 16 than at 64 on every canvas
-    measured, 2048² to 8192² (``chip_smoke.py`` phases 8 and 11b): its
-    rounds are 4x the launches, and with pit links more rounds."""
-    return 64 if min(n, m) >= 64 else 16
+    """Relaxation block side: the JAX ``terrain_step``'s and
+    ``DEMProcessor``'s rule, 256, or 128 for canvases under 256 on a side,
+    on every device (the plain rounds take any B; on a GPU a visit at 128
+    or 256 runs on a thread-block cluster), so the blocked solvers return
+    the JAX package's rounds.  B = 64 and 16 stay callable
+    (``block_size=``, ``B=``)."""
+    return 256 if min(n, m) >= 256 else 128
 
 
 def _nanmin(a):
@@ -202,12 +203,12 @@ def terrain_step(elev, dX, dY, dX2, dY2, n_sweeps=None, uca_solver="jacobi",
     With ``n_sweeps`` set, runs that many UCA sweeps; otherwise iterates to
     the fixed point with ``uca_solver``: ``"jacobi"`` (global sweeps) or
     ``"blocked"`` (K1's rounds in the TPU kernel's Gauss-Seidel order,
-    ``ops.uca_block.accumulate_blocked_gs``: the level launches of the CUDA
-    kernel on a GPU; the canvas is zero-padded to the block grid, which is
-    exact since pad pixels carry no weight and no base area).  The block
-    side is :func:`_block_size`'s, 64 (16 on small canvases), where the
-    JAX function takes 256, which an SM's shared memory cannot hold: the
-    rounds are the JAX package's at the same block side.  Returns a dict
+    ``ops.uca_block.accumulate_blocked_gs``: one dataflow launch of the
+    CUDA kernel a round on a GPU; the canvas is zero-padded to the block
+    grid, which is exact since pad pixels carry no weight and no base
+    area).  The block side is :func:`_block_size`'s, the JAX function's
+    (256, or 128 on small canvases), so ``uca_sweeps`` is the JAX
+    function's rounds.  Returns a dict
     with ``mag``, ``direction``, ``flats``, ``uca``, ``twi`` and
     ``uca_sweeps`` (sweeps, or rounds for the blocked solver, as an int).
     """
@@ -493,9 +494,12 @@ def _pre_shards(elev_s, dX, dY, dX2, dY2, mesh, halo=PRE_HALO):
 # -- the sharded UCA solvers ------------------------------------------------
 
 def _shard_block_size(n_l, m_l):
-    """The K1 block size for an n_l × m_l shard: 64, or 16, whichever is
-    the largest the kernel takes that divides both; None if neither does."""
-    for B in (64, 16):
+    """The K1 block size for an n_l × m_l shard: the largest of 256, 128,
+    64 and 16 that divides both (the JAX function's rule, whose list also
+    holds 32 and 8, which the kernel does not take: a shard divisible only
+    by 32 or 8 takes 16 here, or None, where the JAX function takes 32 or
+    8); None if none does."""
+    for B in (256, 128, 64, 16):
         if n_l % B == 0 and m_l % B == 0:
             return B
     return None
@@ -862,9 +866,11 @@ def _solve_shards(base_s, W_s, mesh, pit_links=None, uca_solver="blocked",
                   B=None):
     """The UCA fixed point on the shards of an (n, m) canvas (``pit_links``
     index it).  The blocked solver's block size ``B`` defaults to one
-    device's for the whole canvas (:func:`_block_size`), so that the solve
-    equals that device's round for round; it needs shards that are
-    multiples of ``B``: others are re-cut onto whole blocks
+    device's for the whole canvas (:func:`_block_size`, the JAX rule), so
+    that a 1×1 mesh solves as that device does; it is the JAX
+    ``run_sharded``'s (:func:`_shard_block_size` of the shard) wherever the
+    shards are multiples of 256, or of 128 on canvases under 256.  It needs
+    shards that are multiples of ``B``: others are re-cut onto whole blocks
     (:func:`_recut_blocked`) and the area cut back.  Nothing is assembled.
     Returns ``(area shards, rounds)``."""
     _check_solver(uca_solver)
@@ -897,8 +903,9 @@ def accumulate_sharded(base, W, mesh, B=None, inner_max=None,
     """The UCA fixed point by K1 ring rounds over ``mesh`` (see the module
     docstring): ``base`` (n, m) and ``W`` (8, n, m), whole (on any device
     or the host) or :class:`ShardedCanvas`es, the mesh dividing the
-    canvas into shards that are multiples of ``B`` (default: 64 or 16, the
-    largest that fits, :func:`_shard_block_size`); the split round runs
+    canvas into shards that are multiples of ``B`` (default: the largest of
+    256, 128, 64 and 16 that fits, :func:`_shard_block_size`, the JAX
+    function's rule but for 32 and 8); the split round runs
     where :func:`_use_split` picks it.  Returns ``(area, rounds)``, the
     area a ``ShardedCanvas``; the rounds are the JAX solver's on the same
     mesh and B, and the area is the fixed point of
@@ -962,9 +969,10 @@ def sharded_uca(base, W, mesh, pit_links=None, uca_solver="blocked", B=None):
     ``W`` (8, n, m): whole canvases (on any device or the host), which the
     mesh need not divide, or :class:`ShardedCanvas`es of that logical
     shape.  The canvas is zero-padded to a multiple of the mesh (and, for
-    ``"blocked"``, of ``B`` on every shard; ``B`` defaults to one device's
-    for the canvas, :func:`_block_size`, so the rounds are that device's)
-    — exact, since pad pixels carry no base area and no weight.
+    ``"blocked"``, of ``B`` on every shard; ``B`` defaults to the JAX
+    function's rule on the shard, :func:`_block_size` of ``(n // gy,
+    m // gx)``: 256, or 128 for shards under 256) — exact, since pad pixels
+    carry no base area and no weight.
     ``pit_links``: optional ``(src, dst, w)`` flat indices into the
     unpadded canvas.  ``"jacobi"``: sharded sweeps, equal to
     ``core.uca.accumulate`` bit for bit.  Returns ``(area, rounds)``, the
@@ -972,7 +980,8 @@ def sharded_uca(base, W, mesh, pit_links=None, uca_solver="blocked", B=None):
     _check_solver(uca_solver)
     n, m = base.shape[-2:]
     if uca_solver == "blocked" and B is None:
-        B = _block_size(n, m)
+        gy, gx = mesh.shape
+        B = _block_size(n // gy, m // gx)
     base_s, W_s, mp_ = _padded_shards(base, W, mesh, B or 1)
     if pit_links is not None and len(pit_links[0]):
         src, dst, w = (torch.as_tensor(v) for v in pit_links)
@@ -1100,7 +1109,9 @@ def measure_halo_overlap(base, W, mesh, rounds=8, B=None):
     from ..ops.uca_block import compact_from_dense
 
     n, m = base.shape[-2:]
-    B = _block_size(n, m) if B is None else B
+    if B is None:  # the JAX function's rule
+        gy, gx = mesh.shape
+        B = _shard_block_size(n // gy, m // gx) or 128
     base_s, W_s, _mp = _padded_shards(base, W, mesh, B)
     if base_s[0].shape[0] % B or base_s[0].shape[1] % B:
         base_s, KW, _src, _dst = _recut_blocked(base_s, W_s, mesh, B)

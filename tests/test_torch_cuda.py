@@ -31,7 +31,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-N, M = 128, 192  # multiples of every kernel block size
+N, M = 128, 192  # multiples of the reference forms' block sizes
 
 
 def _state(device, n=N, m=M):
@@ -50,11 +50,18 @@ def _state(device, n=N, m=M):
 SHAPES = [(N, M), (192, 64)]  # non-square both ways
 
 
+def _shapes(B):
+    """Non-square canvases of whole blocks, both ways: :data:`SHAPES` for
+    the one-CTA block sizes, 2B x 3B and 3B x B for the cluster ones."""
+    return SHAPES if B in ub.REFERENCE_BLOCKS else [(2 * B, 3 * B),
+                                                   (3 * B, B)]
+
+
 def _inner(B, inner_max):
     return 2 * B + 4 if inner_max is None else inner_max
 
 
-@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+@pytest.mark.parametrize("B", ub.REFERENCE_BLOCKS)
 @pytest.mark.parametrize("inner_max", [4, 6, 8, None])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_round_equals_plain(cuda, B, inner_max, shape):
@@ -73,17 +80,23 @@ def test_kernel_round_equals_plain(cuda, B, inner_max, shape):
         x, prev = xk, ck
 
 
-@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
-@pytest.mark.parametrize("kernel", ["K1", "K1 levels", "K1 dataflow", "K2"])
+@pytest.mark.parametrize("B,kernel", [
+    (B, k) for B in ub.KERNEL_BLOCKS
+    for k in ("K1", "K1 levels", "K1 dataflow", "K2")
+    if B in ub.REFERENCE_BLOCKS or k in ("K1 dataflow", "K2")])
 @pytest.mark.parametrize("inner_max", [8, None])
 def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
     """NaNs in x inside one block travel downstream exactly as in the plain
     round (a strip that holds one never counts as settled), and the other
-    blocks agree.  After 8 sweeps the wave is still inside the block."""
-    W, base = _state(cuda)
+    blocks agree.  After 8 sweeps the wave is still inside the block (at
+    B = 128 and 256 it crosses a cut between the cluster's bands)."""
+    N, M = _shapes(B)[0]
+    W, base = _state(cuda, N, M)
     x, _rounds = ub.accumulate_blocked_gs(base, W, B=B)
     x = x.clone()
     x[N // 2 + 1: N // 2 + 4, M // 2 + 3: M // 2 + 12] = float("nan")
+    if B > 64:  # across the cut between two bands of one block
+        x[B // 2 - 2: B // 2 + 2, 5: 9] = float("nan")
     kw = dict(B=B, inner_max=_inner(B, inner_max))
     if kernel == "K1":
         K, W1 = ub.compact_from_dense(W)
@@ -139,17 +152,87 @@ def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     assert ub.launch_count(ub.gs_round_levels) == levels_before
 
 
+CLUSTER_BLOCKS = tuple(B for B in ub.KERNEL_BLOCKS
+                       if B not in ub.REFERENCE_BLOCKS)
+
+
 @pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+def test_cluster_sizes_are_resident(cuda, B):
+    """A visit at B = 128 runs on a cluster of 4 CTAs, at 256 on 16; the
+    card holds at least one cluster of each kernel (else the wrappers
+    raise), and the dataflow grid is what it holds."""
+    assert ub.kernel_cluster_size(B) == {16: 1, 64: 1, 128: 4, 256: 16}[B]
+    for kind, ring in (("dataflow", False), ("dataflow", True),
+                       ("k2", False)):
+        assert ub.resident_units(cuda, B, ring, kind) > 0
+
+
+@pytest.mark.parametrize("B", CLUSTER_BLOCKS)
+@pytest.mark.parametrize("solver", ["gs", "pits_gs", "blocked", "pits"])
+def test_cluster_solves_equal_plain(cuda, B, solver):
+    """The four solvers at B = 128 and 256 (K1 in the TPU's order and K2,
+    a cluster a block visit) against their plain rounds on the same card:
+    equal rounds, the area bit for bit; the launches counted by block
+    size."""
+    n, m = 3 * B, 4 * B
+    W, base = _state(cuda, n, m)
+    links = _pit_links(cuda, n, m) if solver.startswith("pits") else ()
+    name = ("accumulate_blocked" if solver == "blocked"
+            else "accumulate_blocked_%s" % solver)
+    fn = getattr(ub, name)
+    k1 = solver.endswith("gs")
+    wrapper = ub.gs_round_oriented if k1 else ub.block_round
+    before = wrapper.launches_by_block[B]
+    ak, rk = fn(base, W, *links, B=B)
+    launches = wrapper.launches_by_block[B] - before
+    assert rk <= launches <= rk + (3 if k1 else 0)
+    plain = ub.gs_round_oriented_plain if k1 else ub.block_round_plain
+    ap, rp = fn(base, W, *links, B=B, round_fn=plain)
+    assert rk == rp
+    assert torch.equal(ak, ap)
+
+
+@pytest.mark.parametrize("B", CLUSTER_BLOCKS)
+@pytest.mark.parametrize("kernel", ["dataflow", "dataflow ring", "K2"])
+def test_cluster_round_repeats_bitwise(cuda, B, kernel):
+    """The same round from the base 50 times: every canvas and flag plane
+    bit for bit the first one, and that one the plain round's (a guard
+    against a memory-order race between the cluster's bands or between
+    dependent blocks)."""
+    n = 4 * B
+    W, base = _state(cuda, n, n)
+    K, W1 = ub.compact_from_dense(W)
+    kw = dict(B=B, inner_max=2 * B + 4)
+    if kernel == "K2":
+        W = W.contiguous()
+        args, fn, plain = (base, W, base), ub.block_round, ub.block_round_plain
+    elif kernel == "dataflow":
+        args, fn, plain = ((base, K, W1, base, 1), ub.gs_round_oriented,
+                           ub.gs_round_oriented_plain)
+    else:
+        n2 = n - 2 * B
+        args = ring_window(base, K, W1, base, B // 2, B, n2, n2) + (2,)
+        kw["ring"] = True
+        fn, plain = ub.gs_round_oriented, ub.gs_round_oriented_plain
+    want, want_chg = plain(*args, **kw)
+    for _ in range(50):
+        got, chg = fn(*args, **kw)
+        assert torch.equal(got, want) and torch.equal(chg, want_chg)
+
+
+@pytest.mark.parametrize("B,shape", [(B, s) for B in ub.KERNEL_BLOCKS
+                                     for s in _shapes(B)])
 @pytest.mark.parametrize("o", range(4))
 @pytest.mark.parametrize("inner_max", [4, None])
-@pytest.mark.parametrize("shape", SHAPES)
 def test_oriented_kernel_round_equals_plain(cuda, B, o, inner_max, shape):
-    """The dataflow launch and the level launches in the TPU's order
-    against the plain round, bit for bit, flags included: a round from the
-    base with every block relaxed, then two rounds at the next orientations
-    with the frontier of the flags; one dataflow launch a round, one level
-    launch a level; the input canvas is not written."""
+    """The dataflow launch (at B = 128 and 256 a cluster a block) and, at
+    the reference forms' block sizes, the level launches in the TPU's
+    order against the plain round, bit for bit, flags included: a round
+    from the base with every block relaxed, then two rounds at the next
+    orientations with the frontier of the flags; one dataflow launch a
+    round, one level launch a level; the input canvas is not written."""
     n, m = shape
+    levels = B in ub.REFERENCE_BLOCKS
     W, base = _state(cuda, n, m)
     K, W1 = ub.compact_from_dense(W)
     kw = dict(B=B, inner_max=_inner(B, inner_max))
@@ -161,10 +244,10 @@ def test_oriented_kernel_round_equals_plain(cuda, B, o, inner_max, shape):
         xk, ck = ub.gs_round_oriented(x, K, W1, base, (o + r) % 4, prev=prev,
                                       **kw)
         xl, cl = ub.gs_round_levels(x, K, W1, base, (o + r) % 4, prev=prev,
-                                    **kw)
+                                    **kw) if levels else (xk, ck)
         assert (ub.launch_count(ub.gs_round_oriented) - before[0],
                 ub.launch_count(ub.gs_round_levels) - before[1]) == (
-                    1, _levels(n, m, B))
+                    1, _levels(n, m, B) if levels else 0)
         xp, cp = ub.gs_round_oriented_plain(x, K, W1, base, (o + r) % 4,
                                             prev=prev, **kw)
         assert torch.equal(x, x_in)
@@ -178,13 +261,15 @@ def test_oriented_kernel_round_equals_plain(cuda, B, o, inner_max, shape):
 @pytest.mark.parametrize("subset", ["all", "interior", "boundary"])
 def test_oriented_ring_forms_equal_plain(cuda, B, o, subset):
     """The ring and subset forms in the TPU's order (a 192×256 window of a
-    larger canvas, its ring real), the dataflow launch and the level
-    launches against the plain round, bit for bit, flags included, in
-    place and not; the ring is never written; then, from that canvas, a
-    round on the frontier of its flags."""
-    W, base = _state(cuda, 256, 320)
+    larger canvas, its ring real; 3B x 4B at B = 128 and 256), the dataflow
+    launch and, at the reference forms' block sizes, the level launches
+    against the plain round, bit for bit, flags included, in place and
+    not; the ring is never written; then, from that canvas, a round on the
+    frontier of its flags."""
+    rows, cols = (192, 256) if B in ub.REFERENCE_BLOCKS else (3 * B, 4 * B)
+    W, base = _state(cuda, rows + 64, cols + 64)
     K, W1 = ub.compact_from_dense(W)
-    args = ring_window(base * 1.5, K, W1, base, 32, 48, 192, 256)
+    args = ring_window(base * 1.5, K, W1, base, 32, 48, rows, cols)
     ring = torch.ones_like(args[0], dtype=torch.bool)
     ring[1:-1, 1:-1] = False
     kw = dict(B=B, inner_max=2 * B + 4, ring=True, subset=subset)
@@ -192,7 +277,8 @@ def test_oriented_ring_forms_equal_plain(cuda, B, o, subset):
     for r in range(2):
         xp, cp = ub.gs_round_oriented_plain(*args, (o + r) % 4, prev=prev,
                                             **kw)
-        xl, cl = ub.gs_round_levels(*args, (o + r) % 4, prev=prev, **kw)
+        xl, cl = (ub.gs_round_levels(*args, (o + r) % 4, prev=prev, **kw)
+                  if B in ub.REFERENCE_BLOCKS else (xp, cp))
         x = args[0].clone()
         xk, ck = ub.gs_round_oriented(x, *args[1:], (o + r) % 4, prev=prev,
                                       inplace=True, **kw)
@@ -203,14 +289,16 @@ def test_oriented_ring_forms_equal_plain(cuda, B, o, subset):
         args, prev = (xk,) + args[1:], ck
 
 
-def test_dataflow_rounds_on_streams_keep_their_own_tickets(cuda):
+@pytest.mark.parametrize("B", [16, 256])
+def test_dataflow_rounds_on_streams_keep_their_own_tickets(cuda, B):
     """Rounds on two streams at once (the split round's shards) draw their
     tickets from two counters, and many rounds on one stream reuse one
     without a reset: forty rounds over four streams equal the plain rounds
-    bit for bit."""
-    W, base = _state(cuda)
+    bit for bit (at B = 256 four launches of 16-CTA clusters share the
+    card)."""
+    W, base = _state(cuda, *_shapes(B)[0])
     K, W1 = ub.compact_from_dense(W)
-    kw = dict(B=16, inner_max=36)
+    kw = dict(B=B, inner_max=2 * B + 4)
     want, x = [], []
     for k in range(4):
         xp = base * (1 + k)
@@ -254,12 +342,19 @@ def test_kernel_wrapper_rejects_what_it_cannot_run(cuda):
         ub.gs_round_oriented(x, K, x, x, 0, B=4, inner_max=8)
     with pytest.raises(ValueError, match="orientation"):
         ub.gs_round_oriented(x, K, x, x, 4, **kw)
+    # the reference forms take one CTA a visit only
+    big = torch.ones((256, 256), device=cuda)
+    K2 = torch.full((256, 256), 255, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="built for"):
+        ub.gs_round(big, K2, big, big, prev, B=256, inner_max=8)
+    with pytest.raises(ValueError, match="built for"):
+        ub.gs_round_levels(big, K2, big, big, 0, B=256, inner_max=8)
 
 
-@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+@pytest.mark.parametrize("B,shape", [(B, s) for B in ub.KERNEL_BLOCKS
+                                     for s in _shapes(B)])
 @pytest.mark.parametrize("planes", ["terrain", "dense random"])
 @pytest.mark.parametrize("inner_max", [4, 6, 8, None])
-@pytest.mark.parametrize("shape", SHAPES)
 def test_k2_round_equals_plain(cuda, B, planes, inner_max, shape):
     """K2 == its plain round bitwise, also on dense planes with 3+ outgoing
     weights per pixel (which the compact encoding cannot hold)."""
@@ -410,7 +505,7 @@ def test_manager_on_the_card_by_default(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("S", [512, 2048])
-@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+@pytest.mark.parametrize("B", ub.REFERENCE_BLOCKS)
 def test_ring_round_equals_plain_and_full_canvas(cuda, S, B):
     """The ring form of K1 on an interior and a corner window of a 2S²
     canvas: kernel == plain bitwise over three rounds, the ring comes back
@@ -456,8 +551,9 @@ def test_ring_wrapper_rejects_what_it_cannot_run(cuda):
 
 
 def test_out_of_core_engine_on_the_card(cuda, tmp_path):
-    """``OutOfCoreEngine`` without ``device`` at 512², S = 128, on the noisy
-    cone: both regimes launch K1 in the TPU's order (the streamed visits
+    """``OutOfCoreEngine`` without ``device`` at 512², S = 128 (B = 128, a
+    cluster of 4 CTAs a block), on the noisy cone: both regimes launch K1
+    in the TPU's order (the streamed visits
     its ring form, the fused pass its canvas form), never the block-Jacobi
     forms; ``elev``, ``slope``,
     ``aspect``, ``flats`` and the NaN patterns agree bitwise, ``uca`` within
@@ -479,7 +575,8 @@ def test_out_of_core_engine_on_the_card(cuda, tmp_path):
             eng = OutOfCoreEngine(store, elev.shape, np.ones(n - 1),
                                   np.ones(n - 1), np.ones(n), np.ones(n),
                                   superblock=S, device_cache_bytes=budget)
-            assert eng.device.type == "cuda" and eng.B == 64
+            # the JAX engine's block size on a TPU: 128 under 256
+            assert eng.device.type == "cuda" and eng.B == 128
             assert eng._work_dtype == "float32"
             assert eng._fits_device_resident() == (budget is None)
             ub.gs_round_oriented.launches_on.clear()
@@ -501,7 +598,7 @@ def test_out_of_core_engine_on_the_card(cuda, tmp_path):
                                np.nan_to_num(b["uca"]), rtol=1e-4, atol=1e-2)
 
 
-@pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
+@pytest.mark.parametrize("B", ub.REFERENCE_BLOCKS)
 @pytest.mark.parametrize("flag_ring", [False, True])
 def test_subset_kernel_equals_plain(cuda, B, flag_ring):
     """K1's subset rounds (a launch over the interior or the boundary block
@@ -570,17 +667,18 @@ def _near_step(got, step):
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 4)])
 def test_sharded_equals_single_device_on_the_card(cuda, shape):
     """``run_sharded(uca_solver="blocked")`` over shards on ``cuda:0`` at
-    512²: within the bench gate of one device's ``terrain_step(blocked)``,
-    which a 1×1 mesh equals bitwise with equal rounds; the solver takes the
-    split round where the shards hold at least 3×3 blocks (1×2: 8×4, 2×2:
-    4×4; 2×4 has 4×2), two dataflow launches a shard a round; the split
-    and the serial round, both forced, and the solve with pit links equal
-    the same mesh through the plain rounds bitwise, rounds equal."""
+    2048² (B = 256): within the bench gate of one device's
+    ``terrain_step(blocked)``, which a 1×1 mesh equals bitwise with equal
+    rounds; the solver takes the split round where the shards hold at
+    least 3×3 blocks (1×2: 8×4, 2×2: 4×4; 2×4 has 4×2), two dataflow
+    launches a shard a round; at 512² and B = 64 the split and the serial
+    round, both forced, and the solve with pit links equal the same mesh
+    through the plain rounds bitwise, rounds equal."""
     from pydem_tpu_torch.parallel import sharded
     from pydem_tpu_torch.parallel.mesh import assemble, make_mesh, split
     from pydem_tpu_torch.parallel.sharded import run_sharded, terrain_step
 
-    n = 512
+    n = 2048  # the default B = 256: shards of 8x4, 4x4 and 4x2 blocks
     mesh = make_mesh([cuda] * (shape[0] * shape[1]), shape)
     one = make_mesh([cuda], (1, 1))
     elev = torch.from_numpy(make_hard_terrain(n, "float32")).to(cuda)
@@ -599,6 +697,7 @@ def test_sharded_equals_single_device_on_the_card(cuda, shape):
     assert launches >= (2 if splits else 1) * mesh.size * out["uca_sweeps"]
     assert sharded._blocked_shards.last_split == splits
     _near_step({"uca": out["uca"].assemble().cpu()}, step)
+    n = 512
     W, base = _state(cuda, n, n)
     links = _pit_links(cuda, n, n)
     for force, lk in ((True, None), (False, None), (None, links)):
@@ -733,7 +832,7 @@ def test_engine_over_four_cards_equals_one_card(four_cards, tmp_path,
     from pydem_tpu_torch.outofcore import OutOfCoreEngine
     from pydem_tpu_torch.parallel.mesh import make_mesh
 
-    n, S = 256, 64
+    n, S = 256, 128  # the engine's block size on a card divides S
     elev = make_hard_terrain(n)
     stores = []
     monkeypatch.setattr(sharded, "_use_split",

@@ -51,6 +51,24 @@ def _check(got, want):
                                              err_msg=key)
 
 
+def _jax_blocked_rounds(args):
+    """The rounds of the JAX ``terrain_step(uca_solver="blocked")``: its
+    ``accumulate_blocked_gs`` at its B (256, or 128 under 256) on its own
+    planes zero-padded to the block grid, the Pallas kernel in interpret
+    mode (compiled for the CPU it would not run)."""
+    from pydem_tpu.ops import uca_block as j_ub
+
+    n, m = args[0].shape
+    B = 256 if min(n, m) >= 256 else 128
+    with jax.disable_jit():
+        _mag, _dir, _flats, W, base = j_sharded.terrain_pre(*args)
+    pn, pm = (-n) % B, (-m) % B
+    _area, rounds = j_ub.accumulate_blocked_gs(
+        jnp.pad(base, ((0, pn), (0, pm))),
+        jnp.pad(W, ((0, 0), (0, pn), (0, pm))), B=B, interpret=True)
+    return int(rounds)
+
+
 @pytest.mark.parametrize("case", [33, 5, 24, 13])
 def test_terrain_step_matches_jax(case):
     arrays = _inputs(case)
@@ -67,7 +85,7 @@ def test_terrain_step_matches_jax(case):
 
     got = t_sharded.terrain_step(*targs, uca_solver="blocked")
     _check(got, want_j)
-    assert got["uca_sweeps"] >= 1
+    assert got["uca_sweeps"] == _jax_blocked_rounds(args)
 
     got = t_sharded.terrain_step(*targs, n_sweeps=32)
     _check(got, want_s)
