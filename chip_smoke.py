@@ -17,10 +17,12 @@ Phases, each reported on its own lines:
    and the CTAs or clusters the card holds at once; no kernel may spill
    or keep a stack frame, and a CTA stays under 48 KB of shared memory;
 3. kernels vs plain versions on the card, at every block size the kernels
-   are built for (the dataflow kernel and K2 at 16, 64, 128 and 256, the
-   reference forms at 16 and 64), on 512² and the main path's 2048² cone
-   and hard terrain (float32), and at 128 and 256 on 1024² (where B = 256
-   has the 3x3 grid a subset round takes), from the terrain step's own receiver
+   are built for (the dataflow kernel and K2 at 8, 16, 32, 64, 128 and
+   256, the reference forms at 16 and 64) on 512², at 128 and 256 on 1024²
+   (where B = 256 has the 3x3 grid a subset round takes; there also each
+   cluster kernel's round from the base 50 times, bit for bit the first)
+   and at 64, 128 and 256 on the main path's 2048², each on the cone and
+   the hard terrain (float32), from the terrain step's own receiver
    planes: two block-Jacobi K1 rounds; K1 in the TPU's Gauss-Seidel order
    in every form (canvas, ring, interior, frame; the ring forms on an
    (n+2)² window whose ring is real; the subsets where the grid is 3x3 or
@@ -76,9 +78,16 @@ Phases, each reported on its own lines:
    critical path (the round timed with a sleep queued on the card first,
    so that the card runs its launches back to back and no gap left by the
    host counts); the cone solve and the hard chain's pit solve (bound:
-   their rounds at a full round's); the time of one sweep under a CTA
-   barrier (B = 64) and under a cluster barrier (128, 256); and the K2 and
-   jacobi pit solves.  Each kernel's bound is computed beside
+   their rounds at a full round's); a round from the base at the mesh's
+   B = 32 and 8 beside its plain round; the time of one sweep under a CTA
+   barrier (B = 64) and in a cluster (128, 256), with the sweep probe: the
+   cluster visit the kernels run (every sweep's edge rows sent as
+   asynchronous stores counted on the neighbours' mbarriers, no cluster
+   barrier) and the first cluster visit (a cluster barrier a sweep) with
+   its stores cut or its barriers after sweeps 1-3 of a group a CTA
+   barrier (``uca_block.PROBE_VISITS``; timed only, the cut variants'
+   values are wrong by design); and the K2
+   and jacobi pit solves.  Each kernel's bound is computed beside
    its time: the bytes of the timed round (every input once, every output
    once) over the card's memory rate, or, if larger, one multiply-add per
    nonzero weight over its float32 rate;
@@ -168,7 +177,11 @@ Phases, each reported on its own lines:
        planes over 2×2, the split and the serial solve through the kernel
        against the same mesh through the plain rounds, bit for bit with
        equal rounds; the 2048² cone over 1×2 and 2×4 meshes within the
-       gate of ``terrain_step``;
+       gate of ``terrain_step``; at the shard block sizes the JAX mesh
+       takes below 64: the 1344² cone over a 2×2 mesh (672² shards, B = 32,
+       every dataflow launch at 32) within the gate of ``terrain_step``,
+       and the 192² (B = 32) and 80² (B = 8) cones' sharded solves through
+       the kernel against the plain rounds, split and serial;
     c. the hard chain's planes and pit links (phase 6) through
        ``sharded_uca(pit_links=...)`` on a 2×2 mesh (split), and the serial
        round forced, within the hard gate of ``accumulate_blocked_pits_gs``
@@ -565,6 +578,9 @@ def phase_build():
     want |= {("uca_block_round_kernel", B, 0) for B in KERNEL_BLOCKS}
     want |= {(k, B, r) for k in ("uca_gs_round_kernel", "uca_gs_level_kernel")
              for B in REFERENCE_BLOCKS for r in (0, 1)}
+    # the sweep probe: each cluster visit at 128 and 256
+    want |= {("uca_probe_kernel", B, v) for B in (128, 256)
+             for v in range(len(uca_block.PROBE_VISITS))}
     check(want <= set(ptxas), "no ptxas lines for %s" % sorted(
         want - set(ptxas)))
     # the kernels use dynamic shared memory, which ptxas does not report:
@@ -588,6 +604,10 @@ def phase_build():
                     smem, kernel_cluster_size(B),
                     resident_units(dev, B, bool(ring), kind),
                     "CTAs" if kernel_cluster_size(B) == 1 else "clusters"))
+    for B in (128, 256):
+        log("build", "uca_probe_kernel<B=%d>: registers by visit %s" % (
+            B, {v: ptxas[("uca_probe_kernel", B, i)]["registers"]
+                for i, v in enumerate(uca_block.PROBE_VISITS)}))
     log("build", "%s built in %.2f s (g++)" % (os.path.relpath(so, ROOT),
                                                  so_seconds))
 
@@ -704,14 +724,49 @@ def k1_forms_vs_plain(name, elev, n, orientations=None, frontier=None,
                   "wrote its input canvas")
             log("kernel", "%s %d² %s B=%d: rounds in the TPU's order from "
                 "the base and on their frontier, dataflow%s == plain; "
-                "blocks changed %s" % (name, n, form, B, " == levels" if B
-                                       in REFERENCE_BLOCKS else " (cluster)",
-                                       changed))
+                "blocks changed %s" % (
+                    name, n, form, B, " == levels" if B in REFERENCE_BLOCKS
+                    else (" (cluster)" if B > 64 else ""), changed))
     return worst
 
 
 def make_hard_f32(n):
     return make_hard_terrain(n, "float32")
+
+
+REPEATS = 50
+
+
+def repeats_bitwise(device, n=1024, blocks=(128, 256)):
+    """Each cluster kernel's round from the base on the n² hard terrain
+    (the dataflow launch in the canvas and the ring form, K2)
+    ``REPEATS`` times: every canvas and flag plane bit for bit the first,
+    and that one the plain round's (a guard against a memory-order race
+    between a cluster's bands or between dependent blocks)."""
+    elev = torch.from_numpy(make_hard_f32(n + 2)).to(device)
+    for B in blocks:
+        kw = dict(B=B, inner_max=2 * B + 4)
+        for form, ring in (("canvas", False), ("ring", True)):
+            x, K, W1, base = form_inputs(elev, ring)
+            runs = [(gs_round_oriented, gs_round_oriented_plain,
+                     (x, K, W1, base, 1), dict(kw, ring=ring))]
+            if not ring:
+                W, b = weights_and_base(elev[1:-1, 1:-1].contiguous())
+                runs.append((block_round, block_round_plain,
+                             (b, W.contiguous(), b), kw))
+            for fn, plain, args, kws in runs:
+                want, want_chg = plain(*args, **kws)
+                same = 0
+                for _ in range(REPEATS):
+                    got, chg = fn(*args, **kws)
+                    same += torch.equal(got, want) and torch.equal(chg,
+                                                                   want_chg)
+                check(same == REPEATS, "%s %s B=%d: %d of %d repeats equal "
+                      "the plain round" % (fn.__name__, form, B, same,
+                                           REPEATS))
+                log("kernel", "%s (%s) %d² hard B=%d: %d repeats of the round "
+                    "from the base == plain bit for bit"
+                    % (fn.__name__, form, n, B, REPEATS))
 
 
 def ring_terrain(kind, n, device):
@@ -720,17 +775,22 @@ def ring_terrain(kind, n, device):
     return torch.from_numpy(kind(n + 2)).to(device)
 
 
-# where the plain rounds cost the most (2048²: ~1.3 s a round at B = 64,
-# ~3 s at B = 16), phase 3 holds every form from the base at orientations
-# 0 and 2 at B = 64, 1 at B = 16 and 128 and 3 at B = 256, and the frontier
+# where the plain rounds cost the most (2048²: ~1.3 s a round at B = 64),
+# phase 3 holds every form from the base at orientations
+# 0 and 2 at B = 64, 1 at B = 128 and 3 at B = 256, and the frontier
 # round after orientation 0 at B = 64, 1 at 128 and 3 at 256 (at 512² and
 # 1024² every form, orientation and frontier round)
 K1_FORM_CUTS = {N_MAIN: dict(
-    orientations={64: (0, 2), 16: (1,), 128: (1,), 256: (3,)},
+    orientations={64: (0, 2), 128: (1,), 256: (3,)},
     frontier={64: (0,), 128: (1,), 256: (3,)})}
 # the canvases of phase 3: at 512² B = 256 is a 2x2 grid (no subset round),
 # at 1024² a 4x4 one
 N_FORMS = 1024
+
+
+def phase3_blocks(n):
+    """The block sizes phase 3 holds on the n² canvas."""
+    return {N_CHECK: KERNEL_BLOCKS, N_FORMS: (128, 256)}.get(n, TIMED_BLOCKS)
 
 
 def phase_kernel_vs_plain(device, n, blocks=KERNEL_BLOCKS):
@@ -1334,14 +1394,32 @@ def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
 
 def time_sweeps(device, card):
     """The time of one sweep of a block visit, under a CTA barrier (B = 64,
-    one CTA) and under a cluster barrier with the edge rows swapped through
-    distributed shared memory (128: 4 CTAs, 256: 16), each CTA sweeping
+    one CTA) and in a cluster (128: 4 CTAs, 256: 16), each CTA sweeping
     4096 pixels: K2 on one B x B block whose every pixel sends all its flow
     east, so that a wave crosses the block one column a sweep and every
     4-sweep test finds change until sweep B; (the visit capped at B sweeps
     - at 4 sweeps) / (B - 4), CUDA events around 50 launches, median of 5.
-    Returns ``{B: ms a sweep}``."""
-    out = {}
+    At 128 and 256 also the sweep probe (``probe_round``): each cluster
+    visit of ``PROBE_VISITS``, timed alike in turns (the shipped visit
+    first and last).  Returns ``({B: ms a sweep}, {B: {visit: ms a
+    sweep}})``."""
+    out, probe = {}, {}
+
+    def sweep_ms(fn, B):
+        # the card held behind the host while it queues the 50 launches
+        # (:func:`held_ms`): a visit of 4 sweeps is shorter than a launch
+        # from Python, and the host's time would count
+        ms = {}
+        for sweeps in (4, B):
+            def fifty():
+                for _ in range(50):
+                    fn(sweeps)
+
+            fifty()
+            ms[sweeps] = statistics.median(
+                held_ms(fifty, 50) for _ in range(5)) / 50
+        return (ms[B] - ms[4]) / (B - 4), ms
+
     for B in (64, 128, 256):
         W = torch.zeros((8, B, B), device=device)
         W[0] = 1.0  # NEIGHBOR_OFFSETS[0]: east
@@ -1350,26 +1428,68 @@ def time_sweeps(device, card):
         torch.cuda.synchronize()
         check(bool(chg.all()) and float(x[0, -1]) == B,
               "the sweep probe at B=%d did not sweep %d times" % (B, B))
-        ms = {}
-        for sweeps in (4, B):
-            def fifty():
-                for _ in range(50):
-                    block_round(base, W, base, B=B, inner_max=sweeps)
-
-            ms[sweeps] = cuda_median_ms(fifty, reps=5)[0] / 50
-        out[B] = (ms[B] - ms[4]) / (B - 4)
+        out[B], ms = sweep_ms(
+            lambda k: block_round(base, W, base, B=B, inner_max=k), B)
         log("time", "one sweep of a block visit at B=%d (%s): %.3f us (a "
             "visit of 4 sweeps %.4f ms, of %d sweeps %.4f ms) [%s]"
             % (B, "one CTA, CTA barrier" if B == 64 else "a cluster of %d "
-               "CTAs, cluster barrier + DSMEM rows" % kernel_cluster_size(B),
+               "CTAs, edge rows as asynchronous stores counted on the "
+               "neighbours' mbarriers" % kernel_cluster_size(B),
                1e3 * out[B], ms[4], B, ms[B], card))
-    return out
+        if B == 64:
+            continue
+        visits = uca_block.PROBE_VISITS
+        reps = {v: [] for v in visits}
+        for v in visits + visits[::-1]:
+            def run(k, v=v):
+                return uca_block.probe_round(base, W, base, B=B,
+                                             inner_max=k, visit=v)
+            if not reps[v]:
+                xp, cp = run(B)
+                torch.cuda.synchronize()
+                if v in ("sweep", "async"):
+                    check(torch.equal(xp, x) and torch.equal(cp, chg),
+                          "the probe's %s visit at B=%d != K2" % (v, B))
+            reps[v].append(sweep_ms(run, B)[0])
+        probe[B] = {v: statistics.median(t) for v, t in reps.items()}
+        log("time", "sweep probe at B=%d, us a sweep by visit (%s; the cut "
+            "variants' values are wrong by design): %s [%s]"
+            % (B, "in turns", {v: round(1e3 * t, 4)
+                               for v, t in probe[B].items()}, card))
+    return out, probe
+
+
+def time_base_round(base, K, W1, W, card, B):
+    """K1 in the TPU's order at N_MAIN², block side ``B``: one round from
+    the base (every block visited) at orientation 0 through the dataflow
+    launch, median of 5, beside its plain round (once, bitwise) and its
+    bound.  For the mesh's B = 32 and 8, which no one-card path takes."""
+    kw = dict(B=B, inner_max=2 * B + 4)
+    ms, reps = cuda_median_ms(
+        lambda: gs_round_oriented(base, K, W1, base, 0, **kw), reps=5)
+    out, chg = gs_round_oriented(base, K, W1, base, 0, **kw)
+    pms, _p = cuda_median_ms(
+        lambda: gs_round_oriented_plain(base, K, W1, base, 0, **kw), reps=1,
+        warmup=0)
+    xp, cp = gs_round_oriented_plain(base, K, W1, base, 0, **kw)
+    err = nan_equal_max_err(out, xp)
+    check(err <= KERNEL_TOL and torch.equal(chg, cp),
+          "timed round B=%d: dataflow != plain (max err %g)" % (B, err))
+    bound, bound_by = round_bound((base, K, W1, base, torch.ones_like(chg)),
+                                  (out, chg), W)
+    log("time", "K1 round in the TPU's order %d² B=%d from the base: median "
+        "%.3f ms, reps %s ms; plain %.1f ms; bound %.4f ms by %s [%s]"
+        % (base.shape[0], B, ms, ["%.3f" % t for t in reps], pms, bound,
+           bound_by, card))
+    return dict(B=B, ms=ms, plain_ms=pms, bound=bound, bound_by=bound_by,
+                err=err)
 
 
 # the block sides of phase 8's K1 figures: the reference forms' 64, the
 # cluster's 128 and the main path's default 256 (B = 16's rows were cut for
-# the time limit)
+# the time limit); and the mesh's B = 32 and 8 (a round from the base)
 TIMED_BLOCKS = (64, 128, 256)
+MESH_BLOCKS = (32, 8)
 
 
 def phase_times(device, card, state):
@@ -1416,9 +1536,9 @@ def phase_times(device, card, state):
     log("time", "K1 round bound: %.4f ms by %s, %.1f%% of the kernel's %.3f "
         "ms" % (k1["bound"], k1["bound_by"], 100 * k1["bound"] / k1["kernel"],
                 k1["kernel"]))
-    # K2 at the solvers' default B = 256 and at 128, 64 and 16
+    # K2 at the solvers' default B = 256 and at 128, 64, 32, 16 and 8
     k2, k2_err = {}, 0.0
-    for Bk in (256, 128, 64, 16):
+    for Bk in (256, 128, 64, 32, 16, 8):
         kw2 = dict(B=Bk, inner_max=2 * Bk + 4)
         k2[Bk], e = time_round(
             "first K2 round %d² B=%d (all blocks visited)" % (N_MAIN, Bk),
@@ -1432,7 +1552,7 @@ def phase_times(device, card, state):
             "kernel's %.3f ms" % (Bk, k2[Bk]["bound"], k2[Bk]["bound_by"],
                                   100 * k2[Bk]["bound"] / k2[Bk]["kernel"],
                                   k2[Bk]["kernel"]))
-    k2[256]["by_block"] = {Bk: k2[Bk] for Bk in (128, 64, 16)}
+    k2[256]["by_block"] = {Bk: k2[Bk] for Bk in (128, 64, 32, 16, 8)}
     k2 = k2[256]
     # K1 in the TPU's order: the main path's B = 256 (beside its plain
     # round), and 64 and 128
@@ -1440,7 +1560,9 @@ def phase_times(device, card, state):
                 for Bt in TIMED_BLOCKS}
     levels = dict(by_block[_block_size(N_MAIN, N_MAIN)])
     levels["by_block"] = by_block
-    levels["sweep_ms"] = time_sweeps(device, card)
+    levels["sweep_ms"], levels["sweep_probe"] = time_sweeps(device, card)
+    levels["mesh_blocks"] = {Bm: time_base_round(base, K, W1, W, card, Bm)
+                             for Bm in MESH_BLOCKS}
     levels["step_ms"], levels["step_rounds"] = step_ms["blocked"]
     levels["jacobi_rounds"] = jacobi_rounds
     W, base, links = state
@@ -2555,6 +2677,55 @@ def phase_sharded(device, card):
                got_s, 1e3 * ov["t_exchange_per_round"],
                1e3 * ov["t_relax_per_round"], 1e3 * ov["t_full_per_round"],
                ov["overlap_fraction"], ov["timer"], card))
+    return launches + phase_mesh_blocks(device, card)
+
+
+# 11b's mesh at the JAX package's shard B = 32: a 2x2 mesh of 672² shards
+# (21 blocks of 32 a side; 64 does not divide 672)
+N_MESH32 = 1344
+
+
+def phase_mesh_blocks(device, card):
+    """11b at the shard block sizes the JAX mesh takes below 64:
+    ``run_sharded(blocked)`` on the N_MESH32² cone over a 2x2 mesh on the
+    card, whose shards take B = 32, within the gate of one device's
+    ``terrain_step``, its dataflow launches all at 32; then the sharded
+    solve at 32 (96² shards) and at 8 (40² shards) through the kernel
+    against the same mesh through the plain rounds, split and serial.
+    Returns the run's dataflow launches."""
+    n = N_MESH32
+    elev = torch.from_numpy(make_cone(n)).to(device)
+    args = spacing(n, torch.float32, device)
+    mesh = mesh_of(device, (2, 2))
+    check(sharded._shard_block_size(n // 2, n // 2) == 32,
+          "the %d² shards do not take B = 32" % (n // 2))
+    reset_counts()
+    out, secs = synced_seconds(lambda: run_sharded(
+        elev, *args, mesh=mesh, uca_solver="blocked"))
+    launches = main_launches("11b run_sharded at B=32")
+    by = dict(gs_round_oriented.launches_by_block)
+    rounds = out["uca_sweeps"]
+    check(set(by) == {32} and launches >= 4 * rounds,
+          "11b at B=32: the mesh's dataflow launches by block size %s for "
+          "%d rounds" % (by, rounds))
+    step = terrain_step(elev, *args, uca_solver="blocked")
+    err = check_near_step("11b 2x2 at B=32", out, step, GATE_TOL["cone"])
+    log("mesh", "11b run_sharded(blocked) on the %d² cone over a 2x2 mesh of "
+        "%d² shards on one card at the shard B=32 (split %s): %d rounds "
+        "(one device at B=%d: %d), within %s of terrain_step (uca max abs "
+        "%g); %.3f s; %d dataflow launches [%s]"
+        % (n, n // 2, sharded._blocked_shards.last_split, rounds,
+           _block_size(n, n), step["uca_sweeps"], GATE_TOL["cone"], err,
+           secs, launches, card))
+    del out, step, elev
+    for Bm, nm in ((32, 192), (8, 80)):
+        e = torch.from_numpy(make_cone(nm)).to(device)
+        _mg, _dr, _fl, W2, b2 = terrain_pre(e, *spacing(nm, torch.float32,
+                                                        device))
+        check(sharded._shard_block_size(nm // 2, nm // 2) == Bm,
+              "the %d² shards do not take B = %d" % (nm // 2, Bm))
+        mesh_kernel_vs_plain("11b %d² cone at the shard B=%d" % (nm, Bm),
+                             b2, W2, mesh, B=Bm)
     return launches
 
 
@@ -3958,6 +4129,9 @@ def dataflow_entries(launches, err, levels, ring_ms, subset_ms):
                      "take it)" % B),
             "sweep_ms": levels["sweep_ms"][B],
         }
+        if B in levels["sweep_probe"]:
+            # ms a sweep of each cluster visit (the shipped one "async")
+            entry["sweep_probe_ms"] = levels["sweep_probe"][B]
         entry.update(block_figures(t))
         if B == main_b:
             entry.update({
@@ -3987,6 +4161,25 @@ def dataflow_entries(launches, err, levels, ring_ms, subset_ms):
                 "levels_shard_ring_ms": subset_ms["all"]["levels"],
                 "shard_ring_bound_ms": subset_ms["all"]["bound"]})
         entries.append(entry)
+    for B in MESH_BLOCKS:
+        t = levels["mesh_blocks"][B]
+        entries.append({
+            "name": "uca_gs_round_dataflow_b%d" % B,
+            "route": "cuda",
+            "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
+            "replaces": REPLACES_K1,
+            "launches": MAIN_BY_BLOCK.get(B, 0),
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "block": B,
+            "role": "K1 in the TPU's order at the mesh's B=%d (shards that "
+                    "%d divides and %d does not, as the JAX mesh picks)"
+                    % (B, B, 2 * B),
+        })
     return entries
 
 
@@ -4031,10 +4224,13 @@ def main():
     clock("2 build")
     k1_err, k2_err = 0.0, 0.0
     for n in (N_CHECK, N_FORMS, N_MAIN):
-        # 1024² for the clusters' subset rounds (at 512², B = 256 is 2x2)
-        e1, e2 = phase_kernel_vs_plain(
-            device, n, (128, 256) if n == N_FORMS else KERNEL_BLOCKS)
+        # every B at 512²; 1024² for the clusters' subset rounds (at 512²,
+        # B = 256 is 2x2); at 2048², where a plain round at B = 16 or less
+        # takes seconds, the main paths' 256 and the 128 and 64 beside it
+        e1, e2 = phase_kernel_vs_plain(device, n, phase3_blocks(n))
         k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
+        if n == N_FORMS:
+            repeats_bitwise(device, n)
         clock("3 kernels vs plain at %d²" % n)
     k1_launches = phase_main_path(device)
     k1_launches += phase_hard_chain(device)
@@ -4044,7 +4240,8 @@ def main():
     phase_f64_chain(device)
     clock("6-7 K2 path, float64 chain")
     k1_ms, k2_ms, e1, e2, chain, levels = phase_times(device, card, state)
-    k1_err = max(k1_err, e1, *(t["err"] for t in levels["by_block"].values()))
+    k1_err = max(k1_err, e1, *(t["err"] for t in levels["by_block"].values()),
+                 *(t["err"] for t in levels["mesh_blocks"].values()))
     k2_err = max(k2_err, e2)
     clock("8 times")
     k1_launches += phase_manager(device, card)

@@ -49,11 +49,13 @@ visit at ``(o0 + r) % 4`` (:func:`_in_turn`), the mesh's rounds at
 the TPU solvers' B = 256, and the callers take the JAX functions' rules
 (256, or 128 on small canvases), so the defaults return the JAX package's
 rounds.  The dataflow kernel and K2 are built for B ∈ ``KERNEL_BLOCKS``
-(16, 64, 128, 256).  One 258² float32 window (266 KB) is more than an
-SM's 228 KB of shared memory, so at B = 128 and 256 one block visit is
-relaxed by a thread-block cluster of 4 or 16 CTAs, each owning a band of
-the block's rows and swapping the rows next to the cut with its
-neighbours through distributed shared memory between sweeps
+(8, 16, 32, 64, 128, 256: every B the JAX package picks for a canvas or a
+shard).  One 258² float32 window (266 KB) is more than an SM's 228 KB of
+shared memory, so at B = 128 and 256 one block visit is relaxed by a
+thread-block cluster of 4 or 16 CTAs, each owning a band of the block's
+rows; after every sweep the bands send the rows next to each cut into
+their neighbours' windows as asynchronous stores that the receiver's
+mbarrier counts, with no barrier over the cluster
 (:func:`kernel_cluster_size`); it computes what one CTA would, bit for
 bit.  The level launches and the block-Jacobi forms, references only, are
 built for ``REFERENCE_BLOCKS`` (16, 64) and raise at any other B.
@@ -92,7 +94,7 @@ from ..core.uca import PitLinks
 _NO_EDGE = 15
 # block sizes the dataflow kernel (K1 in the TPU's order) and K2 are built
 # for; at 128 and 256 a visit runs on a thread-block cluster
-KERNEL_BLOCKS = (16, 64, 128, 256)
+KERNEL_BLOCKS = (8, 16, 32, 64, 128, 256)
 # block sizes of the reference forms: the level launches and K1's
 # block-Jacobi canvas, ring and subset rounds (one CTA a visit)
 REFERENCE_BLOCKS = (16, 64)
@@ -660,7 +662,7 @@ _KINDS = ("dataflow", "k2")
 @functools.cache
 def resident_units(device, B, ring=False, kind="dataflow"):
     """How many units of a kernel the card ``device`` holds at once: CTAs
-    at B = 16 and 64, clusters of :func:`kernel_cluster_size` CTAs at 128
+    at B = 8 to 64, clusters of :func:`kernel_cluster_size` CTAs at 128
     and 256; ``kind`` ``"dataflow"`` (K1 in the TPU's order, ``ring`` its
     ring form) or ``"k2"``.  Raises ``RuntimeError`` when none can be
     resident: the wrappers launch the cluster kernel or raise, never run
@@ -861,6 +863,35 @@ def block_round(x, W, base, *, B, inner_max):
 block_round.launches_on = collections.Counter()
 block_round.launches_by_block = collections.Counter()
 
+# The cluster visits the sweep probe times (``csrc/uca_block.cu`` enum
+# Visit, in order): "async", the kernels' own; "sweep", the first cluster
+# visit (the edge rows stored into the neighbours and a cluster barrier
+# every sweep); and "sweep" with its stores cut, or with its barriers after
+# sweeps 1-3 of a 4-sweep group a CTA barrier.
+PROBE_VISITS = ("async", "sweep", "sweep_no_stores", "sweep_cta_barrier")
+
+
+def probe_round(x, W, base, *, B, inner_max, visit):
+    """One K2 round (:func:`block_round`) through the sweep probe's kernel
+    with the cluster visit ``visit`` (one of :data:`PROBE_VISITS`) at
+    B = 128 or 256, CUDA tensors only: for timing a sweep of each visit.
+    The variants with something cut return wrong values by design.  The
+    probe counts no launches and no solver calls it.  Returns
+    ``(x_new, chg)``."""
+    if visit not in PROBE_VISITS:
+        raise ValueError("visit must be one of %s, got %r"
+                         % (PROBE_VISITS, visit))
+    if x.device.type != "cuda":
+        raise ValueError("probe_round: unsupported device %s" % x.device)
+    _check_block_args(x, W, base, B)
+    _check_kernel_args(x, B, (("W", W), ("base", base)), (128, 256))
+    n, m = x.shape
+    out = torch.empty_like(x)
+    chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
+    _launch("uca_probe_round_f32", x, W, base, out, chg, n, m, B, inner_max,
+            PROBE_VISITS.index(visit))
+    return out, chg
+
 
 def launch_counts():
     """Every kernel wrapper's launches on every device, by kernel name."""
@@ -877,7 +908,8 @@ _ENTRIES = {"uca_gs_round_f32": "pppppppiiii",
             "uca_gs_round_ring_list_f32": "ppppppppiiiii",
             "uca_gs_round_levels_f32": "ppppppppiiiiii",
             "uca_gs_round_dataflow_f32": "ppppppppiiiiiiiiq",
-            "uca_block_round_f32": "pppppiiii"}
+            "uca_block_round_f32": "pppppiiii",
+            "uca_probe_round_f32": "pppppiiiii"}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_ulonglong}
 
 
@@ -903,7 +935,7 @@ def kernel_smem_bytes(B):
 
 def kernel_cluster_size(B):
     """The CTAs of the thread-block cluster that relaxes one block at block
-    size ``B``: 1 at 16 and 64, 4 at 128, 16 at 256 (builds the kernels if
+    size ``B``: 1 at 8 to 64, 4 at 128, 16 at 256 (builds the kernels if
     need be)."""
     from ._build import load
 

@@ -495,11 +495,9 @@ def _pre_shards(elev_s, dX, dY, dX2, dY2, mesh, halo=PRE_HALO):
 
 def _shard_block_size(n_l, m_l):
     """The K1 block size for an n_l × m_l shard: the largest of 256, 128,
-    64 and 16 that divides both (the JAX function's rule, whose list also
-    holds 32 and 8, which the kernel does not take: a shard divisible only
-    by 32 or 8 takes 16 here, or None, where the JAX function takes 32 or
-    8); None if none does."""
-    for B in (256, 128, 64, 16):
+    64, 32, 16 and 8 that divides both (the JAX function's rule); None if
+    none does."""
+    for B in (256, 128, 64, 32, 16, 8):
         if n_l % B == 0 and m_l % B == 0:
             return B
     return None
@@ -867,12 +865,12 @@ def _solve_shards(base_s, W_s, mesh, pit_links=None, uca_solver="blocked",
     """The UCA fixed point on the shards of an (n, m) canvas (``pit_links``
     index it).  The blocked solver's block size ``B`` defaults to one
     device's for the whole canvas (:func:`_block_size`, the JAX rule), so
-    that a 1×1 mesh solves as that device does; it is the JAX
-    ``run_sharded``'s (:func:`_shard_block_size` of the shard) wherever the
-    shards are multiples of 256, or of 128 on canvases under 256.  It needs
-    shards that are multiples of ``B``: others are re-cut onto whole blocks
-    (:func:`_recut_blocked`) and the area cut back.  Nothing is assembled.
-    Returns ``(area shards, rounds)``."""
+    that a 1×1 mesh solves as that device does (:func:`run_sharded` hands
+    it the JAX ``run_sharded``'s, :func:`_shard_block_size` of the shard,
+    where that has one).  It needs shards that are multiples of ``B``:
+    others are re-cut onto whole blocks (:func:`_recut_blocked`) and the
+    area cut back.  Nothing is assembled.  Returns ``(area shards,
+    rounds)``."""
     _check_solver(uca_solver)
     n_l, m_l = base_s[0].shape
     dt = base_s[0].dtype
@@ -904,8 +902,8 @@ def accumulate_sharded(base, W, mesh, B=None, inner_max=None,
     docstring): ``base`` (n, m) and ``W`` (8, n, m), whole (on any device
     or the host) or :class:`ShardedCanvas`es, the mesh dividing the
     canvas into shards that are multiples of ``B`` (default: the largest of
-    256, 128, 64 and 16 that fits, :func:`_shard_block_size`, the JAX
-    function's rule but for 32 and 8); the split round runs
+    256, 128, 64, 32, 16 and 8 that fits, :func:`_shard_block_size`, the
+    JAX function's rule); the split round runs
     where :func:`_use_split` picks it.  Returns ``(area, rounds)``, the
     area a ``ShardedCanvas``; the rounds are the JAX solver's on the same
     mesh and B, and the area is the fixed point of
@@ -1213,8 +1211,11 @@ def run_sharded(elev, dX, dY, dX2=None, dY2=None, mesh=None, n_sweeps=None,
         area_s, rounds = _jacobi_shards(pre["base"], W_s, mesh,
                                         n_sweeps=n_sweeps)
     else:
-        area_s, rounds = _solve_shards(pre["base"], W_s, mesh,
-                                       uca_solver=uca_solver)
+        # the JAX run_sharded's B, the shard rule (where a shard has none,
+        # which the JAX function refuses, one device's, re-cut)
+        area_s, rounds = _solve_shards(
+            pre["base"], W_s, mesh, uca_solver=uca_solver,
+            B=_shard_block_size(*pre["base"][0].shape))
     del W_s
     uca_s, twi_s = _post_shards(area_s, pre["flats"], pre["mag"],
                                 ShardedCanvas(pre["base"], mesh, (n_, m_)))

@@ -1,6 +1,6 @@
 """The TPU kernels' block sizes on the CPU, float64: the port's defaults
-choose the JAX functions' B, and its solvers at B = 128 and 256 return the
-JAX solvers' rounds.
+choose the JAX functions' B, its solvers at B = 128 and 256 return the JAX
+solvers' rounds, and its mesh at the shard B = 32 and 8 the JAX mesh's.
 
 The JAX solvers run their Pallas kernels in interpret mode, as the JAX
 package's own tests run them; the port's side is the plain version, which
@@ -11,6 +11,8 @@ Tolerances: block sizes and round counts exact; values to 10 decimals (the
 JAX kernel's interpret-mode sums round differently in the last bits on the
 CPU, ``tests/test_torch_oriented.py``).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from pydem_tpu import api as j_api
+from pydem_tpu import fixtures as j_fixtures
 from pydem_tpu import outofcore as j_ooc
 from pydem_tpu.ops import uca_block as j_ub
 from pydem_tpu.parallel import sharded as j_sharded
@@ -126,19 +129,85 @@ def test_engine_takes_the_jax_card_block_size(S):
 
 
 def test_shard_block_size_is_the_jax_rule_but_32_and_8():
-    """``_shard_block_size`` == the JAX function's wherever that takes 256,
-    128, 64 or 16 (or nothing); where it takes 32 or 8, which the kernel is
-    not built for, the port takes 16 or nothing."""
+    """``_shard_block_size`` == the JAX function's at every shard size, 32
+    and 8 included (the kernels are built for every B the JAX function
+    takes)."""
     sizes = [8, 16, 24, 32, 48, 64, 96, 128, 160, 192, 256, 320, 384, 512,
              768, 1024, 1536, 4096, 12288]
     for a in sizes:
         for b in sizes:
             want = j_sharded._shard_block_size(a, b)
             got = t_sharded._shard_block_size(a, b)
-            if want in (32, 8):
-                assert got == (16 if want == 32 else None), (a, b)
-            else:
-                assert got == want, (a, b)
+            assert got == want, (a, b)
+
+
+def _recorded(module, name, seen):
+    """``module.name`` wrapped to append the B it is handed to ``seen``."""
+    fn = getattr(module, name)
+
+    @functools.wraps(fn)  # with its attributes (the solver's counters)
+    def wrapper(*args, **kw):
+        seen.append(kw["B"] if "B" in kw else args[3])
+        return fn(*args, **kw)
+    return wrapper
+
+
+# 2x2 meshes whose shards 32 (96²) or 8 (40²) divides and no larger B does
+MESH_CASES = [(192, 32), (80, 8)]
+
+
+@pytest.mark.parametrize("n,B", MESH_CASES)
+def test_accumulate_sharded_at_32_and_8_returns_jax_rounds(n, B,
+                                                           monkeypatch):
+    """``accumulate_sharded`` on a 2x2 mesh takes the JAX function's B (32
+    on 96² shards, 8 on 40²) and returns its rounds, values to 10
+    decimals."""
+    from test_torch_sharded import _planes
+
+    W, base = _planes(13, n, n)
+    jmesh = j_sharded.make_mesh(jax.devices()[:4], (2, 2))
+    tmesh = make_mesh([torch.device("cpu")] * 4, (2, 2))
+    jseen, tseen = [], []
+    monkeypatch.setattr(j_ub, "gs_round_oriented",
+                        _recorded(j_ub, "gs_round_oriented", jseen))
+    monkeypatch.setattr(t_sharded, "_blocked_shards",
+                        _recorded(t_sharded, "_blocked_shards", tseen))
+    want, want_rounds = j_sharded.accumulate_sharded(
+        jnp.asarray(base.numpy()), jnp.asarray(W.numpy()), jmesh,
+        interpret=True)
+    got, rounds = t_sharded.accumulate_sharded(base, W, tmesh)
+    assert set(jseen) == set(tseen) == {B}
+    assert rounds == int(want_rounds) > 1
+    np.testing.assert_array_almost_equal(got.assemble().numpy(),
+                                         np.asarray(want), decimal=10)
+
+
+@pytest.mark.parametrize("n,B", MESH_CASES)
+def test_run_sharded_at_32_and_8_returns_jax_rounds(n, B, monkeypatch):
+    """``run_sharded(uca_solver="blocked")`` on a 2x2 mesh takes the JAX
+    function's B and returns its rounds (``uca_sweeps``), every output to
+    10 decimals with equal NaN patterns (the JAX function jitted, its
+    blocked solver in interpret mode)."""
+    elev, _a, _u = j_fixtures.get_test_case(24, n)
+    elev = np.ascontiguousarray(np.asarray(elev, "float64")[:n, :n])
+    rows = (np.ones(n - 1), np.ones(n - 1), np.ones(n), np.ones(n))
+    jmesh = j_sharded.make_mesh(jax.devices()[:4], (2, 2))
+    tmesh = make_mesh([torch.device("cpu")] * 4, (2, 2))
+    jseen, tseen = [], []
+    monkeypatch.setattr(j_ub, "gs_round_oriented",
+                        _recorded(j_ub, "gs_round_oriented", jseen))
+    monkeypatch.setattr(t_sharded, "_blocked_shards",
+                        _recorded(t_sharded, "_blocked_shards", tseen))
+    want = jax.jit(functools.partial(j_sharded.run_sharded, mesh=jmesh,
+                           uca_solver="blocked"))(elev, *rows)
+    got = t_sharded.run_sharded(elev, *rows, mesh=tmesh, uca_solver="blocked")
+    assert set(jseen) == set(tseen) == {B}
+    assert got["uca_sweeps"] == int(want["uca_sweeps"]) > 1
+    for key in ("mag", "direction", "flats", "uca", "twi"):
+        g, w = np.asarray(got[key]), np.asarray(want[key])
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), key)
+        np.testing.assert_array_almost_equal(
+            np.nan_to_num(g), np.nan_to_num(w), decimal=10, err_msg=key)
 
 
 @pytest.mark.parametrize("shape", [(256, 256), (512, 512), (1024, 512),

@@ -152,28 +152,29 @@ def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     assert ub.launch_count(ub.gs_round_levels) == levels_before
 
 
-CLUSTER_BLOCKS = tuple(B for B in ub.KERNEL_BLOCKS
-                       if B not in ub.REFERENCE_BLOCKS)
+CLUSTER_BLOCKS = (128, 256)  # a visit on a thread-block cluster
+MESH_BLOCKS = (8, 32)  # the shard B of the JAX mesh below 64
 
 
 @pytest.mark.parametrize("B", ub.KERNEL_BLOCKS)
 def test_cluster_sizes_are_resident(cuda, B):
-    """A visit at B = 128 runs on a cluster of 4 CTAs, at 256 on 16; the
-    card holds at least one cluster of each kernel (else the wrappers
-    raise), and the dataflow grid is what it holds."""
-    assert ub.kernel_cluster_size(B) == {16: 1, 64: 1, 128: 4, 256: 16}[B]
+    """A visit at B = 128 runs on a cluster of 4 CTAs, at 256 on 16, up to
+    64 on one CTA; the card holds at least one cluster of each kernel (else
+    the wrappers raise), and the dataflow grid is what it holds."""
+    assert ub.kernel_cluster_size(B) == {8: 1, 16: 1, 32: 1, 64: 1, 128: 4,
+                                         256: 16}[B]
     for kind, ring in (("dataflow", False), ("dataflow", True),
                        ("k2", False)):
         assert ub.resident_units(cuda, B, ring, kind) > 0
 
 
-@pytest.mark.parametrize("B", CLUSTER_BLOCKS)
+@pytest.mark.parametrize("B", CLUSTER_BLOCKS + MESH_BLOCKS)
 @pytest.mark.parametrize("solver", ["gs", "pits_gs", "blocked", "pits"])
 def test_cluster_solves_equal_plain(cuda, B, solver):
     """The four solvers at B = 128 and 256 (K1 in the TPU's order and K2,
-    a cluster a block visit) against their plain rounds on the same card:
-    equal rounds, the area bit for bit; the launches counted by block
-    size."""
+    a cluster a block visit), and at the mesh's 32 and 8, against their
+    plain rounds on the same card: equal rounds, the area bit for bit; the
+    launches counted by block size."""
     n, m = 3 * B, 4 * B
     W, base = _state(cuda, n, m)
     links = _pit_links(cuda, n, m) if solver.startswith("pits") else ()
@@ -218,6 +219,51 @@ def test_cluster_round_repeats_bitwise(cuda, B, kernel):
     for _ in range(50):
         got, chg = fn(*args, **kw)
         assert torch.equal(got, want) and torch.equal(chg, want_chg)
+
+
+@pytest.mark.parametrize("B", CLUSTER_BLOCKS)
+@pytest.mark.parametrize("visit", ["async", "sweep"])
+def test_probe_visits_equal_k2(cuda, B, visit):
+    """The sweep probe's whole cluster visits (the kernels' own; the first
+    one, a cluster barrier a sweep) equal K2's round bit for bit; the first
+    one's cut variants run (their values are wrong by design)."""
+    n = 2 * B
+    W, base = _state(cuda, n, n)
+    W = W.contiguous()
+    kw = dict(B=B, inner_max=2 * B + 4)
+    want, want_chg = ub.block_round(base, W, base, **kw)
+    got, chg = ub.probe_round(base, W, base, visit=visit, **kw)
+    assert torch.equal(got, want) and torch.equal(chg, want_chg)
+    if visit == "sweep":
+        for cut in ("_no_stores", "_cta_barrier"):
+            ub.probe_round(base, W, base, visit=visit + cut, **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B,n", [(32, 192), (8, 80)])
+@pytest.mark.parametrize("split", [True, False])
+def test_mesh_at_shard_block_sizes_equals_plain(cuda, B, n, split):
+    """A 2x2 mesh of four shards on the card whose shards take the JAX
+    mesh's B = 32 (96²) or 8 (40²): the sharded solve through the dataflow
+    kernel equals the same mesh through the plain rounds bit for bit, in
+    equal rounds, the split and the serial round forced."""
+    from pydem_tpu_torch.parallel import sharded
+    from pydem_tpu_torch.parallel.mesh import make_mesh, split as cut
+
+    W, base = _state(cuda, n, n)
+    mesh = make_mesh([cuda] * 4, (2, 2))
+    assert sharded._shard_block_size(n // 2, n // 2) == B
+    outs = []
+    for round_fn in (None, ub.gs_round_oriented_plain):
+        before = ub.gs_round_oriented.launches_by_block[B]
+        area, rounds = sharded._blocked_shards(
+            cut(base, mesh), cut(W, mesh), mesh, B, _force_split=split,
+            _round_fn=round_fn)
+        launched = ub.gs_round_oriented.launches_by_block[B] - before
+        outs.append((area, rounds, launched))
+    (ak, rk, lk), (ap, rp, lp) = outs
+    assert rk == rp > 1 and lk >= rk * 4 and lp == 0
+    assert all(torch.equal(a, b) for a, b in zip(ak, ap))
 
 
 @pytest.mark.parametrize("B,shape", [(B, s) for B in ub.KERNEL_BLOCKS

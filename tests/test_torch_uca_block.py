@@ -1003,3 +1003,15 @@ def test_oriented_round_rejects_bad_arguments():
     # an orientation given as a tensor, as a round loop may keep it
     got, chg = t_ub.gs_round_oriented(x, K, x, x, torch.tensor(3), **kw)
     assert torch.equal(got, x) and not chg.any()
+
+
+def test_probe_round_launches_only():
+    """The sweep probe has no plain version: it refuses an unknown visit,
+    then CPU tensors, before anything runs."""
+    x = torch.ones((128, 128))
+    W = torch.zeros((8, 128, 128))
+    with pytest.raises(ValueError, match="visit must be one of"):
+        t_ub.probe_round(x, W, x, B=128, inner_max=8, visit="barrier")
+    for visit in t_ub.PROBE_VISITS:
+        with pytest.raises(ValueError, match="unsupported device"):
+            t_ub.probe_round(x, W, x, B=128, inner_max=8, visit=visit)
