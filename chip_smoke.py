@@ -356,7 +356,7 @@ from pydem_tpu_torch.parallel.sharded import (_block_size,
                                               measure_halo_overlap,
                                               run_sharded, sharded_uca,
                                               terrain_pre, terrain_step)
-from pydem_tpu_torch.profiling import StageTimer
+from pydem_tpu_torch.profiling import StageTimer, counters
 from pydem_tpu_torch.tools import hard_breakdown, mesh_scaling
 from pydem_tpu_torch.tools.hard_breakdown import make_hard_terrain, run_chain
 
@@ -853,7 +853,7 @@ def phase_main_path(device):
     args = spacing(N_MAIN, torch.float32, device)
 
     reset_counts()
-    gs_solve.host_reads = 0
+    reads = counters["solve_reads"]
     blocked = {k: terrain_step(e, *args, uca_solver="blocked")
                for k, e in elevs.items()}
     torch.cuda.synchronize()
@@ -874,7 +874,7 @@ def phase_main_path(device):
         "rounds in the TPU's order (%s rounds), %d host reads of the flags"
         % (N_MAIN, launches, B, kernel_cluster_size(B), rounds,
            {k: b["uca_sweeps"] for k, b in blocked.items()},
-           gs_solve.host_reads))
+           counters["solve_reads"] - reads))
     # the rounds the same planes take at the old default, B = 64
     at64 = {k: accumulate_blocked_gs(*weights_and_base(e)[::-1], B=64)[1]
             for k, e in elevs.items()}
@@ -2590,13 +2590,13 @@ def phase_sharded(device, card):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     reset_counts()
-    reads = sharded._blocked_shards.host_reads
+    reads = counters["mesh_solve_reads"]
     out, split_s = synced_seconds(lambda: run_sharded(
         elev, *args, mesh=mesh, uca_solver="blocked"))
     launches = main_launches("11b run_sharded")
     others = (launch_count(gs_round) + launch_count(gs_round_ring)
               + launch_count(gs_round_subset) + launch_count(gs_round_levels))
-    reads = sharded._blocked_shards.host_reads - reads
+    reads = counters["mesh_solve_reads"] - reads
     peak = torch.cuda.max_memory_allocated() - held
     rounds = out["uca_sweeps"]
     check(sharded._blocked_shards.last_split and others == 0
@@ -3468,14 +3468,14 @@ def phase_cards_sharded(cards, tag):
         elev4 = cone_canvas(n, mesh)
         reset_peaks(cards)
         reset_counts()
-        reads = sharded._blocked_shards.host_reads
+        reads = counters["mesh_solve_reads"]
         out, t = synced_seconds(lambda: run_sharded(
             elev4, *args, mesh=mesh, uca_solver="blocked"))
         four_reps.append(t)
         if rep == 0:
             launches = counts_by_card()
             main_launches("12b run_sharded over the four cards")
-            reads = sharded._blocked_shards.host_reads - reads
+            reads = counters["mesh_solve_reads"] - reads
             peaks = card_peaks(cards)
             split = sharded._blocked_shards.last_split
             rounds = out["uca_sweeps"]

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profiling import count, span
 from .stencil import (ANG_ADJ, FACET_E1, FACET_E2, NEIGHBOR_OFFSETS, shift,
                       sqrt_rn)
 
@@ -182,48 +183,52 @@ def label_flood(mask, payload):
     anything, a hook (``parent[lbl[p]] = min(parent[lbl[p]], sweep[p])``, a
     scatter-min that is order-independent and so deterministic on CUDA) and
     two compress gathers (``lbl <- lbl[lbl]``) follow.  The loop reads one
-    flag on the host per iteration.
+    flag on the host per iteration (the counter ``flood_iters``).
     """
-    n, m = mask.shape
-    N = n * m
-    # int32 labels: beyond 2^31-1 pixels the clipped gathers would wrap.
-    if N >= 2 ** 31:
-        raise ValueError("label_flood: canvas has %d pixels >= 2^31; "
-                         "int32 labels would overflow" % N)
-    big = N
-    dev = mask.device
-    idx = torch.arange(N, dtype=torch.int32, device=dev).reshape(n, m)
-    big_t = torch.tensor(big, dtype=torch.int32, device=dev)
-    lbl = torch.where(mask, idx, big_t)
-    mask_flat = mask.reshape(-1)
+    with span("label_flood"):
+        n, m = mask.shape
+        N = n * m
+        # int32 labels: beyond 2^31-1 pixels the clipped gathers would wrap.
+        if N >= 2 ** 31:
+            raise ValueError("label_flood: canvas has %d pixels >= 2^31; "
+                             "int32 labels would overflow" % N)
+        big = N
+        dev = mask.device
+        idx = torch.arange(N, dtype=torch.int32, device=dev).reshape(n, m)
+        big_t = torch.tensor(big, dtype=torch.int32, device=dev)
+        lbl = torch.where(mask, idx, big_t)
+        mask_flat = mask.reshape(-1)
 
-    def sweep(lbl):
-        new_lbl = lbl
-        for di, dj in NEIGHBOR_OFFSETS:
-            new_lbl = torch.minimum(new_lbl, shift(lbl, di, dj, big))
-        return torch.where(mask, new_lbl, big_t)
+        def sweep(lbl):
+            new_lbl = lbl
+            for di, dj in NEIGHBOR_OFFSETS:
+                new_lbl = torch.minimum(new_lbl, shift(lbl, di, dj, big))
+            return torch.where(mask, new_lbl, big_t)
 
-    def hook_and_compress(lbl, mins):
-        lf = lbl.reshape(-1)
-        # parent table indexed by pixel id; one slot of slack for `big`
-        parent = torch.cat([lf, big_t.reshape(1)])
-        tgt = torch.where(mask_flat, lf, N).long()
-        parent.scatter_reduce_(0, tgt, mins.reshape(-1), reduce="amin")
-        lbl = torch.where(mask, parent[:N].reshape(n, m), big_t)
-        for _ in range(2):  # compress: lbl <- lbl[lbl]
-            f = lbl.reshape(-1)
-            lbl = torch.where(
-                mask, f[torch.clamp(f, 0, N - 1).long()].reshape(n, m), big_t)
-        return lbl
+        def hook_and_compress(lbl, mins):
+            lf = lbl.reshape(-1)
+            # parent table indexed by pixel id; one slot of slack for `big`
+            parent = torch.cat([lf, big_t.reshape(1)])
+            tgt = torch.where(mask_flat, lf, N).long()
+            parent.scatter_reduce_(0, tgt, mins.reshape(-1), reduce="amin")
+            lbl = torch.where(mask, parent[:N].reshape(n, m), big_t)
+            for _ in range(2):  # compress: lbl <- lbl[lbl]
+                f = lbl.reshape(-1)
+                lbl = torch.where(
+                    mask, f[torch.clamp(f, 0, N - 1).long()].reshape(n, m),
+                    big_t)
+            return lbl
 
-    while True:
-        mins = sweep(lbl)
-        if not bool((mins != lbl).any()):
-            break
-        lbl = hook_and_compress(lbl, mins)
-    rep = payload.reshape(-1)[torch.clamp(lbl.reshape(-1), 0, N - 1).long()]
-    rep = torch.where(mask, rep.reshape(n, m), float("nan"))
-    return lbl, rep
+        while True:
+            mins = sweep(lbl)
+            count("flood_iters")
+            if not bool((mins != lbl).any()):
+                break
+            lbl = hook_and_compress(lbl, mins)
+        at = torch.clamp(lbl.reshape(-1), 0, N - 1).long()
+        rep = payload.reshape(-1)[at]
+        rep = torch.where(mask, rep.reshape(n, m), float("nan"))
+        return lbl, rep
 
 
 def find_flats_edges(elev, mag):

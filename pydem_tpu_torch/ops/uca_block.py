@@ -86,6 +86,7 @@ import torch.nn.functional as F
 
 from ..core.stencil import NEIGHBOR_OFFSETS, dilate
 from ..core.uca import PitLinks
+from ..profiling import count, span
 
 # Compact receiver encoding: every pixel has at most two nonzero outgoing
 # weights (its D∞ facet pair), so the 8 dense planes compress to a packed
@@ -990,38 +991,42 @@ def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None,
     round after a round without change is a bitwise no-op (every block is
     skipped), so the canvas returned is that of the first still round and
     ``rounds`` is that round's index, exactly as if the flags were read
-    after every round.  ``_gs_solve.host_reads`` counts the transfers.
+    after every round.  The counter ``solve_reads`` counts the transfers.
     """
-    inner_max = _padded_check(base, B, inner_max)
-    n, m = base.shape
-    K, W1 = W if isinstance(W, tuple) else compact_from_dense(W)
-    base = base.contiguous()
-    # the rounds in the TPU's order update this copy in place
-    x, b_prev = (base if x0 is None else x0).clone(), None
-    prev = torch.ones((n // B, m // B), dtype=torch.int32, device=base.device)
-    rounds = 0
-    while True:
-        counts = []
-        for _ in range(max(1, min(ROUNDS_PER_READ, max_rounds - rounds))):
-            if links is None:
-                b = base
-            else:
-                b = links.add_to(base, x)
-                if b_prev is not None:
-                    prev = prev | _block_any(b != b_prev, B)
-            x, prev = round_fn(x, K, W1, b, prev, B=B, inner_max=inner_max)
-            b_prev = b
-            counts.append(prev.sum())
-        counts = torch.stack(counts).tolist()
-        _gs_solve.host_reads += 1
-        if 0 in counts:
-            return x, rounds + counts.index(0) + 1
-        rounds += len(counts)
-        if rounds >= max_rounds:
-            return x, rounds
-
-
-_gs_solve.host_reads = 0
+    with span("solve"):
+        inner_max = _padded_check(base, B, inner_max)
+        n, m = base.shape
+        if isinstance(W, tuple):
+            K, W1 = W
+        else:
+            with span("compact"):
+                K, W1 = compact_from_dense(W)
+        base = base.contiguous()
+        # the rounds in the TPU's order update this copy in place
+        x, b_prev = (base if x0 is None else x0).clone(), None
+        prev = torch.ones((n // B, m // B), dtype=torch.int32,
+                          device=base.device)
+        rounds = 0
+        while True:
+            counts = []
+            for _ in range(max(1, min(ROUNDS_PER_READ, max_rounds - rounds))):
+                if links is None:
+                    b = base
+                else:
+                    b = links.add_to(base, x)
+                    if b_prev is not None:
+                        prev = prev | _block_any(b != b_prev, B)
+                x, prev = round_fn(x, K, W1, b, prev, B=B,
+                                   inner_max=inner_max)
+                b_prev = b
+                counts.append(prev.sum())
+            counts = torch.stack(counts).tolist()
+            count("solve_reads")
+            if 0 in counts:
+                return x, rounds + counts.index(0) + 1
+            rounds += len(counts)
+            if rounds >= max_rounds:
+                return x, rounds
 
 
 def _in_turn(round_fn, o0=0, **form):

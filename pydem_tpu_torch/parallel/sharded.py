@@ -80,6 +80,7 @@ from ..core.slope_direction import (find_flats_edges, label_flood,
 from ..core.stencil import NEIGHBOR_OFFSETS
 from ..core.twi import twi as twi_fn
 from ..core.uca import accumulate, base_area, finalize_uca, flow_sweep
+from ..profiling import count, span
 from .mesh import (Mesh, ShardedCanvas, layout, make_mesh, same_mesh,
                    shard_dims)
 from .mesh import split as _split
@@ -153,27 +154,34 @@ def terrain_pre(elev, dX, dY, dX2, dY2, fill_flats=False, mesh=None):
     for bit.  Flat filling is a global flood and runs on the whole canvas
     first, so it needs ``elev`` whole.  The mesh must divide the canvas
     (``run_sharded`` pads)."""
-    if mesh is not None:
+    with span("pre"):
+        if mesh is not None:
+            if fill_flats:
+                if isinstance(elev, ShardedCanvas):
+                    raise ValueError("fill_flats over a mesh fills the "
+                                     "whole canvas first: pass elev whole")
+                elev = fill_flats_device(torch.as_tensor(elev))
+            pre = _pre_shards(_canvas_shards(elev, mesh), dX, dY, dX2, dY2,
+                              mesh)
+            return tuple(ShardedCanvas(pre[k], mesh)
+                         for k in ("mag", "direction", "flats", "W", "base"))
+        dX, dY, dX2, dY2 = (torch.as_tensor(a, dtype=elev.dtype,
+                                            device=elev.device)
+                            for a in (dX, dY, dX2, dY2))
         if fill_flats:
-            if isinstance(elev, ShardedCanvas):
-                raise ValueError("fill_flats over a mesh fills the whole "
-                                 "canvas first: pass elev whole")
-            elev = fill_flats_device(torch.as_tensor(elev))
-        pre = _pre_shards(_canvas_shards(elev, mesh), dX, dY, dX2, dY2, mesh)
-        return tuple(ShardedCanvas(pre[k], mesh)
-                     for k in ("mag", "direction", "flats", "W", "base"))
-    dX, dY, dX2, dY2 = (torch.as_tensor(a, dtype=elev.dtype, device=elev.device)
-                        for a in (dX, dY, dX2, dY2))
-    if fill_flats:
-        elev = fill_flats_device(elev)
-    mag, direction = slopes_directions(elev, dX, dY)
-    flats = find_flats_edges(elev, mag)
-    direction = torch.where(flats, FLAT_ID_INT, direction)
-    mag = torch.where(flats, FLAT_ID_INT, mag)
-    section, proportion = section_proportion(direction, flats, dX, dY)
-    W = receiver_weights(section, proportion, elev)
-    base = base_area(dX2, dY2, elev.shape, elev.dtype)
-    return mag, direction, flats, W, base
+            elev = fill_flats_device(elev)
+        with span("slopes"):
+            mag, direction = slopes_directions(elev, dX, dY)
+        with span("flats"):
+            flats = find_flats_edges(elev, mag)
+        direction = torch.where(flats, FLAT_ID_INT, direction)
+        mag = torch.where(flats, FLAT_ID_INT, mag)
+        with span("section"):
+            section, proportion = section_proportion(direction, flats, dX, dY)
+        with span("receivers"):
+            W = receiver_weights(section, proportion, elev)
+        base = base_area(dX2, dY2, elev.shape, elev.dtype)
+        return mag, direction, flats, W, base
 
 
 def terrain_post(area, flats, mag, base):
@@ -215,27 +223,30 @@ def terrain_step(elev, dX, dY, dX2, dY2, n_sweeps=None, uca_solver="jacobi",
     if uca_solver not in ("jacobi", "blocked"):
         raise ValueError("uca_solver must be 'jacobi' or 'blocked', got %r"
                          % (uca_solver,))
-    mag, direction, flats, W, base = terrain_pre(elev, dX, dY, dX2, dY2,
-                                                 fill_flats=fill_flats)
+    with span("terrain_step"):
+        mag, direction, flats, W, base = terrain_pre(elev, dX, dY, dX2, dY2,
+                                                     fill_flats=fill_flats)
 
-    if n_sweeps is not None:
-        area = base
-        for _ in range(n_sweeps):
-            area = base + flow_sweep(area, W)
-        sweeps = n_sweeps
-    elif uca_solver == "blocked":
-        from ..ops.uca_block import accumulate_blocked_gs
+        if n_sweeps is not None:
+            area = base
+            for _ in range(n_sweeps):
+                area = base + flow_sweep(area, W)
+            sweeps = n_sweeps
+        elif uca_solver == "blocked":
+            from ..ops.uca_block import accumulate_blocked_gs
 
-        n, m = elev.shape
-        B = _block_size(n, m)
-        pn, pm = (-n) % B, (-m) % B
-        base_p = F.pad(base, (0, pm, 0, pn))
-        W_p = F.pad(W, (0, pm, 0, pn))
-        area, sweeps = accumulate_blocked_gs(base_p, W_p, B=B)
-        area = area[:n, :m]
-    else:
-        area, sweeps = accumulate(base, W)
-    uca, twi = terrain_post(area, flats, mag, base)
+            n, m = elev.shape
+            B = _block_size(n, m)
+            pn, pm = (-n) % B, (-m) % B
+            with span("pad"):
+                base_p = F.pad(base, (0, pm, 0, pn))
+                W_p = F.pad(W, (0, pm, 0, pn))
+            area, sweeps = accumulate_blocked_gs(base_p, W_p, B=B)
+            area = area[:n, :m]
+        else:
+            area, sweeps = accumulate(base, W)
+        with span("post"):
+            uca, twi = terrain_post(area, flats, mag, base)
     return dict(mag=mag, direction=direction, flats=flats, uca=uca, twi=twi,
                 uca_sweeps=sweeps)
 
@@ -777,7 +788,7 @@ def _blocked_shards(base_s, W_s, mesh, B, inner_max=None, max_rounds=100_000,
             b_s = base_s if links is None else links.add_to(base_s, st.x)
             counts.append(st.round(b_s, r % 4))
         counts = torch.stack(counts).tolist()
-        _blocked_shards.host_reads += 1
+        count("mesh_solve_reads")
         if 0 in counts:
             rounds += counts.index(0) + 1
             break
@@ -787,7 +798,6 @@ def _blocked_shards(base_s, W_s, mesh, B, inner_max=None, max_rounds=100_000,
     return [x[1:-1, 1:-1] for x in st.x], rounds
 
 
-_blocked_shards.host_reads = 0
 _blocked_shards.last_split = None
 
 

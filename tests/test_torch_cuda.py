@@ -20,6 +20,7 @@ from chip_smoke import make_cone, make_hard_terrain, ring_window
 from pydem_tpu_torch.api import DEMProcessor
 from pydem_tpu_torch.ops import uca_block as ub
 from pydem_tpu_torch.parallel.sharded import terrain_pre
+from pydem_tpu_torch.profiling import counters
 
 pytestmark = pytest.mark.cuda
 
@@ -132,13 +133,13 @@ def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     before = ub.launch_count(ub.gs_round_oriented)
     jacobi = ub.launch_count(ub.gs_round)
     levels_before = ub.launch_count(ub.gs_round_levels)
-    reads = ub._gs_solve.host_reads
+    reads = counters["solve_reads"]
     ak, rounds = ub.accumulate_blocked_gs(base, W, B=64)
     launches = ub.launch_count(ub.gs_round_oriented) - before
     # one dataflow launch a round; the flags are read once per 4 rounds, so
     # up to 3 still rounds follow
     assert rounds <= launches <= rounds + 3
-    assert ub._gs_solve.host_reads - reads == -(-rounds // 4)
+    assert counters["solve_reads"] - reads == -(-rounds // 4)
     ap, rp = ub.accumulate_blocked_gs(base, W, B=64,
                                       round_fn=ub.gs_round_oriented_plain)
     assert ub.launch_count(ub.gs_round_oriented) - before == launches
@@ -150,6 +151,45 @@ def test_kernel_solve_equals_plain_and_counts_launches(cuda):
             == launches + r3)
     assert ub.launch_count(ub.gs_round) == jacobi  # block-Jacobi's
     assert ub.launch_count(ub.gs_round_levels) == levels_before
+
+
+def test_spans_on_the_card(cuda):
+    """``terrain_step(blocked)`` under a recording on the card: CUDA-event
+    spans a record, each under its parent, children inside their parent's
+    time, one host read a batch of 4 rounds, outputs bitwise as without
+    the recording."""
+    from pydem_tpu_torch import profiling
+    from pydem_tpu_torch.parallel.sharded import terrain_step
+
+    elev = torch.from_numpy(make_hard_terrain(512, "float32")).to(cuda)
+    o1 = torch.ones(511, dtype=elev.dtype, device=cuda)
+    o = torch.ones(512, dtype=elev.dtype, device=cuda)
+    plain = terrain_step(elev, o1, o1, o, o, uca_solver="blocked")
+    with profiling.recording(cuda) as rec:
+        traced = [terrain_step(elev, o1, o1, o, o, uca_solver="blocked")
+                  for _ in range(2)]
+    torch.cuda.synchronize()
+    records = rec.records()
+    assert len(records) == 2
+    for r, out in zip(records, traced):
+        assert r["parents"] == {
+            "terrain_step": None, "pre": "terrain_step", "slopes": "pre",
+            "flats": "pre", "label_flood": "flats", "section": "pre",
+            "receivers": "pre", "pad": "terrain_step",
+            "solve": "terrain_step", "compact": "solve",
+            "post": "terrain_step"}
+        ms = r["spans"]
+        assert all(v >= 0 for v in ms.values())
+        assert ms["pre"] + ms["pad"] + ms["solve"] + ms["post"] \
+            <= ms["terrain_step"] * 1.001
+        assert ms["slopes"] + ms["flats"] + ms["section"] \
+            + ms["receivers"] <= ms["pre"] * 1.001
+        assert ms["label_flood"] <= ms["flats"] * 1.001
+        assert r["counters"]["solve_reads"] == -(-out["uca_sweeps"] // 4)
+        assert r["counters"]["flood_iters"] >= 1
+        for key in ("mag", "direction", "flats", "uca", "twi"):
+            assert torch.equal(torch.nan_to_num(out[key]),
+                               torch.nan_to_num(plain[key])), key
 
 
 CLUSTER_BLOCKS = (128, 256)  # a visit on a thread-block cluster

@@ -451,29 +451,32 @@ def test_utils_surface_alike(tmp_path):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """StageTimer accumulates; ``device_trace`` writes a torch.profiler
-    Chrome trace; ``annotate`` names a range in it."""
+    """StageTimer accumulates host seconds a stage; each stage is a span:
+    under a recording it is a record of its own, with the spans opened
+    inside it as its children, and a ``pydem::`` range in a
+    ``torch.profiler`` trace."""
     import json
+
+    from torch.profiler import ProfilerActivity, profile
 
     timer = t_profiling.StageTimer()
     with timer.stage("a"):
         pass
-    with timer.stage("a"):
-        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with t_profiling.recording("cpu") as rec:
+            with timer.stage("a"):
+                with t_profiling.span("x"):
+                    assert float((torch.ones(8) * 2).sum()) == 16.0
     assert list(timer.report()) == ["a"] and timer.report()["a"] >= 0
     timer.dump(str(tmp_path / "t.json"))
     with open(str(tmp_path / "t.json")) as f:
         assert list(json.load(f)) == ["a"]
-
-    @t_profiling.annotate("pydem_stage_x")
-    def work(x):
-        return (x * 2).sum()
-
-    with t_profiling.device_trace(str(tmp_path / "trace")) as logdir:
-        assert float(work(torch.ones(8))) == 16.0
-    with open(os.path.join(logdir, "trace.json")) as f:
-        assert "pydem_stage_x" in f.read()
-    assert work.__name__ == "work"
+    (record,) = rec.records()
+    assert record["parents"] == {"a": None, "x": "a"}
+    assert 0 <= record["spans"]["x"] <= record["spans"]["a"]
+    assert record["spans"]["a"] <= 1e3 * timer.report()["a"]
+    names = {e.name for e in prof.events()}
+    assert {"pydem::a", "pydem::x"} <= names
 
 
 def test_debug_plots_build():

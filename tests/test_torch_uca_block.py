@@ -29,6 +29,7 @@ from pydem_tpu_torch.core import receivers as t_rec
 from pydem_tpu_torch.core import slope_direction as t_sd
 from pydem_tpu_torch.core.stencil import NEIGHBOR_OFFSETS
 from pydem_tpu_torch.ops import uca_block as t_ub
+from pydem_tpu_torch.profiling import counters
 
 torch.set_num_threads(1)
 
@@ -667,7 +668,7 @@ def test_round_loop_equals_reading_every_round(name, max_rounds):
         calls.append(1)
         return t_ub.gs_round_oriented_plain(*args, **kw)
 
-    reads = t_ub._gs_solve.host_reads
+    reads = counters["solve_reads"]
     kw = dict(B=B, inner_max=inner_max, max_rounds=max_rounds,
               round_fn=counting_round)
     if links is None:
@@ -680,7 +681,7 @@ def test_round_loop_equals_reading_every_round(name, max_rounds):
     # one read per batch of 4
     assert rounds <= len(calls) <= min(rounds + 3, max(max_rounds, 1))
     assert len(calls) == min(-(-rounds // 4) * 4, max(max_rounds, 1))
-    assert t_ub._gs_solve.host_reads - reads == -(-rounds // 4)
+    assert counters["solve_reads"] - reads == -(-rounds // 4)
 
 
 @pytest.mark.parametrize("flag_ring", [False, True])
