@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py              # phases 1-11 and 13, one card
+    python3 chip_smoke.py              # phases 1-11, 13 and 14, one card
     python3 chip_smoke.py --multicard  # phases 1, 2 and 12, four cards
 
 Phases, each reported on its own lines:
@@ -40,8 +40,9 @@ Phases, each reported on its own lines:
    the 2048² cone and hard terrain at its default B = 256 (a cluster of 16
    CTAs a block); the dataflow launch's counter must rise by the rounds,
    all at B = 256 (the level path's and block-Jacobi's by none), the
-   rounds printed beside those of the same planes at B = 64; the result
-   must match
+   rounds printed beside those of the same planes at B = 64; the facet
+   kernel's call counter must rise by one a ``terrain_step`` (each main
+   path's run logs its facet calls and launches); the result must match
    ``uca_solver="jacobi"`` (NaN pattern, and the JAX package's own bench
    gate tolerances), repeat bit for bit, and agree with the float64 CPU
    run on a small cone;
@@ -283,12 +284,21 @@ Phases, each reported on its own lines:
        ``mesh_scaling`` at 4096², each shape's rounds printed beside one
        device's ``terrain_step``.
     K1's launches in the in-process runs of a and b join the kernel line.
+14. the facet sweep kernel (``ops/csrc/facets.cu``, built in phase 2 with
+    its register, spill and shared-memory lines; neither kernel may spill):
+    on a 6000² float32 noisy cone with geographic row spacings, bit for bit
+    the eager sweep (``_slopes_directions_eager``), then both timed, median
+    of 5 after a warm-up, beside the byte bound (elevation read once,
+    ``mag`` and ``direction`` written once: 12 B a pixel over the card's
+    memory rate).
 
 Then a JSON line with the kernel table (K1 in the TPU's order, the
 dataflow launch, at the main paths' B = 256, at 128 and at 64, with its
 figures in every form and its main-path launches by block size; the level
 launches it replaced, the "before" column; K1's block-Jacobi reference
-forms; and K2 at 256 and 64, each with its launches on the main paths),
+forms; K2 at 256 and 64, each with its launches on the main paths; the
+facet sweep with its launches on the main paths, as its C entry counts
+them, and phase 14's largest difference from the eager sweep),
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
 exit and no result line.  The port imports neither JAX nor the JAX package.
@@ -318,6 +328,7 @@ from pydem_tpu_torch.api import (DEMProcessor, _edge_flood_program,
 from pydem_tpu_torch.core.conditioning import drain_pit_paths
 from pydem_tpu_torch.core.flats_device import fill_flats_device
 from pydem_tpu_torch.core.receivers import receiver_weights
+from pydem_tpu_torch.core.slope_direction import _slopes_directions_eager
 from pydem_tpu_torch.core.stencil import dilate
 from pydem_tpu_torch.core.uca import (PitLinks, accumulate, base_area,
                                       reachability)
@@ -329,6 +340,7 @@ from pydem_tpu_torch.io import read_geotiff, write_geotiff
 from pydem_tpu_torch.io.store import ArrayStore
 from pydem_tpu_torch.manager import ProcessManager
 from pydem_tpu_torch.ops import _build, uca_block
+from pydem_tpu_torch.ops.facets import facet_sweep
 from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed
 from pydem_tpu_torch.outofcore import OutOfCoreEngine
 from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, REFERENCE_BLOCKS,
@@ -458,16 +470,28 @@ WRAPPERS = (("uca_gs_round", gs_round),
 
 def reset_counts():
     """Every kernel wrapper's launch counts to 0 (by device and, where the
-    wrapper counts so, by block size)."""
+    wrapper counts so, by block size); the facet kernel's counters from
+    here."""
     for _name, fn in WRAPPERS:
         fn.launches_on.clear()
         getattr(fn, "launches_by_block", {}).clear()
+    FACET_AT[:] = [counters["facet_kernel"], counters["facet_launches"]]
 
 
 # the dataflow launches of the main paths' runs by block size (phases 4, 5
 # and 9-11), and K2's of its path (phase 6), for the kernels line
 MAIN_BY_BLOCK = collections.Counter()
 K2_BY_BLOCK = {}
+# the facet kernel's counters at the last reset_counts(), and its calls and
+# launches (as the C entry reports them) in the main paths' runs
+FACET_AT = [0, 0]
+FACET_MAIN = collections.Counter()
+
+
+def facet_since_reset():
+    """The facet kernel's (calls, launches) since :func:`reset_counts`."""
+    return (counters["facet_kernel"] - FACET_AT[0],
+            counters["facet_launches"] - FACET_AT[1])
 
 
 def main_launches(tag):
@@ -475,7 +499,12 @@ def main_launches(tag):
     run: logged by block size and added to ``MAIN_BY_BLOCK``."""
     by = dict(gs_round_oriented.launches_by_block)
     MAIN_BY_BLOCK.update(by)
-    log("main", "%s: dataflow launches by block size %s" % (tag, by))
+    calls, launches = facet_since_reset()
+    check(launches == 2 * calls, "%s: %d facet kernel launches for %d calls"
+          % (tag, launches, calls))
+    FACET_MAIN.update(calls=calls, launches=launches)
+    log("main", "%s: dataflow launches by block size %s; facet sweep %d "
+        "calls, %d launches" % (tag, by, calls, launches))
     return launch_count(gs_round_oriented)
 
 
@@ -540,12 +569,15 @@ def phase_device():
 def phase_build():
     """nvcc for the kernels' source and g++ for the carve, started
     together."""
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         cuda = pool.submit(_build.build, "uca_block")
+        facets = pool.submit(_build.build, "facets")
         carve = pool.submit(native.build)
         (path, seconds, build_log), (so, so_seconds) = (cuda.result(),
                                                         carve.result())
+        facet_build = facets.result()
     log("build", "%s built in %.2f s" % (os.path.relpath(path, ROOT), seconds))
+    facet_kernels(*facet_build)
     # ptxas: registers, spills, stack and static shared memory by kernel
     ptxas, name = {}, None
     for line in build_log.splitlines():
@@ -610,6 +642,32 @@ def phase_build():
                 for i, v in enumerate(uca_block.PROBE_VISITS)}))
     log("build", "%s built in %.2f s (g++)" % (os.path.relpath(so, ROOT),
                                                  so_seconds))
+
+
+def facet_kernels(path, seconds, build_log):
+    """Log the facet kernels' build: each instantiation's registers,
+    spills, stack and static shared memory; neither may spill or keep a
+    stack frame."""
+    log("build", "%s built in %.2f s" % (os.path.relpath(path, ROOT),
+                                          seconds))
+    seen, name = set(), None
+    for line in build_log.splitlines():
+        entry = re.search(r"entry function '\S*?(facet_[a-z]+_kernel)I([fd])E",
+                          line)
+        if entry:
+            name = "%s<%s>" % (entry.group(1),
+                               "float" if entry.group(2) == "f" else "double")
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame and name:
+            check(not any(int(g) for g in frame.groups()),
+                  "%s spills or keeps a stack frame: %s" % (name,
+                                                            line.strip()))
+        if "Used" in line and "registers" in line and name:
+            seen.add(name)
+            log("build", "%s: %s" % (name, line.strip()))
+    check(len(seen) == 4, "ptxas lines for 4 facet kernels, got %s"
+          % sorted(seen))
 
 
 def k2_rounds_vs_plain(name, W, base, blocks=KERNEL_BLOCKS):
@@ -859,6 +917,9 @@ def phase_main_path(device):
     torch.cuda.synchronize()
     launches = main_launches("4 terrain_step")
     check(launches > 0, "the main path launched the UCA kernel no time")
+    check(facet_since_reset()[0] == len(blocked),
+          "%d facet kernel calls for %d terrain_step calls"
+          % (facet_since_reset()[0], len(blocked)))
     B = _block_size(N_MAIN, N_MAIN)
     check(gs_round_oriented.launches_by_block[B] == launches,
           "terrain_step launched the dataflow kernel at other block sizes "
@@ -4207,6 +4268,42 @@ def levels_entry(levels):
     }
 
 
+# -- phase 14: the facet sweep kernel ----------------------------------------
+
+N_FACETS = 6000  # the benchmark's tile: a MERIT Hydro 5°x5° tile at 3"
+
+
+def phase_facets(device, card, n=N_FACETS):
+    """The facet sweep kernel (``ops.facets.facet_sweep``) against the
+    eager sweep on an n² float32 tile, bit for bit, and both timed (median
+    of 5 after a warm-up) beside the byte bound."""
+    elev = torch.from_numpy(make_noisy_cone(n) * 600).to(device)
+    rows = torch.arange(n - 1, dtype=torch.float64)
+    dX = (92.6 * torch.cos(torch.deg2rad(40.0 + rows * 5.0 / n))).float()
+    dX = dX.to(device)
+    dY = torch.full((n - 1,), 92.6, dtype=torch.float32, device=device)
+    got = facet_sweep(elev, dX, dY)
+    want = _slopes_directions_eager(elev, dX, dY)
+    err = 0.0
+    for name, a, b in zip(("mag", "direction"), got, want):
+        diff = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        check(diff == 0, "facet sweep: %s differs from the eager sweep at %d "
+              "pixels" % (name, diff))
+        err = max(err, nan_equal_max_err(a, b))
+    del got, want
+    ms, reps = cuda_median_ms(lambda: facet_sweep(elev, dX, dY), reps=5)
+    plain_ms, plain_reps = cuda_median_ms(
+        lambda: _slopes_directions_eager(elev, dX, dY), reps=5)
+    # elevation read once, mag and direction written once
+    bound_ms = 12 * n * n / HBM_BYTES_PER_S * 1e3
+    log("facets", "%d² float32 on %s: kernel %.4f ms (reps %s), eager %.2f "
+        "ms (reps %s), bound %.4f ms: %.1f%% of the bound, %.1fx the eager "
+        "sweep" % (n, card, ms, ["%.4f" % r for r in reps], plain_ms,
+                   ["%.2f" % r for r in plain_reps], bound_ms,
+                   100 * bound_ms / ms, plain_ms / ms))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, err=err)
+
+
 def main():
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -4262,6 +4359,8 @@ def main():
     deploy = phase_deploy(device, card, chain)
     k1_launches += sum(deploy["uca_gs_round_dataflow"].values())
     clock("13 periphery")
+    facets = phase_facets(device, card)
+    clock("14 facet sweep")
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [
         *dataflow_entries(k1_launches, max(k1_err, ring_err, subset_err),
@@ -4303,6 +4402,21 @@ def main():
                for k, v in (("ms", "kernel"), ("plain_ms", "plain"),
                             ("bound_ms", "bound"))},
             "launches_by_block": K2_BY_BLOCK,
+        }, {
+            # the facet sweep at 6000², float32 (phase 14); the JAX
+            # package's sweep is jnp code, no pallas_call
+            "name": "facet_sweep",
+            "route": "cuda",
+            "source": "pydem_tpu_torch/ops/csrc/facets.cu",
+            "replaces": None,
+            # as the C entry reports them, in the main paths' runs
+            "launches": FACET_MAIN["launches"],
+            "max_abs_err": facets["err"],
+            "ms": facets["ms"],
+            "plain_ms": facets["plain_ms"],
+            "bound_ms": facets["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
         }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,11 @@ over NaN-filled neighbor shifts, with the edge/corner facet subsets as static
 region masks, plus the reference's sequential "upstream-facing edges copy the
 interior value" steps in the same left → right → top → bottom order.
 
+On a CUDA device the sweep of a float32 or float64 grid of at least 2×2 is
+one hand-written kernel pair (:func:`~pydem_tpu_torch.ops.facets.facet_sweep`,
+``ops/csrc/facets.cu``), bit for bit the eager sweep below
+(:func:`_slopes_directions_eager`), which runs everywhere else.
+
 Eager PyTorch runs one kernel per operation, so ``a*a + b*b`` is never
 contracted into an FMA: the JAX version's ``optimization_barrier`` calls have
 no counterpart here.  Write the arithmetic as plain operations (no
@@ -18,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.facets import DTYPES, facet_sweep
 from ..profiling import count, span
 from .stencil import (ANG_ADJ, FACET_E1, FACET_E2, NEIGHBOR_OFFSETS, shift,
                       sqrt_rn)
@@ -124,7 +130,22 @@ def slopes_directions(elev, dX, dY):
     """D∞ slope magnitude and direction for the whole grid.
 
     Returns (mag, direction); flats (all-upslope pixels) hold -1 in both.
+    ``dX``/``dY``: scalars or the (n-1) spacings between rows.  A CUDA grid
+    of a type in :data:`~pydem_tpu_torch.ops.facets.DTYPES`, 2×2 or larger,
+    takes the kernel; the result is the eager sweep's either way.
     """
+    n, m = elev.shape
+    if (elev.device.type == "cuda" and elev.dtype in DTYPES and n >= 2
+            and m >= 2):
+        dX, dY = (torch.as_tensor(d, dtype=elev.dtype, device=elev.device)
+                  .expand(n - 1).contiguous() for d in (dX, dY))
+        return facet_sweep(elev.contiguous(), dX, dY)
+    return _slopes_directions_eager(elev, dX, dY)
+
+
+def _slopes_directions_eager(elev, dX, dY):
+    """:func:`slopes_directions` as eager PyTorch operations, on any
+    device and type."""
     n, m = elev.shape
     dX = torch.as_tensor(dX, dtype=elev.dtype, device=elev.device).expand(n - 1)
     dY = torch.as_tensor(dY, dtype=elev.dtype, device=elev.device).expand(n - 1)

@@ -1,8 +1,8 @@
 """Checks of the CUDA UCA block kernels (K1 ``gs_round_oriented`` in the
 TPU's Gauss-Seidel order, one dataflow launch a round, in every form, and
 its level launches ``gs_round_levels``; K1's block-Jacobi ``gs_round``;
-K2 ``block_round``), the device chain, the flood and the manager that need
-an NVIDIA GPU.
+K2 ``block_round``), the facet sweep kernel (``ops.facets``), the device
+chain, the flood and the manager that need an NVIDIA GPU.
 
 They skip without one.  The GPU machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
@@ -18,6 +18,7 @@ import torch
 
 from chip_smoke import make_cone, make_hard_terrain, ring_window
 from pydem_tpu_torch.api import DEMProcessor
+from pydem_tpu_torch.core import slope_direction as sd
 from pydem_tpu_torch.ops import uca_block as ub
 from pydem_tpu_torch.parallel.sharded import terrain_pre
 from pydem_tpu_torch.profiling import counters
@@ -940,3 +941,120 @@ def test_engine_over_four_cards_equals_one_card(four_cards, tmp_path,
     assert ra == rb
     for key in ("slope", "aspect", "flats", "uca", "twi"):
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+# -- the facet sweep kernel (ops/csrc/facets.cu) -----------------------------
+
+def _fbm(n, m, seed=7, hurst=0.8):
+    """An fBm surface in whole metres (600 m of relief): rounding leaves
+    exact ties between neighbours, and a quarter of it is one plateau."""
+    rng = np.random.RandomState(seed)
+    k = np.hypot(np.fft.fftfreq(n)[:, None], np.fft.rfftfreq(m)[None, :])
+    k[0, 0] = 1.0
+    amp = k ** -(hurst + 1.0)
+    amp[0, 0] = 0.0
+    z = np.fft.irfft2(amp * (rng.randn(*amp.shape)
+                             + 1j * rng.randn(*amp.shape)), s=(n, m))
+    z = np.round((z - z.min()) / max(np.ptp(z), 1e-12) * 600.0)
+    z[n // 4: n // 2, m // 4: m // 2] = z[n // 4, m // 4]
+    return z
+
+
+def _facet_surface(kind, n, m):
+    if kind == "cone":
+        x, y = np.mgrid[-1:1:complex(0, n), -1:1:complex(0, m)]
+        return 1 - np.sqrt(x ** 2 + y ** 2) / np.sqrt(2.0)
+    z = _fbm(n, m)
+    if kind == "fbm sea":
+        z[n // 2:, :] = np.nan
+    return z
+
+
+def _spacing(kind, n, dtype, device):
+    """Scalars, or per-row spacings as on a geographic grid (the columns
+    narrow with latitude)."""
+    if kind == "scalar":
+        return 30.0, 25.0
+    rows = np.arange(n - 1)
+    dX = 92.6 * np.cos(np.radians(40.0 + rows * 5.0 / max(n, 2)))
+    dY = 92.6 + 0.001 * rows
+    return (torch.tensor(dX, dtype=dtype, device=device),
+            torch.tensor(dY, dtype=dtype, device=device))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _sweeps_equal(elev, dX, dY):
+    """The kernel's sweep (through ``slopes_directions``) and the eager
+    sweep of the same card tensors, bit for bit; one kernel call, two
+    launches."""
+    before = counters["facet_kernel"], counters["facet_launches"]
+    mag, direction = sd.slopes_directions(elev, dX, dY)
+    assert (counters["facet_kernel"] - before[0],
+            counters["facet_launches"] - before[1]) == (1, 2)
+    want_mag, want_dir = sd._slopes_directions_eager(elev, dX, dY)
+    torch.cuda.synchronize()
+    assert mag.is_contiguous() and mag.shape == elev.shape
+    assert torch.equal(_bits(mag), _bits(want_mag)), int(
+        (_bits(mag) != _bits(want_mag)).sum())
+    assert torch.equal(_bits(direction), _bits(want_dir)), int(
+        (_bits(direction) != _bits(want_dir)).sum())
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 5), (5, 2), (3, 3),
+                                   (257, 263)])
+@pytest.mark.parametrize("surface", ["fbm", "fbm sea", "cone"])
+@pytest.mark.parametrize("spacing", ["scalar", "per row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_facet_kernel_equals_eager(cuda, shape, surface, spacing, dtype):
+    n, m = shape
+    elev = torch.tensor(_facet_surface(surface, n, m), dtype=dtype,
+                        device=cuda)
+    _sweeps_equal(elev, *_spacing(spacing, n, dtype, cuda))
+
+
+def test_facet_kernel_equals_eager_on_a_tile(cuda):
+    """One 6000² float32 tile, half sea, geographic spacings: the
+    benchmark's shape."""
+    n = 6000
+    elev = torch.tensor(_facet_surface("fbm sea", n, n), dtype=torch.float32,
+                        device=cuda)
+    _sweeps_equal(elev, *_spacing("per row", n, torch.float32, cuda))
+
+
+@pytest.mark.parametrize("view", ["columns", "transposed"])
+def test_facet_kernel_on_a_view(cuda, view):
+    """A non-contiguous ``elev`` (a window's columns, a transpose)."""
+    big = torch.tensor(_facet_surface("fbm", 70, 76), dtype=torch.float32,
+                       device=cuda)
+    elev = big[:, 3:-3] if view == "columns" else big.t()
+    assert not elev.is_contiguous()
+    _sweeps_equal(elev, *_spacing("per row", elev.shape[0], elev.dtype,
+                                  cuda))
+
+
+def test_terrain_pre_with_the_facet_kernel(cuda, monkeypatch):
+    """``terrain_pre``'s five outputs on the card equal those built from
+    the eager sweep, and the kernel ran once."""
+    from pydem_tpu_torch.parallel import sharded
+
+    n, m = 300, 280
+    elev = torch.tensor(_facet_surface("fbm sea", n, m), dtype=torch.float32,
+                        device=cuda)
+    dX, dY = _spacing("per row", n, elev.dtype, cuda)
+    rows = torch.full((n,), 92.6, dtype=elev.dtype, device=cuda)
+    before = counters["facet_kernel"]
+    got = terrain_pre(elev, dX, dY, rows * 0.8, rows)
+    assert counters["facet_kernel"] - before == 1
+    monkeypatch.setattr(sharded, "slopes_directions",
+                        sd._slopes_directions_eager)
+    want = terrain_pre(elev, dX, dY, rows * 0.8, rows)
+    assert counters["facet_kernel"] - before == 1
+    for name, a, b in zip(("mag", "direction", "flats", "W", "base"), got,
+                          want):
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b), name
+        else:
+            assert torch.equal(_bits(a), _bits(b)), name
