@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py              # phases 1-11, 13 and 14, one card
+    python3 chip_smoke.py              # phases 1-11 and 13-15, one card
     python3 chip_smoke.py --multicard  # phases 1, 2 and 12, four cards
 
 Phases, each reported on its own lines:
@@ -291,6 +291,16 @@ Phases, each reported on its own lines:
     of 5 after a warm-up, beside the byte bound (elevation read once,
     ``mag`` and ``direction`` written once: 12 B a pixel over the card's
     memory rate).
+15. the union-find flood kernel (``ops/csrc/flood.cu``, built in phase 2
+    with its register, spill and shared-memory lines; no kernel may
+    spill): on the flat masks (``mag == -1``) of both benchmark cells'
+    surfaces at 6000² (``hydrobench/traffic``: the coast's sea is one
+    18 Mpx flat), ``label_flood`` through the kernel, one call and three
+    launches as the C entry reports them, bit for bit the eager loop
+    (``_label_flood_eager``), labels and ``rep``; then both timed, median
+    of 5 after a warm-up, beside the byte bound (the mask read once, the
+    labels written once: 5 B a pixel).  Each main path's run of phases 4,
+    5 and 9-11 also logs its flood calls and launches (three a call).
 
 Then a JSON line with the kernel table (K1 in the TPU's order, the
 dataflow launch, at the main paths' B = 256, at 128 and at 64, with its
@@ -298,7 +308,8 @@ figures in every form and its main-path launches by block size; the level
 launches it replaced, the "before" column; K1's block-Jacobi reference
 forms; K2 at 256 and 64, each with its launches on the main paths; the
 facet sweep with its launches on the main paths, as its C entry counts
-them, and phase 14's largest difference from the eager sweep),
+them, and phase 14's largest difference from the eager sweep; the flood
+with its launches on the main paths and phase 15's times),
 and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure ends the run with a non-zero
 exit and no result line.  The port imports neither JAX nor the JAX package.
@@ -328,7 +339,9 @@ from pydem_tpu_torch.api import (DEMProcessor, _edge_flood_program,
 from pydem_tpu_torch.core.conditioning import drain_pit_paths
 from pydem_tpu_torch.core.flats_device import fill_flats_device
 from pydem_tpu_torch.core.receivers import receiver_weights
-from pydem_tpu_torch.core.slope_direction import _slopes_directions_eager
+from pydem_tpu_torch.core.slope_direction import (_label_flood_eager,
+                                                   _slopes_directions_eager,
+                                                   label_flood)
 from pydem_tpu_torch.core.stencil import dilate
 from pydem_tpu_torch.core.uca import (PitLinks, accumulate, base_area,
                                       reachability)
@@ -341,6 +354,7 @@ from pydem_tpu_torch.io.store import ArrayStore
 from pydem_tpu_torch.manager import ProcessManager
 from pydem_tpu_torch.ops import _build, uca_block
 from pydem_tpu_torch.ops.facets import facet_sweep
+from pydem_tpu_torch.ops.flood import flood_labels
 from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed
 from pydem_tpu_torch.outofcore import OutOfCoreEngine
 from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, REFERENCE_BLOCKS,
@@ -476,6 +490,7 @@ def reset_counts():
         fn.launches_on.clear()
         getattr(fn, "launches_by_block", {}).clear()
     FACET_AT[:] = [counters["facet_kernel"], counters["facet_launches"]]
+    FLOOD_AT[:] = [counters["flood_kernel"], counters["flood_launches"]]
 
 
 # the dataflow launches of the main paths' runs by block size (phases 4, 5
@@ -486,6 +501,9 @@ K2_BY_BLOCK = {}
 # launches (as the C entry reports them) in the main paths' runs
 FACET_AT = [0, 0]
 FACET_MAIN = collections.Counter()
+# the same for the flood kernel
+FLOOD_AT = [0, 0]
+FLOOD_MAIN = collections.Counter()
 
 
 def facet_since_reset():
@@ -503,8 +521,14 @@ def main_launches(tag):
     check(launches == 2 * calls, "%s: %d facet kernel launches for %d calls"
           % (tag, launches, calls))
     FACET_MAIN.update(calls=calls, launches=launches)
+    f_calls = counters["flood_kernel"] - FLOOD_AT[0]
+    f_launches = counters["flood_launches"] - FLOOD_AT[1]
+    check(f_launches == 3 * f_calls, "%s: %d flood kernel launches for %d "
+          "calls" % (tag, f_launches, f_calls))
+    FLOOD_MAIN.update(calls=f_calls, launches=f_launches)
     log("main", "%s: dataflow launches by block size %s; facet sweep %d "
-        "calls, %d launches" % (tag, by, calls, launches))
+        "calls, %d launches; flood %d calls, %d launches" % (
+            tag, by, calls, launches, f_calls, f_launches))
     return launch_count(gs_round_oriented)
 
 
@@ -569,15 +593,17 @@ def phase_device():
 def phase_build():
     """nvcc for the kernels' source and g++ for the carve, started
     together."""
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         cuda = pool.submit(_build.build, "uca_block")
         facets = pool.submit(_build.build, "facets")
+        flood = pool.submit(_build.build, "flood")
         carve = pool.submit(native.build)
         (path, seconds, build_log), (so, so_seconds) = (cuda.result(),
                                                         carve.result())
-        facet_build = facets.result()
+        facet_build, flood_build = facets.result(), flood.result()
     log("build", "%s built in %.2f s" % (os.path.relpath(path, ROOT), seconds))
     facet_kernels(*facet_build)
+    flood_kernels(*flood_build)
     # ptxas: registers, spills, stack and static shared memory by kernel
     ptxas, name = {}, None
     for line in build_log.splitlines():
@@ -645,18 +671,37 @@ def phase_build():
 
 
 def facet_kernels(path, seconds, build_log):
-    """Log the facet kernels' build: each instantiation's registers,
-    spills, stack and static shared memory; neither may spill or keep a
-    stack frame."""
+    """Log the facet kernels' build (:func:`library_kernels`): both
+    instantiations of both kernels."""
+    def name(line):
+        entry = re.search(r"entry function '\S*?(facet_[a-z]+_kernel)I([fd])E",
+                          line)
+        return entry and "%s<%s>" % (
+            entry.group(1), "float" if entry.group(2) == "f" else "double")
+
+    library_kernels(path, seconds, build_log, name, 4)
+
+
+def flood_kernels(path, seconds, build_log):
+    """Log the flood kernels' build (:func:`library_kernels`): the local
+    pass, the merge and the compress."""
+    def name(line):
+        entry = re.search(r"entry function '\S*?(flood_[a-z]+_kernel)", line)
+        return entry and entry.group(1)
+
+    library_kernels(path, seconds, build_log, name, 3)
+
+
+def library_kernels(path, seconds, build_log, name_of, want):
+    """Log a library's build: each kernel's registers, spills, stack and
+    static shared memory (``name_of`` names the kernel of a ptxas entry
+    line, or gives None); none may spill or keep a stack frame, and the
+    log must hold ``want`` kernels."""
     log("build", "%s built in %.2f s" % (os.path.relpath(path, ROOT),
                                           seconds))
     seen, name = set(), None
     for line in build_log.splitlines():
-        entry = re.search(r"entry function '\S*?(facet_[a-z]+_kernel)I([fd])E",
-                          line)
-        if entry:
-            name = "%s<%s>" % (entry.group(1),
-                               "float" if entry.group(2) == "f" else "double")
+        name = name_of(line) or name
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
         if frame and name:
@@ -666,8 +711,8 @@ def facet_kernels(path, seconds, build_log):
         if "Used" in line and "registers" in line and name:
             seen.add(name)
             log("build", "%s: %s" % (name, line.strip()))
-    check(len(seen) == 4, "ptxas lines for 4 facet kernels, got %s"
-          % sorted(seen))
+    check(len(seen) == want, "ptxas lines for %d kernels of %s, got %s"
+          % (want, os.path.basename(path), sorted(seen)))
 
 
 def k2_rounds_vs_plain(name, W, base, blocks=KERNEL_BLOCKS):
@@ -4304,6 +4349,69 @@ def phase_facets(device, card, n=N_FACETS):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, err=err)
 
 
+# -- phase 15: the union-find flood kernel ------------------------------------
+
+N_FLOOD = 6000  # the benchmark's tile
+
+
+def benchmark_flat_mask(cell, device, n=N_FLOOD):
+    """The flat mask (``mag == -1``) of the benchmark cell's surface at
+    n²: the coast's sea is one 18 Mpx flat, the filled basin has almost
+    none."""
+    from hydrobench.terrain.fractal import generator, surface
+
+    with open(os.path.join(ROOT, "hydrobench", "traffic",
+                           "%s.json" % cell)) as f:
+        traffic = json.load(f)
+    gen = generator(traffic["terrain"]["surface_seed"], device)
+    z, sea = surface(traffic, (n, n), gen, device)
+    z = torch.where(sea, float("nan"), z)
+    d = torch.full((n - 1,), 92.6, dtype=z.dtype, device=device)
+    mag, _direction = facet_sweep(z, d, d)
+    return mag == -1
+
+
+def phase_flood(device, card, n=N_FLOOD):
+    """The flood kernel (``ops.flood.flood_labels`` through
+    ``label_flood``) against the eager loop on the flat masks of both
+    benchmark cells at n², labels and ``rep`` bit for bit, and both timed
+    (median of 5 after a warm-up) beside the byte bound."""
+    out = {}
+    for cell in ("merit-coast", "merit-basin"):
+        mask = benchmark_flat_mask(cell, device, n)
+        payload = torch.rand((n, n), device=device)
+        before = counters["flood_kernel"], counters["flood_launches"]
+        lbl, rep = label_flood(mask, payload)
+        calls = counters["flood_kernel"] - before[0]
+        launches = counters["flood_launches"] - before[1]
+        check((calls, launches) == (1, 3), "flood: %d calls, %d launches"
+              % (calls, launches))
+        iters = counters["flood_iters"]
+        want_lbl, want_rep = _label_flood_eager(mask, payload)
+        iters = counters["flood_iters"] - iters
+        diff = int((lbl != want_lbl).sum())
+        check(diff == 0, "flood %s: labels differ from the eager loop's at "
+              "%d pixels" % (cell, diff))
+        check(torch.equal(rep.view(torch.int32), want_rep.view(torch.int32)),
+              "flood %s: rep differs from the eager loop's" % cell)
+        del lbl, rep, want_lbl, want_rep
+        ms, reps = cuda_median_ms(lambda: flood_labels(mask), reps=5)
+        plain_ms, plain_reps = cuda_median_ms(
+            lambda: _label_flood_eager(mask, payload), reps=5)
+        # the mask read once (1 B), the labels written once (4 B)
+        bound_ms = 5 * n * n / HBM_BYTES_PER_S * 1e3
+        log("flood", "%s %d² on %s: %d flat px, kernel %.4f ms (reps %s, %d "
+            "launches a call), eager %.2f ms (reps %s, %d sweeps), bound "
+            "%.4f ms: %.1f%% of the bound, %.1fx the eager loop" % (
+                cell, n, card, int(mask.sum()), ms,
+                ["%.4f" % r for r in reps], launches, plain_ms,
+                ["%.2f" % r for r in plain_reps], iters, bound_ms,
+                100 * bound_ms / ms, plain_ms / ms))
+        out[cell] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         launches=launches)
+    return out
+
+
 def main():
     card = phase_device()
     device = torch.device("cuda", 0)
@@ -4361,6 +4469,8 @@ def main():
     clock("13 periphery")
     facets = phase_facets(device, card)
     clock("14 facet sweep")
+    flood = phase_flood(device, card)
+    clock("15 flood")
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [
         *dataflow_entries(k1_launches, max(k1_err, ring_err, subset_err),
@@ -4417,6 +4527,23 @@ def main():
             "bound_ms": facets["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+        }, {
+            # the flood at 6000² on the coast's flat mask (phase 15); the
+            # JAX package's label_flood is jnp code, no pallas_call
+            "name": "label_flood",
+            "route": "cuda",
+            "source": "pydem_tpu_torch/ops/csrc/flood.cu",
+            "replaces": None,
+            # as the C entry reports them, in the main paths' runs
+            "launches": FLOOD_MAIN["launches"],
+            "max_abs_err": 0.0,
+            "ms": flood["merit-coast"]["ms"],
+            "plain_ms": flood["merit-coast"]["plain_ms"],
+            "bound_ms": flood["merit-coast"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "basin_ms": flood["merit-basin"]["ms"],
+            "basin_plain_ms": flood["merit-basin"]["plain_ms"],
         }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

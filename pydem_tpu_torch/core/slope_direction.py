@@ -9,7 +9,10 @@ interior value" steps in the same left → right → top → bottom order.
 On a CUDA device the sweep of a float32 or float64 grid of at least 2×2 is
 one hand-written kernel pair (:func:`~pydem_tpu_torch.ops.facets.facet_sweep`,
 ``ops/csrc/facets.cu``), bit for bit the eager sweep below
-(:func:`_slopes_directions_eager`), which runs everywhere else.
+(:func:`_slopes_directions_eager`), which runs everywhere else.  Likewise
+the flood's labels of a CUDA mask come from a union-find kernel
+(:func:`~pydem_tpu_torch.ops.flood.flood_labels`, ``ops/csrc/flood.cu``),
+those of any other from the eager loop (:func:`_label_flood_eager`).
 
 Eager PyTorch runs one kernel per operation, so ``a*a + b*b`` is never
 contracted into an FMA: the JAX version's ``optimization_barrier`` calls have
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.facets import DTYPES, facet_sweep
+from ..ops.flood import flood_labels
 from ..profiling import count, span
 from .stencil import (ANG_ADJ, FACET_E1, FACET_E2, NEIGHBOR_OFFSETS, shift,
                       sqrt_rn)
@@ -200,56 +204,76 @@ def label_flood(mask, payload):
     Label of a region = smallest flattened index of its pixels; ``rep`` = the
     payload at that pixel.  Non-region pixels get label n*m / payload NaN.
 
+    A CUDA mask takes the union-find kernel
+    (:func:`~pydem_tpu_torch.ops.flood.flood_labels`, ``ops/csrc/flood.cu``:
+    three launches, no host read); every other mask the eager loop
+    (:func:`_label_flood_eager`).  The labels are defined uniquely, so both
+    give the same integers.
+    """
+    with span("label_flood"):
+        if mask.device.type == "cuda":
+            lbl = flood_labels(mask)
+            return lbl, _region_rep(mask, payload, lbl)
+        return _label_flood_eager(mask, payload)
+
+
+def _label_flood_eager(mask, payload):
+    """:func:`label_flood` as eager PyTorch operations, on any device.
+
     Each iteration runs one min-sweep over the 8 neighbors; if it changed
     anything, a hook (``parent[lbl[p]] = min(parent[lbl[p]], sweep[p])``, a
     scatter-min that is order-independent and so deterministic on CUDA) and
     two compress gathers (``lbl <- lbl[lbl]``) follow.  The loop reads one
     flag on the host per iteration (the counter ``flood_iters``).
     """
-    with span("label_flood"):
-        n, m = mask.shape
-        N = n * m
-        # int32 labels: beyond 2^31-1 pixels the clipped gathers would wrap.
-        if N >= 2 ** 31:
-            raise ValueError("label_flood: canvas has %d pixels >= 2^31; "
-                             "int32 labels would overflow" % N)
-        big = N
-        dev = mask.device
-        idx = torch.arange(N, dtype=torch.int32, device=dev).reshape(n, m)
-        big_t = torch.tensor(big, dtype=torch.int32, device=dev)
-        lbl = torch.where(mask, idx, big_t)
-        mask_flat = mask.reshape(-1)
+    n, m = mask.shape
+    N = n * m
+    # int32 labels: beyond 2^31-1 pixels the clipped gathers would wrap.
+    if N >= 2 ** 31:
+        raise ValueError("label_flood: canvas has %d pixels >= 2^31; "
+                         "int32 labels would overflow" % N)
+    big = N
+    dev = mask.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev).reshape(n, m)
+    big_t = torch.tensor(big, dtype=torch.int32, device=dev)
+    lbl = torch.where(mask, idx, big_t)
+    mask_flat = mask.reshape(-1)
 
-        def sweep(lbl):
-            new_lbl = lbl
-            for di, dj in NEIGHBOR_OFFSETS:
-                new_lbl = torch.minimum(new_lbl, shift(lbl, di, dj, big))
-            return torch.where(mask, new_lbl, big_t)
+    def sweep(lbl):
+        new_lbl = lbl
+        for di, dj in NEIGHBOR_OFFSETS:
+            new_lbl = torch.minimum(new_lbl, shift(lbl, di, dj, big))
+        return torch.where(mask, new_lbl, big_t)
 
-        def hook_and_compress(lbl, mins):
-            lf = lbl.reshape(-1)
-            # parent table indexed by pixel id; one slot of slack for `big`
-            parent = torch.cat([lf, big_t.reshape(1)])
-            tgt = torch.where(mask_flat, lf, N).long()
-            parent.scatter_reduce_(0, tgt, mins.reshape(-1), reduce="amin")
-            lbl = torch.where(mask, parent[:N].reshape(n, m), big_t)
-            for _ in range(2):  # compress: lbl <- lbl[lbl]
-                f = lbl.reshape(-1)
-                lbl = torch.where(
-                    mask, f[torch.clamp(f, 0, N - 1).long()].reshape(n, m),
-                    big_t)
-            return lbl
+    def hook_and_compress(lbl, mins):
+        lf = lbl.reshape(-1)
+        # parent table indexed by pixel id; one slot of slack for `big`
+        parent = torch.cat([lf, big_t.reshape(1)])
+        tgt = torch.where(mask_flat, lf, N).long()
+        parent.scatter_reduce_(0, tgt, mins.reshape(-1), reduce="amin")
+        lbl = torch.where(mask, parent[:N].reshape(n, m), big_t)
+        for _ in range(2):  # compress: lbl <- lbl[lbl]
+            f = lbl.reshape(-1)
+            lbl = torch.where(
+                mask, f[torch.clamp(f, 0, N - 1).long()].reshape(n, m),
+                big_t)
+        return lbl
 
-        while True:
-            mins = sweep(lbl)
-            count("flood_iters")
-            if not bool((mins != lbl).any()):
-                break
-            lbl = hook_and_compress(lbl, mins)
-        at = torch.clamp(lbl.reshape(-1), 0, N - 1).long()
-        rep = payload.reshape(-1)[at]
-        rep = torch.where(mask, rep.reshape(n, m), float("nan"))
-        return lbl, rep
+    while True:
+        mins = sweep(lbl)
+        count("flood_iters")
+        if not bool((mins != lbl).any()):
+            break
+        lbl = hook_and_compress(lbl, mins)
+    return lbl, _region_rep(mask, payload, lbl)
+
+
+def _region_rep(mask, payload, lbl):
+    """The payload at each mask pixel's label (NaN off the mask)."""
+    n, m = mask.shape
+    at = torch.clamp(lbl.reshape(-1), 0, n * m - 1).long()
+    rep = payload.reshape(-1)[at]
+    return torch.where(mask, rep.reshape(n, m), float("nan"))
 
 
 def find_flats_edges(elev, mag):

@@ -1,8 +1,9 @@
 """Checks of the CUDA UCA block kernels (K1 ``gs_round_oriented`` in the
 TPU's Gauss-Seidel order, one dataflow launch a round, in every form, and
 its level launches ``gs_round_levels``; K1's block-Jacobi ``gs_round``;
-K2 ``block_round``), the facet sweep kernel (``ops.facets``), the device
-chain, the flood and the manager that need an NVIDIA GPU.
+K2 ``block_round``), the facet sweep kernel (``ops.facets``), the
+union-find flood kernel (``ops.flood``), the device chain, the sharded
+flood and the manager that need an NVIDIA GPU.
 
 They skip without one.  The GPU machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from chip_smoke import make_cone, make_hard_terrain, ring_window
+from test_torch_flood import MASKS, flood_mask, flood_payload
 from pydem_tpu_torch.api import DEMProcessor
 from pydem_tpu_torch.core import slope_direction as sd
 from pydem_tpu_torch.ops import uca_block as ub
@@ -187,7 +189,11 @@ def test_spans_on_the_card(cuda):
             + ms["receivers"] <= ms["pre"] * 1.001
         assert ms["label_flood"] <= ms["flats"] * 1.001
         assert r["counters"]["solve_reads"] == -(-out["uca_sweeps"] // 4)
-        assert r["counters"]["flood_iters"] >= 1
+        # the flood is one union-find kernel call, three launches, and no
+        # host-read sweep
+        assert r["counters"]["flood_kernel"] == 1
+        assert r["counters"]["flood_launches"] == 3
+        assert r["counters"].get("flood_iters", 0) == 0
         for key in ("mag", "direction", "flats", "uca", "twi"):
             assert torch.equal(torch.nan_to_num(out[key]),
                                torch.nan_to_num(plain[key])), key
@@ -1058,3 +1064,136 @@ def test_terrain_pre_with_the_facet_kernel(cuda, monkeypatch):
             assert torch.equal(a, b), name
         else:
             assert torch.equal(_bits(a), _bits(b)), name
+
+
+# -- the union-find flood kernel (ops/csrc/flood.cu) -------------------------
+
+def _floods_equal(mask, payload):
+    """``label_flood`` through the kernel and the eager loop on the same
+    card tensors: labels and ``rep`` bit for bit; one kernel call, three
+    launches (none on an empty canvas), no host-read sweep."""
+    keys = ("flood_kernel", "flood_launches", "flood_iters")
+    before = [counters[k] for k in keys]
+    lbl, rep = sd.label_flood(mask, payload)
+    launches = 3 if mask.numel() else 0
+    assert [counters[k] - b for k, b in zip(keys, before)] == [1, launches,
+                                                               0]
+    want_lbl, want_rep = sd._label_flood_eager(mask, payload)
+    torch.cuda.synchronize()
+    assert lbl.dtype == torch.int32 and lbl.shape == mask.shape
+    assert torch.equal(lbl, want_lbl), int((lbl != want_lbl).sum())
+    assert torch.equal(_bits(rep), _bits(want_rep))
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("shape", [(1, 1), (1, 77), (77, 1), (33, 65),
+                                   (257, 263), (1000, 1501)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_flood_kernel_equals_eager(cuda, kind, shape, dtype):
+    """Every mask of the CPU tests on thin canvases, shapes that are no
+    multiple of the kernel's 32 x 32 tile, and ~1.5 Mpx."""
+    n, m = shape
+    mask = torch.from_numpy(flood_mask(kind, n, m)).to(cuda)
+    _floods_equal(mask, flood_payload(n, m, dtype).to(cuda))
+
+
+@pytest.mark.parametrize("shape", [(0, 5), (5, 0)])
+def test_flood_kernel_on_an_empty_canvas(cuda, shape):
+    _floods_equal(torch.zeros(shape, dtype=torch.bool, device=cuda),
+                  torch.zeros(shape, device=cuda))
+
+
+@pytest.mark.parametrize("kind", ["sea", "random 0.45"])
+def test_flood_kernel_equals_eager_on_a_tile(cuda, kind):
+    """A 6000² coast-like mask (the lower half of an fBm surface: one sea,
+    islands and bays) and a random one at the percolation threshold."""
+    n = 6000
+    mask = torch.from_numpy(flood_mask(kind, n, n, seed=5)).to(cuda)
+    _floods_equal(mask, flood_payload(n, n, torch.float32).to(cuda))
+
+
+@pytest.mark.parametrize("view", ["columns", "transposed"])
+def test_flood_kernel_on_a_view(cuda, view):
+    """A non-contiguous mask (a window's columns, a transpose)."""
+    big = torch.from_numpy(flood_mask("sea", 90, 130)).to(cuda)
+    mask = big[:, 3:-3] if view == "columns" else big.t()
+    assert not mask.is_contiguous()
+    n, m = mask.shape
+    _floods_equal(mask, flood_payload(n, m, torch.float32).to(cuda))
+
+
+def test_flood_kernel_repeats_bitwise(cuda):
+    """The atomics run in another order every call; the labels are the
+    same integers every time."""
+    mask = torch.from_numpy(flood_mask("random 0.45", 2000, 2000)).to(cuda)
+    first = sd.label_flood(mask, mask.float())[0]
+    for _ in range(20):
+        assert torch.equal(sd.label_flood(mask, mask.float())[0], first)
+
+
+def test_find_flats_edges_and_terrain_pre_with_the_flood_kernel(
+        cuda, monkeypatch):
+    """``find_flats_edges`` and ``terrain_pre``'s five outputs on the card
+    equal those built from the eager flood, on a tile with a sea and
+    plateaus; the kernel ran once a call."""
+    n, m = 300, 280
+    elev = torch.tensor(_facet_surface("fbm sea", n, m), dtype=torch.float32,
+                        device=cuda)
+    dX, dY = _spacing("per row", n, elev.dtype, cuda)
+    rows = torch.full((n,), 92.6, dtype=elev.dtype, device=cuda)
+    mag, _direction = sd.slopes_directions(elev, dX, dY)
+    before = counters["flood_kernel"]
+    edges = sd.find_flats_edges(elev, mag)
+    got = terrain_pre(elev, dX, dY, rows * 0.8, rows)
+    assert counters["flood_kernel"] - before == 2
+    assert (mag == sd.FLAT_ID_INT).sum() > n * m // 3
+    monkeypatch.setattr(sd, "label_flood", sd._label_flood_eager)
+    assert torch.equal(edges, sd.find_flats_edges(elev, mag))
+    want = terrain_pre(elev, dX, dY, rows * 0.8, rows)
+    assert counters["flood_kernel"] - before == 2
+    for name, a, b in zip(("mag", "direction", "flats", "W", "base"), got,
+                          want):
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b), name
+        else:
+            assert torch.equal(_bits(a), _bits(b)), name
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (1, 3)])
+def test_label_flood_sharded_on_one_card(cuda, grid):
+    """``label_flood_sharded`` over shards on one card (each shard's local
+    components through the kernel) gives the one-card labels and reps."""
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+    from pydem_tpu_torch.parallel.sharded import label_flood_sharded
+
+    n, m = 240, 360
+    mask = torch.from_numpy(flood_mask("sea", n, m, seed=2)).to(cuda)
+    payload = flood_payload(n, m, torch.float32).to(cuda)
+    lbl, rep = sd.label_flood(mask, payload)
+    mesh = make_mesh([cuda] * (grid[0] * grid[1]), grid)
+    before = counters["flood_kernel"]
+    lbl_s, rep_s = label_flood_sharded(mask, payload, mesh)
+    assert counters["flood_kernel"] - before == grid[0] * grid[1]
+    assert torch.equal(lbl_s.assemble(), lbl)
+    assert torch.equal(_bits(rep_s.assemble()), _bits(rep))
+
+
+def test_label_flood_sharded_over_four_cards(four_cards):
+    """``label_flood_sharded`` over a 2x2 mesh with a shard a card: the
+    kernel runs on each card, and the labels and reps equal one card's
+    ``label_flood``."""
+    from pydem_tpu_torch.parallel.mesh import make_mesh
+    from pydem_tpu_torch.parallel.sharded import label_flood_sharded
+
+    n, m, dev0 = 480, 640, four_cards[0]
+    mask = torch.from_numpy(flood_mask("sea", n, m, seed=3)).to(dev0)
+    payload = flood_payload(n, m, torch.float32).to(dev0)
+    lbl, rep = sd.label_flood(mask, payload)
+    before = counters["flood_kernel"]
+    lbl_s, rep_s = label_flood_sharded(mask, payload,
+                                       make_mesh(four_cards, (2, 2)))
+    assert counters["flood_kernel"] - before == 4
+    assert sorted(s.device.index for s in lbl_s.local_shards()) == [0, 1, 2,
+                                                                    3]
+    assert torch.equal(lbl_s.assemble().to(dev0), lbl)
+    assert torch.equal(_bits(rep_s.assemble().to(dev0)), _bits(rep))
