@@ -18,19 +18,17 @@ Phases, each reported on its own lines:
    or keep a stack frame, and a CTA stays under 48 KB of shared memory;
 3. kernels vs plain versions on the card, at every block size the kernels
    are built for (the dataflow kernel and K2 at 8, 16, 32, 64, 128 and
-   256, the reference forms at 16 and 64) on 512², at 128 and 256 on 1024²
-   (where B = 256 has the 3x3 grid a subset round takes; there also each
-   cluster kernel's round from the base 50 times, bit for bit the first)
-   and at 64, 128 and 256 on the main path's 2048², each on the cone and
-   the hard terrain (float32), from the terrain step's own receiver
-   planes: two block-Jacobi K1 rounds; K1 in the TPU's Gauss-Seidel order
-   in every form (canvas, ring, interior, frame; the ring forms on an
-   (n+2)² window whose ring is real; the subsets where the grid is 3x3 or
-   more) at each orientation 0-3, a round from the base and one on the
-   frontier of its flags, through the dataflow launch
-   (``gs_round_oriented``, one launch a round) and, at 16 and 64, the level
-   launches (``gs_round_levels``, one a level) against the plain round (at
-   2048²: orientations 0 and 2 at B = 64, 1 at 16 and 128, 3 at 256, the
+   256) on 512², at 128 and 256 on 1024² (where B = 256 has the 3x3 grid a
+   subset round takes; there also each cluster kernel's round from the
+   base 50 times, bit for bit the first) and at 64, 128 and 256 on the
+   main path's 2048², each on the cone and the hard terrain (float32),
+   from the terrain step's own receiver planes: K1 in the TPU's
+   Gauss-Seidel order in every form (canvas, ring, interior, frame; the
+   ring forms on an (n+2)² window whose ring is real; the subsets where
+   the grid is 3x3 or more) at each orientation 0-3, a round from the base
+   and one on the frontier of its flags, through the dataflow launch
+   (``gs_round_oriented``, one launch a round) against the plain round (at
+   2048²: orientations 0 and 2 at B = 64, 1 at 128, 3 at 256, the
    frontier round after orientation 0 at 64, 1 at 128, 3 at 256); two K2
    rounds; and the full K1 solve in the TPU's order; they must agree bit
    for bit, flags included, with equal round counts (the solve launches at
@@ -39,8 +37,8 @@ Phases, each reported on its own lines:
 4. main path, the terrain step: ``terrain_step(uca_solver="blocked")`` on
    the 2048² cone and hard terrain at its default B = 256 (a cluster of 16
    CTAs a block); the dataflow launch's counter must rise by the rounds,
-   all at B = 256 (the level path's and block-Jacobi's by none), the
-   rounds printed beside those of the same planes at B = 64; the facet
+   all at B = 256, the rounds printed beside those of the same planes at
+   B = 64; the facet
    kernel's call counter must rise by one a ``terrain_step`` (each main
    path's run logs its facet calls and launches); the result must match
    ``uca_solver="jacobi"`` (NaN pattern, and the JAX package's own bench
@@ -55,27 +53,24 @@ Phases, each reported on its own lines:
 6. K2's path: on the chain's own receiver planes, base and pit links, two
    K2 rounds at every block size, then ``accumulate_blocked`` and
    ``accumulate_blocked_pits`` with the K2 launch counter read around them;
-   each, K1's ``accumulate_blocked_pits_gs`` (the TPU's order) and K1's
-   block-Jacobi canvas solve with the fold (``gs_round`` iterated, a
-   reference form), equal to its plain version bit for bit with equal round
-   counts; K2's and the block-Jacobi pit solves reach K1's fixed point
-   within the gate;
+   each, and K1's ``accumulate_blocked_pits_gs`` (the TPU's order), equal
+   to its plain version bit for bit with equal round counts; K2's pit
+   solve reaches K1's fixed point within the gate;
 7. float64 on the card: the chain's functions (``fill_flats_device``,
    ``drain_pit_paths``, ``pit_links_device_packed``, ``_uca_chain_program``
    with jacobi) at 256² on CUDA against the same calls on the CPU: equal
    flats, NaN pattern and link sets, values equal to relative 1e-9, and the
    ``edge_done`` flood (``_edge_flood_program``) an equal mask;
-8. times with CUDA events, median of 3 after a warm-up, per-rep times too:
-   the terrain step at 2048² (its rounds beside the block-Jacobi canvas
-   solve's), the hard chain at 2048² through ``tools/hard_breakdown.py``
-   (5 reps, each the chain cut into stages with a synchronisation at each,
-   then uncut), one block-Jacobi K1 round (B = 64) and one K2 round (B =
-   256, 128, 64 and 16) beside their plain rounds at 2048²; K1 in the TPU's order at
-   2048², B = 64, 128 and 256 (B = 16's rows were cut for the time limit),
-   at 64 the level launches ("before") against the dataflow launch in
-   turns: a round from the base at each orientation (beside its plain
-   round), a skipped round, a partial round (round 12 of the hard chain's
-   pit solve), each with its bound counting the blocks it visits; the
+8. times with CUDA events, median of 3 after a warm-up, per-rep times too
+   (the terrain step's own figures are the benchmark's, ``hydrobench/``):
+   the hard chain at 2048² through ``tools/hard_breakdown.py`` (5 reps,
+   each the chain cut into stages with a synchronisation at each, then
+   uncut), one K2 round (B = 256, 128, 64, 32, 16 and 8) beside its plain
+   round at 2048²; K1 in the TPU's order at 2048², B = 64, 128 and 256
+   (B = 16's rows were cut for the time limit), the dataflow launch: a
+   round from the base at each orientation (beside its plain round), a
+   skipped round, a partial round (round 12 of the hard chain's pit
+   solve), each with its bound counting the blocks it visits; the
    critical path (the round timed with a sleep queued on the card first,
    so that the card runs its launches back to back and no gap left by the
    host counts); the cone solve and the hard chain's pit solve (bound:
@@ -120,10 +115,9 @@ Phases, each reported on its own lines:
     a. K1's ring form in the TPU's order on a 2048² window of a mid-solve
        state of the 4096² cone's planes, in the middle and at the canvas
        corner (cut as the engine cuts it: beyond the canvas the state's NaN
-       ring is sanitised to 0): the dataflow launch == the level launches
-       == plain bit for bit at two orientations, the ring untouched; one
-       ring round from the base timed, levels against dataflow, beside its
-       plain round, its bound and the 2048² canvas round;
+       ring is sanitised to 0): the dataflow launch == plain bit for bit at
+       two orientations, the ring untouched; one ring round from the base
+       timed beside its plain round, its bound and the 2048² canvas round;
     b. the 8192² float32 cone through ``OutOfCoreEngine(superblock=2048,
        fill_flats=False, drain_pits_path=False).run()`` twice, the store
        in a temporary directory (4096² with S = 1024 if it has too little
@@ -161,9 +155,9 @@ Phases, each reported on its own lines:
        mid-solve state of the 8192² cone, the shard shape of b (the
        centred window and b's top-left shard): the interior round, then
        the frame on its output (the split round's compute), the dataflow
-       launch == the level launches == plain bit for bit, the ring
-       untouched; the interior, frame and full ring rounds timed, levels
-       against dataflow, beside their byte bounds on the centred window;
+       launch == plain bit for bit, the ring untouched; the interior, frame
+       and full ring rounds timed beside their byte bounds on the centred
+       window;
     b. ``run_sharded(uca_solver="blocked")`` on the 8192² float32 cone over
        a 2×2 mesh of four shards on the card: the split round (interior on
        each shard's stream while the rings are copied, then the frame, in
@@ -199,16 +193,15 @@ Phases, each reported on its own lines:
     cards).  First the cards' index, name and power limit, ``nvidia-smi
     topo -m`` and the ``can_device_access_peer`` matrix; then, on the
     float32 cone:
-    a. on every card, K1's block-Jacobi canvas round, one round in the
-       TPU's order and a K2 round (2048²) against their plain versions bit
-       for bit; K1's ring and subset rounds in the TPU's order at every
-       shard shape that b-f run (8192², 4096×16384, 12288², 4096², 1024²
-       windows of a mid-solve state of the 16384² cone): the dataflow
-       launch == the level launches, and == the plain round up to 8192²
-       (on the first card; on the others up to 2048²); timed at b's shard
-       and c's band, levels against dataflow; and the ring round at g's
-       24576² shard (a mid-solve state of g's canvas, tiled from one
-       ringed cone's), dataflow == levels, timed;
+    a. on every card, one round in the TPU's order and a K2 round (2048²)
+       against their plain versions bit for bit; K1's ring and subset
+       rounds in the TPU's order at every shard shape that b-f run (8192²,
+       4096×16384, 12288², 4096², 1024² windows of a mid-solve state of
+       the 16384² cone): the dataflow launch == the plain round up to
+       8192² (on the first card; on the others up to 2048²), elsewhere two
+       dataflow launches bit for bit; timed at b's shard and c's band; and
+       the ring round at g's 24576² shard (a mid-solve state of g's canvas,
+       tiled from one ringed cone's), two launches bit for bit, timed;
     b. ``run_sharded(uca_solver="blocked")`` on the 16384² cone over the
        four cards (the serial round), the cone built shard by shard on
        each card (a ``ShardedCanvas``, as a user of four cards hands it
@@ -304,9 +297,8 @@ Phases, each reported on its own lines:
 
 Then a JSON line with the kernel table (K1 in the TPU's order, the
 dataflow launch, at the main paths' B = 256, at 128 and at 64, with its
-figures in every form and its main-path launches by block size; the level
-launches it replaced, the "before" column; K1's block-Jacobi reference
-forms; K2 at 256 and 64, each with its launches on the main paths; the
+figures in every form and its main-path launches by block size; K2 at
+256 and 64, each with its launches on the main paths; the
 facet sweep with its launches on the main paths, as its C entry counts
 them, and phase 14's largest difference from the eager sweep; the flood
 with its launches on the main paths and phase 15's times),
@@ -357,22 +349,19 @@ from pydem_tpu_torch.ops.facets import facet_sweep
 from pydem_tpu_torch.ops.flood import flood_labels
 from pydem_tpu_torch.ops.pit_growth import pit_links_device_packed
 from pydem_tpu_torch.outofcore import OutOfCoreEngine
-from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS, REFERENCE_BLOCKS,
+from pydem_tpu_torch.ops.uca_block import (KERNEL_BLOCKS,
                                            accumulate_blocked,
                                            accumulate_blocked_gs,
                                            accumulate_blocked_pits,
                                            accumulate_blocked_pits_gs,
                                            block_round, block_round_plain,
-                                           compact_from_dense, gs_round,
-                                           gs_round_levels,
+                                           compact_from_dense,
                                            gs_round_oriented,
                                            gs_round_oriented_plain,
-                                           gs_round_plain, gs_round_ring,
                                            kernel_cluster_size,
                                            kernel_smem_bytes, launch_count,
-                                           resident_units, round_levels)
+                                           resident_units, visit_sequence)
 from pydem_tpu_torch.ops.uca_block import _gs_solve as gs_solve
-from pydem_tpu_torch.ops.uca_block import gs_round_subset, visit_sequence
 from pydem_tpu_torch.parallel import sharded
 from pydem_tpu_torch.parallel.dryrun import dryrun_multichip
 from pydem_tpu_torch.parallel.mesh import (ShardedCanvas, make_mesh, pieces,
@@ -474,11 +463,7 @@ def check(cond, what):
 
 
 # the kernel wrappers by the name of the kernel each launches
-WRAPPERS = (("uca_gs_round", gs_round),
-            ("uca_gs_round_dataflow", gs_round_oriented),
-            ("uca_gs_round_levels", gs_round_levels),
-            ("uca_gs_round_ring", gs_round_ring),
-            ("uca_gs_round_subset", gs_round_subset),
+WRAPPERS = (("uca_gs_round_dataflow", gs_round_oriented),
             ("uca_block_round", block_round))
 
 
@@ -628,14 +613,10 @@ def phase_build():
         if regs and name in ptxas:
             ptxas[name].update(registers=int(regs.group(1)),
                                static_smem=int(regs.group(2) or 0))
-    # K1 in the TPU's order (both forms) and K2 at every block size, the
-    # reference forms (block-Jacobi K1 and the level launches, both forms)
-    # at theirs
+    # K1 in the TPU's order (both forms) and K2 at every block size
     want = {("uca_gs_dataflow_kernel", B, r) for B in KERNEL_BLOCKS
             for r in (0, 1)}
     want |= {("uca_block_round_kernel", B, 0) for B in KERNEL_BLOCKS}
-    want |= {(k, B, r) for k in ("uca_gs_round_kernel", "uca_gs_level_kernel")
-             for B in REFERENCE_BLOCKS for r in (0, 1)}
     # the sweep probe: each cluster visit at 128 and 256
     want |= {("uca_probe_kernel", B, v) for B in (128, 256)
              for v in range(len(uca_block.PROBE_VISITS))}
@@ -741,11 +722,6 @@ def k2_rounds_vs_plain(name, W, base, blocks=KERNEL_BLOCKS):
     return worst
 
 
-def levels_per_round(n, m, B, subset="all"):
-    """Launches of one K1 round in the TPU's order by level: its levels."""
-    return len(round_levels(n // B, m // B, 0, subset))
-
-
 # K1's forms in the TPU's order: (name, ring, subset)
 K1_FORMS = (("canvas", False, "all"), ("ring", True, "all"),
             ("interior", True, "interior"), ("boundary", True, "boundary"))
@@ -766,29 +742,21 @@ def form_inputs(elev, ring):
 
 def oriented_vs_plain(tag, args, o, B, ring, subset, prev=None):
     """One K1 round in the TPU's order through the dataflow launch (at
-    B = 128 and 256 a cluster a block), at the reference forms' block sizes
-    the level launches, and the plain version on the same inputs: canvas
-    and flags bit for bit, one dataflow launch, one level launch a level.
-    Returns ``(max error, dataflow canvas, its flags)``."""
+    B = 128 and 256 a cluster a block) and the plain version on the same
+    inputs: canvas and flags bit for bit, one launch.  Returns ``(max
+    error, dataflow canvas, its flags)``."""
     x, K, W1, base = args
     kw = dict(B=B, inner_max=2 * B + 4, prev=prev, ring=ring, subset=subset)
-    before = launch_count(gs_round_oriented), launch_count(gs_round_levels)
+    before = launch_count(gs_round_oriented)
     xd, cd = gs_round_oriented(x, K, W1, base, o, **kw)
-    levels = B in REFERENCE_BLOCKS
-    xl, cl = gs_round_levels(x, K, W1, base, o, **kw) if levels else (xd, cd)
-    launches = (launch_count(gs_round_oriented) - before[0],
-                launch_count(gs_round_levels) - before[1])
+    launches = launch_count(gs_round_oriented) - before
     xp, cp = gs_round_oriented_plain(x, K, W1, base, o, **kw)
     torch.cuda.synchronize()
-    err = max(nan_equal_max_err(xd, xp), nan_equal_max_err(xl, xp))
-    n, m = base.shape
-    check(err <= KERNEL_TOL and torch.equal(cd, cp) and torch.equal(cl, cp)
-          and launches == (1, levels_per_round(n, m, B, subset)
-                           if levels else 0),
-          "%s B=%d orientation %d: dataflow / levels != plain (max err %g, "
-          "flags equal %s %s, launches %s)"
-          % (tag, B, o, err, torch.equal(cd, cp), torch.equal(cl, cp),
-             launches))
+    err = nan_equal_max_err(xd, xp)
+    check(err <= KERNEL_TOL and torch.equal(cd, cp) and launches == 1,
+          "%s B=%d orientation %d: dataflow != plain (max err %g, flags "
+          "equal %s, launches %d)"
+          % (tag, B, o, err, torch.equal(cd, cp), launches))
     return err, xd, cd
 
 
@@ -798,9 +766,9 @@ def k1_forms_vs_plain(name, elev, n, orientations=None, frontier=None,
     ``orientations[B]``) and block size on the (n+2)² terrain ``elev``: a
     round from the base with every block dirty, then (after the rounds at
     the orientations of ``frontier[B]``, default all) one at the next
-    orientation with the frontier of its flags, dataflow == levels (at the
-    reference forms' block sizes) == plain bit for bit; the input canvas
-    comes back unwritten.  Returns the largest difference (0.0)."""
+    orientation with the frontier of its flags, dataflow == plain bit for
+    bit; the input canvas comes back unwritten.  Returns the largest
+    difference (0.0)."""
     worst = 0.0
     for form, ring, subset in K1_FORMS:
         args = form_inputs(elev, ring)
@@ -828,8 +796,8 @@ def k1_forms_vs_plain(name, elev, n, orientations=None, frontier=None,
             log("kernel", "%s %d² %s B=%d: rounds in the TPU's order from "
                 "the base and on their frontier, dataflow%s == plain; "
                 "blocks changed %s" % (
-                    name, n, form, B, " == levels" if B in REFERENCE_BLOCKS
-                    else (" (cluster)" if B > 64 else ""), changed))
+                    name, n, form, B, " (cluster)" if B > 64 else "",
+                    changed))
     return worst
 
 
@@ -897,35 +865,14 @@ def phase3_blocks(n):
 
 
 def phase_kernel_vs_plain(device, n, blocks=KERNEL_BLOCKS):
-    """Two block-Jacobi K1 rounds, K1 in the TPU's order in every form
-    (:func:`k1_forms_vs_plain`), two K2 rounds and the full K1 solve on n²
-    terrains, kernel beside plain, bit for bit, at the block sizes
-    ``blocks``.  Returns the largest differences (K1, K2)."""
+    """K1 in the TPU's order in every form (:func:`k1_forms_vs_plain`), two
+    K2 rounds and the full K1 solve on n² terrains, kernel beside plain,
+    bit for bit, at the block sizes ``blocks``.  Returns the largest
+    differences (K1, K2)."""
     worst = worst_k2 = 0.0
     for name, kind in (("cone", make_cone), ("hard", make_hard_f32)):
         elev = torch.from_numpy(kind(n)).to(device)
         W, base = weights_and_base(elev)
-        K, W1 = compact_from_dense(W)
-        # the block-Jacobi reference form
-        for B in (b for b in REFERENCE_BLOCKS if b in blocks):
-            kw = dict(B=B, inner_max=2 * B + 4)
-            prev = torch.ones((n // B,) * 2, dtype=torch.int32,
-                              device=device)
-            x = base
-            for r in range(2):  # round 2 exercises the frontier skip
-                xk, ck = gs_round(x, K, W1, base, prev, **kw)
-                xp, cp = gs_round_plain(x, K, W1, base, prev, **kw)
-                torch.cuda.synchronize()
-                err = nan_equal_max_err(xk, xp)
-                worst = max(worst, err)
-                check(err <= KERNEL_TOL and torch.equal(ck, cp),
-                      "%s %d² B=%d round %d: kernel != plain (max err %g, "
-                      "flags equal %s)" % (name, n, B, r, err,
-                                           torch.equal(ck, cp)))
-                x, prev = xk, ck
-            log("kernel", "%s %d² B=%d: 2 block-Jacobi rounds kernel == "
-                "plain, %d of %d blocks changed in round 2"
-                % (name, n, B, int(prev.sum()), prev.numel()))
         worst_k2 = max(worst_k2, k2_rounds_vs_plain(name, W, base, blocks))
         worst = max(worst, k1_forms_vs_plain(
             name, ring_terrain(kind, n, device), n, blocks=blocks,
@@ -970,8 +917,6 @@ def phase_main_path(device):
           "terrain_step launched the dataflow kernel at other block sizes "
           "than its default %d: %s" % (B, dict(
               gs_round_oriented.launches_by_block)))
-    check(launch_count(gs_round) + launch_count(gs_round_levels) == 0,
-          "terrain_step launched the block-Jacobi round or the level path")
     rounds = sum(b["uca_sweeps"] for b in blocked.values())
     check(rounds <= launches <= rounds + 3 * len(blocked),
           "terrain_step: %d launches for %d rounds" % (launches, rounds))
@@ -1073,8 +1018,7 @@ def phase_hard_chain(device):
     check(gs_round_oriented.launches_by_block[B] == launches > 0,
           "the hard chain launched the dataflow kernel at other block sizes "
           "than its default %d" % B)
-    check(dp.uca_sweeps <= launches <= dp.uca_sweeps + 3
-          and launch_count(gs_round) + launch_count(gs_round_levels) == 0,
+    check(dp.uca_sweeps <= launches <= dp.uca_sweeps + 3,
           "the hard chain launched K1 %d times for %d rounds"
           % (launches, dp.uca_sweeps))
     uca = dp._dev("uca")
@@ -1108,13 +1052,9 @@ def phase_hard_chain(device):
 
 def phase_k2_path(device):
     """K2 on the hard chain's own state: rounds and both solves, kernel
-    beside plain; K1's pit solve beside its plain version; K1's
-    block-Jacobi canvas solve (the rounds of the mesh's solvers) with the
-    pit fold, kernel beside plain; K2's and both K1 pit solves against each
-    other.  Returns (K2 launches, K2 worst error, K1 worst error, state).
-    The block-Jacobi solve is a reference that no user path runs: its
-    launches are logged here and are not the kernel's launches on a main
-    path."""
+    beside plain; K1's pit solve beside its plain version; K2's and K1's
+    pit solves against each other.  Returns (K2 launches, K2 worst error,
+    K1 worst error, state)."""
     state = chain_state(make_hard_terrain(N_MAIN), device)
     W, base, links = state
     worst_k2 = k2_rounds_vs_plain("conditioned hard", W, base)
@@ -1158,38 +1098,12 @@ def phase_k2_path(device):
     log("k2", "accumulate_blocked_pits_gs (K1 in the TPU's order + fold): "
         "kernel == plain, %d rounds" % grk)
 
-    # K1's block-Jacobi canvas solve: the rounds the sharded solvers and the
-    # engine's visits take, on one canvas (the reference they are held to)
-    gs_round.launches_on.clear()
-    jk, jrk = jacobi_k1_solve(base, W, links)
-    torch.cuda.synchronize()
-    jacobi_launches = launch_count(gs_round)
-    check(jrk <= jacobi_launches <= jrk + 3,
-          "K1's block-Jacobi solve launched %d times for %d rounds"
-          % (jacobi_launches, jrk))
-    jp, jrp = jacobi_k1_solve(base, W, links, gs_round_plain)
-    err = nan_equal_max_err(jk, jp)
-    worst_k1 = max(worst_k1, err)
-    check(err <= KERNEL_TOL and jrk == jrp, "K1's block-Jacobi pit solve: "
-          "kernel != plain (max err %g, rounds %d vs %d)" % (err, jrk, jrp))
-    log("k2", "K1's block-Jacobi canvas solve + fold: kernel == plain, %d "
-        "rounds (the TPU's order: %d), %d launches" % (jrk, grk,
-                                                        jacobi_launches))
-    for what, other in (("K2", pk), ("K1 block-Jacobi", jk)):
-        err = nan_equal_max_err(other, gk)
-        check(torch.allclose(other, gk, **GATE_TOL["hard"]),
-              "%s and K1 pit solves differ (max %g)" % (what, err))
-        log("k2", "%s and K1 (the TPU's order) pit solves agree within %s "
-            "(max abs %g)" % (what, GATE_TOL["hard"], err))
+    err = nan_equal_max_err(pk, gk)
+    check(torch.allclose(pk, gk, **GATE_TOL["hard"]),
+          "K2 and K1 pit solves differ (max %g)" % err)
+    log("k2", "K2 and K1 (the TPU's order) pit solves agree within %s (max "
+        "abs %g)" % (GATE_TOL["hard"], err))
     return launches, worst_k2, worst_k1, state
-
-
-def jacobi_k1_solve(base, W, links=None, round_fn=gs_round):
-    """K1's block-Jacobi canvas solve (``gs_round`` iterated, the pit links
-    folded as ``accumulate_blocked_pits_gs`` folds them) at B = 64, the
-    largest block side of the reference forms."""
-    return gs_solve(base, W, 64, None, 100_000, round_fn,
-                    None if links is None else PitLinks(*links))
 
 
 def phase_f64_chain(device, n=256):
@@ -1364,55 +1278,37 @@ def k1_round_bound(inputs, outputs, W, share):
 
 
 def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
-    """K1 in the TPU's order at N_MAIN², block side ``B``: the dataflow
-    launch (at B = 128 and 256 a cluster a block) and, at the reference
-    forms' block sizes, the level launches ("before") against it, one round
-    each in turns (levels, dataflow, dataflow, levels; median of 5 each):
-    from the base (every block relaxed) at each orientation, with ``plain``
-    the plain version beside it at orientation 0; a skipped round (no flag
-    set); a partial round of the hard chain's pit solve (round 12); each
-    round's bound, counting the blocks it visits; the critical path, the
-    round at orientation 0 with the card held behind the host; the cone
-    solve and the hard chain's pit solve.  Returns the figures (the level
-    path's None where it has none)."""
+    """K1 in the TPU's order at N_MAIN², block side ``B``, through the
+    dataflow launch (at B = 128 and 256 a cluster a block), one round each,
+    median of 5: from the base (every block relaxed) at each orientation,
+    with ``plain`` the plain version beside it at orientation 0; a skipped
+    round (no flag set); a partial round of the hard chain's pit solve
+    (round 12); each round's bound, counting the blocks it visits; the
+    critical path, the round at orientation 0 with the card held behind
+    the host; the cone solve and the hard chain's pit solve.  Returns the
+    figures."""
     kw = dict(B=B, inner_max=2 * B + 4)
     n = base.shape[0]
-    levels = levels_per_round(n, n, B)
-    has_levels = B in REFERENCE_BLOCKS
-    paths = ((("levels", gs_round_levels),) if has_levels else ()) + (
-        ("dataflow", gs_round_oriented),)
 
-    def turns(what, args, prev=None):
-        res = {}
-        for label, fn in paths + paths[::-1]:
-            ms, reps = cuda_median_ms(
-                lambda: fn(*args, **kw, prev=prev), reps=5)
-            res.setdefault(label, []).append(ms)
-            log("time", "%s, %s: median %.4f ms, reps %s ms [%s]"
-                % (what, label, ms, ["%.4f" % t for t in reps], card))
-        d, cd = gs_round_oriented(*args, **kw, prev=prev)
-        if has_levels:
-            a, ca = gs_round_levels(*args, **kw, prev=prev)
-            check(torch.equal(a, d) and torch.equal(ca, cd),
-                  "%s: levels != dataflow" % what)
-        out = {k: statistics.median(v) for k, v in res.items()}
-        out.setdefault("levels", None)
-        return out, cd
+    def timed(what, args, prev=None):
+        ms, reps = cuda_median_ms(
+            lambda: gs_round_oriented(*args, **kw, prev=prev), reps=5)
+        log("time", "%s: median %.4f ms, reps %s ms [%s]"
+            % (what, ms, ["%.4f" % t for t in reps], card))
+        return ms, gs_round_oriented(*args, **kw, prev=prev)[1]
 
     by_o = {}
     err = 0.0
     for o in range(4):
         what = ("K1 round in the TPU's order %d² B=%d orientation %d from "
                 "the base (all blocks visited)" % (n, B, o))
-        by_o[o], chg = turns(what, (base, K, W1, base, o))
+        by_o[o], chg = timed(what, (base, K, W1, base, o))
     out, chg = gs_round_oriented(base, K, W1, base, 0, **kw)
     ones = torch.ones_like(chg)
     bound, bound_by = round_bound((base, K, W1, base, ones), (out, chg), W)
-    res = dict(B=B, cluster=kernel_cluster_size(B), levels=levels,
-               bound=bound, bound_by=bound_by,
-               ms=by_o[0]["dataflow"], levels_ms=by_o[0]["levels"],
-               ms_by_orientation=[by_o[o]["dataflow"] for o in range(4)],
-               levels_ms_by_orientation=[by_o[o]["levels"] for o in range(4)])
+    res = dict(B=B, cluster=kernel_cluster_size(B), bound=bound,
+               bound_by=bound_by, ms=by_o[0],
+               ms_by_orientation=[by_o[o] for o in range(4)])
     res["plain_ms"] = None
     if plain:
         pms, preps = cuda_median_ms(
@@ -1427,30 +1323,25 @@ def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
             "%.1f ms [%s]" % (n, B, pms, card))
     res["err"] = err
     zero = torch.zeros_like(chg)
-    skipped, _c = turns("K1 skipped round %d² B=%d (no flag set)" % (n, B),
-                        (base, K, W1, base, 0), prev=zero)
-    res["skipped_ms"], res["levels_skipped_ms"] = (skipped["dataflow"],
-                                                   skipped["levels"])
+    res["skipped_ms"], _c = timed(
+        "K1 skipped round %d² B=%d (no flag set)" % (n, B),
+        (base, K, W1, base, 0), prev=zero)
     # a skipped round reads the flags and writes its own
     res["skipped_bound"] = 2 * zero.numel() * 4 / HBM_BYTES_PER_S * 1e3
     Wc, bc, links = state
     Kc, W1c = compact_from_dense(Wc)
     x, b, prev, o = partial_round(bc, Wc, links, B, 12)
     share = float(dilate(prev != 0).double().mean())
-    part, pchg = turns("K1 partial round %d² B=%d, the hard chain's pit "
-                       "solve round 12 (%.1f%% of the blocks dirty)"
-                       % (n, B, 100 * share), (x, Kc, W1c, b, o), prev=prev)
-    res["partial_ms"], res["levels_partial_ms"] = (part["dataflow"],
-                                                   part["levels"])
+    res["partial_ms"], pchg = timed(
+        "K1 partial round %d² B=%d, the hard chain's pit solve round 12 "
+        "(%.1f%% of the blocks dirty)" % (n, B, 100 * share),
+        (x, Kc, W1c, b, o), prev=prev)
     res["partial_share"] = share
     res["partial_bound"] = k1_round_bound((x, Kc, W1c, b, prev), (x, pchg),
                                           Wc, share)[0]
-    held = {label: statistics.median(
-        [held_ms(lambda: fn(base, K, W1, base, 0, **kw),
-                 levels if label == "levels" else 1) for _ in range(4)][1:])
-        for label, fn in paths}
-    res["critical_path_ms"] = held["dataflow"]
-    res["levels_critical_path_ms"] = held.get("levels")
+    res["critical_path_ms"] = statistics.median(
+        [held_ms(lambda: gs_round_oriented(base, K, W1, base, 0, **kw), 1)
+         for _ in range(4)][1:])
     res["solve_ms"], res["solve_rounds"] = solve_ms(
         lambda: accumulate_blocked_gs(base, W, B=B),
         "K1 cone solve %d² B=%d, dataflow" % (n, B), card)
@@ -1460,41 +1351,19 @@ def time_oriented_rounds(base, K, W1, W, card, state, B=64, plain=True):
     # each solve's bound: its rounds from the base, each at the round's
     res["solve_bound"] = res["solve_rounds"] * bound
     res["pit_solve_bound"] = res["pit_solve_rounds"] * bound
-    res["levels_solve_ms"] = res["levels_pit_solve_ms"] = None
-    if has_levels:
-        res["levels_solve_ms"], rounds = solve_ms(
-            lambda: accumulate_blocked_gs(base, W, B=B,
-                                          round_fn=gs_round_levels),
-            "K1 cone solve %d² B=%d, levels" % (n, B), card)
-        check(rounds == res["solve_rounds"], "the level path's cone solve "
-              "took %d rounds, the dataflow's %d"
-              % (rounds, res["solve_rounds"]))
-        res["levels_pit_solve_ms"], rounds = solve_ms(
-            lambda: accumulate_blocked_pits_gs(bc, Wc, *links, B=B,
-                                               round_fn=gs_round_levels),
-            "hard chain pit solve %d² B=%d, levels" % (n, B), card)
-        check(rounds == res["pit_solve_rounds"], "the level path's pit "
-              "solve took %d rounds, the dataflow's %d"
-              % (rounds, res["pit_solve_rounds"]))
-    fmt = lambda v, f="%.3f": "-" if v is None else f % v  # noqa: E731
     log("time", "K1 in the TPU's order %d² B=%d (a cluster of %d CTAs a "
-        "block), levels -> dataflow: from the base by orientation %s -> %s "
-        "ms (bound %.4f ms by %s, %.1f%% of the dataflow round); skipped %s "
-        "-> %.4f ms; partial (%.1f%% dirty) %s -> %.4f ms (bound %.4f); "
-        "critical path held %s -> %.3f ms; cone solve %s -> %.3f ms (%d "
-        "rounds, bound %.4f); pit solve %s -> %.3f ms (%d rounds, bound "
-        "%.4f); %d levels a round -> 1 launch [%s]"
+        "block): from the base by orientation %s ms (bound %.4f ms by %s, "
+        "%.1f%% of the round); skipped %.4f ms; partial (%.1f%% dirty) "
+        "%.4f ms (bound %.4f); critical path held %.3f ms; cone solve %.3f "
+        "ms (%d rounds, bound %.4f); pit solve %.3f ms (%d rounds, bound "
+        "%.4f) [%s]"
         % (n, B, res["cluster"],
-           [fmt(t) for t in res["levels_ms_by_orientation"]],
            ["%.3f" % t for t in res["ms_by_orientation"]], bound, bound_by,
-           100 * bound / res["ms"], fmt(res["levels_skipped_ms"], "%.4f"),
-           res["skipped_ms"], 100 * share,
-           fmt(res["levels_partial_ms"], "%.4f"), res["partial_ms"],
-           res["partial_bound"], fmt(res["levels_critical_path_ms"]),
-           res["critical_path_ms"], fmt(res["levels_solve_ms"]),
+           100 * bound / res["ms"], res["skipped_ms"], 100 * share,
+           res["partial_ms"], res["partial_bound"], res["critical_path_ms"],
            res["solve_ms"], res["solve_rounds"], res["solve_bound"],
-           fmt(res["levels_pit_solve_ms"]), res["pit_solve_ms"],
-           res["pit_solve_rounds"], res["pit_solve_bound"], levels, card))
+           res["pit_solve_ms"], res["pit_solve_rounds"],
+           res["pit_solve_bound"], card))
     return res
 
 
@@ -1591,7 +1460,7 @@ def time_base_round(base, K, W1, W, card, B):
                 err=err)
 
 
-# the block sides of phase 8's K1 figures: the reference forms' 64, the
+# the block sides of phase 8's K1 figures: 64 (one CTA a block), the
 # cluster's 128 and the main path's default 256 (B = 16's rows were cut for
 # the time limit); and the mesh's B = 32 and 8 (a round from the base)
 TIMED_BLOCKS = (64, 128, 256)
@@ -1599,49 +1468,13 @@ MESH_BLOCKS = (32, 8)
 
 
 def phase_times(device, card, state):
-    """Terrain step, hard chain stages, one K1 and one K2 round, and the
-    full pit solves; CUDA events."""
+    """The hard chain's stages, K2 and K1 rounds, and the full pit solves;
+    CUDA events."""
     elev = torch.from_numpy(make_cone(N_MAIN)).to(device)
-    args = spacing(N_MAIN, torch.float32, device)
-    px = N_MAIN * N_MAIN
     W, base = weights_and_base(elev)
-    _x, jacobi_rounds = jacobi_k1_solve(base, W)
-    step_ms = {}
-    for solver in ("blocked", "jacobi"):
-        out = {}
-
-        def step():
-            out.update(terrain_step(elev, *args, uca_solver=solver))
-
-        ms, reps = cuda_median_ms(step)
-        step_ms[solver] = (ms, out["uca_sweeps"])
-        log("time", "terrain_step(%s) %d² cone: median %.3f ms, reps %s ms, "
-            "%.4g px/s, %d %s%s [%s]" % (
-                solver, N_MAIN, ms, ["%.3f" % t for t in reps],
-                px / (ms / 1e3), out["uca_sweeps"],
-                "rounds" if solver == "blocked" else "sweeps",
-                " in the TPU's order at B=%d (the block-Jacobi canvas "
-                "solve at B=64: %d)" % (_block_size(N_MAIN, N_MAIN),
-                                        jacobi_rounds)
-                if solver == "blocked" else "", card))
-
     chain = time_chain(device, card)
-
     K, W1 = compact_from_dense(W)
-    B = 64
-    prev = torch.ones((N_MAIN // B,) * 2, dtype=torch.int32, device=device)
-    kw = dict(B=B, inner_max=2 * B + 4)
-    k1, k1_err = time_round(
-        "first K1 round %d² B=%d (all blocks visited)" % (N_MAIN, B),
-        (("kernel", gs_round), ("plain", gs_round_plain)),
-        ((base, K, W1, base, prev), kw), card)
     W = W.contiguous()
-    out, chg = gs_round(base, K, W1, base, prev, **kw)
-    k1["bound"], k1["bound_by"] = round_bound((base, K, W1, base, prev),
-                                              (out, chg), W)
-    log("time", "K1 round bound: %.4f ms by %s, %.1f%% of the kernel's %.3f "
-        "ms" % (k1["bound"], k1["bound_by"], 100 * k1["bound"] / k1["kernel"],
-                k1["kernel"]))
     # K2 at the solvers' default B = 256 and at 128, 64, 32, 16 and 8
     k2, k2_err = {}, 0.0
     for Bk in (256, 128, 64, 32, 16, 8):
@@ -1664,22 +1497,20 @@ def phase_times(device, card, state):
     # round), and 64 and 128
     by_block = {Bt: time_oriented_rounds(base, K, W1, W, card, state, Bt)
                 for Bt in TIMED_BLOCKS}
-    levels = dict(by_block[_block_size(N_MAIN, N_MAIN)])
-    levels["by_block"] = by_block
-    levels["sweep_ms"], levels["sweep_probe"] = time_sweeps(device, card)
-    levels["mesh_blocks"] = {Bm: time_base_round(base, K, W1, W, card, Bm)
-                             for Bm in MESH_BLOCKS}
-    levels["step_ms"], levels["step_rounds"] = step_ms["blocked"]
-    levels["jacobi_rounds"] = jacobi_rounds
+    k1 = dict(by_block[_block_size(N_MAIN, N_MAIN)])
+    k1["by_block"] = by_block
+    k1["sweep_ms"], k1["sweep_probe"] = time_sweeps(device, card)
+    k1["mesh_blocks"] = {Bm: time_base_round(base, K, W1, W, card, Bm)
+                         for Bm in MESH_BLOCKS}
     W, base, links = state
-    levels["pit_solve"] = {}
+    k1["pit_solve"] = {}
     for name, fn in (
             ("K2 (accumulate_blocked_pits)",
              lambda: accumulate_blocked_pits(base, W, *links)),
             ("jacobi (accumulate)", lambda: accumulate(base, W, *links))):
-        levels["pit_solve"][name] = solve_ms(
+        k1["pit_solve"][name] = solve_ms(
             fn, "pit solve, hard chain %d², %s" % (N_MAIN, name), card)
-    return k1, k2, k1_err, k2_err, chain, levels
+    return k2, k2_err, chain, k1
 
 
 MANAGER_KW = dict(conditioning_backend="device", pit_backend="device",
@@ -2016,10 +1847,9 @@ def ring_window(x, K, W1, base, i0, j0, S, w=None):
 
 def phase_ring_round(device, card, k1_ms):
     """10a: K1's ring form in the TPU's order on 2048² windows of the 4096²
-    cone, from a mid-solve state: the dataflow launch == the level
-    launches == the plain version at two orientations, the ring untouched;
-    one ring round from the base timed, levels against dataflow.  Returns
-    (times, max error)."""
+    cone, from a mid-solve state: the dataflow launch == the plain version
+    at two orientations, the ring untouched; one ring round from the base
+    timed.  Returns (times, max error)."""
     n, S, B = 2 * S_OOC, S_OOC, 64
     elev = torch.from_numpy(make_cone(n)).to(device)
     W, base = weights_and_base(elev)
@@ -2042,23 +1872,17 @@ def phase_ring_round(device, card, k1_ms):
                   "ring round, %s window: the ring was written" % where)
             changed.append(int(cd.sum()))
         log("ooc", "10a ring round in the TPU's order, %s %d² window of the "
-            "%d² cone, B=%d: dataflow == levels == plain bitwise at "
+            "%d² cone, B=%d: dataflow == plain bitwise at "
             "orientations 1 and 2, ring untouched, %s of %d blocks changed"
             % (where, S, n, B, changed, cd.numel()))
     xw, Kw, W1w, bw = ring_window(base, K, W1, base, S // 2, S // 2, S)
     times = {}
-    for label, fn in (("levels", gs_round_levels),
-                      ("kernel", gs_round_oriented),
-                      ("kernel", gs_round_oriented),
-                      ("levels", gs_round_levels)):
-        ms, reps = cuda_median_ms(
-            lambda: fn(xw, Kw, W1w, bw, 0, ring=True, **kw), reps=5)
-        times.setdefault(label, []).append(ms)
-        log("time", "10a ring round %d² window B=%d from the base, %s: "
-            "median %.3f ms, reps %s [%s]"
-            % (S, B, "dataflow" if label == "kernel" else label, ms,
-               ["%.3f" % t for t in reps], card))
-    times = {k: statistics.median(v) for k, v in times.items()}
+    times["kernel"], reps = cuda_median_ms(
+        lambda: gs_round_oriented(xw, Kw, W1w, bw, 0, ring=True, **kw),
+        reps=5)
+    log("time", "10a ring round %d² window B=%d from the base, dataflow: "
+        "median %.3f ms, reps %s [%s]"
+        % (S, B, times["kernel"], ["%.3f" % t for t in reps], card))
     times["plain"], _r = cuda_median_ms(
         lambda: gs_round_oriented_plain(xw, Kw, W1w, bw, 0, ring=True, **kw),
         reps=1)
@@ -2066,10 +1890,10 @@ def phase_ring_round(device, card, k1_ms):
     nbytes = sum(t.numel() * t.element_size()
                  for t in (xw, Kw, W1w, bw, torch.ones_like(chg), out, chg))
     times["bound"] = nbytes / HBM_BYTES_PER_S * 1e3
-    log("time", "10a ring round %.3f ms (levels %.3f, plain %.1f) beside the "
-        "%d² canvas round %.3f ms (phase 8, this run): ratio %.3f; bound "
-        "%.4f ms by bytes (%.1f MB), %.1f%% of the kernel's time [%s]"
-        % (times["kernel"], times["levels"], times["plain"], N_MAIN,
+    log("time", "10a ring round %.3f ms (plain %.1f) beside the %d² canvas "
+        "round %.3f ms (phase 8, this run): ratio %.3f; bound %.4f ms by "
+        "bytes (%.1f MB), %.1f%% of the kernel's time [%s]"
+        % (times["kernel"], times["plain"], N_MAIN,
            k1_ms["ms"], times["kernel"] / k1_ms["ms"], times["bound"],
            nbytes / 1e6, 100 * times["bound"] / times["kernel"], card))
     return times, worst
@@ -2177,9 +2001,6 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
                launches=main_launches("10 engine %s" % tag),
                ring_launches=len(visit_rounds),
                on=dict(gs_round_oriented.launches_on),
-               block_jacobi=launch_count(gs_round)
-               + launch_count(gs_round_ring) + launch_count(gs_round_subset)
-               + launch_count(gs_round_levels),
                counts=counts_by_card(),
                peak=peak_on[cards[0]], peak_on=peak_on, fused=bool(fused),
                io=dict(store.io),
@@ -2189,8 +2010,6 @@ def ooc_run(work, tag, elev, S, budget, time_kernel=False, mesh=None,
 
 def ooc_report(tag, n, S, res, card):
     io = res["io"]
-    check(res["block_jacobi"] == 0, "%s launched the block-Jacobi forms or "
-          "the level path" % tag)
     log("ooc", "%s %d² S=%d: total %.3f s, stage seconds %s, %d outer "
         "rounds, %d visits made and %d skipped by the frontier, K1 dataflow "
         "launches %d (%d of them the streamed visits' ring rounds) [%s]"
@@ -2491,9 +2310,8 @@ def phase_subset_rounds(device, card):
     whose ring is all neighbours, and 11b's top-left shard, whose ring is
     the canvas edge on two sides.  The interior and the frame rounds, in
     place one after the other (the split round's compute), dataflow ==
-    levels == plain bitwise, the ring untouched; then the interior, frame
-    and full ring rounds timed, levels against dataflow, beside their
-    bounds.  Returns (times, max error)."""
+    plain bitwise, the ring untouched; then the interior, frame and full
+    ring rounds timed beside their bounds.  Returns (times, max error)."""
     n, S, B = N_MESH, N_MESH // 2, 64
     elev = torch.from_numpy(make_cone(n)).to(device)
     W, base = weights_and_base(elev)
@@ -2520,8 +2338,8 @@ def phase_subset_rounds(device, card):
               "11a %s window: the ring moved" % where)
         log("mesh", "11a the %s %d² window of the %d² cone, B=%d, "
             "orientation %d: the interior round (%d blocks) then the frame "
-            "(%d blocks) on its output, dataflow == levels == plain bitwise, "
-            "ring untouched; blocks changed %s"
+            "(%d blocks) on its output, dataflow == plain bitwise, ring "
+            "untouched; blocks changed %s"
             % (where, S, n, B, o, (nb - 2) ** 2, 4 * (nb - 1), changed))
     del x
     xw, Kw, W1w, bw = ring_window(base, K, W1, base, S // 2, S // 2, S)
@@ -2529,29 +2347,20 @@ def phase_subset_rounds(device, card):
     times = {}
     for subset in ("interior", "boundary", "all"):
         t = {}
-        for label, fn in (("levels", gs_round_levels),
-                          ("kernel", gs_round_oriented),
-                          ("kernel", gs_round_oriented),
-                          ("levels", gs_round_levels)):
-            ms, reps = cuda_median_ms(
-                lambda: fn(xw, Kw, W1w, bw, 0, ring=True, subset=subset,
-                           **kw), reps=5)
-            t.setdefault(label, []).append(ms)
-            log("time", "11a K1 %s round in the TPU's order, %d² window "
-                "B=%d from the base, %s: median %.3f ms, reps %s [%s]"
-                % (subset, S, B, "dataflow" if label == "kernel" else label,
-                   ms, ["%.3f" % r for r in reps], card))
-        t = {k: statistics.median(v) for k, v in t.items()}
+        t["kernel"], reps = cuda_median_ms(
+            lambda: gs_round_oriented(xw, Kw, W1w, bw, 0, ring=True,
+                                      subset=subset, **kw), reps=5)
+        log("time", "11a K1 %s round in the TPU's order, %d² window B=%d "
+            "from the base, dataflow: median %.3f ms, reps %s [%s]"
+            % (subset, S, B, t["kernel"], ["%.3f" % r for r in reps], card))
         blocks = (torch.arange(nb * nb) if subset == "all" else
                   torch.tensor(visit_sequence(nb, nb, 0, subset)))
         t["bound"], t["bytes"] = subset_bound(blocks, B, S)
         times[subset] = t
-        log("time", "11a %s round: dataflow %.3f ms, levels %.3f ms (%d "
-            "launches); bound %.4f ms by bytes (%.1f MB), %.1f%% of the "
-            "dataflow round [%s]"
-            % (subset, t["kernel"], t["levels"],
-               levels_per_round(S, S, B, subset), t["bound"],
-               t["bytes"] / 1e6, 100 * t["bound"] / t["kernel"], card))
+        log("time", "11a %s round: dataflow %.3f ms; bound %.4f ms by bytes "
+            "(%.1f MB), %.1f%% of the dataflow round [%s]"
+            % (subset, t["kernel"], t["bound"], t["bytes"] / 1e6,
+               100 * t["bound"] / t["kernel"], card))
     log("time", "11a interior + frame %.3f ms against one full ring round "
         "%.3f ms, dataflow: ratio %.3f [%s]"
         % (times["interior"]["kernel"] + times["boundary"]["kernel"],
@@ -2700,16 +2509,12 @@ def phase_sharded(device, card):
     out, split_s = synced_seconds(lambda: run_sharded(
         elev, *args, mesh=mesh, uca_solver="blocked"))
     launches = main_launches("11b run_sharded")
-    others = (launch_count(gs_round) + launch_count(gs_round_ring)
-              + launch_count(gs_round_subset) + launch_count(gs_round_levels))
     reads = counters["mesh_solve_reads"] - reads
     peak = torch.cuda.max_memory_allocated() - held
     rounds = out["uca_sweeps"]
-    check(sharded._blocked_shards.last_split and others == 0
-          and launches >= 2 * 4 * rounds,
+    check(sharded._blocked_shards.last_split and launches >= 2 * 4 * rounds,
           "11b: the 2x2 run did not take the split round in the TPU's "
-          "order: %d dataflow launches for %d rounds, %d others"
-          % (launches, rounds, others))
+          "order: %d dataflow launches for %d rounds" % (launches, rounds))
     err = check_near_step("11b 2x2 split", out, step, GATE_TOL["cone"])
     log("mesh", "11b run_sharded(blocked) over a 2x2 mesh of four %d² shards "
         "on %s, split round: %d rounds in the TPU's order (one device: %d); "
@@ -2898,17 +2703,14 @@ def phase_mesh_manager(device, card, mesh=None, phase="11d"):
                     export_s = time.perf_counter() - t0
             runs[tag] = (pm, twi, run_s, export_s,
                          main_launches("%s %s manager" % (phase, tag)),
-                         launch_count(gs_round) + launch_count(gs_round_ring)
-                         + launch_count(gs_round_subset)
-                         + launch_count(gs_round_levels), counts_by_card())
+                         counts_by_card())
             if written is not None:
                 check_manager_exports(pm, pm.out_file, written)
-        pm0, twi0, s0, _e0, _l0, _o0, _c0 = runs["in-memory"]
-        pm1, twi1, s1, e1, l1, others, counts = runs["mesh"]
-        check(pm1._ooc is not None and pm1._ooc.mesh is not None
-              and l1 > 0 and others == 0,
+        pm0, twi0, s0, _e0, _l0, _c0 = runs["in-memory"]
+        pm1, twi1, s1, e1, l1, counts = runs["mesh"]
+        check(pm1._ooc is not None and pm1._ooc.mesh is not None and l1 > 0,
               "%s: the mesh manager did not solve over the mesh (%d "
-              "dataflow, %d other launches)" % (phase, l1, others))
+              "dataflow launches)" % (phase, l1))
         errs = {}
         for key in ("elev", "slope", "aspect", "uca", "twi"):
             errs[key], _bitwise = gate_equal(
@@ -3303,18 +3105,18 @@ def digests(out):
 
 
 def phase_card_rounds(cards, tag):
-    """12a: on every card, K1's block-Jacobi canvas round and a K2 round
-    against their plain versions, bit for bit, and K1 in the TPU's order
-    at the shapes the four-card path gives it: the canvas round on a 2048²
-    cone; the ring round and the interior and frame rounds on windows of a
-    mid-solve state of the 16384² cone at every shard shape of 12b-12e,
-    the dataflow launch == the level launches == the plain version (the
-    plain one on the first card at the shapes past 2048², where it takes
-    seconds a round), timed at 12b's shard and 12c's band; the ring round
-    at 12g's shard (:func:`giant_shard_rounds`).  Returns {kernel: {card:
+    """12a: on every card, a K2 round against its plain version, bit for
+    bit, and K1 in the TPU's order at the shapes the four-card path gives
+    it: the canvas round on a 2048² cone; the ring round and the interior
+    and frame rounds on windows of a mid-solve state of the 16384² cone at
+    every shard shape of 12b-12e, the dataflow launch == the plain version
+    (on the first card at the shapes past 2048², where the plain round
+    takes seconds, and up to 8192²; elsewhere the dataflow launch twice,
+    bit for bit), timed at 12b's shard and 12c's band; the ring round at
+    12g's shard (:func:`giant_shard_rounds`).  Returns {kernel: {card:
     times}} and the largest difference."""
-    times = {k: {} for k in ("canvas", "oriented", "oriented_b256", "k2",
-                             "ring", "subset", "band", "giant")}
+    times = {k: {} for k in ("oriented", "oriented_b256", "k2", "ring",
+                             "subset", "band", "giant")}
     worst = 0.0
     for k, dev in enumerate(cards):
         with torch.cuda.device(dev):
@@ -3325,19 +3127,20 @@ def phase_card_rounds(cards, tag):
     return times, worst
 
 
-def dataflow_vs_levels(what, args, B, subset, plain):
+def ring_round_checked(what, args, B, subset, plain):
     """A ring round in the TPU's order at orientation 0, every block dirty,
-    through the dataflow launch, the level launches and (``plain``) the
-    plain version: bitwise.  Returns the largest difference."""
+    through the dataflow launch: with ``plain`` against the plain version,
+    else against a second dataflow launch, bitwise.  Returns the largest
+    difference."""
     if plain:
         return oriented_vs_plain(what, args, 0, B, True, subset)[0]
     kw = dict(B=B, inner_max=2 * B + 4, ring=True, subset=subset)
     d = gs_round_oriented(*args, 0, **kw)
-    lv = gs_round_levels(*args, 0, **kw)
+    again = gs_round_oriented(*args, 0, **kw)
     torch.cuda.synchronize()
-    e = nan_equal_max_err(d[0], lv[0])
-    check(e <= KERNEL_TOL and torch.equal(d[1], lv[1]),
-          "%s: dataflow != levels (max err %g)" % (what, e))
+    e = nan_equal_max_err(d[0], again[0])
+    check(e <= KERNEL_TOL and torch.equal(d[1], again[1]),
+          "%s: two dataflow launches differ (max err %g)" % (what, e))
     return e
 
 
@@ -3348,22 +3151,14 @@ def _card_rounds(dev, tag, plain_large=True):
     W, base = weights_and_base(cone_rows(n, 0, n, dev))
     K, W1 = compact_from_dense(W)
     ones = torch.ones((n // B,) * 2, dtype=torch.int32, device=dev)
-    t, err = time_round("12a K1 block-Jacobi canvas round, %d² on %s"
-                        % (n, dev),
-                        (("kernel", gs_round), ("plain", gs_round_plain)),
-                        ((base, K, W1, base, ones), kw), tag)
-    worst = max(worst, err)
-    t["bound"], t["bound_by"] = round_bound(
-        [base, K, W1, base, ones], [base, ones], W)
-    times["canvas"] = t
+    bound = round_bound([base, K, W1, base, ones], [base, ones], W)
     t, err = time_round("12a K1 round in the TPU's order, %d² on %s"
                         % (n, dev),
                         (("kernel", gs_round_oriented),
                          ("plain", gs_round_oriented_plain)),
                         ((base, K, W1, base, 0), kw), tag, plain_reps=1)
     worst = max(worst, err)
-    t["bound"], t["bound_by"] = times["canvas"]["bound"], times["canvas"][
-        "bound_by"]
+    t["bound"], t["bound_by"] = bound
     times["oriented"] = t
     # the main path's default block side: a cluster of 16 CTAs a block
     kw256 = dict(B=256, inner_max=2 * 256 + 4)
@@ -3373,8 +3168,7 @@ def _card_rounds(dev, tag, plain_large=True):
                          ("plain", gs_round_oriented_plain)),
                         ((base, K, W1, base, 0), kw256), tag, plain_reps=1)
     worst = max(worst, err)
-    t["bound"], t["bound_by"] = times["canvas"]["bound"], times["canvas"][
-        "bound_by"]
+    t["bound"], t["bound_by"] = bound
     times["oriented_b256"] = t
     Wc = W.contiguous()
     t, err = time_round("12a K2 round, %d² on %s" % (n, dev),
@@ -3398,22 +3192,17 @@ def _card_rounds(dev, tag, plain_large=True):
 
     def timed(what, args, subset):
         t = {}
-        for label, fn in (("levels", gs_round_levels),
-                          ("kernel", gs_round_oriented),
-                          ("kernel", gs_round_oriented),
-                          ("levels", gs_round_levels)):
-            ms, reps = cuda_median_ms(
-                lambda: fn(*args, 0, ring=True, subset=subset, **kw), reps=5)
-            t.setdefault(label, []).append(ms)
-        t = {k: statistics.median(v) for k, v in t.items()}
+        t["kernel"], _reps = cuda_median_ms(
+            lambda: gs_round_oriented(*args, 0, ring=True, subset=subset,
+                                      **kw), reps=5)
         h, w = args[3].shape
         t["bound"], t["bytes"] = subset_bound(
             torch.arange((h // B) * (w // B)) if subset == "all" else
             torch.tensor(visit_sequence(h // B, w // B, 0, subset)), B,
             (h, w))
         log("time", "12a K1 %s round in the TPU's order, %s on %s: dataflow "
-            "%.3f ms, levels %.3f ms; bound %.4f ms [%s]"
-            % (subset, what, dev, t["kernel"], t["levels"], t["bound"], tag))
+            "%.3f ms; bound %.4f ms [%s]"
+            % (subset, what, dev, t["kernel"], t["bound"], tag))
         return t
 
     S = n // 2
@@ -3431,15 +3220,15 @@ def _card_rounds(dev, tag, plain_large=True):
         plain = plain_large or h <= N_MAIN
         for subset in ("all",) + (("interior", "boundary") if subsets
                                   else ()):
-            worst = max(worst, dataflow_vs_levels(
+            worst = max(worst, ring_round_checked(
                 "12a %s %s round on %s" % (what, subset, dev), args, B,
                 subset, plain and h * w <= N_MULTI * N_MULTI // 4))
         del args
-    log("cards", "12a %s: the block-Jacobi canvas round, the round in the "
-        "TPU's order and K2 (2048²) kernel == plain bitwise; on windows of a "
-        "mid-solve state of the %d² cone, the ring rounds at %s and the "
-        "interior and frame rounds at %s in the TPU's order: dataflow == "
-        "levels bitwise, == plain too at the shapes up to 8192² (%s)"
+    log("cards", "12a %s: the round in the TPU's order and K2 (2048²) kernel "
+        "== plain bitwise; on windows of a mid-solve state of the %d² cone, "
+        "the ring rounds at %s and the interior and frame rounds at %s in "
+        "the TPU's order: dataflow == plain bitwise at the shapes up to "
+        "8192² (%s), elsewhere two dataflow launches bitwise"
         % (dev, n, [w for w, _s, _f in shapes],
            [w for w, _s, f in shapes if f],
            "all of them" if plain_large else "this card: up to 2048²"))
@@ -3454,7 +3243,7 @@ def _card_rounds(dev, tag, plain_large=True):
     del args
     times["ring"] = rnd["all"]
     times["subset"] = {k: rnd["interior"][k] + rnd["boundary"][k]
-                       for k in ("kernel", "levels", "bound")}
+                       for k in ("kernel", "bound")}
     times["subset"].update(interior=rnd["interior"]["kernel"],
                            boundary=rnd["boundary"]["kernel"])
     del x, K, W1, base
@@ -3477,9 +3266,9 @@ def tile_window(t, period, rows, cols, total, fill):
 def giant_shard_rounds(dev, tag, B):
     """12a at 12g's shard: the ring round in the TPU's order on the
     top-left 24576² shard of 12g's canvas (3x3 copies of the 16384² cone,
-    each ringed with NaN), the dataflow launch against the level launches
-    bit for bit (the plain round there would need the shard's dense planes,
-    19 GB); the dataflow launch timed.  The planes are a mid-solve state:
+    each ringed with NaN), two dataflow launches bit for bit (the plain
+    round there would need the shard's dense planes, 19 GB); the dataflow
+    launch timed.  The planes are a mid-solve state:
     one ringed cone's compact state after two rounds, tiled.  The NaN rings
     keep the copies apart and every spacing is 1, so these are the planes
     of the whole canvas, cut as :func:`ring_window` cuts them, built
@@ -3500,14 +3289,14 @@ def giant_shard_rounds(dev, tag, B):
               tile_window(W1, n, ringed, ringed, N, 0.0),
               tile_window(base, n, range(S), range(S), N, 0.0))
     del x, K, W1, base
-    worst = dataflow_vs_levels("12a ring round at 12g's %d² shard on %s"
+    worst = ring_round_checked("12a ring round at 12g's %d² shard on %s"
                                % (S, dev), planes, B, "all", False)
     ms, reps = cuda_median_ms(
         lambda: gs_round_oriented(*planes, 0, ring=True, **kw), reps=5)
     bound, nbytes = subset_bound(torch.arange((S // B) ** 2), B, S)
     log("time", "12a K1 ring round in the TPU's order at 12g's %d² shard (a "
         "mid-solve state of the 3x3 ringed copies of the %d² cone) on %s: "
-        "dataflow == levels bitwise; the dataflow launch: median %.3f ms, "
+        "two launches bitwise; the dataflow launch: median %.3f ms, "
         "reps %s ms; bound %.3f ms (%d bytes) [%s]"
         % (S, n, dev, ms, ["%.3f" % t for t in reps], bound, nbytes, tag))
     return {"kernel": ms, "bound": bound}, worst
@@ -3596,9 +3385,6 @@ def phase_cards_sharded(cards, tag):
     nb = (n // 2 // _block_size(n, n),) * 2
     used = launches["uca_gs_round_dataflow"]
     check(split == sharded._use_split(mesh, nb) is False
-          and not any(sum(launches[k].values()) for k in (
-              "uca_gs_round", "uca_gs_round_levels", "uca_gs_round_ring",
-              "uca_gs_round_subset"))
           and all(used.get(str(d), 0) >= rounds for d in cards),
           "12b: the run did not take the serial round in the TPU's order on "
           "every card: %s" % launches)
@@ -3702,10 +3488,6 @@ def _nccl_rank(rank, world, url, n, work):
         if rep == 0:
             res.update(rounds=out["uca_sweeps"], counts=counts_by_card(),
                        dataflow=launch_count(gs_round_oriented),
-                       others=launch_count(gs_round)
-                       + launch_count(gs_round_ring)
-                       + launch_count(gs_round_subset)
-                       + launch_count(gs_round_levels),
                        peak=torch.cuda.max_memory_allocated(dev),
                        shards=len(out["uca"].local_shards()))
             # after the timing: this rank hashes its own band; then every
@@ -3776,7 +3558,7 @@ def phase_cards_nccl(cards, tag, want, want_rounds):
           "12c: rounds %s, one process %d" % ([r["rounds"] for r in ranks],
                                               want_rounds))
     check(sorted(r["device"] for r in ranks) == [str(d) for d in cards]
-          and all(r["dataflow"] > 0 and r["others"] == 0 for r in ranks),
+          and all(r["dataflow"] > 0 for r in ranks),
           "12c: not one rank a card, or no dataflow launches: %s" % ranks)
     peaks = [r["peak"] for r in ranks]
     check(max(peaks) < NCCL_PEAK_BYTES, "12c: a rank peaked at %.3f GB"
@@ -3822,10 +3604,7 @@ def phase_cards_pits(cards, tag):
           "of one card's accumulate_blocked_pits_gs (max %g)"
           % (GATE_TOL["hard"], err))
     used = launches["uca_gs_round_dataflow"]
-    check(not any(sum(launches[k].values()) for k in (
-              "uca_gs_round", "uca_gs_round_levels", "uca_gs_round_ring",
-              "uca_gs_round_subset"))
-          and all(used.get(str(d), 0) > 0 for d in cards),
+    check(all(used.get(str(d), 0) > 0 for d in cards),
           "12d: the run did not take the dataflow launch on every card: %s"
           % launches)
     log("cards", "12d %d² hard terrain, %d pit links, 2x2 over the four "
@@ -4036,10 +3815,7 @@ def phase_cards_giant(cards, tag):
         if spent + 1.5 * max(walls) > GIANT_BUDGET_S:
             break
     used = launches["uca_gs_round_dataflow"]
-    check(all(used.get(str(d), 0) > 0 for d in cards)
-          and not any(sum(launches[k].values()) for k in (
-              "uca_gs_round", "uca_gs_round_levels", "uca_gs_round_ring",
-              "uca_gs_round_subset")),
+    check(all(used.get(str(d), 0) > 0 for d in cards),
           "12g: the run did not take the dataflow launch on every card: %s"
           % launches)
     log("cards", "12g %d² float32 = %dx%d copies of the %d² cone, each "
@@ -4132,42 +3908,24 @@ def main_multicard():
     # the dataflow launch: one round in the TPU's order from the base on
     # 2048² (canvas form, beside its plain version); the ring form at 12b's
     # shard, 12c's band and 12g's shard, the interior + frame at 12b's shard
-    dataflow = entry("uca_gs_round_dataflow", "oriented",
-                     "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid "
-                     "order of gs_round_oriented :444, _FLIPS :184, "
-                     "_subset_grid :242, subset branches :279-303)",
+    dataflow = entry("uca_gs_round_dataflow", "oriented", REPLACES_K1,
                      sum(on["uca_gs_round_dataflow"].values()))
     for key, kind in (("shard_ring", "ring"), ("band", "band"),
                       ("split", "subset")):
         dataflow.update({"%s_%s" % (key, k): statistics.median(
             t[k] for t in rounds_ms[kind].values())
-            for k in ("kernel", "levels", "bound")})
+            for k in ("kernel", "bound")})
     dataflow.update({"giant_shard_" + k: statistics.median(
         t[k] for t in rounds_ms["giant"].values()) for k in ("kernel",
                                                              "bound")})
     # the main path's default B = 256, a cluster of 16 CTAs a block (the
-    # entry's own figures are B = 64's, beside the level launches)
+    # entry's own figures are B = 64's)
     dataflow.update({"b256_%s" % k: statistics.median(
         t[k] for t in rounds_ms["oriented_b256"].values())
         for k in ("kernel", "plain")})
     dataflow["launches_by_block"] = dict(MAIN_BY_BLOCK)
-    levels = {"name": "uca_gs_round_levels", "route": "cuda",
-              "source": src, "replaces": dataflow["replaces"],
-              "launches": sum(on["uca_gs_round_levels"].values()),
-              "role": "before: the level launches the dataflow launch "
-                      "replaced; no main path launches them",
-              "max_abs_err": err, "ms": dataflow["shard_ring_levels"],
-              "plain_ms": dataflow["plain_ms"],
-              "bound_ms": dataflow["shard_ring_bound"], "bound_by": "bytes",
-              "library_ms": None}
-    check(levels["launches"] == 0, "the four-card path launched the level "
-          "kernel")
     print(json.dumps({"kernels": [
-        dataflow, levels,
-        dict(entry("uca_gs_round", "canvas", "pydem_tpu/ops/uca_block.py:256",
-                   0),
-             role="reference forms (block-Jacobi canvas, ring, subset): "
-                  "only the comparisons run them"),
+        dataflow,
         entry("uca_block_round", "k2", "pydem_tpu/ops/uca_block.py:42",
               sum(on["uca_block_round"].values())),
     ], "split_round_over_cards": split["split"]}), flush=True)
@@ -4202,13 +3960,13 @@ def block_figures(t):
     }
 
 
-def dataflow_entries(launches, err, levels, ring_ms, subset_ms):
+def dataflow_entries(launches, err, k1, ring_ms, subset_ms):
     """The kernels-line entries of K1 in the TPU's order, the dataflow
     launch: one round at 2048² from the base (every block visited),
     orientation 0, at the main path's B = 256 (a cluster of 16 CTAs a
     block), and one entry each for B = 128 (clusters of 4) and 64 (one
-    CTA), beside the level launches they replaced at 64."""
-    by = levels["by_block"]
+    CTA)."""
+    by = k1["by_block"]
     main_b = _block_size(N_MAIN, N_MAIN)
     entries = []
     for B in (main_b,) + tuple(b for b in TIMED_BLOCKS if b != main_b):
@@ -4233,42 +3991,27 @@ def dataflow_entries(launches, err, levels, ring_ms, subset_ms):
                      "launch a round)" if B == main_b else
                      "K1 in the TPU's order at B=%d (B= and block_size= "
                      "take it)" % B),
-            "sweep_ms": levels["sweep_ms"][B],
+            "sweep_ms": k1["sweep_ms"][B],
         }
-        if B in levels["sweep_probe"]:
+        if B in k1["sweep_probe"]:
             # ms a sweep of each cluster visit (the shipped one "async")
-            entry["sweep_probe_ms"] = levels["sweep_probe"][B]
+            entry["sweep_probe_ms"] = k1["sweep_probe"][B]
         entry.update(block_figures(t))
         if B == main_b:
-            entry.update({
-                "launches_by_block": dict(MAIN_BY_BLOCK),
-                "terrain_step_ms": levels["step_ms"],
-                "terrain_step_rounds": levels["step_rounds"],
-                "block_jacobi_rounds_b64": levels["jacobi_rounds"]})
+            entry["launches_by_block"] = dict(MAIN_BY_BLOCK)
         if B == 64:
             entry.update({
-                "levels_ms": t["levels_ms"],
-                "levels_ms_by_orientation": t["levels_ms_by_orientation"],
-                "levels_skipped_ms": t["levels_skipped_ms"],
-                "levels_partial_ms": t["levels_partial_ms"],
-                "levels_critical_path_ms": t["levels_critical_path_ms"],
-                "levels_cone_solve_ms": t["levels_solve_ms"],
-                "levels_hard_pit_solve_ms": t["levels_pit_solve_ms"],
                 # the ring form on a 2048² window (10a) and the subset
                 # forms on a 4096² shard (11a), from the base
                 "ring_window_ms": ring_ms["kernel"],
-                "levels_ring_window_ms": ring_ms["levels"],
                 "ring_window_bound_ms": ring_ms["bound"],
                 "interior_ms": subset_ms["interior"]["kernel"],
                 "boundary_ms": subset_ms["boundary"]["kernel"],
                 "shard_ring_ms": subset_ms["all"]["kernel"],
-                "levels_interior_ms": subset_ms["interior"]["levels"],
-                "levels_boundary_ms": subset_ms["boundary"]["levels"],
-                "levels_shard_ring_ms": subset_ms["all"]["levels"],
                 "shard_ring_bound_ms": subset_ms["all"]["bound"]})
         entries.append(entry)
     for B in MESH_BLOCKS:
-        t = levels["mesh_blocks"][B]
+        t = k1["mesh_blocks"][B]
         entries.append({
             "name": "uca_gs_round_dataflow_b%d" % B,
             "route": "cuda",
@@ -4287,30 +4030,6 @@ def dataflow_entries(launches, err, levels, ring_ms, subset_ms):
                     % (B, B, 2 * B),
         })
     return entries
-
-
-def levels_entry(levels):
-    """The kernels-line entry of the level launches at B = 64: the
-    "before" column of the dataflow launch, which no main path launches."""
-    t = levels["by_block"][64]
-    return {
-        "name": "uca_gs_round_levels",
-        "route": "cuda",
-        "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
-        "replaces": "pydem_tpu/ops/uca_block.py:256 (_gs_kernel; the grid "
-                    "order of gs_round_oriented :444 and _FLIPS :184)",
-        "launches": 0,
-        "role": "before: the level launches the dataflow launch replaced, "
-                "timed beside it at B=64; no main path launches them",
-        "max_abs_err": t["err"],
-        "ms": t["levels_ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound"],
-        "bound_by": t["bound_by"],
-        "library_ms": None,
-        "block": 64,
-        "launches_per_round": t["levels"],
-    }
 
 
 # -- phase 14: the facet sweep kernel ----------------------------------------
@@ -4444,15 +4163,14 @@ def main():
     k1_err, k2_err = max(k1_err, e1), max(k2_err, e2)
     phase_f64_chain(device)
     clock("6-7 K2 path, float64 chain")
-    k1_ms, k2_ms, e1, e2, chain, levels = phase_times(device, card, state)
-    k1_err = max(k1_err, e1, *(t["err"] for t in levels["by_block"].values()),
-                 *(t["err"] for t in levels["mesh_blocks"].values()))
+    k2_ms, e2, chain, k1 = phase_times(device, card, state)
+    k1_err = max(k1_err, *(t["err"] for t in k1["by_block"].values()),
+                 *(t["err"] for t in k1["mesh_blocks"].values()))
     k2_err = max(k2_err, e2)
     clock("8 times")
     k1_launches += phase_manager(device, card)
     clock("9 manager")
-    ring_ms, ring_err = phase_ring_round(device, card,
-                                         levels["by_block"][64])
+    ring_ms, ring_err = phase_ring_round(device, card, k1["by_block"][64])
     k1_launches += phase_ooc_scale(device, card)
     k1_launches += phase_ooc_hard(device, card)
     phase_ooc_precision(device)
@@ -4474,25 +4192,7 @@ def main():
     log("done", "all phases passed in %.1f s" % (time.perf_counter() - t0))
     print(json.dumps({"kernels": [
         *dataflow_entries(k1_launches, max(k1_err, ring_err, subset_err),
-                          levels, ring_ms, subset_ms),
-        levels_entry(levels), {
-            # K1 as block-Jacobi (uca_gs_round_kernel: the canvas form
-            # timed here, the ring and subset forms the same kernel): the
-            # reference forms that only the comparisons run
-            "name": "uca_gs_round",
-            "route": "cuda",
-            "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",
-            "replaces": "pydem_tpu/ops/uca_block.py:256",
-            "launches": 0,
-            "role": "reference forms (block-Jacobi canvas, ring, subset): "
-                    "only the comparisons run them",
-            "max_abs_err": k1_err,
-            "ms": k1_ms["kernel"],
-            "plain_ms": k1_ms["plain"],
-            "bound_ms": k1_ms["bound"],
-            "bound_by": k1_ms["bound_by"],
-            "library_ms": None,
-        }, {
+                          k1, ring_ms, subset_ms), {
             "name": "uca_block_round",
             "route": "cuda",
             "source": "pydem_tpu_torch/ops/csrc/uca_block.cu",

@@ -9,10 +9,8 @@
 //  * K1 replaces _gs_kernel: the compact receiver encoding (packed index
 //    plane K, slot-1 weight W1, slot-2 weight 1 - W1) and a frontier skip
 //    when no block of the 3x3 neighbourhood changed last round.  Its
-//    rounds in the TPU's order run as uca_gs_dataflow_kernel, one
-//    persistent launch a round (below); uca_gs_level_kernel is the same
-//    round launched level by level, kept to time the two;
-//    uca_gs_round_kernel is K1 as block-Jacobi, a reference form.
+//    rounds, in the TPU's order, run as uca_gs_dataflow_kernel, one
+//    persistent launch a round (below).
 //  * K2, uca_block_round_kernel, replaces _block_kernel: the 8 dense weight
 //    planes, read straight from device memory, any nonnegative weights and
 //    any number of them per pixel, every block visited.
@@ -41,22 +39,16 @@
 //    sequential grid's block reads, so the round equals it bit for bit,
 //    canvas and flags: the plain version (ops/uca_block.py::
 //    gs_round_oriented_plain) and the JAX round in the same form compute the
-//    same.  The level launches (uca_gs_round_levels_f32) reach the same by
-//    running each level's blocks in one launch, 2(nb_i - 1) + nb_j launches
-//    a whole round; the dataflow launch removes the launch gaps and the wait
-//    of every block for the slowest block of the level before.
-//  * The block-Jacobi forms (uca_gs_round_f32, uca_gs_round_ring_list_f32)
-//    read the round-start canvas x and write a second buffer x_out, as K2
-//    does on the TPU too; their plain versions (gs_round_plain,
-//    gs_round_ring_plain, block_round_plain) reproduce them bit for bit.  No
-//    solver runs them.
+//    same.
+//  * K2 reads the round-start canvas x and writes a second buffer x_out
+//    (block-Jacobi), as it does on the TPU too; its plain version
+//    (block_round_plain) reproduces it bit for bit.
 //  * The halo is 1 px in shared memory, not the TPU's (8, 128)-aligned pads
 //    or K2's pre-exploded (B+16, B+256) tiles.  Out of the canvas, x and
 //    the weights read 0.
-//  * B is 8, 16, 32, 64, 128 or 256 for the dataflow kernel and K2 (every
-//    B the JAX package picks for a canvas or a shard); the level launches
-//    and the block-Jacobi K1 forms, references only, are built for 16 and
-//    64.  One CTA holds a visit up to B = 64.  A 258^2 float32 window
+//  * B is 8, 16, 32, 64, 128 or 256 for both kernels (every B the JAX
+//    package picks for a canvas or a shard).  One CTA holds a visit up to
+//    B = 64.  A 258^2 float32 window
 //    (266 KB) is more than one SM's 228 KB of shared memory, so at B = 128
 //    and 256 a visit is split over a thread-block cluster (below).
 //
@@ -118,17 +110,14 @@
 // K1 has a ring form (RING = 1), for a window of a larger canvas (an
 // engine visit, a shard): x, K and W1 carry a 1-px ring around the n x m
 // region that the blocks tile.  The ring of x is read as the frozen halo of
-// the region's rim blocks and never written by the rounds in the TPU's
-// order; the ring of K and W1 is real, because ring pixels send flow into
-// the region.  base, prev and chg cover the region only.  Every pixel's sum
+// the region's rim blocks and never written; the ring of K and W1 is real,
+// because ring pixels send flow into the region.  base, prev and chg cover the region only.  Every pixel's sum
 // is then the same rounding sequence as in a round over the whole canvas.
 // Rows of m + 2 floats are not 128-byte aligned; the loads are a few
 // percent of a visit.  The subset rounds of the TPU's order (the mesh's
 // split round: the interior while the ring lands, then the frame) are
 // dependency tables of the subset's blocks; their flags are written in
-// block space, where the TPU's frame wrote program ids.  The block-Jacobi
-// ring form also takes a block list and a 1-block flag ring (prev of
-// (n/B + 2) x (m/B + 2)); nothing in the TPU's order reads a flag ring.
+// block space, where the TPU's frame wrote program ids.
 //
 // What bounds it on the card.  Per visited block a round reads the halo
 // window of x, the weights of the block's sources (K1: K at 1 B and W1;
@@ -579,9 +568,9 @@ __device__ __forceinline__ void swap_buffers(float*& cur, float*& nxt,
 // band (see the cluster visit at the top of the file), and it ends in a
 // cluster barrier after which rank 0 has written chg.
 // The weights and the base come first, then wait(), then the x window.
-// x and x_out are the same canvas for the in-place level launches, so neither
-// is __restrict__ here (the kernels that write a second buffer say so on
-// their own parameters).
+// x and x_out are the same canvas for the in-place dataflow launch, so
+// neither is __restrict__ here (the kernels that write a second buffer say
+// so on their own parameters).
 // RING = 1: x and x_out are (n + 2, m + 2) with the region at (1, 1), and the
 // halo of a rim block is the ring; RING = 0: (n, m), the halo reads 0 there.
 template <int B, int RING, class Weights, class Wait = NoWait,
@@ -861,83 +850,8 @@ __device__ __forceinline__ void relax_block(
   }
 }
 
-// K1: one round over the compact receivers with the frontier skip.  RING = 1
-// is the ring form: the rim blocks also copy their part of the ring to x_out.
-// `blocks` null: a (m/B, n/B) grid visits every block; else a 1-D grid
-// visits the listed blocks.  prev_ring: prev carries a 1-block flag ring.
-// The minimum of one block per SM lets ptxas give the 64-thread B = 16
-// blocks more than the 64 registers it otherwise holds them to (where the
-// block index read from the list spilled); B = 64 is unchanged.  A
-// reference form, built for B = 16 and 64 (one CTA a visit).
-template <int B, int RING>
-__global__ void __launch_bounds__(Shape<B>::THREADS, 1)
-uca_gs_round_kernel(const float* __restrict__ x,
-                    const uint8_t* __restrict__ K,
-                    const float* __restrict__ W1,
-                    const float* __restrict__ base,
-                    const int* __restrict__ prev,
-                    float* __restrict__ x_out,
-                    int* __restrict__ chg,
-                    const int* __restrict__ blocks,
-                    int n, int m, int inner_max, int prev_ring) {
-  using S = Shape<B>;
-  static_assert(S::C == 1, "a reference form: one CTA a visit");
-  __shared__ Votes<1> votes;
-  const int nb_i = n / B, nb_j = m / B;
-  int bi = blockIdx.y, bj = blockIdx.x;
-  if (blocks != nullptr) {
-    const int b = blocks[blockIdx.x];
-    bi = b / nb_j;
-    bj = b - bi * nb_j;
-  }
-  const size_t pitch = m + 2 * RING;
-
-  if (RING && (bi == 0 || bi == nb_i - 1 || bj == 0 || bj == nb_j - 1)) {
-    // The ring pixels on the perimeter of this block's window; a corner of
-    // the ring is written by up to three blocks, all with the same value.
-    const int t = threadIdx.y * B + threadIdx.x;
-    if (t < S::WC) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // top, bottom, left, right
-        const int wi = (e == 0) ? 0 : ((e == 1) ? S::WC - 1 : t);
-        const int wj = (e < 2) ? t : ((e == 2) ? 0 : S::WC - 1);
-        const int gi = bi * B - 1 + wi, gj = bj * B - 1 + wj;
-        if (gi < 0 || gi >= n || gj < 0 || gj >= m) {
-          const size_t g = (size_t)(gi + 1) * pitch + (gj + 1);
-          x_out[g] = x[g];
-        }
-      }
-    }
-  }
-
-  // Frontier: relax only if some block of the 3x3 neighbourhood changed.
-  int dirty = 0;
-  for (int a = -1; a <= 1; ++a) {
-    for (int b = -1; b <= 1; ++b) {
-      const int qi = bi + a, qj = bj + b;
-      if (prev_ring) {  // the ring holds the neighbours' flags (0: none)
-        dirty |= prev[(qi + 1) * (nb_j + 2) + (qj + 1)];
-      } else if (qi >= 0 && qi < nb_i && qj >= 0 && qj < nb_j) {
-        dirty |= prev[qi * nb_j + qj];
-      }
-    }
-  }
-  if (!dirty) {
-#pragma unroll
-    for (int r = 0; r < S::R; ++r) {
-      const size_t g = (size_t)(bi * B + threadIdx.y * S::R + r + RING) * pitch
-                       + (bj * B + threadIdx.x + RING);
-      x_out[g] = x[g];
-    }
-    if (threadIdx.x == 0 && threadIdx.y == 0) chg[bi * nb_j + bj] = 0;
-    return;
-  }
-  relax_block<B, RING>(x, CompactWeights<RING>{K, W1}, base, x_out, chg, n, m,
-                       inner_max, bi, bj, votes);
-}
-
-// The frontier of the rounds in the TPU's order: relax only if some block
-// of the 3x3 neighbourhood changed last round (no flag ring).
+// The frontier of K1's rounds: relax only if some block of the 3x3
+// neighbourhood changed last round.
 __device__ __forceinline__ bool frontier_dirty(const int* __restrict__ prev,
                                                int nb_i, int nb_j, int bi,
                                                int bj) {
@@ -951,37 +865,6 @@ __device__ __forceinline__ bool frontier_dirty(const int* __restrict__ prev,
     }
   }
   return dirty != 0;
-}
-
-// K1 in the TPU's Gauss-Seidel order, one level of a round a launch, in
-// place: CTA c visits the block of dependency row c (flat index
-// bi * (m/B) + bj), reading and writing the live canvas x; the frontier
-// reads the previous round's flags prev, and every visited block writes its
-// flag in chg (0 if skipped; a skipped block writes nothing else).  x is not
-// __restrict__: it is read and written through the one pointer, and no
-// load of it may take the read-only path.  RING as in uca_gs_round_kernel;
-// the ring is never written.  A reference form, built for B = 16 and 64.
-template <int B, int RING>
-__global__ void __launch_bounds__(Shape<B>::THREADS, 1)
-uca_gs_level_kernel(float* x,
-                    const uint8_t* __restrict__ K,
-                    const float* __restrict__ W1,
-                    const float* __restrict__ base,
-                    const int* __restrict__ prev,
-                    int* __restrict__ chg,
-                    const int* __restrict__ rows,
-                    int n, int m, int inner_max) {
-  static_assert(Shape<B>::C == 1, "a reference form: one CTA a visit");
-  __shared__ Votes<1> votes;
-  const int nb_i = n / B, nb_j = m / B;
-  const int b = rows[blockIdx.x * ROW];
-  const int bi = b / nb_j, bj = b - bi * nb_j;
-  if (!frontier_dirty(prev, nb_i, nb_j, bi, bj)) {
-    if (threadIdx.x == 0 && threadIdx.y == 0) chg[b] = 0;
-    return;
-  }
-  relax_block<B, RING>(x, CompactWeights<RING>{K, W1}, base, x, chg, n, m,
-                       inner_max, bi, bj, votes);
 }
 
 // K1 in the TPU's Gauss-Seidel order, a whole round in one persistent
@@ -1156,112 +1039,17 @@ int resident(Kernel kernel) {
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
-// nblocks < 0: the (m/B, n/B) grid of every block; else a 1-D grid of
-// nblocks (the length of a block list).
-dim3 block_grid(int B, int n, int m, int nblocks) {
-  return nblocks < 0 ? dim3(m / B, n / B) : dim3(nblocks);
-}
-
-template <int RING>
-int gs_round_entry(const void* x, const void* K, const void* W1,
-                   const void* base, const void* prev, void* x_out, void* chg,
-                   const void* blocks, int n, int m, int B, int inner_max,
-                   int nblocks, int prev_ring, void* stream) {
-  const auto* xf = static_cast<const float*>(x);
-  const auto* kf = static_cast<const uint8_t*>(K);
-  const auto* wf = static_cast<const float*>(W1);
-  const auto* bf = static_cast<const float*>(base);
-  const auto* pf = static_cast<const int*>(prev);
-  auto* of = static_cast<float*>(x_out);
-  auto* cf = static_cast<int*>(chg);
-  const auto* lf = static_cast<const int*>(blocks);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (lf == nullptr) nblocks = -1;
-  if (nblocks == 0) return cudaSuccess;  // an empty list visits nothing
-  const dim3 grid = block_grid(B, n, m, nblocks);
-  switch (B) {
-    case 16:
-      return launch<16>(uca_gs_round_kernel<16, RING>, grid, st, xf, kf, wf,
-                        bf, pf, of, cf, lf, n, m, inner_max, prev_ring);
-    case 64:
-      return launch<64>(uca_gs_round_kernel<64, RING>, grid, st, xf, kf, wf,
-                        bf, pf, of, cf, lf, n, m, inner_max, prev_ring);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <int B, int RING>
-cudaError_t gs_levels(float* x, const uint8_t* K, const float* W1,
-                      const float* base, const int* prev, int* chg,
-                      const int* table, const int* offsets, int n_levels,
-                      int n, int m, int inner_max, cudaStream_t stream) {
-  for (int l = 0; l < n_levels; ++l) {
-    const int count = offsets[l + 1] - offsets[l];
-    if (count <= 0) continue;
-    const cudaError_t err = launch<B>(
-        uca_gs_level_kernel<B, RING>, dim3(count), stream, x, K, W1, base,
-        prev, chg, table + (size_t)offsets[l] * ROW, n, m, inner_max);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 }  // namespace
-
-// One K1 round (compact receivers, frontier).  All arrays are row-major and
-// contiguous on the current device: x, W1, base, x_out (n, m) float32; K
-// (n, m) uint8; prev, chg (n/B, m/B) int32.  n and m are multiples of B; B
-// is 16 or 64 (a block-Jacobi reference form).  Launches on `stream` and
-// does not synchronise.  Returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int uca_gs_round_f32(const void* x, const void* K, const void* W1,
-                                const void* base, const void* prev,
-                                void* x_out, void* chg, int n, int m, int B,
-                                int inner_max, void* stream) {
-  return gs_round_entry<0>(x, K, W1, base, prev, x_out, chg, nullptr, n, m,
-                           B, inner_max, -1, 0, stream);
-}
-
-// One K1 round in the TPU's Gauss-Seidel order, in place on x, as level
-// launches.  RING = 0: x, W1, base (n, m) float32 and K (n, m) uint8, as in
-// uca_gs_round_f32; RING = 1: x, K and W1 (n + 2, m + 2) with a 1-px ring,
-// as in uca_gs_round_ring_list_f32 (the ring is read, never written).  prev,
-// chg (n/B, m/B) int32.  table (on the device) holds the round's dependency
-// rows (block, MAX_PREDS predecessors), sorted by level; offsets (on the
-// host, n_levels + 1 ints) bound each level's rows.  B is 16 or 64.
-// Launches each level on `stream`, in order, and does not synchronise.
-// Returns the cudaError_t of the first failed launch (0 on success).
-extern "C" int uca_gs_round_levels_f32(void* x, const void* K, const void* W1,
-                                       const void* base, const void* prev,
-                                       void* chg, const void* table,
-                                       const void* offsets, int n_levels,
-                                       int n, int m, int B, int inner_max,
-                                       int ring, void* stream) {
-  auto* xf = static_cast<float*>(x);
-  const auto* kf = static_cast<const uint8_t*>(K);
-  const auto* wf = static_cast<const float*>(W1);
-  const auto* bf = static_cast<const float*>(base);
-  const auto* pf = static_cast<const int*>(prev);
-  auto* cf = static_cast<int*>(chg);
-  const auto* tf = static_cast<const int*>(table);
-  const auto* lf = static_cast<const int*>(offsets);
-  auto st = static_cast<cudaStream_t>(stream);
-#define LEVELS(BB, RR)                                                     \
-  return gs_levels<BB, RR>(xf, kf, wf, bf, pf, cf, tf, lf, n_levels, n, m, \
-                           inner_max, st)
-  if (B == 16 && !ring) LEVELS(16, 0);
-  if (B == 16 && ring) LEVELS(16, 1);
-  if (B == 64 && !ring) LEVELS(64, 0);
-  if (B == 64 && ring) LEVELS(64, 1);
-#undef LEVELS
-  return cudaErrorInvalidValue;
-}
 
 // One K1 round in the TPU's Gauss-Seidel order, in place on x, as one
 // persistent launch of `units` units (uca_gs_dataflow_kernel): CTAs at
 // B = 8 to 64, clusters of uca_block_cluster_size(B) CTAs at 128 and 256.
-// x, K, W1, base, prev, chg, ring as in uca_gs_round_levels_f32; table (on
-// the device) the round's `rows` dependency rows in a topological order.
+// All arrays are row-major and contiguous on the current device.  ring = 0:
+// x, W1, base (n, m) float32 and K (n, m) uint8; ring = 1: x, K and W1
+// (n + 2, m + 2) with a 1-px ring around the n x m region (read, never
+// written), base (n, m).  prev, chg (n/B, m/B) int32; n and m multiples of
+// B.  table (on the device) holds the round's `rows` dependency rows
+// (block, MAX_PREDS predecessors) in a topological order.
 // state (on the device): a 64-bit ticket counter, then one int32 "done"
 // epoch per block of the grid; the caller keeps it for every round on
 // `stream`, passes a new `epoch` each round and the counter's value at the
@@ -1329,29 +1117,6 @@ extern "C" int uca_resident_units(int kernel, int B, int ring) {
   if (B == 256) RESIDENT(256);
 #undef RESIDENT
   return -(int)cudaErrorInvalidValue;
-}
-
-// One K1 round in the ring form: x, W1, x_out (n + 2, m + 2) float32 and K
-// (n + 2, m + 2) uint8 carry a 1-px ring around the n x m region; base
-// (n, m) float32 and prev, chg (n/B, m/B) int32 cover the region.  The ring
-// of x is the region's frozen halo and comes back unchanged in x_out; the
-// ring of K and W1 holds the ring pixels' real receivers.  Otherwise as
-// uca_gs_round_f32, and: `blocks` (nblocks int32 flat block indices
-// bi * (m/B) + bj, on the device) restricts the round to those blocks, each
-// writing its block of x_out, its flag in chg and, on the region's rim, its
-// part of the ring; nothing else of x_out and chg is written.  A null
-// `blocks` (nblocks = -1) visits every block.  prev_ring = 1: prev is
-// (n/B + 2, m/B + 2), the region's flags inside a 1-block ring of the
-// neighbouring regions' flags (0 where there is none).
-extern "C" int uca_gs_round_ring_list_f32(const void* x, const void* K,
-                                          const void* W1, const void* base,
-                                          const void* prev, void* x_out,
-                                          void* chg, const void* blocks,
-                                          int n, int m, int B, int inner_max,
-                                          int nblocks, int prev_ring,
-                                          void* stream) {
-  return gs_round_entry<1>(x, K, W1, base, prev, x_out, chg, blocks, n, m, B,
-                           inner_max, nblocks, prev_ring, stream);
 }
 
 // One K2 round (dense weight planes, every block).  x, base, x_out (n, m)

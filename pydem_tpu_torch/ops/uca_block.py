@@ -29,11 +29,10 @@ On the GPU the blocks of one launch run in no order, so
 CTAs draw the blocks in a topological order from a ticket counter, and a
 block relaxes only once each predecessor has published that it is done, so
 it reads exactly what the sequential grid's block reads.  The round equals
-the JAX ``gs_round_oriented`` round bit for bit, flags included.
-:func:`gs_round_levels` is the same round launched level by level (a
-block's level is one more than its predecessors' highest), the design the
-dataflow launch replaced, kept to time the two; its plain twin
-:func:`gs_round_oriented_plain` relaxes each level's blocks together.
+the JAX ``gs_round_oriented`` round bit for bit, flags included.  Its plain
+twin :func:`gs_round_oriented_plain` relaxes the blocks level by level (a
+block's level is one more than its predecessors' highest,
+:func:`round_levels`), each level's blocks together.
 
 Three forms share the kernel: the *canvas* form, the *ring* form
 (``ring=True``: a window of a larger canvas, an engine visit or a shard,
@@ -57,22 +56,14 @@ rows; after every sweep the bands send the rows next to each cut into
 their neighbours' windows as asynchronous stores that the receiver's
 mbarrier counts, with no barrier over the cluster
 (:func:`kernel_cluster_size`); it computes what one CTA would, bit for
-bit.  The level launches and the block-Jacobi forms, references only, are
-built for ``REFERENCE_BLOCKS`` (16, 64) and raise at any other B.
+bit.
 
-:func:`gs_round` is K1's canvas form as block-Jacobi: every block reads the
-round-start canvas and writes a new one, as K2 does on the TPU.  It reaches
-the same fixed point in more rounds, and each round is deterministic: the
-plain rounds compute it bit for bit as the kernels do.  Its ring and subset
-forms, :func:`gs_round_ring` and :func:`gs_round_subset` (with a flag ring:
-``prev`` may be (n/B + 2, m/B + 2)), are block-Jacobi too.  No solver runs
-them; they stay as references beside their plain version
-:func:`gs_round_ring_plain`.
-
-:func:`gs_round`, :func:`gs_round_oriented`, :func:`gs_round_ring`,
-:func:`gs_round_subset` and :func:`block_round` launch their kernel
-(``csrc/uca_block.cu``) for CUDA tensors and run their plain version for
-CPU tensors; :func:`gs_round_levels` launches only.
+:func:`block_round`, K2's round, is block-Jacobi, as the TPU's
+``_block_kernel`` is: every block reads the round-start canvas and writes a
+new one.  :func:`gs_round_oriented` and :func:`block_round` launch their
+kernel (``csrc/uca_block.cu``) for CUDA tensors and run their plain version
+(:func:`gs_round_oriented_plain`, :func:`block_round_plain`) for CPU
+tensors; the sweep probe :func:`probe_round` launches only.
 """
 from __future__ import annotations
 
@@ -96,9 +87,6 @@ _NO_EDGE = 15
 # block sizes the dataflow kernel (K1 in the TPU's order) and K2 are built
 # for; at 128 and 256 a visit runs on a thread-block cluster
 KERNEL_BLOCKS = (8, 16, 32, 64, 128, 256)
-# block sizes of the reference forms: the level launches and K1's
-# block-Jacobi canvas, ring and subset rounds (one CTA a visit)
-REFERENCE_BLOCKS = (16, 64)
 
 
 def compact_from_dense(W):
@@ -160,9 +148,7 @@ def _check_planes(x, named):
 
 def _check_round_args(x, K, W1, base, prev, B, ring=0):
     """K1's arguments; ``ring`` = 1 for the ring form, whose ``x``, ``K`` and
-    ``W1`` are 2 px larger than ``base`` each way and whose ``prev`` may
-    carry a 1-block flag ring.  Returns 1 if ``prev`` has that ring, else
-    0."""
+    ``W1`` are 2 px larger than ``base`` each way."""
     _check_canvas(base, B)
     n, m = base.shape
     if K.dtype != torch.uint8:
@@ -174,49 +160,18 @@ def _check_round_args(x, K, W1, base, prev, B, ring=0):
         if tuple(t.shape) != full:
             raise ValueError("%s has shape %s, expected %s"
                              % (name, tuple(t.shape), full))
-    flags = [(n // B, m // B)]
-    if ring:
-        flags.append((n // B + 2, m // B + 2))
-    if tuple(prev.shape) not in flags:
+    if tuple(prev.shape) != (n // B, m // B):
         raise ValueError("prev has shape %s, expected %s"
-                         % (tuple(prev.shape), " or ".join(map(str, flags))))
+                         % (tuple(prev.shape), (n // B, m // B)))
     _check_planes(x, (("W1", W1),))
     if base.dtype != x.dtype:
         raise TypeError("base is %s but x is %s" % (base.dtype, x.dtype))
-    return int(tuple(prev.shape) != flags[0])
 
 
-def _dirty(prev, prev_ring):
+def _dirty(prev):
     """The blocks a K1 round relaxes: those whose 3×3 block neighbourhood
-    has a nonzero flag (a flag ring is read, then dropped)."""
-    d = dilate(prev != 0)
-    return d[1:-1, 1:-1] if prev_ring else d
-
-
-SUBSETS = ("interior", "boundary")
-
-
-@functools.cache
-def _subset_list(nb_i, nb_j, subset, device):
-    idx = torch.arange(nb_i * nb_j, dtype=torch.int32).view(nb_i, nb_j)
-    rim = torch.ones((nb_i, nb_j), dtype=torch.bool)
-    rim[1:-1, 1:-1] = False
-    return idx[rim if subset == "boundary" else ~rim].to(device)
-
-
-def subset_blocks(nb_i, nb_j, subset, device="cpu"):
-    """The flat block indices (``bi * nb_j + bj``, int32, row-major) of a
-    subset round over an ``nb_i`` × ``nb_j`` block grid: ``"interior"``, the
-    blocks off the rim, which never read the ring; ``"boundary"``, the rim.
-    The TPU kernel's ``_subset_grid`` mapped them onto its grid; the grid
-    must be at least 3×3 for the two to be a partition with an interior."""
-    if subset not in SUBSETS:
-        raise ValueError("subset must be one of %s, got %r"
-                         % (SUBSETS, subset))
-    if nb_i < 3 or nb_j < 3:
-        raise ValueError("subset rounds need a block grid of at least 3x3, "
-                         "got %dx%d" % (nb_i, nb_j))
-    return _subset_list(nb_i, nb_j, subset, torch.device(device))
+    has a nonzero flag."""
+    return dilate(prev != 0)
 
 
 def _check_block_args(x, W, base, B):
@@ -281,18 +236,6 @@ def _relax_blocks(x, W, base, dirty, *, B, inner_max, ring=False):
     blocks[dirty] = interior  # writes through the view into `out`
     chg[dirty] = (interior != x0).flatten(1).any(1).to(torch.int32)
     return out, chg
-
-
-def gs_round_plain(x, K, W1, base, prev, *, B, inner_max):
-    """One K1 round in plain PyTorch (the kernel's twin): the blocks whose
-    3×3 block neighbourhood has a nonzero ``prev`` flag relax (see
-    :func:`_relax_blocks`) on the weights of the compact ``(K, W1)``.
-
-    Returns ``(x_new, chg)`` with ``chg`` the (n/B, m/B) int32 changed flags.
-    """
-    _check_round_args(x, K, W1, base, prev, B)
-    return _relax_blocks(x, expand_compact(K, W1), base, dilate(prev != 0),
-                         B=B, inner_max=inner_max)
 
 
 # The 4 corner visit orders of the TPU kernel's rounds (SE, NW, SW, NE):
@@ -421,12 +364,8 @@ def round_levels(nb_i, nb_j, o, subset="all"):
 
 @functools.cache
 def _device_table(nb_i, nb_j, o, subset, device):
-    """:func:`round_table` on ``device``, and the (levels + 1) int32 offsets
-    of the levels' rows on the host."""
-    table, levels = _order(nb_i, nb_j, o, subset)
-    sizes = torch.bincount(levels[levels >= 0])
-    offsets = torch.cat([torch.zeros(1, dtype=torch.int64), sizes.cumsum(0)])
-    return table.to(device), offsets.to(torch.int32), len(sizes)
+    """:func:`round_table` on ``device``."""
+    return _order(nb_i, nb_j, o, subset)[0].to(device)
 
 
 def _check_form(x, K, W1, base, prev, B, ring, subset):
@@ -438,15 +377,14 @@ def _check_form(x, K, W1, base, prev, B, ring, subset):
     if prev is None:
         prev = torch.ones((n // B, m // B), dtype=torch.int32,
                           device=x.device)
-    if _check_round_args(x, K, W1, base, prev, B, ring=int(ring)):
-        raise ValueError("a round in the TPU's order takes no flag ring")
+    _check_round_args(x, K, W1, base, prev, B, ring=int(ring))
     return prev
 
 
 def gs_round_oriented_plain(x, K, W1, base, o, *, B, inner_max, prev=None,
                             ring=False, subset="all", inplace=False):
     """One K1 round in the TPU's Gauss-Seidel order at orientation ``o``
-    (0..3), in plain PyTorch (the dataflow and level kernels' twin).
+    (0..3), in plain PyTorch (the dataflow kernel's twin).
 
     The blocks of ``subset`` (``"all"``, ``"interior"`` or ``"boundary"``,
     see :func:`visit_sequence`) relax level by level (:func:`round_levels`;
@@ -469,7 +407,7 @@ def gs_round_oriented_plain(x, K, W1, base, o, *, B, inner_max, prev=None,
     o = _check_orientation(o)
     prev = _check_form(x, K, W1, base, prev, B, ring, subset)
     n, m = base.shape
-    dirty = dilate(prev != 0)
+    dirty = _dirty(prev)
     levels = _order(n // B, m // B, o, subset)[1].to(x.device)
     if ring:
         xr, Wr = x, expand_compact(K, W1)
@@ -489,50 +427,6 @@ def gs_round_oriented_plain(x, K, W1, base, o, *, B, inner_max, prev=None,
     if inplace:
         return x.copy_(out), chg
     return (out.clone() if out is x else out.contiguous()), chg
-
-
-def gs_round_ring_plain(x, K, W1, base, prev, *, B, inner_max, blocks=None,
-                        out=None):
-    """One K1 round in the ring form, in plain PyTorch (the kernel's twin).
-
-    ``x``, ``K``, ``W1``: (n+2, m+2), the (n, m) region that the blocks tile
-    with a 1-px ring; ``base``: (n, m); ``prev``: (n/B, m/B), or
-    (n/B+2, m/B+2) with a flag ring.  As :func:`gs_round_plain`, with the
-    ring where that round reads zeros.  Returns ``(x_new, chg)``: ``x_new``
-    (n+2, m+2) with the ring of ``x``.
-
-    ``blocks``: flat block indices (see :func:`subset_blocks`); only those
-    blocks are visited, and only they write their values, their flags and
-    the ring pixels next to them.  ``out``: an ``(x_new, chg)`` pair to
-    write into (the other blocks keep what it holds); without it they keep
-    ``x``'s values and report 0.
-    """
-    prev_ring = _check_round_args(x, K, W1, base, prev, B, ring=1)
-    n, m = base.shape
-    nb_i, nb_j = n // B, m // B
-    dirty = _dirty(prev, prev_ring)
-    if blocks is None and out is None:
-        return _relax_blocks(x, expand_compact(K, W1), base, dirty, B=B,
-                             inner_max=inner_max, ring=True)
-    listed = torch.ones((nb_i, nb_j), dtype=torch.bool, device=x.device)
-    if blocks is not None:
-        listed = torch.zeros_like(listed).view(-1)
-        listed[blocks.long().to(x.device)] = True
-        listed = listed.view(nb_i, nb_j)
-    new, chg = _relax_blocks(x, expand_compact(K, W1), base, dirty & listed,
-                             B=B, inner_max=inner_max, ring=True)
-    if out is None:
-        out = (x.clone(), torch.zeros_like(chg))
-    x_out, chg_out = out
-    # the listed blocks' pixels, and the ring pixels next to them
-    own = F.pad(listed.repeat_interleave(B, 0).repeat_interleave(B, 1),
-                (1, 1, 1, 1))
-    ring = torch.ones_like(own)
-    ring[1:-1, 1:-1] = False
-    px = own | (dilate(own) & ring)
-    x_out[px] = new[px]
-    chg_out[listed] = chg[listed]
-    return x_out, chg_out
 
 
 def block_round_plain(x, W, base, *, B, inner_max):
@@ -588,50 +482,6 @@ def _launch(entry, *args):
                    for a in args], stream)
     if err != 0:
         raise RuntimeError("%s launch failed: cudaError %d" % (entry, err))
-
-
-def gs_round(x, K, W1, base, prev, *, B, inner_max):
-    """One K1 round: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  See :func:`gs_round_plain` for the contract.
-
-    ``gs_round.launches_on`` counts kernel launches by device (never
-    plain runs).
-    """
-    if x.device.type == "cpu":
-        return gs_round_plain(x, K, W1, base, prev, B=B, inner_max=inner_max)
-    if x.device.type != "cuda":
-        raise ValueError("gs_round: unsupported device %s" % x.device)
-    _check_round_args(x, K, W1, base, prev, B)
-    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
-                              ("prev", prev)), REFERENCE_BLOCKS)
-    n, m = x.shape
-    out = torch.empty_like(x)
-    chg = torch.empty((n // B, m // B), dtype=torch.int32, device=x.device)
-    _launch("uca_gs_round_f32", x, K, W1, base, prev, out, chg, n, m, B,
-            inner_max)
-    _count(gs_round, x.device)
-    return out, chg
-
-
-gs_round.launches_on = collections.Counter()
-
-
-def _oriented_args(name, x, K, W1, base, o, B, prev, ring, subset, inplace,
-                   blocks=KERNEL_BLOCKS):
-    """Checks and buffers of a kernel round in the TPU's order: ``(o, prev,
-    out, chg)``, ``out`` the canvas the round updates in place (``x``, or
-    a copy of it)."""
-    if x.device.type != "cuda":
-        raise ValueError("%s: unsupported device %s" % (name, x.device))
-    o = _check_orientation(o)
-    prev = _check_form(x, K, W1, base, prev, B, ring, subset)
-    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
-                              ("prev", prev)), blocks)
-    n, m = base.shape
-    out = x if inplace else x.clone()
-    new = torch.empty if subset == "all" else torch.zeros
-    chg = new((n // B, m // B), dtype=torch.int32, device=x.device)
-    return o, prev, out, chg
 
 
 class _Tickets:
@@ -705,11 +555,18 @@ def gs_round_oriented(x, K, W1, base, o, *, B, inner_max, prev=None,
                                        inner_max=inner_max, prev=prev,
                                        ring=ring, subset=subset,
                                        inplace=inplace)
-    o, prev, out, chg = _oriented_args("gs_round_oriented", x, K, W1, base, o,
-                                       B, prev, ring, subset, inplace)
+    if x.device.type != "cuda":
+        raise ValueError("gs_round_oriented: unsupported device %s"
+                         % x.device)
+    o = _check_orientation(o)
+    prev = _check_form(x, K, W1, base, prev, B, ring, subset)
+    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
+                              ("prev", prev)))
     n, m = base.shape
-    table, _offsets, _levels = _device_table(n // B, m // B, o, subset,
-                                             x.device)
+    out = x if inplace else x.clone()  # the canvas the round updates
+    new = torch.empty if subset == "all" else torch.zeros
+    chg = new((n // B, m // B), dtype=torch.int32, device=x.device)
+    table = _device_table(n // B, m // B, o, subset, x.device)
     rows = table.shape[0]
     units = min(rows, resident_units(x.device, B, bool(ring)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -729,115 +586,6 @@ def gs_round_oriented(x, K, W1, base, o, *, B, inner_max, prev=None,
 
 gs_round_oriented.launches_on = collections.Counter()
 gs_round_oriented.launches_by_block = collections.Counter()
-
-
-def gs_round_levels(x, K, W1, base, o, *, B, inner_max, prev=None, ring=False,
-                    subset="all", inplace=False):
-    """The same round as :func:`gs_round_oriented`, launched level by level
-    (:func:`round_levels`): one launch of the level kernel a level, each
-    CTA one block.  CUDA tensors only.  It is what the dataflow launch
-    replaced, kept to time the two against each other (``chip_smoke.py``);
-    no solver calls it.  ``gs_round_levels.launches_on`` counts its
-    launches (one a level)."""
-    o, prev, out, chg = _oriented_args("gs_round_levels", x, K, W1, base, o,
-                                       B, prev, ring, subset, inplace,
-                                       REFERENCE_BLOCKS)
-    n, m = base.shape
-    table, offsets, n_levels = _device_table(n // B, m // B, o, subset,
-                                             x.device)
-    _launch("uca_gs_round_levels_f32", out, K, W1, base, prev, chg, table,
-            offsets, n_levels, n, m, B, inner_max, int(bool(ring)))
-    _count(gs_round_levels, x.device, n_levels)
-    return out, chg
-
-
-gs_round_levels.launches_on = collections.Counter()
-
-
-def _ring_launch(name, x, K, W1, base, prev, B, inner_max, blocks, out):
-    """Checks, output buffers and the launch of K1's ring form; ``blocks`` a
-    device int32 list or None.  Returns ``(x_new, chg)``."""
-    if x.device.type != "cuda":
-        raise ValueError("%s: unsupported device %s" % (name, x.device))
-    prev_ring = _check_round_args(x, K, W1, base, prev, B, ring=1)
-    _check_kernel_args(x, B, (("K", K), ("W1", W1), ("base", base),
-                              ("prev", prev)), REFERENCE_BLOCKS)
-    n, m = base.shape
-    if out is not None:
-        x_out, chg = out
-        if (x_out.shape != x.shape or x_out.dtype != x.dtype
-                or tuple(chg.shape) != (n // B, m // B)
-                or chg.dtype != torch.int32):
-            raise ValueError("%s: out must be an (x, flags) pair of shapes "
-                             "%s, %s" % (name, tuple(x.shape),
-                                         (n // B, m // B)))
-        _check_kernel_args(x, B, (("out x", x_out), ("out flags", chg)),
-                           REFERENCE_BLOCKS)
-        if x_out.data_ptr() == x.data_ptr():
-            raise ValueError("%s: out must not be x (every block reads the "
-                             "round-start canvas)" % name)
-    elif blocks is None:
-        x_out = torch.empty_like(x)
-        chg = torch.empty((n // B, m // B), dtype=torch.int32,
-                          device=x.device)
-    else:
-        x_out = x.clone()
-        chg = torch.zeros((n // B, m // B), dtype=torch.int32,
-                          device=x.device)
-    _launch("uca_gs_round_ring_list_f32", x, K, W1, base, prev, x_out, chg,
-            blocks, n, m, B, inner_max,
-            -1 if blocks is None else blocks.numel(), prev_ring)
-    return x_out, chg
-
-
-def gs_round_ring(x, K, W1, base, prev, *, B, inner_max, out=None):
-    """One K1 round in the ring form: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  See :func:`gs_round_ring_plain` for the
-    contract (``prev`` may carry a flag ring; ``out`` an ``(x, flags)`` pair
-    to write into).
-
-    ``gs_round_ring.launches_on`` counts kernel launches by device (never
-    plain runs).
-    """
-    if x.device.type == "cpu":
-        return gs_round_ring_plain(x, K, W1, base, prev, B=B,
-                                   inner_max=inner_max, out=out)
-    res = _ring_launch("gs_round_ring", x, K, W1, base, prev, B, inner_max,
-                       None, out)
-    _count(gs_round_ring, x.device)
-    return res
-
-
-gs_round_ring.launches_on = collections.Counter()
-
-
-def gs_round_subset(x, K, W1, base, prev, *, B, inner_max, subset, out=None):
-    """A K1 ring-form round restricted to the ``subset`` (``"interior"`` or
-    ``"boundary"``, see :func:`subset_blocks`) of the region's blocks: the
-    kernel over that block list for CUDA tensors, its plain version
-    (``gs_round_ring_plain(..., blocks=)``) for CPU tensors.  Only the
-    subset's blocks, their flags and (boundary) the ring are written, into
-    ``out`` when given: an interior and a boundary round into one ``out``
-    make one :func:`gs_round_ring`, bit for bit.  Raises ``ValueError`` for
-    a block grid under 3×3.
-
-    ``gs_round_subset.launches_on`` counts kernel launches by device (never
-    plain runs).
-    """
-    n, m = base.shape
-    _check_canvas(base, B)
-    blocks = subset_blocks(n // B, m // B, subset, x.device)
-    if x.device.type == "cpu":
-        return gs_round_ring_plain(x, K, W1, base, prev, B=B,
-                                   inner_max=inner_max, blocks=blocks,
-                                   out=out)
-    res = _ring_launch("gs_round_subset", x, K, W1, base, prev, B, inner_max,
-                       blocks, out)
-    _count(gs_round_subset, x.device)
-    return res
-
-
-gs_round_subset.launches_on = collections.Counter()
 
 
 def block_round(x, W, base, *, B, inner_max):
@@ -896,19 +644,12 @@ def probe_round(x, W, base, *, B, inner_max, visit):
 
 def launch_counts():
     """Every kernel wrapper's launches on every device, by kernel name."""
-    return {"uca_gs_round": launch_count(gs_round),
-            "uca_gs_round_dataflow": launch_count(gs_round_oriented),
-            "uca_gs_round_levels": launch_count(gs_round_levels),
-            "uca_gs_round_ring": launch_count(gs_round_ring),
-            "uca_gs_round_subset": launch_count(gs_round_subset),
+    return {"uca_gs_round_dataflow": launch_count(gs_round_oriented),
             "uca_block_round": launch_count(block_round)}
 
 # C entries of csrc/uca_block.cu that launch, by argument: a pointer (p), an
 # int (i), a 64-bit unsigned int (q); then the stream
-_ENTRIES = {"uca_gs_round_f32": "pppppppiiii",
-            "uca_gs_round_ring_list_f32": "ppppppppiiiii",
-            "uca_gs_round_levels_f32": "ppppppppiiiiii",
-            "uca_gs_round_dataflow_f32": "ppppppppiiiiiiiiq",
+_ENTRIES = {"uca_gs_round_dataflow_f32": "ppppppppiiiiiiiiq",
             "uca_block_round_f32": "pppppiiii",
             "uca_probe_round_f32": "pppppiiiii"}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_ulonglong}
@@ -973,11 +714,9 @@ def _gs_solve(base, W, B, inner_max, max_rounds, round_fn, links=None,
     is ``round_fn(x, K, W1, b, prev, B=, inner_max=)``, called once a round
     in order (:func:`_in_turn` binds the TPU order's orientations to it).
     For the ring form (``round_fn`` ``_in_turn(gs_round_oriented, o0,
-    ring=True)``, or :func:`gs_round_ring` and its plain version, the
-    block-Jacobi references) ``x0`` and the weights are 2 px larger than
-    ``base`` each way,
-    and so is the canvas returned; ``links`` index a canvas of ``base``'s
-    shape and are not used with a ring.
+    ring=True)``) ``x0`` and the weights are 2 px larger than ``base`` each
+    way, and so is the canvas returned; ``links`` index a canvas of
+    ``base``'s shape and are not used with a ring.
 
     The fold, ``base + links(x)``, is evaluated from the canvas at the start
     of every round; blocks whose folded base changed are marked dirty beside

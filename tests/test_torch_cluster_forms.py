@@ -82,7 +82,7 @@ def _rounds_match_jax(form, o, B, N):
         np.testing.assert_array_equal(chg, want_chg)
         visited = set(t_ub.visit_sequence(nb, nb, orient, subset))
         if prev is not None:
-            dirty = t_ub._dirty(torch.from_numpy(prev), 0).numpy()
+            dirty = t_ub._dirty(torch.from_numpy(prev)).numpy()
             visited &= set(np.flatnonzero(dirty))
         assert int(chg.sum()) == len(visited) > 0
         np.testing.assert_array_almost_equal(got, want, decimal=10)

@@ -1,7 +1,6 @@
 """Checks of the CUDA UCA block kernels (K1 ``gs_round_oriented`` in the
-TPU's Gauss-Seidel order, one dataflow launch a round, in every form, and
-its level launches ``gs_round_levels``; K1's block-Jacobi ``gs_round``;
-K2 ``block_round``), the facet sweep kernel (``ops.facets``), the
+TPU's Gauss-Seidel order, one dataflow launch a round, in every form; K2
+``block_round``), the facet sweep kernel (``ops.facets``), the
 union-find flood kernel (``ops.flood``), the device chain, the sharded
 flood and the manager that need an NVIDIA GPU.
 
@@ -35,7 +34,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-N, M = 128, 192  # multiples of the reference forms' block sizes
+N, M = 128, 192  # multiples of SHAPE_BLOCKS
 
 
 def _state(device, n=N, m=M):
@@ -52,42 +51,22 @@ def _state(device, n=N, m=M):
 
 
 SHAPES = [(N, M), (192, 64)]  # non-square both ways
+# the block sizes of KERNEL_BLOCKS checked on SHAPES and on 192x256 windows
+SHAPE_BLOCKS = (16, 64)
 
 
 def _shapes(B):
-    """Non-square canvases of whole blocks, both ways: :data:`SHAPES` for
-    the one-CTA block sizes, 2B x 3B and 3B x B for the cluster ones."""
-    return SHAPES if B in ub.REFERENCE_BLOCKS else [(2 * B, 3 * B),
-                                                   (3 * B, B)]
+    """Non-square canvases of whole blocks, both ways: :data:`SHAPES` at
+    :data:`SHAPE_BLOCKS`, 2B x 3B and 3B x B at the other block sizes."""
+    return SHAPES if B in SHAPE_BLOCKS else [(2 * B, 3 * B), (3 * B, B)]
 
 
 def _inner(B, inner_max):
     return 2 * B + 4 if inner_max is None else inner_max
 
 
-@pytest.mark.parametrize("B", ub.REFERENCE_BLOCKS)
-@pytest.mark.parametrize("inner_max", [4, 6, 8, None])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_kernel_round_equals_plain(cuda, B, inner_max, shape):
-    n, m = shape
-    W, base = _state(cuda, n, m)
-    K, W1 = ub.compact_from_dense(W)
-    inner = _inner(B, inner_max)
-    prev = (torch.rand((n // B, m // B), generator=torch.Generator()
-                       .manual_seed(B)) < 0.3).int().to(cuda)
-    x = base
-    for _ in range(3):
-        xk, ck = ub.gs_round(x, K, W1, base, prev, B=B, inner_max=inner)
-        xp, cp = ub.gs_round_plain(x, K, W1, base, prev, B=B, inner_max=inner)
-        assert torch.equal(xk, xp)
-        assert torch.equal(ck, cp)
-        x, prev = xk, ck
-
-
 @pytest.mark.parametrize("B,kernel", [
-    (B, k) for B in ub.KERNEL_BLOCKS
-    for k in ("K1", "K1 levels", "K1 dataflow", "K2")
-    if B in ub.REFERENCE_BLOCKS or k in ("K1 dataflow", "K2")])
+    (B, k) for B in ub.KERNEL_BLOCKS for k in ("K1 dataflow", "K2")])
 @pytest.mark.parametrize("inner_max", [8, None])
 def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
     """NaNs in x inside one block travel downstream exactly as in the plain
@@ -102,18 +81,11 @@ def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
     if B > 64:  # across the cut between two bands of one block
         x[B // 2 - 2: B // 2 + 2, 5: 9] = float("nan")
     kw = dict(B=B, inner_max=_inner(B, inner_max))
-    if kernel == "K1":
+    if kernel == "K1 dataflow":
         K, W1 = ub.compact_from_dense(W)
-        prev = torch.ones((N // B, M // B), dtype=torch.int32, device=cuda)
-        (xk, ck), (xp, cp) = (fn(x, K, W1, base, prev, **kw)
-                              for fn in (ub.gs_round, ub.gs_round_plain))
-    elif kernel in ("K1 levels", "K1 dataflow"):
-        K, W1 = ub.compact_from_dense(W)
-        fn = (ub.gs_round_levels if kernel == "K1 levels"
-              else ub.gs_round_oriented)
         (xk, ck), (xp, cp) = (
             f(x, K, W1, base, 1, prev=None, **kw)
-            for f in (fn, ub.gs_round_oriented_plain))
+            for f in (ub.gs_round_oriented, ub.gs_round_oriented_plain))
     else:
         W = W.contiguous()
         (xk, ck), (xp, cp) = (fn(x, W, base, **kw)
@@ -125,17 +97,9 @@ def test_kernel_round_with_nan_equals_plain(cuda, B, kernel, inner_max):
     assert torch.equal(ck, cp)
 
 
-def _levels(n, m, B, subset="all"):
-    """Launches of one round in the TPU's order by level: its levels
-    (2(nb_i - 1) + nb_j on whole grids two or more blocks wide)."""
-    return len(ub.round_levels(n // B, m // B, 0, subset))
-
-
 def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     W, base = _state(cuda)
     before = ub.launch_count(ub.gs_round_oriented)
-    jacobi = ub.launch_count(ub.gs_round)
-    levels_before = ub.launch_count(ub.gs_round_levels)
     reads = counters["solve_reads"]
     ak, rounds = ub.accumulate_blocked_gs(base, W, B=64)
     launches = ub.launch_count(ub.gs_round_oriented) - before
@@ -152,8 +116,6 @@ def test_kernel_solve_equals_plain_and_counts_launches(cuda):
     assert r3 == min(3, rounds)
     assert (ub.launch_count(ub.gs_round_oriented) - before
             == launches + r3)
-    assert ub.launch_count(ub.gs_round) == jacobi  # block-Jacobi's
-    assert ub.launch_count(ub.gs_round_levels) == levels_before
 
 
 def test_spans_on_the_card(cuda):
@@ -318,34 +280,26 @@ def test_mesh_at_shard_block_sizes_equals_plain(cuda, B, n, split):
 @pytest.mark.parametrize("o", range(4))
 @pytest.mark.parametrize("inner_max", [4, None])
 def test_oriented_kernel_round_equals_plain(cuda, B, o, inner_max, shape):
-    """The dataflow launch (at B = 128 and 256 a cluster a block) and, at
-    the reference forms' block sizes, the level launches in the TPU's
-    order against the plain round, bit for bit, flags included: a round
-    from the base with every block relaxed, then two rounds at the next
-    orientations with the frontier of the flags; one dataflow launch a
-    round, one level launch a level; the input canvas is not written."""
+    """The dataflow launch (at B = 128 and 256 a cluster a block) in the
+    TPU's order against the plain round, bit for bit, flags included: a
+    round from the base with every block relaxed, then two rounds at the
+    next orientations with the frontier of the flags; one launch a round;
+    the input canvas is not written."""
     n, m = shape
-    levels = B in ub.REFERENCE_BLOCKS
     W, base = _state(cuda, n, m)
     K, W1 = ub.compact_from_dense(W)
     kw = dict(B=B, inner_max=_inner(B, inner_max))
     x, prev = base, None
     for r in range(3):
-        before = (ub.launch_count(ub.gs_round_oriented),
-                  ub.launch_count(ub.gs_round_levels))
+        before = ub.launch_count(ub.gs_round_oriented)
         x_in = x.clone()
         xk, ck = ub.gs_round_oriented(x, K, W1, base, (o + r) % 4, prev=prev,
                                       **kw)
-        xl, cl = ub.gs_round_levels(x, K, W1, base, (o + r) % 4, prev=prev,
-                                    **kw) if levels else (xk, ck)
-        assert (ub.launch_count(ub.gs_round_oriented) - before[0],
-                ub.launch_count(ub.gs_round_levels) - before[1]) == (
-                    1, _levels(n, m, B) if levels else 0)
+        assert ub.launch_count(ub.gs_round_oriented) - before == 1
         xp, cp = ub.gs_round_oriented_plain(x, K, W1, base, (o + r) % 4,
                                             prev=prev, **kw)
         assert torch.equal(x, x_in)
-        assert torch.equal(xk, xp) and torch.equal(xl, xp)
-        assert torch.equal(ck, cp) and torch.equal(cl, cp)
+        assert torch.equal(xk, xp) and torch.equal(ck, cp)
         x, prev = xk, ck
 
 
@@ -354,12 +308,11 @@ def test_oriented_kernel_round_equals_plain(cuda, B, o, inner_max, shape):
 @pytest.mark.parametrize("subset", ["all", "interior", "boundary"])
 def test_oriented_ring_forms_equal_plain(cuda, B, o, subset):
     """The ring and subset forms in the TPU's order (a 192×256 window of a
-    larger canvas, its ring real; 3B x 4B at B = 128 and 256), the dataflow
-    launch and, at the reference forms' block sizes, the level launches
-    against the plain round, bit for bit, flags included, in place and
-    not; the ring is never written; then, from that canvas, a round on the
-    frontier of its flags."""
-    rows, cols = (192, 256) if B in ub.REFERENCE_BLOCKS else (3 * B, 4 * B)
+    larger canvas, its ring real, at :data:`SHAPE_BLOCKS`; 3B x 4B at the
+    other block sizes), the dataflow launch against the plain round, bit
+    for bit, flags included, in place; the ring is never written; then,
+    from that canvas, a round on the frontier of its flags."""
+    rows, cols = (192, 256) if B in SHAPE_BLOCKS else (3 * B, 4 * B)
     W, base = _state(cuda, rows + 64, cols + 64)
     K, W1 = ub.compact_from_dense(W)
     args = ring_window(base * 1.5, K, W1, base, 32, 48, rows, cols)
@@ -370,14 +323,11 @@ def test_oriented_ring_forms_equal_plain(cuda, B, o, subset):
     for r in range(2):
         xp, cp = ub.gs_round_oriented_plain(*args, (o + r) % 4, prev=prev,
                                             **kw)
-        xl, cl = (ub.gs_round_levels(*args, (o + r) % 4, prev=prev, **kw)
-                  if B in ub.REFERENCE_BLOCKS else (xp, cp))
         x = args[0].clone()
         xk, ck = ub.gs_round_oriented(x, *args[1:], (o + r) % 4, prev=prev,
                                       inplace=True, **kw)
         assert xk is x
-        assert torch.equal(xk, xp) and torch.equal(xl, xp)
-        assert torch.equal(ck, cp) and torch.equal(cl, cp)
+        assert torch.equal(xk, xp) and torch.equal(ck, cp)
         assert torch.equal(xk[ring], args[0][ring])
         args, prev = (xk,) + args[1:], ck
 
@@ -414,17 +364,7 @@ def test_dataflow_rounds_on_streams_keep_their_own_tickets(cuda, B):
 def test_kernel_wrapper_rejects_what_it_cannot_run(cuda):
     x = torch.ones((64, 64), device=cuda)
     K = torch.full((64, 64), 255, dtype=torch.uint8, device=cuda)
-    prev = torch.ones((1, 1), dtype=torch.int32, device=cuda)
     kw = dict(B=64, inner_max=8)
-    with pytest.raises(TypeError, match="float32"):
-        ub.gs_round(x.double(), K, x.double(), x.double(), prev, **kw)
-    with pytest.raises(ValueError, match="contiguous"):
-        ub.gs_round(x.t(), K, x, x, prev, **kw)
-    with pytest.raises(ValueError, match="on cpu"):
-        ub.gs_round(x, K.cpu(), x, x, prev, **kw)
-    with pytest.raises(ValueError, match="built for"):
-        ub.gs_round(x, K, x, x, prev.expand(16, 16).contiguous(), B=4,
-                    inner_max=8)
     with pytest.raises(TypeError, match="float32"):
         ub.gs_round_oriented(x.double(), K, x.double(), x.double(), 0, **kw)
     with pytest.raises(ValueError, match="contiguous"):
@@ -435,13 +375,6 @@ def test_kernel_wrapper_rejects_what_it_cannot_run(cuda):
         ub.gs_round_oriented(x, K, x, x, 0, B=4, inner_max=8)
     with pytest.raises(ValueError, match="orientation"):
         ub.gs_round_oriented(x, K, x, x, 4, **kw)
-    # the reference forms take one CTA a visit only
-    big = torch.ones((256, 256), device=cuda)
-    K2 = torch.full((256, 256), 255, dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="built for"):
-        ub.gs_round(big, K2, big, big, prev, B=256, inner_max=8)
-    with pytest.raises(ValueError, match="built for"):
-        ub.gs_round_levels(big, K2, big, big, 0, B=256, inner_max=8)
 
 
 @pytest.mark.parametrize("B,shape", [(B, s) for B in ub.KERNEL_BLOCKS
@@ -597,59 +530,11 @@ def test_manager_on_the_card_by_default(cuda, tmp_path):
                                                 np.float32(-9999), ref))
 
 
-@pytest.mark.parametrize("S", [512, 2048])
-@pytest.mark.parametrize("B", ub.REFERENCE_BLOCKS)
-def test_ring_round_equals_plain_and_full_canvas(cuda, S, B):
-    """The ring form of K1 on an interior and a corner window of a 2S²
-    canvas: kernel == plain bitwise over three rounds, the ring comes back
-    untouched, and the window's blocks equal the same blocks of one
-    full-canvas K1 round from the same x."""
-    n = 2 * S
-    W, base = _state(cuda, n, n)
-    K, W1 = ub.compact_from_dense(W)
-    kw = dict(B=B, inner_max=2 * B + 4)
-    ones = torch.ones((n // B, n // B), dtype=torch.int32, device=cuda)
-    x, _c = ub.gs_round(base, K, W1, base, ones, **kw)  # a mid-solve state
-    full, full_chg = ub.gs_round(x, K, W1, base, ones, **kw)
-    for i0, j0 in ((S // 2, S // 2), (0, 0), (S, S)):
-        xw, Kw, W1w, bw = ring_window(x, K, W1, base, i0, j0, S)
-        prev = ones[: S // B, : S // B].contiguous()
-        ring = torch.ones_like(xw, dtype=torch.bool)
-        ring[1:-1, 1:-1] = False
-        for r in range(3):
-            xk, ck = ub.gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
-            xp, cp = ub.gs_round_ring_plain(xw, Kw, W1w, bw, prev, **kw)
-            assert torch.equal(xk, xp) and torch.equal(ck, cp)
-            assert torch.equal(xk[ring], xw[ring])
-            if r == 0:
-                assert torch.equal(xk[1:-1, 1:-1],
-                                   full[i0: i0 + S, j0: j0 + S])
-                assert torch.equal(ck, full_chg[i0 // B: (i0 + S) // B,
-                                                j0 // B: (j0 + S) // B])
-            xw, prev = xk, ck
-
-
-def test_ring_wrapper_rejects_what_it_cannot_run(cuda):
-    W, base = _state(cuda, 64, 64)
-    K, W1 = ub.compact_from_dense(W)
-    xw, Kw, W1w, bw = ring_window(base, K, W1, base, 0, 0, 32)
-    prev = torch.ones((2, 2), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="x has shape"):
-        ub.gs_round_ring(bw, Kw, W1w, bw, prev, B=16, inner_max=36)
-    with pytest.raises(TypeError, match="float32"):
-        ub.gs_round_ring(xw.double(), Kw, W1w.double(), bw.double(), prev,
-                         B=16, inner_max=36)
-    with pytest.raises(ValueError, match="contiguous"):
-        ub.gs_round_ring(xw.t(), Kw, W1w, bw, prev, B=16, inner_max=36)
-
-
 def test_out_of_core_engine_on_the_card(cuda, tmp_path):
     """``OutOfCoreEngine`` without ``device`` at 512², S = 128 (B = 128, a
     cluster of 4 CTAs a block), on the noisy cone: both regimes launch K1
-    in the TPU's order (the streamed visits
-    its ring form, the fused pass its canvas form), never the block-Jacobi
-    forms; ``elev``, ``slope``,
-    ``aspect``, ``flats`` and the NaN patterns agree bitwise, ``uca`` within
+    in the TPU's order (the streamed visits its ring form, the fused pass
+    its canvas form); ``elev``, ``slope``, ``aspect``, ``flats`` and the NaN patterns agree bitwise, ``uca`` within
     the bench gate (bitwise where the terrain has no pit links)."""
     from chip_smoke import make_noisy_cone
     from pydem_tpu_torch.io.store import ArrayStore
@@ -673,10 +558,8 @@ def test_out_of_core_engine_on_the_card(cuda, tmp_path):
             assert eng._work_dtype == "float32"
             assert eng._fits_device_resident() == (budget is None)
             ub.gs_round_oriented.launches_on.clear()
-            ub.gs_round_ring.launches_on.clear()
             eng.run()
-        assert (ub.launch_count(ub.gs_round_oriented) > 0
-                == ub.launch_count(ub.gs_round_ring))
+        assert ub.launch_count(ub.gs_round_oriented) > 0
         assert (eng.uca_visits > 0) == (budget == 0)
         stores[tag] = (store, eng)
     (a, ea), (b, eb) = stores["streamed"], stores["fused"]
@@ -689,62 +572,6 @@ def test_out_of_core_engine_on_the_card(cuda, tmp_path):
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     np.testing.assert_allclose(np.nan_to_num(a["uca"]),
                                np.nan_to_num(b["uca"]), rtol=1e-4, atol=1e-2)
-
-
-@pytest.mark.parametrize("B", ub.REFERENCE_BLOCKS)
-@pytest.mark.parametrize("flag_ring", [False, True])
-def test_subset_kernel_equals_plain(cuda, B, flag_ring):
-    """K1's subset rounds (a launch over the interior or the boundary block
-    list) on a 512² window: kernel == plain bitwise for each subset, flags
-    in block space; interior then boundary into one output == one full ring
-    round, bitwise, the ring untouched; with a sparse flag ring the
-    frontier reads the ring."""
-    n, S = 1024, 512
-    W, base = _state(cuda, n, n)
-    K, W1 = ub.compact_from_dense(W)
-    kw = dict(B=B, inner_max=2 * B + 4)
-    ones = torch.ones((n // B, n // B), dtype=torch.int32, device=cuda)
-    x, _c = ub.gs_round(base, K, W1, base, ones, **kw)  # a mid-solve state
-    xw, Kw, W1w, bw = ring_window(x, K, W1, base, S // 2, S // 2, S)
-    nb = S // B
-    if flag_ring:
-        rng = np.random.RandomState(2)
-        prev = torch.from_numpy((rng.rand(nb + 2, nb + 2) < 0.2)
-                                .astype(np.int32)).to(cuda)
-    else:
-        prev = ones[:nb, :nb].contiguous()
-    full, full_chg = ub.gs_round_ring(xw, Kw, W1w, bw, prev, **kw)
-    pf, pfc = ub.gs_round_ring_plain(xw, Kw, W1w, bw, prev, **kw)
-    assert torch.equal(full, pf) and torch.equal(full_chg, pfc)
-    out = (torch.full_like(xw, -1.0),
-           torch.full((nb, nb), -1, dtype=torch.int32, device=cuda))
-    outp = tuple(t.clone() for t in out)
-    before = ub.launch_count(ub.gs_round_subset)
-    for subset in ub.SUBSETS:
-        ub.gs_round_subset(xw, Kw, W1w, bw, prev, subset=subset, out=out,
-                           **kw)
-        blocks = ub.subset_blocks(nb, nb, subset, cuda)
-        ub.gs_round_ring_plain(xw, Kw, W1w, bw, prev, blocks=blocks,
-                               out=outp, **kw)
-        assert torch.equal(out[0], outp[0]) and torch.equal(out[1], outp[1])
-    assert ub.launch_count(ub.gs_round_subset) - before == 2
-    assert torch.equal(out[0], full) and torch.equal(out[1], full_chg)
-    ring = torch.ones_like(xw, dtype=torch.bool)
-    ring[1:-1, 1:-1] = False
-    assert torch.equal(out[0][ring], xw[ring])
-
-
-def test_subset_wrapper_rejects_what_it_cannot_run(cuda):
-    W, base = _state(cuda, 64, 64)
-    K, W1 = ub.compact_from_dense(W)
-    xw, Kw, W1w, bw = ring_window(base, K, W1, base, 0, 0, 32)
-    prev = torch.ones((2, 2), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="at least 3x3"):
-        ub.gs_round_subset(xw, Kw, W1w, bw, prev, B=16, inner_max=36,
-                           subset="interior")
-    with pytest.raises(ValueError, match="out must not be x"):
-        ub.gs_round_ring(xw, Kw, W1w, bw, prev, B=16, inner_max=36,
-                         out=(xw, prev.clone()))
 
 
 def _near_step(got, step):

@@ -254,7 +254,8 @@ def test_missing_input_fails_and_worker_drains_on(tmp_path):
     (RuntimeError("CUDA error: an illegal memory access was encountered"),
      True),
     (torch.AcceleratorError("CUDA error: unspecified launch failure"), True),
-    (RuntimeError("uca_gs_round_f32 launch failed: cudaError 700"), True),
+    (RuntimeError("uca_gs_round_dataflow_f32 launch failed: cudaError 700"),
+     True),
     (torch.OutOfMemoryError("CUDA out of memory."), False),
     (ValueError("bad spec"), False),
 ], ids=["runtime", "accelerator", "kernel_launch", "oom", "other"])

@@ -325,13 +325,12 @@ def test_device_budget(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor the chip scripts, imports jax or the JAX
+    """No module of the port, nor the chip script, imports jax or the JAX
     package."""
     import re
 
     root = os.path.join(os.path.dirname(__file__), "..")
-    files = [os.path.join(root, f) for f in ("chip_smoke.py",
-                                             "chip_variants.py")]
+    files = [os.path.join(root, "chip_smoke.py")]
     for d, _dirs, names in os.walk(os.path.join(root, "pydem_tpu_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     assert len(files) > 20
